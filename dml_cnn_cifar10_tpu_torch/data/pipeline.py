@@ -1,0 +1,201 @@
+"""Shuffled batching + host→device prefetch.
+
+The reference's input pipeline is a TF queue graph drained 128 at a time
+(``cifar10cnn.py:72-91,223``). As in the JAX package, the port keeps the
+contract — an endless stream of shuffled, decoded, cropped batches — as
+vectorized numpy on the host, with a background thread that copies each
+batch to the card from pinned memory ahead of the step. The batches are
+the JAX package's for the same seed (same numpy draws in the same order).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Callable, Iterator, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from dml_cnn_cifar10_tpu_torch.config import DataConfig
+from dml_cnn_cifar10_tpu_torch.data import download, records as rec
+
+
+class Batch(NamedTuple):
+    images: np.ndarray  # [B, crop_h, crop_w, C] float32
+    labels: np.ndarray  # [B] int32
+
+
+def _load_split(files: List[str], cfg: DataConfig):
+    """Decode all shards once, as uint8 HWC (cast happens per batch)."""
+    imgs, labs = [], []
+    for path in files:
+        r = rec.read_record_file(path, cfg.record_bytes)
+        i, l = rec.decode_records(r, cfg, dtype=np.uint8)
+        imgs.append(i)
+        labs.append(l)
+    return np.concatenate(imgs, axis=0), np.concatenate(labs, axis=0)
+
+
+class ShuffleBatchIterator:
+    """Endless shuffled batches over an in-memory decoded split.
+
+    Contract parity with ``tf.train.shuffle_batch`` (``cifar10cnn.py:85-90``):
+    endless repetition, per-epoch reshuffle (a fresh uniform permutation),
+    fixed batch size.
+    """
+
+    def __init__(self, files: List[str], cfg: DataConfig, batch_size: int,
+                 train: bool = True, seed: int = 0, _arrays=None):
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.train = train
+        self.rng = np.random.default_rng(seed)
+        images, labels = _arrays if _arrays is not None \
+            else _load_split(files, cfg)
+        self.images, self.labels = images, labels
+        self.total_records = self.n = images.shape[0]
+        self._perm = self.rng.permutation(self.n)
+        self._cursor = 0
+
+    def clone(self, seed: int) -> "ShuffleBatchIterator":
+        """Second independent stream over the SAME decoded arrays — the
+        fresh-batch train-accuracy stream (``cifar10cnn.py:235``)."""
+        return ShuffleBatchIterator([], self.cfg, self.batch_size,
+                                    train=self.train, seed=seed,
+                                    _arrays=(self.images, self.labels))
+
+    def _next_indices(self, k: int) -> np.ndarray:
+        out = np.empty(k, dtype=np.int64)
+        filled = 0
+        while filled < k:
+            take = min(k - filled, self.n - self._cursor)
+            out[filled : filled + take] = self._perm[
+                self._cursor : self._cursor + take]
+            filled += take
+            self._cursor += take
+            if self._cursor == self.n:  # epoch boundary: reshuffle, repeat
+                self._perm = self.rng.permutation(self.n)
+                self._cursor = 0
+        return out
+
+    def _finish(self, images: np.ndarray) -> np.ndarray:
+        """uint8 [N,H,W,C] → cropped/augmented/normalized float32 batch."""
+        cfg = self.cfg
+        images = images.astype(np.float32)
+        if self.train and cfg.random_crop:
+            images = rec.random_crop(images, cfg.crop_height, cfg.crop_width,
+                                     self.rng)
+        else:
+            images = rec.center_crop(images, cfg.crop_height, cfg.crop_width)
+        if self.train and cfg.random_flip:
+            images = rec.random_flip(images, self.rng)
+        return np.ascontiguousarray(rec.normalize(images, cfg.normalize))
+
+    def __iter__(self) -> Iterator[Batch]:
+        return self
+
+    def __next__(self) -> Batch:
+        idx = self._next_indices(self.batch_size)
+        return Batch(self._finish(self.images[idx]), self.labels[idx])
+
+    def num_padded_sweep_batches(self) -> int:
+        return -(-self.n // self.batch_size)
+
+    def full_sweep_padded(self) -> Iterator[Batch]:
+        """Fixed-shape single pass: every batch has exactly ``batch_size``
+        rows; pad rows carry label -1 (never an argmax in [0, K)), so they
+        add 0 correct predictions."""
+        for b in range(self.num_padded_sweep_batches()):
+            start = min(b * self.batch_size, self.n)
+            stop = min(start + self.batch_size, self.n)
+            images = self._finish(self.images[start:stop])
+            labels = self.labels[start:stop]
+            pad = self.batch_size - images.shape[0]
+            if pad:
+                images = np.pad(images, ((0, pad), (0, 0), (0, 0), (0, 0)))
+                labels = np.pad(labels, (0, pad), constant_values=-1)
+            yield Batch(images, labels)
+
+
+def to_device(batch: Batch, device: torch.device):
+    """``(images, labels)`` tensors on ``device``. On the card the copy
+    goes through pinned host memory and does not block the host."""
+    images = torch.from_numpy(batch.images)
+    labels = torch.from_numpy(batch.labels.astype(np.int64, copy=False))
+    if device.type == "cuda":
+        return (images.pin_memory().to(device, non_blocking=True),
+                labels.pin_memory().to(device, non_blocking=True))
+    return images.to(device), labels.to(device)
+
+
+class PrefetchIterator:
+    """Background-thread prefetch: overlap host batching and the
+    host→device copy with the running step (the queue-runner role,
+    ``cifar10cnn.py:223``). ``place`` runs on the prefetch thread."""
+
+    _DONE = object()
+
+    def __init__(self, it: Iterator[Batch], depth: int = 2,
+                 place: Optional[Callable] = None):
+        self._it = it
+        self._place = place or (lambda b: b)
+        self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
+        self._err: Optional[BaseException] = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        """Bounded put that re-checks the stop flag — never parks forever."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _run(self):
+        try:
+            for item in self._it:
+                if self._stop.is_set() or not self._put(self._place(item)):
+                    return
+        except BaseException as e:  # re-raised on the consumer side
+            self._err = e
+        finally:
+            if not self._stop.is_set():
+                self._put(self._DONE)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._DONE:
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item
+
+    def close(self):
+        """Stop the producer and join it (drains so its pending put can
+        observe the stop flag)."""
+        self._stop.set()
+        while self._thread.is_alive():
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=0.05)
+
+
+def input_pipeline(cfg: DataConfig, batch_size: int, train: bool = True,
+                   seed: int = 0) -> ShuffleBatchIterator:
+    """Batch iterator for the train or test split (``input_pipeline``,
+    ``cifar10cnn.py:72-91``). Like the reference, the test split is
+    shuffle-batched too; ``full_sweep_padded`` is the full-split eval."""
+    download.ensure_dataset(cfg)
+    files = download.train_files(cfg) if train else download.test_files(cfg)
+    return ShuffleBatchIterator(files, cfg, batch_size, train=train,
+                                seed=seed)

@@ -1,0 +1,2 @@
+"""Layer primitives and the hand-written CUDA kernels with their plain
+PyTorch versions."""
