@@ -1,8 +1,9 @@
 """Typed configuration for the PyTorch port.
 
 A copy of the fields of ``dml_cnn_cifar10_tpu/config.py`` that the
-reference CNN trainer reads, with the same defaults and the same
-reference ``file:line`` notes. The reference keeps every hyperparameter
+port's paths read (the reference CNN trainer, the ViT), with the same
+defaults and the same reference ``file:line`` notes. The reference keeps
+every hyperparameter
 as a module-level constant (``cifar10cnn.py:9-27``); here they are
 dataclass fields so parity runs are the zero-config path.
 
@@ -58,7 +59,7 @@ class DataConfig:
 class ModelConfig:
     """Model selection + faithful-mode switches."""
 
-    name: str = "cnn"
+    name: str = "cnn"                     # cnn | vit_tiny
     num_classes: int = 10
     # Reference applies ReLU to the final logits (cifar10cnn.py:145).
     # Faithful mode keeps it; fixed mode emits raw logits.
@@ -67,6 +68,28 @@ class ModelConfig:
     # bias constant 0.1 (cifar10cnn.py:100-101).
     init_stddev: float = 0.05
     bias_init: float = 0.1
+    dtype: str = "float32"                # param dtype
+    compute_dtype: str = "float32"        # activations: float32 | bfloat16
+    # ViT-specific knobs (ignored by the CNN).
+    patch_size: int = 4
+    vit_dim: int = 192
+    vit_depth: int = 12
+    vit_heads: int = 3
+    # The JAX package's use_pallas_attention switch is not copied: its
+    # default (True) is the port's only route — the hand-written CUDA flash
+    # kernels from 128 tokens up (ops/attention.py:dispatch_attention).
+    # "cls" = prepend a class token (standard ViT head). "mean" = no class
+    # token, mean-pool the tokens (the long-context mode).
+    pool: str = "cls"                     # cls | mean
+    # Recompute each transformer block's activations in the backward pass
+    # instead of storing them (torch.utils.checkpoint around the block):
+    # ~1 extra forward of FLOPs for activation memory O(1) in depth.
+    remat: bool = False
+    # Sliding-window (local) attention width: None = full attention. Band
+    # |row - col| < attn_window, composed with attn_causal.
+    attn_window: Optional[int] = None
+    # Causal (autoregressive) attention mask for the transformer blocks.
+    attn_causal: bool = False
 
 
 @dataclasses.dataclass
@@ -86,10 +109,15 @@ class OptimConfig:
     schedule: str = "exponential"         # exponential | cosine | constant
     warmup_steps: int = 0
     cosine_decay_steps: int = 0
-    # Only "sgd" is ported; the other families of the JAX package raise.
-    optimizer: str = "sgd"
+    # "sgd" (+ optional momentum) is the reference's; "adamw" (decoupled
+    # weight decay, bias-corrected moments) the transformer standard. The
+    # JAX package's lars/lamb/adafactor are not ported and raise.
+    optimizer: str = "sgd"                # sgd | adamw
     # Label smoothing ε for the CE loss (0 = reference parity).
     label_smoothing: float = 0.0
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
     # Eval-time parameter EMA (0 disables); no reference counterpart.
     ema_decay: float = 0.0
     # Fused single-pass SGD update (ops/optimizer.py): weight decay +

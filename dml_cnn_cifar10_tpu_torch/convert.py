@@ -1,10 +1,13 @@
 """Carry weights between the JAX package's pytrees and the port.
 
 The JAX package keeps params as a nested dict of arrays in its layouts
-(conv kernels HWIO, dense kernels ``[in, out]``); the port's modules keep
-the same leaf names in PyTorch's layouts (conv kernels OIHW, dense
-kernels ``[out, in]``). A leaf's rank decides its mapping: 4-D kernels
-permute, 2-D kernels transpose, vectors pass through.
+(conv kernels HWIO, dense kernels ``[in, out]``). The port's CNN keeps the
+same leaf names in PyTorch's layouts (conv kernels OIHW, dense kernels
+``[out, in]``); the ViT keeps the JAX layouts themselves, its per-block
+leaves stacked ``[depth, ...]``. The mapping is by leaf NAME, never by
+rank: the ViT's stacked ``blocks.ln1.scale`` is 2-D and ``blocks.qkv.kernel``
+3-D, and neither may be transposed. ``LAYOUTS`` names every leaf the port
+holds in another layout; every other leaf passes through unchanged.
 
 ``params_from_jax(tree) -> {"conv1.kernel": tensor, ...}`` (CPU tensors,
 the key order of ``module.named_parameters()`` is irrelevant: callers
@@ -19,21 +22,15 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-
-def _to_torch_layout(a: np.ndarray) -> np.ndarray:
-    if a.ndim == 4:   # HWIO -> OIHW
-        return a.transpose(3, 2, 0, 1)
-    if a.ndim == 2:   # [in, out] -> [out, in]
-        return a.T
-    return a
-
-
-def _to_jax_layout(a: np.ndarray) -> np.ndarray:
-    if a.ndim == 4:   # OIHW -> HWIO
-        return a.transpose(2, 3, 1, 0)
-    if a.ndim == 2:
-        return a.T
-    return a
+# Leaf name -> (JAX layout -> port layout, port layout -> JAX layout).
+_CONV = (lambda a: a.transpose(3, 2, 0, 1),    # HWIO -> OIHW
+         lambda a: a.transpose(2, 3, 1, 0))    # OIHW -> HWIO
+_DENSE = (lambda a: a.T, lambda a: a.T)        # [in, out] <-> [out, in]
+LAYOUTS = {
+    # models/cnn.py
+    "conv1.kernel": _CONV, "conv2.kernel": _CONV,
+    "full1.kernel": _DENSE, "full2.kernel": _DENSE, "full3.kernel": _DENSE,
+}
 
 
 def params_from_jax(tree: Mapping[str, Any], prefix: str = ""
@@ -46,7 +43,9 @@ def params_from_jax(tree: Mapping[str, Any], prefix: str = ""
         if isinstance(value, Mapping):
             out.update(params_from_jax(value, prefix=name + "."))
         else:
-            a = _to_torch_layout(np.asarray(value))
+            a = np.asarray(value)
+            if name in LAYOUTS:
+                a = LAYOUTS[name][0](a)
             # A copy: arrays fetched from JAX are read-only.
             out[name] = torch.from_numpy(np.array(a, order="C"))
     return out
@@ -63,5 +62,7 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         for p in parents:
             node = node.setdefault(p, {})
         a = state[name].detach().to("cpu").numpy()
-        node[leaf] = np.ascontiguousarray(_to_jax_layout(a))
+        if name in LAYOUTS:
+            a = LAYOUTS[name][1](a)
+        node[leaf] = np.ascontiguousarray(a)
     return tree

@@ -1,1 +1,1 @@
-"""Model definitions (the reference CNN) and the registry."""
+"""Model definitions (the reference CNN, ViT-Tiny) and the registry."""

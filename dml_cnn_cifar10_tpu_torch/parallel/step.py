@@ -7,7 +7,12 @@ function: forward through the model with the state's parameters
 (``torch.func.functional_call``), backward with ``torch.autograd.grad``,
 then the in-place optimizer update (``train/optim.py``) whose fused form
 is the hand-written CUDA kernel. No host synchronization happens inside
-a step; the metrics it returns are device tensors.
+a step; the metrics it returns are device tensors. The model reads its
+own compute dtype and attention switches from its ``ModelConfig``; the
+step only keeps float32 products in full float32. Under grad the ViT's
+attention runs the flash forward that saves its logsumexp (K4) and the
+backward kernels (K6, K7); the eval step runs under ``no_grad``, so the
+output-only forward (K3).
 
 Meshes, chunked dispatch and staleness emulation are not ported here.
 """
@@ -80,8 +85,11 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig
             logits = functional_call(model, state.params, (images,))
             loss = loss_lib.softmax_cross_entropy(
                 logits, labels, optim_cfg.label_smoothing)
-            grads = torch.autograd.grad(
-                loss, [state.params[n] for n in names])
+            # The update kernels take contiguous leaves; a kernel that
+            # reaches its layer through a permute (the ViT's HWIO patch
+            # embed) gets its gradient back as a permuted view.
+            grads = [g.contiguous() for g in torch.autograd.grad(
+                loss, [state.params[n] for n in names])]
         with torch.no_grad():
             acc = metrics_lib.batch_accuracy(logits, labels)
             optim_lib.sgd_update(dict(zip(names, grads)), state.opt,

@@ -102,3 +102,55 @@ def test_reference_cluster_flags(tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(_args(tmp_path, "--worker_hosts", "a:1,b:2"))
     assert not os.path.exists(tmp_path / "logs")
+
+
+def _vit_args(tmp_path, *extra):
+    """A small ViT (depth 2, dim 64, 2 heads; 48x48 crop = 145 tokens, so
+    the flash path runs) with the ViT recipe's AdamW + cosine schedule."""
+    return _args(tmp_path, "--model", "vit_tiny", "--image_size", "52",
+                 "--crop_size", "48", "--vit_depth", "2", "--vit_dim", "64",
+                 "--vit_heads", "2", "--optimizer", "adamw",
+                 "--learning_rate", "1e-3", "--schedule", "cosine",
+                 "--warmup_steps", "2", "--batch_size", "8",
+                 "--synthetic_train_records", "64", "--output_every", "3",
+                 "--eval_every", "6", "--checkpoint_every", "3", *extra)
+
+
+def test_vit_trains_resumes_and_evaluates(tmp_path, capsys):
+    assert main(_vit_args(tmp_path, "--total_steps", "6")) == 0
+    out = _lines(capsys)
+    assert [int(TRAIN_LINE.match(l)[1]) for l in out
+            if l.startswith("global_step")] == [3, 6]
+    evals = [EVAL_LINE.match(l)[1] for l in out if "Test Accuracy" in l]
+    assert len(evals) == 1
+    # Resume: the step and the AdamW moments come back from ckpt_6.
+    assert main(_vit_args(tmp_path, "--total_steps", "12")) == 0
+    out = _lines(capsys)
+    assert [int(TRAIN_LINE.match(l)[1]) for l in out
+            if l.startswith("global_step")] == [9, 12]
+    evals = [EVAL_LINE.match(l)[1] for l in out if "Test Accuracy" in l]
+    assert main(_vit_args(tmp_path, "--mode", "eval")) == 0
+    out = _lines(capsys)
+    assert [EVAL_LINE.match(l)[1] for l in out if "Test Accuracy" in l] \
+        == evals
+    assert any("eval at step 12" in l for l in out)
+
+
+def test_vit_flags_reach_the_model(tmp_path, capsys):
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    args = _vit_args(tmp_path, "--total_steps", "3", "--pool", "mean",
+                     "--remat", "true", "--attn_causal", "true",
+                     "--attn_window", "32", "--compute_dtype", "bfloat16")
+    cfg = config_from_args(build_parser().parse_args(args))
+    m, o = cfg.model, cfg.optim
+    assert (m.name, m.vit_depth, m.vit_dim, m.vit_heads, m.pool, m.remat,
+            m.attn_causal, m.attn_window, m.compute_dtype) == \
+        ("vit_tiny", 2, 64, 2, "mean", True, True, 32, "bfloat16")
+    assert (cfg.data.image_height, cfg.data.crop_height) == (52, 48)
+    # cosine with no --cosine_decay_steps decays over total_steps
+    assert (o.optimizer, o.schedule, o.warmup_steps,
+            o.cosine_decay_steps) == ("adamw", "cosine", 2, 3)
+    assert main(args) == 0
+    assert [int(TRAIN_LINE.match(l)[1]) for l in _lines(capsys)
+            if l.startswith("global_step")] == [3]

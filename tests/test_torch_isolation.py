@@ -55,9 +55,10 @@ def test_package_imports_with_jax_unimportable():
         "for name in names:",
         "    importlib.import_module(name)",
         "import chip_smoke",
-        "from dml_cnn_cifar10_tpu_torch.ops import optimizer",
-        "assert optimizer._LIB is None",
+        "from dml_cnn_cifar10_tpu_torch.ops import flash_attention, optimizer",
+        "assert optimizer._LIB is None and flash_attention._LIB is None",
         "assert sum(optimizer.LAUNCHES.values()) == 0",
+        "assert sum(flash_attention.LAUNCHES.values()) == 0",
         "print(len(names))",
     ])
     env = {**os.environ, "PYTHONPATH": ROOT}

@@ -23,6 +23,7 @@ from dml_cnn_cifar10_tpu_torch import convert
 from dml_cnn_cifar10_tpu_torch.config import DataConfig, ModelConfig
 from dml_cnn_cifar10_tpu_torch.models.cnn import CNN
 from dml_cnn_cifar10_tpu_torch.models.registry import get_model
+from dml_cnn_cifar10_tpu_torch.models.vit import ViT
 from dml_cnn_cifar10_tpu_torch.ops import layers
 
 torch.set_num_threads(2)
@@ -48,6 +49,29 @@ def test_conv2d_matches_jax(hw, cin, cout, stride):
     got = layers.conv2d(_t(x), _t(k), stride=stride).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("hw,patch", [(48, 4), (64, 4), (12, 3)])
+def test_conv2d_valid_patch_embed_matches_jax(hw, patch):
+    """VALID, stride = kernel size: the ViT's patch embed."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, hw, hw, 3)).astype(np.float32)
+    k = rng.normal(scale=0.1, size=(patch, patch, 3, 16)).astype(np.float32)
+    want = np.asarray(jax_layers.conv2d(jnp.asarray(x), jnp.asarray(k),
+                                        stride=patch, padding="VALID"))
+    got = layers.conv2d(_t(x), _t(k), stride=patch, padding="VALID").numpy()
+    assert got.shape == want.shape == (2, hw // patch, hw // patch, 16)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_he_normal_matches_the_jax_distribution():
+    """Fan-in from every dim but the last, σ = sqrt(2 / fan_in)."""
+    t = layers.he_normal_(torch.empty(4, 4, 3, 4096),
+                          torch.Generator().manual_seed(0))
+    want = jax_layers.he_normal_init(jax.random.key(0), (4, 4, 3, 4096))
+    assert abs(t.std().item() - np.sqrt(2.0 / 48)) < 0.005
+    assert abs(t.std().item() - float(jnp.std(want))) < 0.005
+    assert abs(t.mean().item()) < 0.005
 
 
 @pytest.mark.parametrize("hw", [24, 12, 7])
@@ -158,7 +182,8 @@ def test_reset_parameters_is_seeded_and_truncated():
 def test_registry_has_cnn_and_queues_the_rest():
     model = get_model("cnn")(ModelConfig(), DataConfig())
     assert isinstance(model, CNN)
-    for name in ("resnet18", "resnet50", "vit_tiny", "vit_moe"):
+    assert get_model("vit_tiny") is ViT
+    for name in ("resnet18", "resnet50", "vit_moe"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(name)
     with pytest.raises(ValueError, match="unknown model"):

@@ -162,6 +162,38 @@ def test_learning_rate_matches_jax(kw):
 
 def test_other_optimizer_families_raise():
     params = {"w": torch.zeros(3)}
-    for name in ("adamw", "lars", "lamb", "adafactor"):
+    for name in ("lars", "lamb", "adafactor"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             optim.sgd_init(params, OptimConfig(optimizer=name))
+    with pytest.raises(ValueError, match="momentum"):
+        optim.sgd_init(params, OptimConfig(optimizer="adamw", momentum=0.9))
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.05])
+def test_adamw_update_matches_jax(wd):
+    """Five AdamW steps on the same leaves and gradients: params and both
+    moments within 1e-6 (the same f32 expression; pow and sqrt may differ
+    by an ULP between the libraries)."""
+    kw = dict(optimizer="adamw", learning_rate=1e-2, weight_decay=wd,
+              schedule="cosine", warmup_steps=2, cosine_decay_steps=10,
+              ema_decay=0.9)
+    jcfg, tcfg = JaxOptimConfig(**kw), OptimConfig(**kw)
+    params, _, _ = _leaves(7)
+    jp = jax.tree.map(jnp.asarray, params)
+    jstate = jax_optim.sgd_init(jp, jcfg)
+    tp = _torch(params)
+    tstate = optim.sgd_init(tp, tcfg)
+    assert sorted(tstate) == sorted(jstate) == ["ema", "mu", "nu", "step"]
+    for i in range(5):
+        grads = _leaves(100 + i)[0]
+        jp, jstate = jax_optim.sgd_update(
+            jax.tree.map(jnp.asarray, grads), jstate, jp, jcfg)
+        optim.sgd_update(_torch(grads), tstate, tp, tcfg)
+    assert int(tstate["step"]) == int(jstate["step"]) == 5
+    for got, want in ((tp, jp), (tstate["mu"], jstate["mu"]),
+                      (tstate["nu"], jstate["nu"]),
+                      (tstate["ema"], jstate["ema"])):
+        for name in params:
+            np.testing.assert_allclose(got[name].numpy(),
+                                       np.asarray(want[name]), rtol=0,
+                                       atol=1e-6, err_msg=name)
