@@ -64,13 +64,56 @@ order; any failure ends the run with a non-zero exit:
             below one dense score matrix.
 15. vit profile  a main-path and a long-context step's device time split
             between the flash kernels, the GEMMs and the rest.
+16. stats parity  K5 ``flash_fwd_stats`` against its plain version on the
+            card: the SP main path's [2, 4050, 3, 64] bf16 block (views of
+            a fused qkv) and [128, 128, 3, 64] f32, ragged, causal, a ring
+            step's neighbour windows at kv_start = -S / +S, segment-id
+            pairs, dead rows (exactly m = -1e30, l = 0, acc = 0), head dims
+            32 and 128. f32 acc / l 5e-6; m and l 1e-5 relative; bf16
+            acc / l 1e-2 x max|plain|. A CUDA input K5 cannot take raises.
+            Then K6/K7 as the backward ring calls them, bf16 q/k/v of that
+            block -> f32 gradients, on the diagonal block and at kv_start =
+            -S / +S with window 512, against the plain version: 5e-5.
+17. stats timing  K5 at [2, 4050, 3, 64] bf16: CUDA events, device time,
+            the plain version, ``F.scaled_dot_product_attention`` forward
+            and the bound; the ring's K6/K7 at that block on a card alone.
+The distributed phases (``dist_phases``) run each rank as a process of its
+own (this script with ``--rank R --job FILE``, after the build): over NCCL
+with a card each when there are two cards, else both on this card over
+gloo. Each rank starts with every launch count at 0 and writes its counts
+(and, after a training run, a digest of its parameters) to ``OUT/ranks/``.
+18. ring op  the 2-rank ring attention against the one-rank flash
+            attention of the full sequence, out and gradients: f32
+            [2, 2048, 3, 64] full, causal and window 512 (out 2e-5, grads
+            5e-5), and bf16 [2, 8100, 3, 64] (1e-2 x max|reference|).
+19. sp train  the SP main path, ``cli.main.main --seq_axis 2`` on each
+            rank: ViT-Ti at full width on the 8,100-token recipe of phase
+            14, 4,050 tokens a rank, 10 steps. Per rank K5 = 10 x 48 + 24
+            per forward-only batch, K6 = K7 = 10 x 24, K3 = K4 = K1 = K2 =
+            0; equal parameter digests; every logged loss (steps 5 and 10)
+            within 1e-3 of phase 14's one-rank run (same seed, batches and
+            weights). Then a resume to step 15 and ``--mode eval`` over the
+            two ranks.
+20. dp cnn  the CNN data-parallel over 2 ranks x 64 images (global batch
+            128), 100 steps: K1 = 100 x 10 per rank, equal digests.
+21. sp profile  an SP step's time per rank (host clock, batch on the card)
+            and its device timeline: the union of its compute kernels'
+            intervals over all streams (busy time and share of the step),
+            the hops and all-reduces (NCCL kernels, or gloo's host copies)
+            apart, the time the two overlap, and K5/K6/K7.
+
+``--dist`` runs the build and phases 18-21 alone over NCCL on two or more
+cards, with 4 ranks beside 2 given four cards: SP data 2 x seq 2 against
+its 2 data ranks without the ring, and the DP CNN on 4 ranks.
 
 The lines before the last are ``{"kernels": [...]}`` and the card's name
 and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Scratch data and checkpoints go to ``.chip_smoke_work/`` (removed after a
-passing run); the run's metrics JSONL files, the profiles and ``vit.json``
-(the ViT phases' numbers) are written to the output directory ``OUT``.
+passing run); the run's metrics JSONL files, the profiles, ``vit.json``
+(the ViT phases' numbers), ``dist.json`` (phases 16-21;
+``dist_nccl.json`` under ``--dist``) and the ranks' logs are written to
+the output directory ``OUT``.
 """
 
 from __future__ import annotations
@@ -94,6 +137,7 @@ OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 
 STEPS, RESUME_STEPS, MOMENTUM_STEPS = 500, 600, 50
 VIT_STEPS, VIT_RESUME_STEPS, LONG_STEPS = 200, 300, 10
+DP_STEPS = 100
 ATOL = 5e-7   # PARITY.md's pin for the update kernel vs its plain form
 CASES = [(0.0, 0.0), (0.0, 5e-4), (0.9, 0.0), (0.9, 5e-4)]
 # Published peaks (NVIDIA data sheets, SXM parts, full power limit):
@@ -567,6 +611,750 @@ def profile_vit(args, label, card, steps) -> dict:
     return summary
 
 
+# ---- K5 and the distributed phases (16-21) -------------------------------
+
+# name, (B, Sq, Skv, H, D), dtype, mask. The first is the block the SP main
+# path gives K5 (two ranks of the 8,100-token recipe: 4,050 tokens each,
+# q/k/v as views of the fused qkv); the left/right windows are a ring
+# step's neighbour shards at kv_start = -S / +S.
+STATS_CASES = [
+    ("sp main path", (2, 4050, 4050, 3, 64), torch.bfloat16,
+     {"strided": True}),
+    ("f32 128", (128, 128, 128, 3, 64), torch.float32, {}),
+    ("ragged", (2, 300, 200, 3, 64), torch.float32, {}),
+    ("causal", (2, 257, 257, 3, 64), torch.float32, {"causal": True}),
+    ("left window", (2, 300, 300, 3, 64), torch.float32,
+     {"window": 100, "kv_start": -300}),
+    ("right window", (2, 300, 300, 3, 64), torch.float32,
+     {"window": 100, "kv_start": 300}),
+    ("segment pair", (2, 300, 300, 3, 64), torch.float32,
+     {"segments": True, "causal": True}),
+    ("dead rows", (1, 512, 128, 1, 64), torch.float32, {"window": 64}),
+    ("bf16 causal", (2, 300, 300, 3, 64), torch.bfloat16, {"causal": True}),
+    ("head dim 32", (2, 257, 257, 3, 32), torch.float32, {}),
+    ("head dim 128", (2, 257, 257, 3, 128), torch.float32, {"causal": True}),
+]
+# K5 against its plain version: the normalized acc / l in f32 at the flash
+# out pin; m and l at 1e-5 relative (both are f32 results for either input
+# dtype); bf16 out at one bf16 ulp of the largest |out| (1e-2 x max|plain|,
+# at most 0.05), as phase 10 holds K3/K4.
+STATS_OUT_TOL, STATS_REL_TOL = 5e-6, 1e-5
+
+
+def stats_parity(dev) -> dict:
+    """Hold K5 against ``flash_attention_stats_plain`` on the card, case by
+    case; dead rows must be exactly ``m = -1e30``, ``l = 0``, ``acc = 0``.
+    Returns the worst normalized-out difference per dtype."""
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for name, (b, sq, skv, h, d), dtype, mask in STATS_CASES:
+        kw = {k: v for k, v in mask.items() if k not in ("strided",
+                                                         "segments")}
+        if mask.get("strided"):
+            qkv = torch.randn(b, sq, h, 3, d, device=dev,
+                              generator=gen).to(dtype)
+            q, k, v = qkv.unbind(3)
+        else:
+            q = torch.randn(b, sq, h, d, device=dev, generator=gen).to(dtype)
+            k, v = (torch.randn(b, skv, h, d, device=dev, generator=gen)
+                    .to(dtype) for _ in range(2))
+        if mask.get("segments"):
+            kw["segment_ids"] = (_segment_ids(b, sq, gen, dev),
+                                 _segment_ids(b, skv, gen, dev))
+        acc, m, l = fa.flash_attention_stats(q, k, v, **kw)
+        pacc, pm, pl = fa.flash_attention_stats_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(all(t.dtype == torch.float32 for t in (acc, m, l))
+              and acc.shape == (b, sq, h, d) and m.shape == l.shape
+              == (b, sq, h), f"{name}: K5 gave {acc.dtype} "
+              f"{tuple(acc.shape)}, {tuple(m.shape)}")
+        dead = pm <= fa.NEG_INF * 0.5
+        check(torch.equal(m <= fa.NEG_INF * 0.5, dead)
+              and bool(torch.all(m[dead] == fa.NEG_INF))
+              and bool(torch.all(l[dead] == 0))
+              and bool(torch.all(acc[dead] == 0)),
+              f"{name}: K5 dead rows are not m = -1e30, l = 0, acc = 0")
+        live = ~dead
+        out = acc[live] / l[live][:, None]
+        pout = pacc[live] / pl[live][:, None]
+        out_diff = (out - pout).abs().max().item() if out.numel() else 0.0
+        m_rel = ((m[live] - pm[live]).abs()
+                 / pm[live].abs().clamp_min(1.0)).max().item() \
+            if out.numel() else 0.0
+        l_rel = ((l[live] - pl[live]).abs() / pl[live]).max().item() \
+            if out.numel() else 0.0
+        dt = "float32" if dtype == torch.float32 else "bfloat16"
+        tol = STATS_OUT_TOL if dtype == torch.float32 else min(
+            BF16_CAP, BF16_REL * pout.abs().max().item())
+        check(out_diff <= tol and m_rel <= STATS_REL_TOL
+              and l_rel <= STATS_REL_TOL,
+              f"{name}: K5 acc/l max abs diff {out_diff} (gate {tol}), m "
+              f"rel {m_rel}, l rel {l_rel} (gate {STATS_REL_TOL})")
+        worst[dt] = max(worst[dt], out_diff)
+        print(f"[stats parity] {name:12s} {dt} {(b, sq, skv, h, d)} {mask}: "
+              f"acc/l max abs diff {out_diff:.3g} (gate {tol:.3g}), m rel "
+              f"{m_rel:.3g}, l rel {l_rel:.3g}; {int(dead.sum())} dead rows",
+              flush=True)
+        del q, k, v, acc, m, l, pacc, pm, pl
+    q = torch.randn(2, 128, 3, 64, device=dev, generator=gen)
+    for what, args in (("float16 inputs", (q.half(),) * 3),
+                       ("a key on the host", (q, q.cpu(), q))):
+        try:
+            fa.flash_attention_stats(*args)
+        except ValueError:
+            continue
+        fail(f"flash_attention_stats accepted {what}")
+    return worst
+
+
+# K6/K7 as the backward ring calls them: bf16 q/k/v of the SP main path's
+# block (views of a fused qkv), f32 gradients (``out_dtype``), on the
+# diagonal block and on a window step's neighbour shards at kv_start = -S
+# and +S. Both sides write f32, so the f32 gradient pin holds.
+RING_BWD_CASES = [
+    ("sp main path", {}),
+    ("left window", {"window": 512, "kv_start": -4050}),
+    ("right window", {"window": 512, "kv_start": 4050}),
+]
+
+
+def ring_bwd_parity(dev) -> float:
+    """Hold ``flash_attention_bwd(..., out_dtype=torch.float32)`` (K6, K7)
+    against ``flash_attention_bwd_plain`` on the same inputs at [2, 4050,
+    3, 64] bf16, with lse and out from the block's plain partials; dQ of
+    dead rows must be exactly 0. Returns the worst max abs difference."""
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = 2, 4050, 3, 64
+    gen = torch.Generator(device=dev).manual_seed(6)
+    qkv = torch.randn(b, s, h, 3, d, device=dev,
+                      generator=gen).to(torch.bfloat16)
+    q, k, v = qkv.unbind(3)
+    do = torch.randn(b, s, h, d, device=dev,
+                     generator=gen).to(torch.bfloat16)
+    worst = 0.0
+    for name, kw in RING_BWD_CASES:
+        acc, m, l = fa.flash_attention_stats_plain(q, k, v, **kw)
+        live = l > 0
+        lsafe = l.clamp_min(1e-30)
+        lse = torch.where(live, m + torch.log(lsafe), fa.DEAD_LSE)
+        out = torch.where(live[..., None], acc / lsafe[..., None],
+                          0.0).to(q.dtype)
+        delta = fa.attention_delta(out, do)
+        want = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                            out_dtype=torch.float32, **kw)
+        before = (fa.LAUNCHES["flash_bwd_dq"], fa.LAUNCHES["flash_bwd_dkv"])
+        got = fa.flash_attention_bwd(q, k, v, do, lse, delta,
+                                     out_dtype=torch.float32, **kw)
+        torch.cuda.synchronize()
+        check((fa.LAUNCHES["flash_bwd_dq"], fa.LAUNCHES["flash_bwd_dkv"])
+              == (before[0] + 1, before[1] + 1),
+              f"ring bwd {name}: K6/K7 were not launched")
+        check(all(g.dtype == torch.float32 and g.shape == w.shape
+                  for g, w in zip(got, want)),
+              f"ring bwd {name}: K6/K7 gave "
+              f"{[(g.dtype, tuple(g.shape)) for g in got]}")
+        check(bool(torch.all(got[0][~live] == 0)),
+              f"ring bwd {name}: K6 dQ of dead rows is not exactly 0")
+        diffs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+        check(max(diffs) <= FLASH_TOL["grad"],
+              f"ring bwd {name}: dq/dk/dv max abs diff {diffs} > "
+              f"{FLASH_TOL['grad']}")
+        worst = max(worst, max(diffs))
+        print(f"[ring bwd parity] {name:12s} bfloat16 -> float32 "
+              f"{(b, s, h, d)} {kw}: dq/dk/dv max abs diff "
+              + ", ".join(f"{x:.3g}" for x in diffs)
+              + f" (gate {FLASH_TOL['grad']}; |grad| up to "
+              f"{max(w.abs().max().item() for w in want):.3g}; "
+              f"{int((~live).sum())} dead rows)", flush=True)
+        del acc, m, l, lse, out, delta, want, got
+    return worst
+
+
+def stats_timing(dev, card, bytes_per_s) -> dict:
+    """K5 at the SP main path's block [2, 4050, 3, 64] bf16: CUDA-event ms,
+    device ms, the plain version, ``F.scaled_dot_product_attention``'s
+    forward (a yardstick the port never calls), and the bound: 4·B·H·S²·D
+    FLOPs over the bf16 tensor-core peak, or the bytes of q, k, v, the
+    f32 acc and m, l over the memory rate, whichever is larger."""
+    import torch.nn.functional as F
+
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = 2, 4050, 3, 64
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(b, s, h, d, device=dev, generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+
+    def fn():
+        return fa.flash_attention_stats(q, k, v)
+
+    ms, reps = timed_ms(fn)
+    dms = device_ms(fn, "flash_stats_kernel", reps=min(reps, 50))
+    plain_ms, _ = timed_ms(lambda: fa.flash_attention_stats_plain(q, k, v))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms, _ = timed_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    n, rows = b * s * h * d, b * s * h
+    flops = 4 * b * h * s * s * d
+    nbytes = 3 * n * q.element_size() + 4 * n + 2 * 4 * rows
+    by_ops, by_bytes = flops / BF16_PEAK * 1e3, nbytes / bytes_per_s * 1e3
+    res = dict(shape=[b, s, h, d], dtype="bfloat16", ms=ms, device_ms=dms,
+               plain_ms=plain_ms, library_ms=lib_ms,
+               library="F.scaled_dot_product_attention forward",
+               bound_ms=max(by_ops, by_bytes),
+               bound_by="operations" if by_ops >= by_bytes else "bytes",
+               flops=flops, bytes=nbytes)
+    print(f"[stats timing] flash_fwd_stats {[b, s, h, d]} bfloat16: kernel "
+          f"{ms:.5f} ms (device {dms} ms), plain {plain_ms:.5f} ms, library "
+          f"{lib_ms:.5f} ms, bound {res['bound_ms']:.5f} ms "
+          f"({res['bound_by']}; {flops / ms / 1e9:.1f} TFLOP/s achieved) "
+          f"on {card}", flush=True)
+    # The ring backward's K6/K7 at the same block, f32 gradients, on a card
+    # of their own (phase 21 sees them beside the other rank's work).
+    do = torch.randn(b, s, h, d, device=dev, generator=gen).to(q.dtype)
+    acc, m, l = fn()
+    lse = m + torch.log(l)
+    delta = fa.attention_delta((acc / l[..., None]).to(q.dtype), do)
+    bwd = (q, k, v, do, lse, delta, d ** -0.5, False, torch.float32, None,
+           0, None, None)
+    res["ring_bwd_ms"] = {}
+    for name, launch, needle in (("flash_bwd_dq", fa._dq_launch,
+                                  "flash_dq_kernel"),
+                                 ("flash_bwd_dkv", fa._dkv_launch,
+                                  "flash_dkv_kernel")):
+        kms, kreps = timed_ms(lambda: launch(*bwd))
+        res["ring_bwd_ms"][name] = dict(
+            ms=kms, device_ms=device_ms(lambda: launch(*bwd), needle,
+                                        reps=min(kreps, 50)))
+    print(f"[stats timing] the ring backward's K6/K7 at {[b, s, h, d]} "
+          f"bfloat16 -> float32 (on a card alone): "
+          f"{res['ring_bwd_ms']} on {card}", flush=True)
+    return res
+
+
+def _free_ports(n):
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def spawn_ranks(label: str, job: dict, world: int = 2,
+                timeout_s: float = 600.0) -> list:
+    """Run ``job`` on ``world`` rank processes (this script with
+    ``--rank``), each logging to ``OUT/ranks/<label>.rank<r>.log``; fails
+    unless every rank exits 0 in time. Returns the ranks' result dicts."""
+    rank_dir = os.path.join(OUT, "ranks")
+    os.makedirs(rank_dir, exist_ok=True)
+    job = dict(job, out=os.path.join(rank_dir, f"{label}.rank{{rank}}.json"))
+    job_path = os.path.join(rank_dir, f"{label}.job.json")
+    with open(job_path, "w") as f:
+        json.dump(job, f)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    procs, logs = [], []
+    for r in range(world):
+        log = open(os.path.join(rank_dir, f"{label}.rank{r}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+             "--job", job_path], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    rcs = [p.returncode for p in procs]
+    if any(rc != 0 for rc in rcs):
+        for r in range(world):
+            with open(os.path.join(rank_dir, f"{label}.rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            print(f"[{label}] rank {r} exit {rcs[r]}; log tail:\n{tail}",
+                  file=sys.stderr)
+        fail(f"{label}: ranks exited {rcs}")
+    results = []
+    for r in range(world):
+        with open(job["out"].format(rank=r)) as f:
+            results.append(json.load(f))
+    return results
+
+
+def rank_log(label: str, rank: int = 0):
+    with open(os.path.join(OUT, "ranks", f"{label}.rank{rank}.log")) as f:
+        return f.read().splitlines()
+
+
+def _params_digest(params) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for name in sorted(params):
+        h.update(name.encode())
+        h.update(params[name].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rank_cli(rank: int, job: dict) -> dict:
+    """``cli.main.main`` as this rank; the trainer's final state is kept
+    for the parameter digest."""
+    from dml_cnn_cifar10_tpu_torch.cli.main import main
+    from dml_cnn_cifar10_tpu_torch.train import loop
+
+    fit, kept = loop.Trainer.fit, {}
+
+    def fit_and_keep(self, *args, **kwargs):
+        kept["result"] = fit(self, *args, **kwargs)
+        return kept["result"]
+
+    loop.Trainer.fit = fit_and_keep
+    rc = main(job["argv"] + ["--task_index", str(rank)])
+    res = {"rc": rc}
+    if "result" in kept:
+        res["digest"] = _params_digest(kept["result"].state.params)
+    return res
+
+
+# name, global [B, S, H, D], dtype, mask: the 2-rank ring op against the
+# one-rank flash_attention of the full sequence (K4 forward, K6/K7
+# backward). The last is the SP main path's own shape.
+RING_OP_CASES = [
+    ("full", (2, 2048, 3, 64), "float32", {}),
+    ("causal", (2, 2048, 3, 64), "float32", {"causal": True}),
+    ("window", (2, 2048, 3, 64), "float32", {"window": 512}),
+    ("long context", (2, 8100, 3, 64), "bfloat16", {}),
+]
+# The pins of tests/test_ring_attention.py in f32; bf16 as phase 10's.
+RING_OP_TOL = {"out": 2e-5, "grad": 5e-5}
+
+
+def _rank_ring(rank: int, job: dict) -> dict:
+    """The 2-rank ring op on the card against the full-sequence flash
+    attention; returns the max abs differences and reference scales of
+    this rank's shard."""
+    import torch.distributed as dist
+
+    from dml_cnn_cifar10_tpu_torch.config import ParallelConfig
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+    from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import multihost
+    from dml_cnn_cifar10_tpu_torch.parallel import ring_attention as ring
+
+    par = ParallelConfig(seq_axis=2, coordinator_address=job["address"],
+                         num_processes=2, process_id=rank)
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    multihost.initialize(par, job["backend"], dev)
+    mesh = mesh_lib.build_mesh(par)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    res = {}
+    for name, (b, s, h, d), dtype, kw in RING_OP_CASES:
+        q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=gen)
+                       .to(getattr(torch, dtype)) for _ in range(4))
+        full = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = fa.flash_attention(*full, **kw)
+        ref_g = torch.autograd.grad(ref, full, do)
+        mine = [ring.seq_shard(t, mesh).detach().clone().requires_grad_()
+                for t in (q, k, v)]
+        out = ring.ring_attention_local(*mine, mesh, **kw)
+        got_g = torch.autograd.grad(out, mine, ring.seq_shard(do, mesh))
+        torch.cuda.synchronize()
+        res[name] = {}
+        for what, g, w in zip(("out", "dq", "dk", "dv"), (out, *got_g),
+                              (ref, *ref_g)):
+            w = ring.seq_shard(w, mesh).float()
+            res[name][what] = [(g.float() - w).abs().max().item(),
+                               w.abs().max().item()]
+        del q, k, v, do, full, ref, ref_g, mine, out, got_g
+    mesh.barrier()
+    dist.destroy_process_group()
+    return res
+
+
+FLASH_GROUPS = {"K5 flash_stats_kernel": "flash_stats_kernel",
+                "K6 flash_dq_kernel": "flash_dq_kernel",
+                "K7 flash_dkv_kernel": "flash_dkv_kernel"}
+# Work of the ring hops and the gradient/pool all-reduces: NCCL's kernels,
+# or on gloo the copies through host memory and gloo's own events.
+_COMM = re.compile(r"nccl|gloo|Memcpy DtoH|Memcpy HtoD", re.I)
+
+
+def _union_ms(spans) -> float:
+    """Length of the union of ``(start, end)`` intervals in µs, as ms."""
+    total, reach = 0.0, -math.inf
+    for start, end in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total / 1e3
+
+
+def device_timeline(prof, steps: int) -> dict:
+    """Per-step device time of this process from the trace's timeline
+    (torch.profiler's device events with their start and end): the union
+    of the intervals of its compute kernels over every stream, the union
+    of its communication work (``_COMM``), and the time both ran at once.
+    A sum of kernel times overcounts where streams overlap — NCCL's
+    kernels spin on their own stream until the peer arrives — the union
+    does not. Also the summed time of K5, K6 and K7."""
+    from torch.autograd import DeviceType
+
+    compute, comm = [], []
+    groups = {g: 0.0 for g in FLASH_GROUPS}
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        span = (ev.time_range.start, ev.time_range.end)
+        (comm if _COMM.search(ev.name) else compute).append(span)
+        for group, needle in FLASH_GROUPS.items():
+            if needle in ev.name:
+                groups[group] += (span[1] - span[0]) / 1e3 / steps
+    check(bool(compute), "the profile traced no device kernel")
+    c_ms, n_ms = _union_ms(compute) / steps, _union_ms(comm) / steps
+    any_ms = _union_ms(compute + comm) / steps
+    return {"compute_ms": c_ms, "comm_ms": n_ms,
+            "overlap_ms": c_ms + n_ms - any_ms, "device_any_ms": any_ms,
+            "flash_ms": groups}
+
+
+def _rank_profile(rank: int, job: dict) -> dict:
+    """One SP training step of this rank: its host-clock time over a few
+    steps on a batch already on the card, and its device timeline
+    (``device_timeline``): compute busy time, the hops and all-reduces,
+    their overlap, and K5/K6/K7."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.data import pipeline as pipe
+    from dml_cnn_cifar10_tpu_torch.train.loop import Trainer
+
+    steps = job["steps"]
+    cfg = config_from_args(build_parser().parse_args(
+        job["argv"] + ["--task_index", str(rank)]))
+    trainer = Trainer(cfg, task_index=rank)
+    state = trainer.init_or_restore()
+    it = trainer.input_pipeline(train=True, seed=cfg.seed)
+    images, labels = pipe.to_device(next(it), trainer.device)
+    trainer.train_step(state, images, labels)
+    torch.cuda.synchronize()
+    trainer.mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer.train_step(state, images, labels)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    trainer.mesh.barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            trainer.train_step(state, images, labels)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof, steps)
+    timeline = device_timeline(prof, steps)
+    trainer.mesh.barrier()
+    dist.destroy_process_group()
+    return {"step_ms": step_ms, **timeline,
+            "compute_share": timeline["compute_ms"] / step_ms,
+            "kernels": [{"ms_per_step": ms, "per_step": n, "name": name}
+                        for ms, n, name in rows[:25]]}
+
+
+def check_ring_op(ring_res, backend: str) -> None:
+    """Hold the ranks' ring-op differences to their pins."""
+    for name, _, dtype, kw in RING_OP_CASES:
+        for what in ("out", "dq", "dk", "dv"):
+            diff = max(r[name][what][0] for r in ring_res)
+            scale = max(r[name][what][1] for r in ring_res)
+            kind_ = "out" if what == "out" else "grad"
+            tol = RING_OP_TOL[kind_] if dtype == "float32" else min(
+                BF16_CAP, BF16_REL * scale)
+            check(diff <= tol, f"ring op {name}: {what} max abs diff "
+                               f"{diff} > {tol}")
+        print(f"[ring op] {name} {dtype} {kw} ({backend}): max abs diff vs "
+              f"the full sequence's flash attention " + ", ".join(
+                  f"{w} {max(r[name][w][0] for r in ring_res):.3g}"
+                  for w in ("out", "dq", "dk", "dv")), flush=True)
+
+
+def sp_launches(steps: int, fwd_only: int) -> dict:
+    """Per-rank launches of ``steps`` SP steps at seq 2 with remat: K5 = 12
+    blocks x 2 ring steps x 2, K6 = K7 = 12 x 2; K5 = 24 for each
+    forward-only batch; K3 = K4 = K1 = K2 = 0."""
+    return {"flash_fwd": 0, "flash_fwd_lse": 0,
+            "flash_fwd_stats": steps * 48 + fwd_only * 24,
+            "flash_bwd_dq": steps * 24, "flash_bwd_dkv": steps * 24,
+            "sgd_update_plain": 0, "sgd_update_momentum": 0}
+
+
+# Every logged SP loss against the same recipe and batches without the
+# ring. Measured on H100s (PERF.md): at most 1.7e-4 apart at step 5
+# (bf16 sums in another order) and 2.4e-6 at step 10, so 1e-3 leaves room
+# for rounding while a wrong softmax weight or gradient sum lands far
+# outside it.
+SP_LOSS_TOL = 1e-3
+
+
+def long_args(work: str) -> list:
+    """The long-context recipe (``BASELINE.md:523``: 368/360 images, 8,100
+    tokens, mean pool, remat, bf16, AdamW) without its batch size."""
+    return ["--model", "vit_tiny", "--dataset", "synthetic",
+            "--data_dir", os.path.join(work, "data_long"),
+            "--image_size", "368", "--crop_size", "360", "--pool", "mean",
+            "--remat", "true", "--compute_dtype", "bfloat16",
+            "--optimizer", "adamw", "--learning_rate", "3e-4",
+            "--synthetic_train_records", "64", "--fidelity", "fixed",
+            "--output_every", "5", "--eval_every", "1000",
+            "--checkpoint_every", "1000"]
+
+
+def cnn_args(work: str) -> list:
+    """The CNN main path's recipe: batch 128 on 50,000 synthetic records."""
+    return ["--dataset", "synthetic", "--data_dir",
+            os.path.join(work, "data"), "--synthetic_train_records",
+            "50000", "--fidelity", "fixed", "--learning_rate", "0.02",
+            "--batch_size", "128"]
+
+
+def train_log(path) -> list:
+    return [(r["step"], r["loss"], r["images_per_sec"])
+            for r in records(path) if r["kind"] == "train"]
+
+
+def dist_phases(backend: str, card: str, worlds=(2,),
+                one_rank_jsonl=None) -> dict:
+    """Phases 18-21 over ``backend``, each rank a process of its own: the
+    2-rank ring op; for each world in ``worlds``, the SP long-context
+    recipe on ``world`` ranks (data world/2 x seq 2, 2 images a data row)
+    against the same batches without the ring — one rank
+    (``one_rank_jsonl``, or run here) or the world/2 data ranks alone —
+    then, on 2 ranks, a resume to step 15 and ``--mode eval``; the DP CNN
+    on each world; the 2-rank SP profile. Returns the numbers."""
+    count = torch.cuda.device_count()
+
+    def dist_args(world):
+        ports = _free_ports(world)
+        return ["--worker_hosts", ",".join(f"localhost:{p}" for p in ports),
+                "--dist_backend", backend]
+
+    res = {"card": card, "backend": backend, "cards": count}
+    # ---- 18. the 2-rank ring op ------------------------------------------
+    ring_res = spawn_ranks(f"ring_op_{backend}", {
+        "kind": "ring", "backend": backend,
+        "address": f"localhost:{_free_ports(1)[0]}"}, timeout_s=300)
+    check_ring_op(ring_res, backend)
+    res["ring_op"] = ring_res
+
+    # ---- 19. SP long context: 4,050 tokens a rank ------------------------
+    long = long_args(WORK)
+    for world in worlds:
+        batch = world
+        ref_jsonl = one_rank_jsonl if world == 2 else None
+        if ref_jsonl is None:
+            ref_jsonl = os.path.join(WORK, f"ref{world}.jsonl")
+            ref_args = long + ["--batch_size", str(batch), "--total_steps",
+                               str(LONG_STEPS), "--log_dir",
+                               os.path.join(WORK, f"logs_ref{world}"),
+                               "--metrics_jsonl", ref_jsonl]
+            if world == 2:
+                run_cli(ref_args)
+            else:
+                spawn_ranks(f"dp_vit{world // 2}_{backend}", {
+                    "kind": "cli", "argv": ref_args + dist_args(world // 2)},
+                    world=world // 2)
+        sp_log = os.path.join(WORK, f"logs_sp{world}")
+        sp_jsonl = os.path.join(WORK, f"vit_sp{world}.jsonl")
+        t0 = time.perf_counter()
+        sp = spawn_ranks(f"sp{world}_{backend}", {"kind": "cli", "argv": long
+                         + ["--batch_size", str(batch), "--seq_axis", "2",
+                            "--total_steps", str(LONG_STEPS), "--log_dir",
+                            sp_log, "--metrics_jsonl", sp_jsonl]
+                         + dist_args(world)}, world=world)
+        wall = time.perf_counter() - t0
+        # The fresh-batch train accuracy every 5 steps is a forward-only
+        # batch.
+        want = sp_launches(LONG_STEPS, LONG_STEPS // 5)
+        check(all(r["launches"] == want for r in sp),
+              f"SP {world} ranks launched {[r['launches'] for r in sp]}, "
+              f"want {want}")
+        check(len({r["digest"] for r in sp}) == 1,
+              f"SP {world} ranks ended with different parameters")
+        got, ref = train_log(sp_jsonl), train_log(ref_jsonl)
+        gaps = [abs(g[1] - r[1]) for g, r in zip(got, ref)]
+        check(len(got) == len(ref) == LONG_STEPS // 5
+              and [g[0] for g in got] == [r[0] for r in ref]
+              and all(math.isfinite(g[1]) for g in got)
+              and max(gaps) <= SP_LOSS_TOL,
+              f"SP {world} ranks (step, loss, images/s) {got}; without the "
+              f"ring {ref}; gaps {gaps} (gate {SP_LOSS_TOL})")
+        res[f"sp{world}"] = {
+            "batch": batch, "train": got, "reference": ref,
+            "loss_gaps": gaps, "step_ms": batch / got[-1][2] * 1e3,
+            "tokens_per_s": got[-1][2] * 8100, "wall_s": wall,
+            "launches": sp[0]["launches"]}
+        shutil.copy(sp_jsonl, OUT)
+        print(f"[sp train] {world} ranks (data {world // 2} x seq 2, "
+              f"{backend}), batch {batch} x 8,100 tokens: (step, loss, "
+              f"images/s) {got}; without the ring ({max(1, world // 2)} "
+              f"rank(s)) {ref}; loss gaps {gaps} (gate {SP_LOSS_TOL}); "
+              f"{res[f'sp{world}']['step_ms']:.1f} ms/step in steps 6-10; "
+              f"launches per rank {sp[0]['launches']}, equal parameters, on "
+              f"{min(count, world)} x {card}", flush=True)
+        if world != 2:
+            continue
+        # resume to 15, then --mode eval, both over the 2 ranks
+        label = f"sp_resume_{backend}"
+        resume = spawn_ranks(label, {"kind": "cli", "argv": long + [
+            "--batch_size", "2", "--seq_axis", "2", "--log_dir", sp_log,
+            "--total_steps", str(LONG_STEPS + 5)] + dist_args(2)})
+        for r in resume:
+            check(r["launches"]["flash_fwd_stats"] == 5 * 48 + 24
+                  and r["launches"]["flash_bwd_dq"] == 5 * 24,
+                  f"SP resume ran {r['launches']}, want 5 steps from step "
+                  f"{LONG_STEPS}")
+        steps = [int(m[1]) for m in map(STEP_LINE.match, rank_log(label))
+                 if m]
+        check(steps == [LONG_STEPS + 5], f"SP resume printed steps {steps}")
+        # The full test split (512 records) at 8 images a batch.
+        label = f"sp_eval_{backend}"
+        ev = spawn_ranks(label, {"kind": "cli", "argv": long + [
+            "--seq_axis", "2", "--log_dir", sp_log, "--batch_size", "8",
+            "--mode", "eval"] + dist_args(2)})
+        eval_lines = []
+        for r in range(2):
+            lines = rank_log(label, r)
+            check(any(f"eval at step {LONG_STEPS + 5}" in l for l in lines),
+                  f"SP eval rank {r} did not restore step {LONG_STEPS + 5}")
+            eval_lines.append([m[1] for m in map(EVAL_LINE.match, lines)
+                               if m])
+        check(len(eval_lines[0]) == 1 and eval_lines[0] == eval_lines[1],
+              f"SP --mode eval printed {eval_lines}")
+        check(ev[0]["launches"]["flash_fwd_stats"] == 64 * 24,
+              f"SP eval launched {ev[0]['launches']} (64 batches of 8)")
+        res["sp_eval_accuracy"] = eval_lines[0][0]
+        print(f"[sp resume] continued {LONG_STEPS} -> {LONG_STEPS + 5}; "
+              f"--mode eval over 2 ranks: {eval_lines[0][0]}% on both",
+              flush=True)
+
+    # ---- 20. data-parallel CNN: 128 images over the world ----------------
+    for world in worlds:
+        dp_jsonl = os.path.join(WORK, f"cnn_dp{world}.jsonl")
+        dp = spawn_ranks(f"dp{world}_{backend}", {"kind": "cli", "argv":
+                         cnn_args(WORK) + [
+            "--log_dir", os.path.join(WORK, f"logs_dp{world}"),
+            "--total_steps", str(DP_STEPS), "--eval_every", "1000",
+            "--output_every", "50", "--checkpoint_every", "1000",
+            "--metrics_jsonl", dp_jsonl] + dist_args(world)}, world=world)
+        for r in dp:
+            check(r["launches"]["sgd_update_plain"] == DP_STEPS * 10
+                  and r["launches"]["sgd_update_momentum"] == 0,
+                  f"DP {world} ranks launched {[r['launches'] for r in dp]}, "
+                  f"want K1 = {DP_STEPS} x 10 each")
+        check(len({r["digest"] for r in dp}) == 1,
+              f"DP {world} ranks ended with different parameters")
+        losses = [l for _, l, _ in train_log(dp_jsonl)]
+        check(losses and all(math.isfinite(l) for l in losses),
+              f"DP {world} ranks losses {losses}")
+        ips = next(r for r in records(dp_jsonl)
+                   if r["kind"] == "done")["images_per_sec"]
+        res[f"dp{world}"] = {"losses": losses, "images_per_s": ips,
+                             "step_ms": 128 / ips * 1e3,
+                             "launches": dp[0]["launches"]}
+        shutil.copy(dp_jsonl, OUT)
+        print(f"[dp cnn] {DP_STEPS} steps, {world} ranks x {128 // world} "
+              f"images ({backend}): loss {losses}, {ips:.1f} images/s = "
+              f"{128 / ips * 1e3:.3f} ms/step over the run; K1 "
+              f"{dp[0]['launches']['sgd_update_plain']} per rank, equal "
+              f"parameters, on {min(count, world)} x {card}", flush=True)
+
+    # ---- 21. where an SP step's time goes --------------------------------
+    prof = spawn_ranks(f"sp_profile_{backend}", {
+        "kind": "profile", "steps": 2, "argv": long + [
+            "--batch_size", "2", "--seq_axis", "2", "--log_dir",
+            os.path.join(WORK, "logs_sp_profile")] + dist_args(2)})
+    res["sp_profile"] = prof
+    for r, p in enumerate(prof):
+        print(f"[sp profile] rank {r} ({backend}): {p['step_ms']:.2f} "
+              f"ms/step (host clock, batch on the card); device timeline a "
+              f"step: compute {p['compute_ms']:.2f} ms "
+              f"({100 * p['compute_share']:.1f}% of the step), hops and "
+              f"all-reduces {p['comm_ms']:.2f} ms, of which "
+              f"{p['overlap_ms']:.2f} ms beside compute; "
+              + ", ".join(f"{k} {v:.2f}" for k, v in p["flash_ms"].items())
+              + f"; on {card}", flush=True)
+        for k in p["kernels"][:8]:
+            print(f"[sp profile]   rank {r} {k['ms_per_step']:.4f} ms/step "
+                  f"x{k['per_step']} {k['name'][:100]}")
+    return res
+
+
+def dist_main() -> int:
+    """``--dist``: phases 18-21 over NCCL on two or more cards, one rank a
+    card, with worlds 2 and (given four cards) 4 — the build, then
+    ``dist_phases``; phases 1-17 are skipped. Numbers go to
+    ``OUT/dist_nccl.json``; the last line is the same ``{"ok": true, ...}``
+    object."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        print("chip_smoke --dist: needs two or more NVIDIA GPUs",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from dml_cnn_cifar10_tpu_torch.ops import _build
+
+    card, kind = card_line(), torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    print(f"card: {card}; {count} cards; torch {torch.__version__} CUDA "
+          f"{torch.version.cuda}", flush=True)
+    if _build.BUILD_DIR.exists():
+        shutil.rmtree(_build.BUILD_DIR)
+    _build.build()
+    if os.path.isdir(WORK):
+        shutil.rmtree(WORK)
+    os.makedirs(OUT, exist_ok=True)
+    res = dist_phases("nccl", card, worlds=(2, 4) if count >= 4 else (2,))
+    with open(os.path.join(OUT, "dist_nccl.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    shutil.rmtree(WORK)
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": kind, "count": count}}))
+    return 0
+
+
+def rank_main(argv) -> int:
+    """Entry of a rank process (``--rank R --job FILE``): runs the job
+    and writes its result, with this process's kernel launch counts."""
+    rank, job_path = int(argv[argv.index("--rank") + 1]), \
+        argv[argv.index("--job") + 1]
+    with open(job_path) as f:
+        job = json.load(f)
+    sys.path.insert(0, ROOT)
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run = {"cli": _rank_cli, "ring": _rank_ring,
+           "profile": _rank_profile}[job["kind"]]
+    res = run(rank, job)
+    res["launches"] = {**fa.LAUNCHES, **fused.LAUNCHES}
+    with open(job["out"].format(rank=rank), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
 def main() -> int:
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -706,12 +1494,9 @@ def main() -> int:
     if os.path.isdir(WORK):
         shutil.rmtree(WORK)
     os.makedirs(OUT, exist_ok=True)
-    data_dir = os.path.join(WORK, "data")
     log_dir = os.path.join(WORK, "logs")
-    base = ["--dataset", "synthetic", "--data_dir", data_dir,
-            "--synthetic_train_records", "50000", "--fidelity", "fixed",
-            "--learning_rate", "0.02", "--batch_size", "128",
-            "--output_every", "100", "--checkpoint_every", "250"]
+    base = cnn_args(WORK) + ["--output_every", "100",
+                             "--checkpoint_every", "250"]
     train_jsonl = os.path.join(WORK, "train.jsonl")
     fused.reset_launches()
     t0 = time.perf_counter()
@@ -836,7 +1621,7 @@ def main() -> int:
     # output boundary.
     fwd_only = 2 * 4 + VIT_STEPS // 50
     want = {"flash_fwd": fwd_only * n_blocks,
-            "flash_fwd_lse": VIT_STEPS * n_blocks,
+            "flash_fwd_lse": VIT_STEPS * n_blocks, "flash_fwd_stats": 0,
             "flash_bwd_dq": VIT_STEPS * n_blocks,
             "flash_bwd_dkv": VIT_STEPS * n_blocks}
     check(vit_launches == want,
@@ -897,14 +1682,7 @@ def main() -> int:
           flush=True)
 
     # ---- 14. long context: 8,100 tokens, bf16, remat ---------------------
-    long_base = ["--model", "vit_tiny", "--dataset", "synthetic",
-                 "--data_dir", os.path.join(WORK, "data_long"),
-                 "--image_size", "368", "--crop_size", "360", "--pool",
-                 "mean", "--remat", "true", "--compute_dtype", "bfloat16",
-                 "--optimizer", "adamw", "--learning_rate", "3e-4",
-                 "--batch_size", "2", "--synthetic_train_records", "64",
-                 "--fidelity", "fixed", "--output_every", "5",
-                 "--eval_every", "1000", "--checkpoint_every", "1000"]
+    long_base = long_args(WORK) + ["--batch_size", "2"]
     long_jsonl = os.path.join(WORK, "vit_long.jsonl")
     fa.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -916,7 +1694,7 @@ def main() -> int:
     long_launches = dict(fa.LAUNCHES)
     peak_bytes = torch.cuda.max_memory_allocated()
     want = {"flash_fwd": (LONG_STEPS // 5) * n_blocks,
-            "flash_fwd_lse": LONG_STEPS * n_blocks * 2,
+            "flash_fwd_lse": LONG_STEPS * n_blocks * 2, "flash_fwd_stats": 0,
             "flash_bwd_dq": LONG_STEPS * n_blocks,
             "flash_bwd_dkv": LONG_STEPS * n_blocks}
     check(long_launches == want,
@@ -951,6 +1729,26 @@ def main() -> int:
         long_base + ["--log_dir", os.path.join(WORK, "logs_long_profile")],
         "long", card, steps=2)
 
+    # ---- 16. K5 parity, and K6/K7 as the backward ring calls them -------
+    stats_worst = stats_parity(dev)
+    ring_bwd_worst = ring_bwd_parity(dev)
+
+    # ---- 17. K5 timing ---------------------------------------------------
+    stats_time = stats_timing(dev, card, bytes_per_s)
+
+    # ---- 18-21. two ranks: ring op, SP train/resume/eval, DP, profile ----
+    # One card each over NCCL when there are two, else both on this card
+    # over gloo (NCCL refuses two ranks on one device).
+    backend = "nccl" if count >= 2 else "gloo"
+    print(f"[dist] 2 ranks over {backend} on {min(count, 2)} card(s)",
+          flush=True)
+    dist_res = dist_phases(backend, card, one_rank_jsonl=long_jsonl)
+    with open(os.path.join(OUT, "dist.json"), "w") as f:
+        json.dump({"stats_parity": stats_worst, "stats_timing": stats_time,
+                   "ring_bwd_parity": ring_bwd_worst, **dist_res}, f,
+                  indent=1)
+    sp_launched = dist_res["sp2"]["launches"]
+
     for path in (train_jsonl, resume_jsonl, mom_jsonl, vit_jsonl,
                  os.path.join(WORK, "vit_resume.jsonl"), long_jsonl):
         shutil.copy(path, OUT)
@@ -972,6 +1770,8 @@ def main() -> int:
             ("sgd_update_momentum", "K2", 70, momentum_k2)):
         t = timing[name]
         kernels.append({
+            **({"launches_dp_per_rank": dist_res["dp2"]["launches"][name]}
+               if kid == "K1" else {}),
             "name": name, "kernel": kid, "route": "cuda",
             "source": "dml_cnn_cifar10_tpu_torch/csrc/sgd_update.cu",
             "replaces": f"dml_cnn_cifar10_tpu/ops/optimizer.py:{line}",
@@ -986,6 +1786,25 @@ def main() -> int:
                     f"leaves ({n_params} params), mu={t['mu']}, "
                     f"wd={t['wd']}; bound from {t['bytes']} bytes",
         })
+    t = stats_time
+    kernels.append({
+        "name": "flash_fwd_stats", "kernel": "K5", "route": "cuda",
+        "source": "dml_cnn_cifar10_tpu_torch/csrc/flash_attention.cu",
+        "cuda_kernel": "flash_stats_kernel",
+        "replaces": "dml_cnn_cifar10_tpu/ops/flash_attention.py:386",
+        "launches": sp_launched["flash_fwd_stats"],
+        "max_abs_err": stats_worst["float32"],
+        "max_abs_diff": stats_worst["float32"],
+        "max_abs_err_bf16": stats_worst["bfloat16"],
+        "ms": t["ms"], "kernel_ms": t["ms"], "device_ms": t["device_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "library": t["library"],
+        "work": f"one launch at the SP main path's ring block "
+                f"{t['shape']} {t['dtype']} ({t['flops']} FLOPs, "
+                f"{t['bytes']} bytes); launches: rank 0 of the 2-rank "
+                f"8,100-token run; max_abs_err on acc / l",
+    })
     for name, kid, line, needle in (
             ("flash_fwd", "K3", 345, "flash_out_kernel"),
             ("flash_fwd_lse", "K4", 360, "flash_lse_kernel"),
@@ -993,6 +1812,9 @@ def main() -> int:
             ("flash_bwd_dkv", "K7", 736, "flash_dkv_kernel")):
         t, long_t = flash_times[(name, "vit")], flash_times[(name, "long")]
         kernels.append({
+            "launches_sp_per_rank": sp_launched[name],
+            **({"max_abs_err_ring_bwd_f32": ring_bwd_worst}
+               if kid in ("K6", "K7") else {}),
             "name": name, "kernel": kid, "route": "cuda",
             "source": "dml_cnn_cifar10_tpu_torch/csrc/flash_attention.cu",
             "cuda_kernel": needle,
@@ -1022,4 +1844,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if "--rank" in sys.argv:
+        sys.exit(rank_main(sys.argv))
+    sys.exit(dist_main() if "--dist" in sys.argv else main())

@@ -14,6 +14,12 @@ params in the JAX layouts via ``convert.py``, dict keys sorted as JAX's
 tree flattening leaves them), so a checkpoint of either package restores
 into the other, and the bytes are identical for equal values. The
 orbax and sharded formats are not ported.
+
+In a multi-rank run the parameters are replicated, so one file holds the
+whole state: only the chief writes it, and every rank waits at a barrier
+until it is committed; every rank restores from the same file, and a
+checkpoint written under sequence or data parallelism restores into a
+one-process run.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 
 from dml_cnn_cifar10_tpu_torch import convert
+from dml_cnn_cifar10_tpu_torch.parallel.mesh import Mesh
 from dml_cnn_cifar10_tpu_torch.parallel.step import TrainState
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.msgpack$")
@@ -263,12 +270,15 @@ def restore_checkpoint(ckpt_dir: str, target: TrainState) -> TrainState:
 class CheckpointManager:
     """Periodic saver (the CheckpointSaverHook role): saves every
     ``every_steps`` global steps, plus forced saves, never twice at the
-    same step."""
+    same step. Over a mesh only the chief writes; every rank returns from
+    a save after the file is committed."""
 
-    def __init__(self, ckpt_dir: str, every_steps: int, keep: int = 3):
+    def __init__(self, ckpt_dir: str, every_steps: int, keep: int = 3,
+                 mesh: Optional[Mesh] = None):
         self.ckpt_dir = ckpt_dir
         self.every_steps = max(1, every_steps)
         self.keep = keep
+        self.mesh = mesh
         self._last_saved_step: Optional[int] = None
 
     def due(self, step: int, force: bool = False) -> bool:
@@ -280,6 +290,9 @@ class CheckpointManager:
                    force: bool = False) -> bool:
         if not self.due(step, force):
             return False
-        save_checkpoint(self.ckpt_dir, state, step, keep=self.keep)
+        if self.mesh is None or self.mesh.chief:
+            save_checkpoint(self.ckpt_dir, state, step, keep=self.keep)
+        if self.mesh is not None:
+            self.mesh.barrier()
         self._last_saved_step = step
         return True

@@ -4,8 +4,15 @@ Reference flags (``cifar10cnn.py:245-273``): ``--ps_hosts --worker_hosts
 --job_name --task_index --data_dir --log_dir``, mapped as in the JAX
 package's CLI: ``--job_name=ps`` prints a note and exits 0 (parameters
 live on the device; there is no parameter server), ``--ps_hosts`` is
-accepted and ignored, and several ``--worker_hosts`` ask for multi-GPU
-data parallelism, which is the port's next slice and raises here.
+accepted and ignored, and ``--worker_hosts h:p0,h:p1 --task_index i``
+starts rank ``i`` of a ``torch.distributed`` world with one process per
+worker and its rendezvous at the first one (``parallel/multihost.py``).
+The world is ``data x --seq_axis`` ranks: data parallelism for every
+model, and ring sequence parallelism for the ViT when ``--seq_axis`` > 1
+(``--pool`` then defaults to ``mean``). ``--dist_backend`` names the
+backend: ``nccl`` (the default on cuda) needs a card per rank; ``gloo``
+(the default on cpu) also lets several ranks share one card, through
+host memory.
 
 Models: ``--model cnn`` (the reference, default) and ``--model vit_tiny``
 (ViT-Ti, attention through the hand-written flash kernels from 128 tokens
@@ -23,6 +30,7 @@ import sys
 from typing import List, Optional
 
 from dml_cnn_cifar10_tpu_torch import config as config_lib
+from dml_cnn_cifar10_tpu_torch.parallel import multihost
 
 
 def _bool(v: str) -> bool:
@@ -40,8 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="DEPRECATED: comma-separated ps hosts (ignored; "
                         "there are no parameter servers)")
     p.add_argument("--worker_hosts", type=str, default="",
-                   help="comma-separated hostname:port list; more than one "
-                        "host needs multi-GPU support, not ported yet")
+                   help="comma-separated hostname:port list, one per "
+                        "process; the first is the rendezvous address")
     p.add_argument("--job_name", type=str, default="",
                    help="One of 'ps', 'worker' (ps exits immediately)")
     p.add_argument("--task_index", type=int, default=0,
@@ -106,7 +114,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vit_heads", type=int, default=None,
                    help="ViT attention heads (default 3)")
     p.add_argument("--pool", type=str, default=None, choices=["cls", "mean"],
-                   help="ViT head pooling (default cls)")
+                   help="ViT head pooling; defaults to cls, or mean when "
+                        "seq_axis > 1 (sequence sharding excludes a lone "
+                        "cls token)")
+    p.add_argument("--seq_axis", type=int, default=1,
+                   help="sequence-parallel degree: the world is "
+                        "data x seq_axis ranks")
+    p.add_argument("--sp_mode", type=str, default="ring",
+                   choices=["ring", "ulysses"],
+                   help="sequence-parallel attention strategy: ring (K/V "
+                        "shards walk the ring); ulysses is not ported")
+    p.add_argument("--dist_backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="torch.distributed backend (default nccl on cuda, "
+                        "gloo on cpu); several ranks on one card need "
+                        "gloo")
     p.add_argument("--remat", type="bool", default=False,
                    help="recompute each ViT block's activations in the "
                         "backward pass (activation memory O(1) in depth)")
@@ -165,6 +187,14 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
         cfg.optim.cosine_decay_steps = cfg.total_steps
     if args.pool is not None:
         cfg.model.pool = args.pool
+    elif args.seq_axis > 1:
+        cfg.model.pool = "mean"
+    cfg.model.sp_mode = args.sp_mode
+    cfg.parallel.seq_axis = args.seq_axis
+    cfg.parallel.dist_backend = args.dist_backend
+    hosts = args.worker_hosts.split(",") if args.worker_hosts else []
+    if hosts:
+        multihost.parallel_from_hosts(hosts, args.task_index, cfg.parallel)
     for f in ("vit_heads", "vit_dim", "vit_depth"):
         if getattr(args, f) is not None:
             setattr(cfg.model, f, getattr(args, f))
@@ -186,41 +216,41 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("[cli] job_name=ps is obsolete: parameters live on the "
               "device. Nothing to serve; exiting.")
         return 0
-    if len([h for h in args.worker_hosts.split(",") if h]) > 1:
-        raise NotImplementedError(
-            "multi-GPU data parallelism (--worker_hosts with several "
-            "hosts) is not ported yet; see ROADMAP.md Queue 1, slice 3")
 
     cfg = config_from_args(args)
     if args.mode == "eval":
         cfg.eval_full_test_set = True
+    import torch.distributed as dist
+
     from dml_cnn_cifar10_tpu_torch.train.loop import Trainer
 
-    trainer = Trainer(cfg, task_index=args.task_index)
     try:
-        if args.mode == "eval":
-            _evaluate(trainer)
-        else:
-            result = trainer.fit()
-            print(f"[cli] done at step {result.final_step}; "
-                  f"{result.images_per_sec:.1f} images/sec")
+        trainer = Trainer(cfg, task_index=args.task_index)
+        try:
+            if args.mode == "eval":
+                _evaluate(trainer)
+            else:
+                result = trainer.fit()
+                print(f"[cli] done at step {result.final_step}; "
+                      f"{result.images_per_sec:.1f} images/sec")
+        finally:
+            trainer.logger.close()
     finally:
-        trainer.logger.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 
 def _evaluate(trainer) -> None:
     """``--mode eval``: restore the newest checkpoint, sweep the full
     test split, print the reference's accuracy line."""
-    from dml_cnn_cifar10_tpu_torch.data import pipeline as pipe
     cfg = trainer.cfg
     state = trainer.init_or_restore()
     step = int(state.step)
     if step == 0:
         print(f"[cli] warning: no checkpoint under {cfg.log_dir}; "
               "evaluating fresh-initialized weights", file=sys.stderr)
-    test_it = pipe.input_pipeline(cfg.data, cfg.batch_size, train=False,
-                                  seed=cfg.seed)
+    test_it = trainer.input_pipeline(train=False, seed=cfg.seed)
     acc = trainer.evaluate(state, test_it)
     print(f" --- Test Accuracy = {acc * 100:.2f}%.")
     print(f"[cli] eval at step {step}: {acc * 100:.2f}% on "

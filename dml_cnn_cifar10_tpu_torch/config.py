@@ -90,6 +90,11 @@ class ModelConfig:
     attn_window: Optional[int] = None
     # Causal (autoregressive) attention mask for the transformer blocks.
     attn_causal: bool = False
+    # Sequence-parallel attention when ParallelConfig.seq_axis > 1: "ring"
+    # (K/V shards walk the ring, parallel/ring_attention.py). The JAX
+    # package's "ulysses" (seq<->heads all-to-all) is not ported and
+    # raises (ROADMAP.md Queue 1).
+    sp_mode: str = "ring"                 # ring | ulysses
 
 
 @dataclasses.dataclass
@@ -127,6 +132,36 @@ class OptimConfig:
 
 
 @dataclasses.dataclass
+class ParallelConfig:
+    """Process group and mesh. Replaces the PS cluster
+    (``cifar10cnn.py:184-196``), as the JAX package's ``ParallelConfig``
+    does, trimmed to what the port's ``torch.distributed`` layer reads.
+
+    The world is ``data x seq`` ranks, one process each (one GPU each on
+    NCCL): the batch is split over ``data``, the ViT's tokens over
+    ``seq`` (ring attention), and the gradients are summed over the
+    world — the all-reduce that stands in for the JAX package's ``psum``.
+    """
+
+    seq_axis: int = 1                     # sequence/context-parallel degree
+    # Bootstrap (replaces ClusterSpec/Server, cifar10cnn.py:188-189): the
+    # first --worker_hosts entry is the rendezvous address, as task 0 is
+    # the TF chief.
+    coordinator_address: Optional[str] = None
+    num_processes: int = 1
+    process_id: int = 0
+    # One rendezvous attempt's timeout, and how many attempts (bounded
+    # exponential backoff) before a slow-to-start rank 0 is a failure.
+    coordinator_timeout_s: float = 60.0
+    coordinator_retries: int = 3
+    # torch.distributed backend, chosen by the caller and never switched
+    # after a failure: "nccl" when each rank has its own card, "gloo" on
+    # the CPU or for several ranks sharing one card (NCCL refuses two
+    # ranks on one device). None = nccl on cuda, gloo on cpu.
+    dist_backend: Optional[str] = None
+
+
+@dataclasses.dataclass
 class TrainConfig:
     """Training driver. Reference: ``cifar10cnn.py:11-14,219-242``."""
 
@@ -149,6 +184,8 @@ class TrainConfig:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    parallel: ParallelConfig = dataclasses.field(
+        default_factory=ParallelConfig)
 
 
 def reference_config(**overrides) -> TrainConfig:

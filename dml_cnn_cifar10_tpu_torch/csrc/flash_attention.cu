@@ -6,16 +6,24 @@
 // and called through ctypes from ops/flash_attention.py (plain C interface).
 //
 // Replaces the Pallas TPU kernels of dml_cnn_cifar10_tpu/ops/flash_attention.py:
-//   flash_out_kernel  (K3) <- _flash_kernel (:345), _fwd_call(mode="out")
-//   flash_lse_kernel  (K4) <- _flash_fwd_kernel (:360), mode="lse"
-//   flash_dq_kernel   (K6) <- _flash_bwd_dq_kernel (:688)
-//   flash_dkv_kernel  (K7) <- _flash_bwd_dkv_kernel (:736)
+//   flash_out_kernel   (K3) <- _flash_kernel (:345), _fwd_call(mode="out")
+//   flash_lse_kernel   (K4) <- _flash_fwd_kernel (:360), mode="lse"
+//   flash_stats_kernel (K5) <- _flash_stats_kernel (:386), mode="stats"
+//   flash_dq_kernel    (K6) <- _flash_bwd_dq_kernel (:688)
+//   flash_dkv_kernel   (K7) <- _flash_bwd_dkv_kernel (:736)
 // (pallas_call sites :617/:629, :854/:866, :894/:906).
 //
 // What they compute, for one (batch, head) and q, k, v, dO laid out
 // [B, S, H, D] (read through their B/S/H strides; the head dim is
 // contiguous), with s = (q . k) * scale and the mask of _score_mask (:152):
 //   K3/K4: out = softmax(s) v; K4 also lse = m + log l per row.
+//   K5:    the raw partial-softmax state that the ring merge consumes:
+//          the UNNORMALIZED acc = sum_j exp(s_j - m) v_j, the row max m
+//          and the normalizer l = sum_j exp(s_j - m), all f32 whatever
+//          the input dtype (a partial rounded to bf16 would quantize
+//          every ring step). A row with no live key writes m = -1e30,
+//          l = 0, acc = 0 exactly; the Pallas kernel leaves l/acc
+//          undefined there and its caller keys on m alone.
 //   K6:    p = exp(s - lse), dS = p * (dO . v - delta) * scale,
 //          dQ = sum_j dS K.
 //   K7:    dV = sum_i p^T dO, dK = sum_i dS^T Q.
@@ -27,11 +35,13 @@
 // lse = 1e30, so the backward's p = exp(s - lse) is exactly 0 there.
 //
 // Design. A block owns one 64-row tile of one (batch, head): query rows
-// for K3/K4/K6, key rows for K7. It initialises its own m, l and
+// for K3/K4/K5/K6, key rows for K7. It initialises its own m, l and
 // accumulators, then walks the 64-wide tiles of the other axis in a loop
 // (the Pallas grid's sequential inner axis becomes this loop; CUDA blocks
-// share no state). band() gives that loop's bounds from the causal/window
-// band, one definition for all four kernels; score_live() is the element
+// share no state). K3, K4 and K5 are one body, flash_fwd<T, D, Mode>,
+// that differs only in what it stores. band() gives that loop's bounds
+// from the causal/window band, one definition for all five kernels;
+// score_live() is the element
 // mask inside it, so the skip logic cannot drift from the mask (the role
 // of _band_live, :481). Ragged edges are bounds-checked in the kernel:
 // nothing is padded to the tile size. 256 threads as 16 x 16; a thread
@@ -46,7 +56,11 @@
 // 67 TFLOP/s of f32 on the CUDA cores, while its bytes (q, k, v, out:
 // 101 MB) take 0.03 ms at 3.35 TB/s, so operations bound it. In bf16 the
 // same FLOPs could run on the tensor cores at 989 TFLOP/s, and the long
-// [2, 8100, 3, 64] bf16 shape is operation-bound there too.
+// [2, 8100, 3, 64] bf16 shape is operation-bound there too. K5 does K4's
+// FLOPs and writes its acc in f32; at the ring's [2, 4050, 3, 64] bf16
+// block (two ranks of the 8,100-token recipe) it is operation-bound as
+// well: 25.2 GFLOP (25 us at 989 TFLOP/s) against 15.7 MB of inputs
+// and outputs (4.7 us at 3.35 TB/s).
 //
 // What this simple design leaves on the table: every product runs as f32
 // FMAs on the CUDA cores from shared memory (no wgmma/mma.sync tensor-core
@@ -74,6 +88,8 @@ constexpr float kNegInf = -1e30f;   // masked score (not -inf: no NaN rows)
 constexpr float kDeadLse = 1e30f;   // lse of a row with no live key
 
 enum DType { kF32 = 0, kBF16 = 1 };
+// What the forward body stores: K3 out; K4 out and lse; K5 acc, m and l.
+enum FwdMode { kOut = 0, kLse = 1, kStats = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -190,8 +206,10 @@ struct FwdArgs {
   const void* v;
   const int* qseg;  // [B, Sq] int32 or null
   const int* kseg;  // [B, Skv] int32 or null
-  void* out;        // [B, Sq, H, D] contiguous, q's dtype
+  void* out;        // [B, Sq, H, D] contiguous: q's dtype; K5's acc f32
   float* lse;       // [B, Sq, H] contiguous f32 (K4 only)
+  float* m_out;     // [B, Sq, H] contiguous f32 (K5 only)
+  float* l_out;     // [B, Sq, H] contiguous f32 (K5 only)
   int64_t qs[3], ks[3], vs[3];  // B, S, H strides in elements
   int heads, dtype;
   float scale;
@@ -203,7 +221,7 @@ constexpr int fwd_smem_bytes() {
   return (3 * kTile * (D + 1) + kTile * kPld) * 4 + 2 * kTile * 4;
 }
 
-template <typename T, int D, bool kLse>
+template <typename T, int D, int Mode>
 __device__ __forceinline__ void flash_fwd(const FwdArgs& a) {
   constexpr int LD = D + 1, kC = D / kTx;
   extern __shared__ float smem[];
@@ -306,24 +324,41 @@ __device__ __forceinline__ void flash_fwd(const FwdArgs& a) {
     const int r = row0 + ty + kTy * i;
     if (r >= a.m.q_len) continue;
     const bool dead = m_i[i] <= kNegInf * 0.5f;
-    const float l = fmaxf(l_i[i], 1e-30f);
     const int64_t row = ((int64_t)b * a.m.q_len + r) * a.heads + h;
+    if constexpr (Mode == kStats) {
+      float* acc_out = static_cast<float*>(a.out);
 #pragma unroll
-    for (int c = 0; c < kC; ++c)
-      store(a.out, row * D + tx + kTx * c, dead ? 0.0f : acc[i][c] / l,
-            a.dtype);
-    if (kLse && tx == 0) a.lse[row] = dead ? kDeadLse : m_i[i] + logf(l);
+      for (int c = 0; c < kC; ++c)
+        acc_out[row * D + tx + kTx * c] = dead ? 0.0f : acc[i][c];
+      if (tx == 0) {
+        a.m_out[row] = dead ? kNegInf : m_i[i];
+        a.l_out[row] = dead ? 0.0f : l_i[i];
+      }
+    } else {
+      const float l = fmaxf(l_i[i], 1e-30f);
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        store(a.out, row * D + tx + kTx * c, dead ? 0.0f : acc[i][c] / l,
+              a.dtype);
+      if (Mode == kLse && tx == 0)
+        a.lse[row] = dead ? kDeadLse : m_i[i] + logf(l);
+    }
   }
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_out_kernel(FwdArgs a) {
-  flash_fwd<T, D, false>(a);
+  flash_fwd<T, D, kOut>(a);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_lse_kernel(FwdArgs a) {
-  flash_fwd<T, D, true>(a);
+  flash_fwd<T, D, kLse>(a);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_stats_kernel(FwdArgs a) {
+  flash_fwd<T, D, kStats>(a);
 }
 
 struct BwdArgs {
@@ -630,11 +665,11 @@ Mask make_mask(int sq, int skv, int causal, int window, int kv_start) {
   return m;
 }
 
-int fwd(bool with_lse, const void* q, const void* k, const void* v,
-        const int* qseg, const int* kseg, void* out, float* lse, int dtype,
-        int batch, int heads, int sq, int skv, int d, const int64_t* strides,
-        float scale, int causal, int window, int kv_start,
-        cudaStream_t stream) {
+int fwd(FwdMode mode, const void* q, const void* k, const void* v,
+        const int* qseg, const int* kseg, void* out, float* lse,
+        float* m_out, float* l_out, int dtype, int batch, int heads, int sq,
+        int skv, int d, const int64_t* strides, float scale, int causal,
+        int window, int kv_start, cudaStream_t stream) {
   FwdArgs a;
   a.q = q;
   a.k = k;
@@ -643,6 +678,8 @@ int fwd(bool with_lse, const void* q, const void* k, const void* v,
   a.kseg = kseg;
   a.out = out;
   a.lse = lse;
+  a.m_out = m_out;
+  a.l_out = l_out;
   for (int i = 0; i < 3; ++i) {
     a.qs[i] = strides[i];
     a.ks[i] = strides[3 + i];
@@ -655,8 +692,11 @@ int fwd(bool with_lse, const void* q, const void* k, const void* v,
   return dispatch(dtype, d, [&](auto t, auto dd) {
     using T = std::remove_pointer_t<decltype(t)>;
     constexpr int kD = decltype(dd)::value;
-    return launch(with_lse ? flash_lse_kernel<T, kD> : flash_out_kernel<T, kD>,
-                  a, batch * heads, tiles(sq), fwd_smem_bytes<kD>(), stream);
+    void (*kernel)(FwdArgs) = mode == kStats ? flash_stats_kernel<T, kD>
+                              : mode == kLse ? flash_lse_kernel<T, kD>
+                                             : flash_out_kernel<T, kD>;
+    return launch(kernel, a, batch * heads, tiles(sq), fwd_smem_bytes<kD>(),
+                  stream);
   });
 }
 
@@ -702,8 +742,9 @@ int flash_fwd_out(const void* q, const void* k, const void* v,
                   int batch, int heads, int sq, int skv, int d,
                   const int64_t* strides, float scale, int causal, int window,
                   int kv_start, cudaStream_t stream) {
-  return fwd(false, q, k, v, qseg, kseg, out, nullptr, dtype, batch, heads,
-             sq, skv, d, strides, scale, causal, window, kv_start, stream);
+  return fwd(kOut, q, k, v, qseg, kseg, out, nullptr, nullptr, nullptr, dtype,
+             batch, heads, sq, skv, d, strides, scale, causal, window,
+             kv_start, stream);
 }
 
 // K4: out and the row logsumexp.
@@ -712,8 +753,22 @@ int flash_fwd_lse(const void* q, const void* k, const void* v,
                   int dtype, int batch, int heads, int sq, int skv, int d,
                   const int64_t* strides, float scale, int causal, int window,
                   int kv_start, cudaStream_t stream) {
-  return fwd(true, q, k, v, qseg, kseg, out, lse, dtype, batch, heads, sq,
-             skv, d, strides, scale, causal, window, kv_start, stream);
+  return fwd(kLse, q, k, v, qseg, kseg, out, lse, nullptr, nullptr, dtype,
+             batch, heads, sq, skv, d, strides, scale, causal, window,
+             kv_start, stream);
+}
+
+// K5: the unnormalized f32 acc [B, Sq, H, D], row max m and normalizer l
+// [B, Sq, H] (f32 for f32 and bf16 inputs alike).
+int flash_fwd_stats(const void* q, const void* k, const void* v,
+                    const int* qseg, const int* kseg, float* acc, float* m,
+                    float* l, int dtype, int batch, int heads, int sq,
+                    int skv, int d, const int64_t* strides, float scale,
+                    int causal, int window, int kv_start,
+                    cudaStream_t stream) {
+  return fwd(kStats, q, k, v, qseg, kseg, acc, nullptr, m, l, dtype, batch,
+             heads, sq, skv, d, strides, scale, causal, window, kv_start,
+             stream);
 }
 
 // K6: dQ.

@@ -42,28 +42,38 @@ class ShuffleBatchIterator:
 
     Contract parity with ``tf.train.shuffle_batch`` (``cifar10cnn.py:85-90``):
     endless repetition, per-epoch reshuffle (a fresh uniform permutation),
-    fixed batch size.
+    fixed batch size. ``shard``/``num_shards`` keep every
+    ``num_shards``-th record from ``shard`` on (the JAX package's
+    ``[shard::num_shards]`` split); ``total_records`` stays the count
+    before the split, the denominator of a distributed full-split eval.
     """
 
     def __init__(self, files: List[str], cfg: DataConfig, batch_size: int,
-                 train: bool = True, seed: int = 0, _arrays=None):
+                 train: bool = True, seed: int = 0, shard: int = 0,
+                 num_shards: int = 1, _arrays=None):
         self.cfg = cfg
         self.batch_size = batch_size
         self.train = train
         self.rng = np.random.default_rng(seed)
         images, labels = _arrays if _arrays is not None \
             else _load_split(files, cfg)
+        self.total_records = images.shape[0]
+        self.num_shards = num_shards
+        if num_shards > 1:
+            images, labels = images[shard::num_shards], labels[shard::num_shards]
         self.images, self.labels = images, labels
-        self.total_records = self.n = images.shape[0]
+        self.n = images.shape[0]
         self._perm = self.rng.permutation(self.n)
         self._cursor = 0
 
     def clone(self, seed: int) -> "ShuffleBatchIterator":
         """Second independent stream over the SAME decoded arrays — the
         fresh-batch train-accuracy stream (``cifar10cnn.py:235``)."""
-        return ShuffleBatchIterator([], self.cfg, self.batch_size,
-                                    train=self.train, seed=seed,
-                                    _arrays=(self.images, self.labels))
+        it = ShuffleBatchIterator([], self.cfg, self.batch_size,
+                                  train=self.train, seed=seed,
+                                  _arrays=(self.images, self.labels))
+        it.total_records, it.num_shards = self.total_records, self.num_shards
+        return it
 
     def _next_indices(self, k: int) -> np.ndarray:
         out = np.empty(k, dtype=np.int64)
@@ -100,12 +110,16 @@ class ShuffleBatchIterator:
         return Batch(self._finish(self.images[idx]), self.labels[idx])
 
     def num_padded_sweep_batches(self) -> int:
-        return -(-self.n // self.batch_size)
+        """Batches every shard contributes, so a sharded sweep issues the
+        same number of collective steps on every rank (strided shards
+        differ by at most one record)."""
+        max_shard = -(-self.total_records // max(self.num_shards, 1))
+        return -(-max_shard // self.batch_size)
 
     def full_sweep_padded(self) -> Iterator[Batch]:
         """Fixed-shape single pass: every batch has exactly ``batch_size``
         rows; pad rows carry label -1 (never an argmax in [0, K)), so they
-        add 0 correct predictions."""
+        add 0 correct predictions. Every shard yields the same count."""
         for b in range(self.num_padded_sweep_batches()):
             start = min(b * self.batch_size, self.n)
             stop = min(start + self.batch_size, self.n)
@@ -191,11 +205,19 @@ class PrefetchIterator:
 
 
 def input_pipeline(cfg: DataConfig, batch_size: int, train: bool = True,
-                   seed: int = 0) -> ShuffleBatchIterator:
+                   seed: int = 0, shard: int = 0,
+                   num_shards: int = 1) -> ShuffleBatchIterator:
     """Batch iterator for the train or test split (``input_pipeline``,
     ``cifar10cnn.py:72-91``). Like the reference, the test split is
-    shuffle-batched too; ``full_sweep_padded`` is the full-split eval."""
+    shuffle-batched too; ``full_sweep_padded`` is the full-split eval.
+
+    A multi-rank run shards by DATA rank (``shard`` = data rank,
+    ``num_shards`` = data ranks), so the seq ranks of one data row read
+    the same batch and split its tokens. The JAX package shards by
+    process (``train/loop.py:376-397``) because its sequence parallelism
+    runs inside one process's mesh."""
     download.ensure_dataset(cfg)
     files = download.train_files(cfg) if train else download.test_files(cfg)
     return ShuffleBatchIterator(files, cfg, batch_size, train=train,
-                                seed=seed)
+                                seed=seed, shard=shard,
+                                num_shards=num_shards)

@@ -40,8 +40,12 @@ class _Layer(nn.Module):
 
 
 class CNN(nn.Module):
-    def __init__(self, cfg: ModelConfig, data: DataConfig):
+    def __init__(self, cfg: ModelConfig, data: DataConfig, mesh=None):
         super().__init__()
+        if mesh is not None and mesh.seq > 1:
+            raise NotImplementedError(
+                "the CNN's spatial partitioning over --seq_axis is not "
+                "ported (ROADMAP.md Queue 1); it trains data-parallel")
         self.cfg = cfg
         h, w = L.pooled_hw(data.crop_height, data.crop_width, n_pools=2)
         self.conv1 = _Layer((64, data.num_channels, 5, 5), 64)

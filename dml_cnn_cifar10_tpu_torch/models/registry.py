@@ -1,7 +1,8 @@
 """Model registry: name → model class.
 
-A model class takes ``(model_cfg, data_cfg)`` and builds an ``nn.Module``
-with uninitialized parameters; its ``reset_parameters(generator)``
+A model class takes ``(model_cfg, data_cfg, mesh=None)`` and builds an
+``nn.Module`` with uninitialized parameters (the ViT splits its tokens
+over the mesh's seq ranks); its ``reset_parameters(generator)``
 initializes them. The reference CNN and the dense ViT are ported. The
 JAX package's other models raise ``NotImplementedError`` naming the
 ROADMAP queue item that ports them.

@@ -26,11 +26,20 @@ Parity traps, mirrored on purpose:
   (``vit.py:205-208``); cls is prepended before ``pos`` is added.
 - EVERY param, LayerNorm included, is cast to ``compute_dtype`` before use
   (``vit.py:200-202``) — explicit casts, not autocast; logits return f32.
+
+Sequence parallelism (``vit.py:184-226``): with a mesh whose ``seq`` > 1
+the patches are embedded and ``pos`` added on the full image, each rank
+keeps its ``S/seq`` token slice through the blocks, attention is ring
+attention over the seq ranks (``parallel/ring_attention.py``), and the
+mean pool sums the token slices with a differentiable all-reduce. That
+needs ``pool="mean"`` (a cls token breaks even seq sharding) and a token
+count the seq ranks divide.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +49,8 @@ from torch.utils.checkpoint import checkpoint
 from dml_cnn_cifar10_tpu_torch.config import DataConfig, ModelConfig
 from dml_cnn_cifar10_tpu_torch.ops import attention as attn
 from dml_cnn_cifar10_tpu_torch.ops import layers as L
+from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+from dml_cnn_cifar10_tpu_torch.parallel import ring_attention as ring
 
 MLP_RATIO = 4
 LN_EPS = 1e-6
@@ -62,9 +73,13 @@ class _Leaves(nn.Module):
 
 
 class ViT(nn.Module):
-    def __init__(self, cfg: ModelConfig, data: DataConfig):
+    def __init__(self, cfg: ModelConfig, data: DataConfig,
+                 mesh: Optional[mesh_lib.Mesh] = None):
         super().__init__()
         self.cfg = cfg
+        # The ring runs when the mesh has seq ranks; a mesh without (data
+        # parallelism alone) leaves the forward as it is.
+        self.mesh = mesh if mesh is not None and mesh.seq > 1 else None
         dim, depth, p = cfg.vit_dim, cfg.vit_depth, cfg.patch_size
         ph, pw = data.crop_height // p, data.crop_width // p
         if ph * p != data.crop_height or pw * p != data.crop_width:
@@ -78,6 +93,18 @@ class ViT(nn.Module):
             raise ValueError(f"vit_dim {dim} is not divisible by vit_heads "
                              f"{cfg.vit_heads}")
         self.seq = ph * pw + (1 if cfg.pool == "cls" else 0)
+        if self.mesh is not None:
+            if cfg.sp_mode != "ring":
+                raise NotImplementedError(
+                    f"sp_mode {cfg.sp_mode!r} is not ported; the port has "
+                    "ring attention (ROADMAP.md Queue 1)")
+            if cfg.pool != "mean":
+                raise ValueError(
+                    "sequence parallelism needs pool='mean' (a cls token "
+                    "breaks even seq sharding)")
+            if self.seq % self.mesh.seq:
+                raise ValueError(f"{self.seq} tokens not divisible by seq "
+                                 f"axis {self.mesh.seq}")
         dt = _DTYPES[cfg.dtype]
         hidden = dim * MLP_RATIO
         self.patch = _Leaves(dt, kernel=(p, p, data.num_channels, dim),
@@ -128,8 +155,13 @@ class ViT(nn.Module):
         qkv = L.dense(h, p["qkv.kernel"], p["qkv.bias"])
         qkv = qkv.reshape(b, s, cfg.vit_heads, 3, dim // cfg.vit_heads)
         q, k, v = qkv.unbind(3)                       # heads-major
-        o = attn.dispatch_attention(q, k, v, causal=cfg.attn_causal,
-                                    window=cfg.attn_window)
+        if self.mesh is not None:
+            o = ring.ring_attention_local(q, k, v, self.mesh,
+                                          causal=cfg.attn_causal,
+                                          window=cfg.attn_window)
+        else:
+            o = attn.dispatch_attention(q, k, v, causal=cfg.attn_causal,
+                                        window=cfg.attn_window)
         x = x + L.dense(o.reshape(b, s, dim), p["proj.kernel"],
                         p["proj.bias"])
         h = F.layer_norm(x, (dim,), p["ln2.scale"], p["ln2.bias"], LN_EPS)
@@ -151,6 +183,8 @@ class ViT(nn.Module):
         if cfg.pool == "cls":
             x = torch.cat([self.cls.to(cdt).expand(b, 1, dim), x], dim=1)
         x = x + self.pos.to(cdt)
+        if self.mesh is not None:
+            x = ring.seq_shard(x, self.mesh, "tokens")
         # One unbind per stacked leaf: its backward stacks the per-block
         # gradients in one op.
         stacked = {f"{mod}.{leaf}": getattr(getattr(self.blocks, mod), leaf)
@@ -163,7 +197,14 @@ class ViT(nn.Module):
                 x = self._block(x, p)
         x = F.layer_norm(x, (dim,), self.ln_f.scale.to(cdt),
                          self.ln_f.bias.to(cdt), LN_EPS)
-        pooled = x.mean(dim=1) if cfg.pool == "mean" else x[:, 0]
+        if self.mesh is not None:
+            # The mean over every rank's tokens: an f32 sum of the local
+            # slice, summed over the seq ranks (gradient summed back).
+            pooled = (mesh_lib.all_reduce_sum(x.float().sum(dim=1),
+                                              self.mesh, "seq")
+                      / self.seq).to(cdt)
+        else:
+            pooled = x.mean(dim=1) if cfg.pool == "mean" else x[:, 0]
         logits = L.dense(pooled, self.head.kernel.to(cdt),
                          self.head.bias.to(cdt))
         if cfg.logit_relu:   # shared faithful-mode switch (cifar10cnn.py:145)

@@ -6,7 +6,9 @@ matrix never reaches device memory in either direction:
 
 - forward: :func:`flash_attention_fwd_lse` (kernel K4) emits the output and
   the row logsumexp ``lse = m + log l``; the output-only forward (K3) runs
-  when no gradient is wanted;
+  when no gradient is wanted; :func:`flash_attention_stats` (K5) emits the
+  raw partial-softmax state ``(acc, m, l)`` that ring attention merges
+  across K/V shards (``parallel/ring_attention.py``);
 - backward (the FlashAttention-2 recompute form):
   :func:`flash_attention_bwd` rebuilds each score block from Q/K and the
   saved ``lse`` and uses ``D = rowsum(dO ∘ O)`` (:func:`attention_delta`)
@@ -19,13 +21,14 @@ computes ``delta`` in plain torch and launches K6 and K7.
 
 - **CUDA kernels** (``csrc/flash_attention.cu``, built for ``sm_90a``):
   ``flash_out_kernel`` (K3) replaces the Pallas ``_flash_kernel``,
-  ``flash_lse_kernel`` (K4) ``_flash_fwd_kernel``, ``flash_dq_kernel``
-  (K6) ``_flash_bwd_dq_kernel`` and ``flash_dkv_kernel`` (K7)
+  ``flash_lse_kernel`` (K4) ``_flash_fwd_kernel``, ``flash_stats_kernel``
+  (K5) ``_flash_stats_kernel``, ``flash_dq_kernel`` (K6)
+  ``_flash_bwd_dq_kernel`` and ``flash_dkv_kernel`` (K7)
   ``_flash_bwd_dkv_kernel``. They read ``[B, S, H, D]`` tensors through
   their B/S/H strides (the head dim must be contiguous), take f32 or bf16
   with head dim 32, 64 or 128, and write lse as ``[B, S, H]`` f32.
 - **Plain versions** (:func:`flash_attention_plain`,
-  :func:`flash_attention_bwd_plain`): dense masked f32 softmax and its
+  :func:`flash_attention_stats_plain`, :func:`flash_attention_bwd_plain`): dense masked f32 softmax and its
   dense FA-2 backward, with the same dead-row rule. The wrappers take them
   only for tensors on the CPU; on the card they are only the reference
   that ``chip_smoke.py`` holds the kernels against.
@@ -40,7 +43,10 @@ the lower half), ``segment_ids`` (a ``[B, S]`` tensor or a ``(q_seg,
 kv_seg)`` pair; same-segment pairs only) and ``kv_start`` (the global
 column of key 0, seen by the causal/window comparisons only). Masked
 scores are ``NEG_INF = -1e30``. A row with no live key outputs exactly 0
-and publishes ``lse = 1e30``, so the backward's ``p`` is exactly 0 there.
+and publishes ``lse = 1e30``, so the backward's ``p`` is exactly 0 there;
+its K5 state is ``m = -1e30``, ``l = 0``, ``acc = 0`` exactly (the Pallas
+stats kernel leaves ``l``/``acc`` undefined on such rows, so a comparison
+with it looks at ``m`` only).
 """
 
 from __future__ import annotations
@@ -57,10 +63,10 @@ DEAD_LSE = 1e30   # lse of a row with no live key
 HEAD_DIMS = (32, 64, 128)   # head dims the kernels are built for
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel:
-#: ``flash_fwd`` K3, ``flash_fwd_lse`` K4, ``flash_bwd_dq`` K6,
-#: ``flash_bwd_dkv`` K7.
-LAUNCHES = {"flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
+#: ``flash_fwd`` K3, ``flash_fwd_lse`` K4, ``flash_fwd_stats`` K5,
+#: ``flash_bwd_dq`` K6, ``flash_bwd_dkv`` K7.
+LAUNCHES = {"flash_fwd": 0, "flash_fwd_lse": 0, "flash_fwd_stats": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB: Optional[ctypes.CDLL] = None
@@ -82,10 +88,11 @@ def _lib() -> ctypes.CDLL:
         #                                             kv_start stream
         lib.flash_fwd_out.argtypes = [p, p, p, p, p, p, i] + shape
         lib.flash_fwd_lse.argtypes = [p, p, p, p, p, p, p, i] + shape
+        lib.flash_fwd_stats.argtypes = [p] * 8 + [i] + shape
         lib.flash_bwd_dq.argtypes = [p] * 9 + [i, i] + shape
         lib.flash_bwd_dkv.argtypes = [p] * 10 + [i, i, i] + shape
-        for fn in (lib.flash_fwd_out, lib.flash_fwd_lse, lib.flash_bwd_dq,
-                   lib.flash_bwd_dkv):
+        for fn in (lib.flash_fwd_out, lib.flash_fwd_lse, lib.flash_fwd_stats,
+                   lib.flash_bwd_dq, lib.flash_bwd_dkv):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -133,6 +140,22 @@ def _live(sq: int, skv: int, device, causal: bool, window: Optional[int],
     return live
 
 
+def _dense_partial(q, k, v, scale, causal, window, kv_start, q_seg,
+                   kv_seg):
+    """Dense masked f32 partial softmax: ``(acc [B,H,Sq,D] unnormalized,
+    m, l [B,H,Sq,1], dead [B,H,Sq,1])``; masked scores get ``p = 0``
+    outright, so a dead row keeps ``l = 0`` and ``acc = 0``."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    live = _live(q.shape[1], k.shape[1], q.device, causal, window, kv_start,
+                 q_seg, kv_seg)
+    s = torch.where(live, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(s - m), 0.0)
+    acc = torch.einsum("bhqk,bkhd->bhqd", p, vf)
+    return acc, m, p.sum(dim=-1, keepdim=True), m <= NEG_INF * 0.5
+
+
 def flash_attention_plain(q, k, v, scale=None, causal: bool = False,
                           segment_ids=None, window: Optional[int] = None,
                           kv_start: int = 0
@@ -140,20 +163,28 @@ def flash_attention_plain(q, k, v, scale=None, causal: bool = False,
     """``(out [B,Sq,H,D] in q's dtype, lse [B,Sq,H] f32)`` by a dense
     masked softmax in f32, with the kernels' dead-row rule."""
     scale = _resolve(q, scale, window)
-    q_seg, kv_seg = _norm_segments(segment_ids)
-    qf, kf, vf = q.float(), k.float(), v.float()
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    live = _live(q.shape[1], k.shape[1], q.device, causal, window, kv_start,
-                 q_seg, kv_seg)
-    s = torch.where(live, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    dead = m <= NEG_INF * 0.5
-    p = torch.where(live, torch.exp(s - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bkhd->bhqd", p, vf) / l
-    out = torch.where(dead, 0.0, out).permute(0, 2, 1, 3)
+    acc, m, l, dead = _dense_partial(q, k, v, scale, causal, window,
+                                     kv_start, *_norm_segments(segment_ids))
+    l = l.clamp_min(1e-30)
+    out = torch.where(dead, 0.0, acc / l).permute(0, 2, 1, 3)
     lse = torch.where(dead, DEAD_LSE, m + torch.log(l))[..., 0]
     return out.to(q.dtype).contiguous(), lse.permute(0, 2, 1).contiguous()
+
+
+def flash_attention_stats_plain(q, k, v, scale=None, causal: bool = False,
+                                segment_ids=None,
+                                window: Optional[int] = None,
+                                kv_start: int = 0):
+    """``(acc [B,Sq,H,D], m [B,Sq,H], l [B,Sq,H])``, all f32, by a dense
+    masked softmax: K5's partial state, dead rows at ``m = -1e30``,
+    ``l = 0``, ``acc = 0``."""
+    scale = _resolve(q, scale, window)
+    acc, m, l, dead = _dense_partial(q, k, v, scale, causal, window,
+                                     kv_start, *_norm_segments(segment_ids))
+    acc = torch.where(dead, 0.0, acc).permute(0, 2, 1, 3).contiguous()
+    m = torch.where(dead, NEG_INF, m)[..., 0].permute(0, 2, 1).contiguous()
+    l = torch.where(dead, 0.0, l)[..., 0].permute(0, 2, 1).contiguous()
+    return acc, m, l
 
 
 def flash_attention_bwd_plain(q, k, v, do, lse, delta, scale=None,
@@ -242,37 +273,43 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+# mode -> (C function, LAUNCHES key, per-row f32 outputs besides ``out``)
+_FWD = {"out": ("flash_fwd_out", "flash_fwd", 0),
+        "lse": ("flash_fwd_lse", "flash_fwd_lse", 1),
+        "stats": ("flash_fwd_stats", "flash_fwd_stats", 2)}
+
+
 def _fwd_launch(q, k, v, scale, causal, window, kv_start, q_seg, kv_seg,
-                with_lse: bool):
+                mode: str):
+    """K3 (``out``), K4 (``lse``: out, lse) or K5 (``stats``: f32 acc, m,
+    l). Returns the tuple of outputs."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     _check([q, k, v], [q.shape, (b, skv, h, d), (b, skv, h, d)],
            "flash_attention")
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device) \
-        if with_lse else None
+    fn_name, name, n_rows = _FWD[mode]
+    out = torch.empty((b, sq, h, d), device=q.device,
+                      dtype=torch.float32 if mode == "stats" else q.dtype)
+    rows = [torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+            for _ in range(n_rows)]
     if out.numel() == 0:
-        if lse is not None:
-            lse.fill_(DEAD_LSE)
-        return out, lse
+        if mode == "lse":
+            rows[0].fill_(DEAD_LSE)
+        elif mode == "stats":
+            rows[0].fill_(NEG_INF)
+            rows[1].zero_()
+        return (out, *rows)
     q_seg, kv_seg, qs, ks = _seg_args(q_seg, kv_seg, q, k)
-    lib = _lib()
+    fn = getattr(_lib(), fn_name)
     shape = (_DTYPES[q.dtype], b, h, sq, skv, d, _strides(q, k, v), scale,
              int(causal), int(window or 0), int(kv_start))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if with_lse:
-            rc = lib.flash_fwd_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   qs, ks, out.data_ptr(), lse.data_ptr(),
-                                   *shape, stream)
-            name = "flash_fwd_lse"
-        else:
-            rc = lib.flash_fwd_out(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   qs, ks, out.data_ptr(), *shape, stream)
-            name = "flash_fwd"
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qs, ks,
+                out.data_ptr(), *(t.data_ptr() for t in rows), *shape,
+                torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, name)
     LAUNCHES[name] += 1
-    return out, lse
+    return (out, *rows)
 
 
 def _bwd_prepare(q, k, v, do, lse, delta, out_dtype, q_seg, kv_seg):
@@ -353,8 +390,9 @@ def _forward(q, k, v, scale, causal, window, kv_start, q_seg, kv_seg,
         out, lse = flash_attention_plain(q, k, v, scale, causal, seg, window,
                                          kv_start)
         return out, (lse if with_lse else None)
-    return _fwd_launch(q, k, v, scale, causal, window, kv_start, q_seg,
-                       kv_seg, with_lse)
+    res = _fwd_launch(q, k, v, scale, causal, window, kv_start, q_seg,
+                      kv_seg, "lse" if with_lse else "out")
+    return res[0], (res[1] if with_lse else None)
 
 
 def _backward(q, k, v, do, lse, delta, scale, causal, out_dtype, window,
@@ -428,6 +466,29 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
     q_seg, kv_seg = _norm_segments(segment_ids)
     return _forward(q, k, v, scale, causal, window, int(kv_start), q_seg,
                     kv_seg, with_lse=True)
+
+
+@torch.no_grad()
+def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: Optional[float] = None,
+                          causal: bool = False, segment_ids=None,
+                          window: Optional[int] = None, kv_start: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """FlashAttention's raw partial-softmax state (K5): ``(acc [B,Sq,H,D]
+    f32 UNNORMALIZED, m [B,Sq,H] f32 row max, l [B,Sq,H] f32
+    normalizer)``; the output is ``acc / l``. Partials over different K/V
+    shards merge with the flash rule in f32 — the ring-attention
+    interface. A row with no live key gives ``m = -1e30``, ``l = 0``,
+    ``acc = 0``."""
+    scale = _resolve(q, scale, window)
+    q_seg, kv_seg = _norm_segments(segment_ids)
+    if not q.is_cuda:
+        seg = None if q_seg is None else (q_seg, kv_seg)
+        return flash_attention_stats_plain(q, k, v, scale, causal, seg,
+                                           window, int(kv_start))
+    return _fwd_launch(q, k, v, scale, causal, window, int(kv_start), q_seg,
+                       kv_seg, "stats")
 
 
 @torch.no_grad()

@@ -1,1 +1,2 @@
-"""Training/eval steps. Only the single-device step is ported so far."""
+"""Training/eval steps, the process mesh and its collectives, the
+multi-process bootstrap and ring attention."""

@@ -17,7 +17,18 @@ Faithful-mode details mirrored deliberately:
 
 The host reads the device only at those boundaries: the loss and the
 fresh-batch accuracy (one copy), the eval count, and the checkpoint.
-Left out of this slice: the supervisor, peers, fault injection, the
+
+Several processes (``ParallelConfig.num_processes`` > 1) form one
+``data x seq`` mesh (``parallel/mesh.py``), one card each at
+``cuda:{rank % device_count}``: each data rank trains on its
+``batch_size // data`` slice of the global batch, read from its own
+``[data_rank::data]`` shard of the records; the seq ranks of one data
+row read the same slice and split its tokens. The chief generates the
+synthetic data and writes the checkpoints; every rank prints its own
+console lines, and only the chief writes the metrics JSONL. ``images/s``
+counts the global batch.
+
+Left out: the supervisor, peers, fault injection, the
 autopilot, chunked/resident dispatch and exact-resume data order (a
 resumed run restarts the data stream from its seed, as the reference's
 MonitoredTrainingSession restart does).
@@ -33,12 +44,16 @@ import torch
 
 from dml_cnn_cifar10_tpu_torch import ckpt as ckpt_lib
 from dml_cnn_cifar10_tpu_torch.config import TrainConfig
+from dml_cnn_cifar10_tpu_torch.data import download
 from dml_cnn_cifar10_tpu_torch.data import pipeline as pipe
 from dml_cnn_cifar10_tpu_torch.models.registry import get_model
+from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+from dml_cnn_cifar10_tpu_torch.parallel import multihost
 from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
 from dml_cnn_cifar10_tpu_torch.train import optim as optim_lib
 from dml_cnn_cifar10_tpu_torch.utils.logging import MetricsLogger
-from dml_cnn_cifar10_tpu_torch.utils.platform import resolve_device
+from dml_cnn_cifar10_tpu_torch.utils.platform import (default_backend,
+                                                      rank_device)
 
 
 @dataclasses.dataclass
@@ -52,11 +67,31 @@ class Trainer:
     def __init__(self, cfg: TrainConfig, task_index: int = 0):
         self.cfg = cfg
         self.task_index = task_index
-        self.device = resolve_device(cfg.device)
-        self.model = get_model(cfg.model.name)(cfg.model, cfg.data)
-        self.logger = MetricsLogger(cfg.metrics_jsonl, task_index=task_index)
-        self.train_step = step_lib.make_train_step(self.model, cfg.optim)
-        self.eval_step = step_lib.make_eval_step(self.model)
+        par = cfg.parallel
+        self.device = rank_device(cfg.device, par.process_id)
+        if par.num_processes > 1:
+            backend = par.dist_backend or default_backend(self.device)
+            multihost.initialize(par, backend, self.device)
+        self.mesh = mesh_lib.build_mesh(par)
+        m = self.mesh
+        if cfg.batch_size % m.data:
+            raise ValueError(f"batch_size {cfg.batch_size} does not split "
+                             f"over {m.data} data rank(s)")
+        self.local_batch = cfg.batch_size // m.data
+        if m.world > 1:
+            print(f"[dist] rank {m.rank}/{m.world} (data {m.data_rank}/"
+                  f"{m.data}, seq {m.seq_rank}/{m.seq}) on {self.device}, "
+                  f"backend {m.backend}, {self.local_batch} images a step",
+                  flush=True)
+            # One writer for the shared synthetic files; the others wait.
+            if m.chief:
+                download.ensure_dataset(cfg.data)
+            m.barrier()
+        self.model = get_model(cfg.model.name)(cfg.model, cfg.data, mesh=m)
+        self.logger = MetricsLogger(cfg.metrics_jsonl if m.chief else None,
+                                    task_index=task_index)
+        self.train_step = step_lib.make_train_step(self.model, cfg.optim, m)
+        self.eval_step = step_lib.make_eval_step(self.model, m)
 
     def init_or_restore(self) -> step_lib.TrainState:
         """Fresh state from ``cfg.seed``, overwritten by the newest
@@ -69,12 +104,20 @@ class Trainer:
     def _placed(self, batch: pipe.Batch):
         return pipe.to_device(batch, self.device)
 
+    def input_pipeline(self, train: bool, seed: int
+                       ) -> pipe.ShuffleBatchIterator:
+        """This data rank's shard of a split, at the per-rank batch."""
+        shard = self.mesh.data_rank
+        return pipe.input_pipeline(self.cfg.data, self.local_batch,
+                                   train=train, seed=seed + shard,
+                                   shard=shard, num_shards=self.mesh.data)
+
     def evaluate(self, state: step_lib.TrainState,
                  test_it: pipe.ShuffleBatchIterator) -> float:
         """Faithful: accuracy on ONE shuffled test batch
         (``cifar10cnn.py:202,238``); fixed: full-split sweep with
-        fixed-shape padded batches, the count summed on the device and
-        read once."""
+        fixed-shape padded batches, the count summed on the device (and
+        over the data ranks' shards) and read once."""
         if self.cfg.eval_full_test_set:
             correct = None
             for batch in test_it.full_sweep_padded():
@@ -92,17 +135,16 @@ class Trainer:
         total_steps = total_steps or cfg.total_steps
         state = state if state is not None else self.init_or_restore()
         start_step = int(state.step)
-        train_it = pipe.input_pipeline(cfg.data, cfg.batch_size, train=True,
-                                       seed=cfg.seed)
-        test_it = pipe.input_pipeline(cfg.data, cfg.batch_size, train=False,
-                                      seed=cfg.seed)
+        train_it = self.input_pipeline(train=True, seed=cfg.seed)
+        test_it = self.input_pipeline(train=False, seed=cfg.seed)
         # Fresh-batch train accuracy (cifar10cnn.py:235) — an independent
         # stream over the same decoded arrays.
-        acc_it = train_it.clone(seed=cfg.seed + 7)
+        acc_it = train_it.clone(seed=cfg.seed + 7 + self.mesh.data_rank)
         prefetch = pipe.PrefetchIterator(train_it, depth=cfg.data.prefetch,
                                          place=self._placed)
         ckpt_mgr = ckpt_lib.CheckpointManager(
-            cfg.log_dir, cfg.checkpoint_every, keep=cfg.keep_checkpoints)
+            cfg.log_dir, cfg.checkpoint_every, keep=cfg.keep_checkpoints,
+            mesh=self.mesh)
         metrics = None
         # Throughput windows run between drained boundaries and skip the
         # boundary work (eval, checkpoint) itself.

@@ -21,3 +21,20 @@ def resolve_device(name: str = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r}; use cuda or cpu")
     return dev
+
+
+def rank_device(name: str, rank: int) -> torch.device:
+    """The device of process ``rank``: ``cuda:{rank % device_count}`` for a
+    bare "cuda" (several ranks share a card when there are more ranks
+    than cards), ``name`` itself otherwise."""
+    dev = resolve_device(name)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return dev
+
+
+def default_backend(device: torch.device) -> str:
+    """``torch.distributed`` backend when the caller names none: NCCL for
+    cards, gloo for the CPU. Several ranks on one card must ask for gloo
+    themselves: NCCL refuses two ranks on one device."""
+    return "nccl" if device.type == "cuda" else "gloo"

@@ -99,8 +99,13 @@ def test_reference_cluster_flags(tmp_path, capsys):
     assert main(["--job_name=ps", "--ps_hosts=x:1",
                  "--worker_hosts=y:2"]) == 0
     assert "obsolete" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(_args(tmp_path, "--worker_hosts", "a:1,b:2"))
+    # Several workers start a torch.distributed world (tests/
+    # test_torch_parallel.py); a host list that cannot form one is refused
+    # before anything is written.
+    for hosts, task in (("a:1,b:2", 2), ("a:1,a:1", 0), ("a:1,", 0)):
+        with pytest.raises(ValueError):
+            main(_args(tmp_path, "--worker_hosts", hosts, "--task_index",
+                       str(task)))
     assert not os.path.exists(tmp_path / "logs")
 
 
