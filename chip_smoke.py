@@ -12,7 +12,9 @@ order; any failure ends the run with a non-zero exit:
             power limit.
 2. build    compile every ``csrc/*.cu`` afresh with ``nvcc`` (one process
             per source, all started together: ``sgd_update.cu`` and
-            ``flash_attention.cu``); print ptxas's report.
+            ``flash_attention.cu``); print ptxas's report, and for each of
+            the 18 K6/K7 instances its registers, stack, spills and
+            dynamic shared memory: the head-dim-64 ones must not spill.
 3. parity   K1 ``sgd_update_plain`` and K2 ``sgd_update_momentum`` against
             their plain PyTorch version on the CNN's 10 leaf shapes plus
             ragged and misaligned ones, for (mu, wd) in {0, 0.9} x {0, 5e-4}:
@@ -49,7 +51,8 @@ order; any failure ends the run with a non-zero exit:
 11. flash timing  each flash kernel at [128, 257, 3, 64] f32 and
             [2, 8100, 3, 64] bf16: CUDA events, device time, the plain
             version, ``F.scaled_dot_product_attention`` (a yardstick the
-            port never calls) and the bound.
+            port never calls) and the bound; for K6/K7 also the
+            tensor-core bound of the split products they issue.
 12. vit train  the main path with ``--model vit_tiny``: ViT-Ti at full
             width (dim 192, depth 12, 3 heads, 64x64 crop = 257 tokens,
             5,399,626 f32 params), AdamW + cosine, batch 128, 200 steps on
@@ -76,7 +79,11 @@ order; any failure ends the run with a non-zero exit:
             -S / +S with window 512, against the plain version: 5e-5.
 17. stats timing  K5 at [2, 4050, 3, 64] bf16: CUDA events, device time,
             the plain version, ``F.scaled_dot_product_attention`` forward
-            and the bound; the ring's K6/K7 at that block on a card alone.
+            and the bound; the ring's K6/K7 at that block on a card alone,
+            with their bounds, TFLOP/s and SDPA's backward on the block
+            (contiguous [B, H, S, D] inputs, warmed up, read A/B/B/A
+            against the pair by CUDA events and by device time; the
+            kernel it picked is printed).
 The distributed phases (``dist_phases``) run each rank as a process of its
 own (this script with ``--rank R --job FILE``, after the build): over NCCL
 with a card each when there are two cards, else both on this card over
@@ -214,30 +221,33 @@ def cuda_ms(fn, reps=500, warmup=50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, needle: str, reps=100):
-    """Device time per ``fn()`` of the kernels whose name holds
-    ``needle``, from torch.profiler; None when the trace shows none. The
-    trace can miss one kernel event of a profiling run (seen on the card:
-    one of two), so the time is the mean per traced kernel times the
-    kernels per call, not the sum over ``reps``."""
+def kernel_ms(fn, reps=50) -> dict:
+    """Device ms per ``fn()`` of each kernel (and device memset or copy) it
+    runs, by name, from torch.profiler. The trace can miss one kernel
+    event of a profiling run (seen on the card: one of two), so each is
+    its mean per traced event times its events per call, not the sum over
+    ``reps``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
+    out = {}
     for ev in prof.key_averages():
-        if needle in ev.key:
-            total_us += (getattr(ev, "device_time_total", None)
-                         or getattr(ev, "cuda_time_total", 0.0))
-            count += ev.count
-    if total_us <= 0 or count == 0:
-        return None
-    per_call = max(1, round(count / reps))
-    return total_us / count * per_call / 1000.0
+        us = (getattr(ev, "self_device_time_total", None)
+              or getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0 and ev.count:
+            out[ev.key] = us / ev.count * max(1, round(ev.count / reps)) / 1e3
+    return out
+
+
+def device_ms(fn, needle: str, reps=100):
+    """Device time per ``fn()`` of the kernels whose name holds
+    ``needle`` (``kernel_ms``); None when the trace shows none."""
+    found = [ms for name, ms in kernel_ms(fn, reps).items() if needle in name]
+    return sum(found) if found else None
 
 
 def profile_step(args, train_recs, card, steps=50) -> None:
@@ -294,6 +304,70 @@ def profile_step(args, train_recs, card, steps=50) -> None:
           f"the step) in {sum(r[1] for r in rows)} kernels, on {card}")
     for ms, n, name in rows[:12]:
         print(f"[profile]   {ms:.5f} ms/step  x{n}  {name[:110]}")
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_BWD_INSTANCE = re.compile(r"(flash_dq_kernel|flash_dkv_kernel)I(f|13__nv_"
+                           r"bfloat16)Li(\d+)ELi(\d+)E")
+
+
+def ptxas_bwd_report(log: str) -> list:
+    """ptxas's registers, stack and spills for every K6/K7 instance (input
+    dtype x head dim x P/dS terms), beside the dynamic shared memory it
+    launches with. Fails unless all 18 are found and the head-dim-64
+    instances (the main paths') spill nothing."""
+    import ctypes
+
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+    smem_of = fa._lib().flash_bwd_smem_bytes
+    smem_of.argtypes, smem_of.restype = [ctypes.c_int] * 3, ctypes.c_int
+    found, cur = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            cur = found.setdefault(m[1], {})
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m and cur is not None:
+            cur.update(stack_bytes=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        m = _PTXAS_REGS.search(line)
+        if m and cur is not None:
+            cur["registers"] = int(m[1])
+    report = []
+    for name, info in sorted(found.items()):
+        m = _BWD_INSTANCE.search(name)
+        if not m:
+            continue
+        dt = 0 if m[2] == "f" else 1
+        report.append(dict(kernel=m[1], dtype=["float32", "bfloat16"][dt],
+                           head_dim=int(m[3]), terms=int(m[4]),
+                           smem_bytes=smem_of(int(m[1] == "flash_dkv_kernel"),
+                                              dt, int(m[3])), **info))
+    for r in report:
+        print(f"[build] {r['kernel']} {r['dtype']} D={r['head_dim']} "
+              f"P/dS terms {r['terms']}: {r.get('registers')} registers, "
+              f"{r.get('stack_bytes')} B stack, {r.get('spill_stores')}/"
+              f"{r.get('spill_loads')} B spill stores/loads, "
+              f"{r['smem_bytes']} B dynamic shared memory")
+    check(len(report) == 18 and all("spill_loads" in r for r in report),
+          f"ptxas reported {len(report)} K6/K7 instances, want 18")
+    check(all(r["spill_stores"] == r["spill_loads"] == 0 for r in report
+              if r["head_dim"] == 64), "a head-dim-64 K6/K7 instance spills")
+    return report
+
+
+def bwd_tc_flops(kname: str, f32_in: bool, f32_grads: bool) -> int:
+    """Tensor-core FLOPs per B·H·Sq·Skv·D that K6 (S, dP, dQ) or K7 (S,
+    dP, dV, dK) issue: 2 per product times the term pairs of its split
+    (f32 inputs: 6 for every product; bf16 inputs: 1 for S and dP, and 3
+    for the second products with f32 gradients, else 1)."""
+    first = 6 if f32_in else 1
+    second = 6 if f32_in else (3 if f32_grads else 1)
+    return 2 * (2 * first + (1 if kname == "flash_bwd_dq" else 2) * second)
 
 
 # ---- the flash-attention kernels (K3, K4, K6, K7) -----------------------
@@ -467,6 +541,28 @@ def timed_ms(fn, min_ms=300.0):
     return cuda_ms(fn, reps=reps, warmup=max(1, reps // 4)), reps
 
 
+def sdpa_backward(q, k, v, do):
+    """``F.scaled_dot_product_attention``'s autograd backward (dQ, dK and
+    dV together, gradients in the input's dtype), a yardstick the port
+    never calls, on contiguous [B, H, S, D] copies of the [B, S, H, D]
+    inputs and warmed up. Returns ``(fn, backend)``: the call to time and
+    the name of the device kernel that takes most of its time."""
+    import torch.nn.functional as F
+
+    qg, kg, vg = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dog = do.transpose(1, 2).contiguous()
+    og = F.scaled_dot_product_attention(qg, kg, vg)
+
+    def fn():
+        return torch.autograd.grad(og, (qg, kg, vg), dog, retain_graph=True)
+
+    cuda_ms(fn, reps=1, warmup=20)
+    per_kernel = kernel_ms(fn, reps=5)
+    backend = max(per_kernel, key=per_kernel.get)[:120] if per_kernel else None
+    return fn, backend
+
+
 def flash_timing(dev, card, bytes_per_s, f32_ops) -> dict:
     """Each flash kernel at the main path's and the long shape: CUDA-event
     ms (launch included), the profiler's device ms, the plain version's
@@ -499,13 +595,10 @@ def flash_timing(dev, card, bytes_per_s, f32_ops) -> dict:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_fwd, _ = timed_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        qg, kg, vg = (t.detach().clone().requires_grad_()
-                      for t in (qt, kt, vt))
-        og = F.scaled_dot_product_attention(qg, kg, vg)
-        dog = do.transpose(1, 2)
-        lib_bwd, _ = timed_ms(lambda: torch.autograd.grad(
-            og, (qg, kg, vg), dog, retain_graph=True))
-        del og, qg, kg, vg
+        lib_fn, lib_backend = sdpa_backward(q, k, v, do)
+        lib_bwd, _ = timed_ms(lib_fn)
+        lib_bwd_device = sum(kernel_ms(lib_fn).values())
+        del lib_fn
         elem, n, rows = q.element_size(), b * s * h * d, b * s * h
         nbytes = {"flash_fwd": 4 * n * elem,
                   "flash_fwd_lse": 4 * n * elem + 4 * rows,
@@ -523,19 +616,31 @@ def flash_timing(dev, card, bytes_per_s, f32_ops) -> dict:
                 shape=[b, s, h, d], dtype=str(dtype).replace("torch.", ""),
                 ms=ms, device_ms=dms, plain_ms=plain_fwd if fwd else plain_bwd,
                 library_ms=lib_fwd if fwd else lib_bwd,
+                **({} if fwd else {"library_device_ms": lib_bwd_device}),
                 library=("F.scaled_dot_product_attention forward" if fwd else
                          "F.scaled_dot_product_attention backward (dQ, dK "
-                         "and dV together)"),
+                         f"and dV together; kernel {lib_backend})"),
                 bound_ms=max(by_ops, by_bytes),
                 bound_by="operations" if by_ops >= by_bytes else "bytes",
                 flops=flops, bytes=nbytes[kname])
             r = res[(kname, label)]
+            tc = ""
+            if not fwd:
+                # The split products K6/K7 issue on the tensor cores.
+                tc_flops = bwd_tc_flops(kname, dtype == torch.float32,
+                                        False) * b * h * s * s * d
+                r["bound_tc_ms"] = max(tc_flops / BF16_PEAK * 1e3, by_bytes)
+                r["tc_flops"] = tc_flops
+                tc = (f", tensor-core bound {r['bound_tc_ms']:.5f} ms "
+                      f"({tc_flops / ms / 1e9:.1f} TFLOP/s issued)")
             print(f"[flash timing] {kname} {label} {[b, s, h, d]} "
                   f"{r['dtype']}: kernel {ms:.5f} ms (device {dms} ms), "
                   f"plain {r['plain_ms']:.5f} ms, library "
-                  f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms "
+                  f"{r['library_ms']:.5f} ms"
+                  + ("" if fwd else f" (device {lib_bwd_device:.5f} ms)")
+                  + f", bound {r['bound_ms']:.5f} ms "
                   f"({r['bound_by']}; {flops / ms / 1e9:.1f} TFLOP/s "
-                  f"achieved) on {card}", flush=True)
+                  f"achieved){tc} on {card}", flush=True)
         del q, k, v, do, out, lse, delta
     return res
 
@@ -819,18 +924,74 @@ def stats_timing(dev, card, bytes_per_s) -> dict:
     delta = fa.attention_delta((acc / l[..., None]).to(q.dtype), do)
     bwd = (q, k, v, do, lse, delta, d ** -0.5, False, torch.float32, None,
            0, None, None)
+    # SDPA's backward on the same unmasked block (bf16 gradients) as the
+    # library time of K6 + K7 together, read A/B/B/A against the pair.
+    lib_fn, lib_backend = sdpa_backward(q, k, v, do)
+    plain_bwd, _ = timed_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, do, lse, delta, out_dtype=torch.float32))
+    launches = {"flash_bwd_dq": lambda: fa._dq_launch(*bwd),
+                "flash_bwd_dkv": lambda: fa._dkv_launch(*bwd)}
+
+    def pair():
+        return {name: timed_ms(fn) for name, fn in launches.items()}
+
+    def lib_read():
+        return timed_ms(lib_fn)[0], sum(kernel_ms(lib_fn).values())
+
+    lib_a = [lib_read()]
+    reads = [pair(), pair()]
+    lib_a.append(lib_read())
+    del lib_fn
+    # SDPA's backward at this block can be bound by its host dispatch
+    # (autograd), so the factor divides K6 + K7's event time (they are
+    # bound by the card) by SDPA's device time; its event times are kept
+    # beside it.
+    factors = [sum(r[0] for r in read.values()) / a[1]
+               for read, a in zip(reads, lib_a)]
+    lib_bwd = sum(a[0] for a in lib_a) / 2
+    lib_dev = sum(a[1] for a in lib_a) / 2
+    # K6 reads q, k, v, dO (bf16), lse and delta (f32) and writes dQ; K7
+    # reads the same and writes dK and dV; the gradients are f32.
+    grad_bytes = {"flash_bwd_dq": 4 * n, "flash_bwd_dkv": 8 * n}
     res["ring_bwd_ms"] = {}
-    for name, launch, needle in (("flash_bwd_dq", fa._dq_launch,
-                                  "flash_dq_kernel"),
-                                 ("flash_bwd_dkv", fa._dkv_launch,
-                                  "flash_dkv_kernel")):
-        kms, kreps = timed_ms(lambda: launch(*bwd))
+    for name, needle in (("flash_bwd_dq", "flash_dq_kernel"),
+                         ("flash_bwd_dkv", "flash_dkv_kernel")):
+        kms = sum(read[name][0] for read in reads) / 2
+        kflops = FLASH_FLOPS[name] * b * h * s * s * d
+        tc_flops = bwd_tc_flops(name, False, True) * b * h * s * s * d
+        kbytes = 4 * n * q.element_size() + 8 * rows + grad_bytes[name]
+        by_ops, by_bytes = kflops / BF16_PEAK * 1e3, kbytes / bytes_per_s * 1e3
         res["ring_bwd_ms"][name] = dict(
-            ms=kms, device_ms=device_ms(lambda: launch(*bwd), needle,
-                                        reps=min(kreps, 50)))
+            ms=kms, ms_reads=[read[name][0] for read in reads],
+            device_ms=device_ms(launches[name], needle,
+                                reps=min(reads[0][name][1], 50)),
+            bound_ms=max(by_ops, by_bytes),
+            bound_by="operations" if by_ops >= by_bytes else "bytes",
+            bound_tc_ms=max(tc_flops / BF16_PEAK * 1e3, by_bytes),
+            flops=kflops, tc_flops=tc_flops, bytes=kbytes,
+            tflops=kflops / kms / 1e9, plain_ms=plain_bwd,
+            library_ms=lib_bwd, library_ms_reads=[a[0] for a in lib_a],
+            library_device_ms=lib_dev,
+            library_device_ms_reads=[a[1] for a in lib_a],
+            library="F.scaled_dot_product_attention backward (dQ, dK and "
+                    f"dV together, bf16 gradients; kernel {lib_backend})")
+    res["ring_bwd_factor"] = factors
+    pair_ms = sum(r["ms"] for r in res["ring_bwd_ms"].values())
     print(f"[stats timing] the ring backward's K6/K7 at {[b, s, h, d]} "
           f"bfloat16 -> float32 (on a card alone): "
-          f"{res['ring_bwd_ms']} on {card}", flush=True)
+          + "; ".join(f"{k} {r['ms']:.5f} ms (reads {r['ms_reads'][0]:.5f}, "
+                      f"{r['ms_reads'][1]:.5f}; device {r['device_ms']} ms), "
+                      f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+                      f"tensor-core bound {r['bound_tc_ms']:.5f} ms, "
+                      f"{r['tflops']:.1f} TFLOP/s"
+                      for k, r in res["ring_bwd_ms"].items())
+          + f"; K6 + K7 {pair_ms:.5f} ms against SDPA's backward "
+          f"{lib_dev:.5f} ms of device time (reads A/B/B/A "
+          f"{lib_a[0][1]:.5f}, {lib_a[1][1]:.5f}; by CUDA events "
+          f"{lib_a[0][0]:.5f}, {lib_a[1][0]:.5f}; kernel {lib_backend}): "
+          f"{sum(factors) / 2:.2f}x ({min(factors):.2f}-{max(factors):.2f}"
+          f"x), and the plain backward's {plain_bwd:.5f} ms on {card}",
+          flush=True)
     return res
 
 
@@ -1390,6 +1551,7 @@ def main() -> int:
     for name, log in logs.items():
         print(f"[build] {name}.cu:\n{log.strip()}")
     print(f"[build] {len(logs)} source(s) in {build_s:.2f} s", flush=True)
+    bwd_build = ptxas_bwd_report(logs["flash_attention"])
 
     # ---- 3. parity -------------------------------------------------------
     model = CNN(ModelConfig(logit_relu=False), DataConfig())
@@ -1754,6 +1916,7 @@ def main() -> int:
         shutil.copy(path, OUT)
     with open(os.path.join(OUT, "vit.json"), "w") as f:
         json.dump({"card": card, "main": vit_rate, "long": long_rate,
+                   "bwd_build": bwd_build,
                    "flash_timing": {f"{k}/{l}": v
                                     for (k, l), v in flash_times.items()},
                    "flash_parity": {f"{k}/{d}": v
@@ -1784,7 +1947,7 @@ def main() -> int:
             "library": "torch.optim.SGD(fused=True).step",
             "work": f"one optimizer step over the CNN's {n_leaves} f32 "
                     f"leaves ({n_params} params), mu={t['mu']}, "
-                    f"wd={t['wd']}; bound from {t['bytes']} bytes",
+                    f"wd={t['wd']}",
         })
     t = stats_time
     kernels.append({
@@ -1801,8 +1964,7 @@ def main() -> int:
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "library": t["library"],
         "work": f"one launch at the SP main path's ring block "
-                f"{t['shape']} {t['dtype']} ({t['flops']} FLOPs, "
-                f"{t['bytes']} bytes); launches: rank 0 of the 2-rank "
+                f"{t['shape']} {t['dtype']}; launches: rank 0 of the 2-rank "
                 f"8,100-token run; max_abs_err on acc / l",
     })
     for name, kid, line, needle in (
@@ -1813,7 +1975,11 @@ def main() -> int:
         t, long_t = flash_times[(name, "vit")], flash_times[(name, "long")]
         kernels.append({
             "launches_sp_per_rank": sp_launched[name],
-            **({"max_abs_err_ring_bwd_f32": ring_bwd_worst}
+            **({"max_abs_err_ring_bwd_f32": ring_bwd_worst,
+                "ring": {k: stats_time["ring_bwd_ms"][name][k]
+                         for k in ("ms", "device_ms", "plain_ms",
+                                   "library_ms", "library_device_ms",
+                                   "bound_ms", "bound_by")}}
                if kid in ("K6", "K7") else {}),
             "name": name, "kernel": kid, "route": "cuda",
             "source": "dml_cnn_cifar10_tpu_torch/csrc/flash_attention.cu",
@@ -1829,8 +1995,7 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "library": t["library"],
             "work": f"one launch at the ViT main path's attention "
-                    f"{t['shape']} {t['dtype']} ({t['flops']} FLOPs, "
-                    f"{t['bytes']} bytes)",
+                    f"{t['shape']} {t['dtype']}",
             "long": {k: long_t[k] for k in ("shape", "dtype", "ms",
                                             "device_ms", "plain_ms",
                                             "library_ms", "bound_ms",

@@ -28,46 +28,57 @@
 //          dQ = sum_j dS K.
 //   K7:    dV = sum_i p^T dO, dK = sum_i dS^T Q.
 // Scores, p, m, l and every accumulator are f32 for f32 and bf16 inputs
-// alike (bf16 tiles are widened to f32 in shared memory); outputs are
-// rounded to their dtype on the store. Masked scores are NEG_INF = -1e30,
-// never -inf. A row with no live key (every key masked: causal/window
-// bands, segments, kv_start, cross lengths) outputs exactly 0 and publishes
-// lse = 1e30, so the backward's p = exp(s - lse) is exactly 0 there.
+// alike; outputs are rounded to their dtype on the store. Masked scores
+// are NEG_INF = -1e30, never -inf. A row with no live key (every key
+// masked: causal/window bands, segments, kv_start, cross lengths) outputs
+// exactly 0 and publishes lse = 1e30, so the backward's p = exp(s - lse)
+// is exactly 0 there.
 //
 // Design. A block owns one 64-row tile of one (batch, head): query rows
 // for K3/K4/K5/K6, key rows for K7. It initialises its own m, l and
-// accumulators, then walks the 64-wide tiles of the other axis in a loop
-// (the Pallas grid's sequential inner axis becomes this loop; CUDA blocks
-// share no state). K3, K4 and K5 are one body, flash_fwd<T, D, Mode>,
-// that differs only in what it stores. band() gives that loop's bounds
-// from the causal/window band, one definition for all five kernels;
-// score_live() is the element
+// accumulators, then walks the tiles of the other axis in a loop (the
+// Pallas grid's sequential inner axis becomes this loop; CUDA blocks
+// share no state). band() gives that loop's bounds from the causal/window
+// band, one definition for all five kernels; score_live() is the element
 // mask inside it, so the skip logic cannot drift from the mask (the role
 // of _band_live, :481). Ragged edges are bounds-checked in the kernel:
-// nothing is padded to the tile size. 256 threads as 16 x 16; a thread
-// owns a 4 x 4 micro-tile of the 64 x 64 score tile (rows ty + 16i, cols
-// tx + 16j, strided so shared-memory rows of stride D + 1 fall in distinct
-// banks) and 4 x D/16 of the output tile; row max and row sums reduce over
-// the 16 lanes that share a row with warp shuffles.
+// nothing is padded to the tile size.
+//   K3, K4 and K5 are one body, flash_fwd<T, D, Mode>, that differs only
+// in what it stores: 256 threads as 16 x 16; a thread owns a 4 x 4
+// micro-tile of the 64 x 64 score tile (rows ty + 16i, cols tx + 16j,
+// strided so shared-memory rows of stride D + 1 fall in distinct banks)
+// and 4 x D/16 of the output tile, as f32 FMAs on the CUDA cores (bf16
+// tiles widened to f32 in shared memory); row max and row sums reduce
+// over the 16 lanes that share a row with warp shuffles.
+//   K6 and K7 run every product on the tensor cores (mma.sync m16n8k16,
+// bf16 operands, f32 sums), four warps of 16 rows each, P and dS kept in
+// registers, streamed tiles double-buffered by cp.async, operands that
+// are not bf16 values split into bf16 terms; see the section before
+// flash_dq_kernel.
 //
 // What bounds them on an H100 SXM. The work is 4*B*H*Sq*Skv_live*D FLOPs
-// forward, 6*... for dQ and 8*... for dK/dV; at the ViT main path's
+// forward, 6*... for dQ and 8*... for dK/dV. At the ViT main path's
 // [128, 257, 3, 64] f32 the forward is 6.5 GFLOP, ~0.1 ms at the card's
 // 67 TFLOP/s of f32 on the CUDA cores, while its bytes (q, k, v, out:
-// 101 MB) take 0.03 ms at 3.35 TB/s, so operations bound it. In bf16 the
-// same FLOPs could run on the tensor cores at 989 TFLOP/s, and the long
-// [2, 8100, 3, 64] bf16 shape is operation-bound there too. K5 does K4's
-// FLOPs and writes its acc in f32; at the ring's [2, 4050, 3, 64] bf16
-// block (two ranks of the 8,100-token recipe) it is operation-bound as
-// well: 25.2 GFLOP (25 us at 989 TFLOP/s) against 15.7 MB of inputs
-// and outputs (4.7 us at 3.35 TB/s).
+// 101 MB) take 0.03 ms at 3.35 TB/s, so operations bound it; the long
+// [2, 8100, 3, 64] bf16 shape and K5's ring block [2, 4050, 3, 64] bf16
+// (25.2 GFLOP, 25 us at 989 TFLOP/s, against 15.7 MB of inputs and
+// outputs, 4.7 us at 3.35 TB/s) are operation-bound at the bf16
+// tensor-core rate too. K6/K7 issue their products at that rate, times
+// the term pairs of their split: 6 for every product with f32 inputs
+// (0.059 + 0.079 ms of tensor-core work at the ViT shape), 1 for S and dP
+// and 3 for the second products with bf16 inputs and f32 gradients, 1
+// with bf16 gradients (0.153 + 0.204 ms at the long shape). ptxas -v
+// for sm_90a: the head-dim-64 instances take 144-177 registers
+// (K6 f32 144, bf16 156; K7 f32 177, bf16 163), no spills, 100,096 B of
+// dynamic shared memory with f32 inputs, 56,832 (K6) and 37,632 (K7) with
+// bf16 inputs; K7 with f32 and D = 128 holds 255 registers and 190,208 B,
+// one block an SM.
 //
-// What this simple design leaves on the table: every product runs as f32
-// FMAs on the CUDA cores from shared memory (no wgmma/mma.sync tensor-core
-// path, even for bf16), tiles are loaded synchronously by all threads
-// (no TMA, no cp.async double buffering), a ragged last tile (257 = 4 x 64
-// + 1) costs a full tile's work, and K7 recomputes the scores that K6
-// already built. Those are the next PRs' work.
+// What remains: K3-K5 still run on the CUDA cores. K6/K7 use mma.sync,
+// not wgmma with TMA loads, warp specialisation and persistent blocks
+// (the FlashAttention-3 design), and K7 recomputes the scores K6 already
+// built.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -151,7 +162,8 @@ __device__ __forceinline__ Range band(const Mask& m, int a0, int a1,
 }
 
 // The element mask of _score_mask: row r, local column c, their segment
-// ids (equal when the call has none).
+// ids (equal when the call has none). A term added here must also clear
+// tile_all_live() below, which lets K6/K7 skip this mask on full tiles.
 __device__ __forceinline__ bool score_live(const Mask& m, int r, int c,
                                            int qs, int ks) {
   if (r >= m.q_len || c >= m.kv_len) return false;
@@ -162,6 +174,16 @@ __device__ __forceinline__ bool score_live(const Mask& m, int r, int c,
     if (!m.causal && cg >= (long long)r + m.window) return false;
   }
   return qs == ks;
+}
+
+// True only where score_live holds for every row < r1 and local column <
+// c1 of a tile: no causal/window band, no segment ids, inside both
+// lengths. Such tiles (every tile of a plain full-attention call but the
+// ragged last) skip the per-element mask.
+__device__ __forceinline__ bool tile_all_live(const Mask& m, bool has_seg,
+                                              int r1, int c1) {
+  return !m.causal && !m.window && !has_seg && r1 <= m.q_len &&
+         c1 <= m.kv_len;
 }
 
 // Rows [row0, row0 + kTile) of one (batch, head) slice into shared memory
@@ -379,247 +401,607 @@ struct BwdArgs {
   Mask m;
 };
 
-template <int D>
-constexpr int dq_smem_bytes() {
-  return (4 * kTile * (D + 1) + kTile * kPld) * 4 + 2 * kTile * 4;
+// ---- K6/K7: the backward on the tensor cores ------------------------------
+//
+// A block is 4 warps and owns 64 rows (query rows in K6, key rows in K7);
+// a warp owns 16 of them. The block walks the kN-wide tiles of the other
+// axis over band(). Every product is mma.sync m16n8k16 bf16 x bf16 -> f32:
+//   K6: S = Q K^T, dP = dO V^T; then dQ += dS K.
+//   K7: S^T = K Q^T, dP^T = V dO^T; then dV += P^T dO, dK += dS^T Q.
+// S and dP come out in registers in the m16n8 accumulator layout; the mask,
+// exp and the softmax Jacobian work on those fragments (a lane knows its
+// row and column from its lane id), and P and dS are repacked in registers
+// as the A operand of the second product. The resident operands (Q and dO
+// in K6, K and V in K7) are loaded once; the streamed tiles (K, V in K6; Q,
+// dO, lse, delta in K7) arrive by cp.async, tile j + 1 in flight while tile
+// j is multiplied. Shared-memory rows are padded to D + 8 bf16, so the 8
+// rows of an ldmatrix fall in distinct banks.
+//
+// Precision by instance. An operand that is not a bf16 value is split into
+// bf16 terms x = t0 + t1 + t2, t_i = bf16(x - t0 - ... - t_{i-1}), and a
+// product of split operands keeps the term pairs (i, j) with i + j <
+// max(terms of a, terms of b):
+//   f32 inputs: q, k, v, dO as kF32Planes bf16 planes in shared memory, P
+//     and dS as kF32Planes terms (six products each). Two planes (bf16x3,
+//     three products) miss the f32 gradient pin 5e-5 on causal rows with
+//     few keys (tests/test_torch_flash_split.py).
+//   bf16 inputs, f32 gradients (the ring's out_dtype): S and dP exact in
+//     one product; P and dS as kRingTerms terms.
+//   bf16 inputs, bf16 gradients: P and dS rounded to bf16 once.
+
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdRows = 16 * kBwdWarps;  // rows a block owns
+constexpr int kF32Planes = 3;  // bf16 terms of an f32 operand (and of P, dS)
+constexpr int kRingTerms = 3;  // P, dS terms: bf16 inputs, f32 gradients
+constexpr int kBf16Terms = 1;  // P, dS terms: bf16 inputs, bf16 gradients
+constexpr float kLog2e = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int D>
-constexpr int dkv_smem_bytes() {
-  return (4 * kTile * (D + 1) + 2 * kTile * kPld + 2 * kTile) * 4 +
-         2 * kTile * 4;
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8. trans: each matrix is transposed.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a b for a 16x16 A (row), a 16x8 B (col), f32 accumulators.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += sum of a_i b_j over i + j < max(NA, NB), smallest terms first. b
+// holds two n8 tiles of an ldsm4 (regs 0-1 and 2-3); `half` picks one.
+template <int NA, int NB>
+__device__ __forceinline__ void mma_split(float (&c)[4],
+                                          const uint32_t (&a)[NA][4],
+                                          const uint32_t (&b)[NB][4],
+                                          int half) {
+  constexpr int kN = NA > NB ? NA : NB;
+#pragma unroll
+  for (int s = kN - 1; s >= 0; --s)
+#pragma unroll
+    for (int i = 0; i < NA; ++i)
+      if (s - i >= 0 && s - i < NB)
+        mma(c, a[i], b[s - i][2 * half], b[s - i][2 * half + 1]);
+}
+
+// x, y rounded to one bf16 pair (x in the low half), and what is left.
+__device__ __forceinline__ uint32_t round_pair(float& x, float& y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  x -= __low2float(h);
+  y -= __high2float(h);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// x, y (adjacent columns) as N bf16 terms, each packed as one b32 pair.
+template <int N>
+__device__ __forceinline__ void split_pair(float x, float y,
+                                           uint32_t (&out)[N][4], int reg) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i][reg] = round_pair(x, y);
+}
+
+// The A operand of a k16 step from two n8 accumulator tiles (columns
+// 16kk .. 16kk + 15 of a 16-row strip), as N bf16 terms.
+template <int N>
+__device__ __forceinline__ void acc_to_a(const float (&c0)[4],
+                                         const float (&c1)[4],
+                                         uint32_t (&a)[N][4]) {
+  split_pair<N>(c0[0], c0[1], a, 0);
+  split_pair<N>(c0[2], c0[3], a, 1);
+  split_pair<N>(c1[0], c1[1], a, 2);
+  split_pair<N>(c1[2], c1[3], a, 3);
+}
+
+// Four f32 values as NP bf16 planes (plane stride `pstride` elements).
+template <int NP>
+__device__ __forceinline__ void store_planes(bf16* dst, int pstride,
+                                             float4 x) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const uint32_t lo = round_pair(x.x, x.y), hi = round_pair(x.z, x.w);
+    *reinterpret_cast<uint2*>(dst + p * pstride) = make_uint2(lo, hi);
+  }
+}
+
+// Rows [row0, row0 + ROWS) of one (batch, head) slice by 16-byte cp.async
+// copies into shared memory (row stride `ld` elements of T); rows past
+// `len` are zero-filled. Needs 16-byte aligned rows (the wrapper checks).
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src,
+                                          int64_t row_stride, int row0,
+                                          int len) {
+  constexpr int kChunks = D * (int)sizeof(T) / 16, kPer = 16 / sizeof(T);
+  for (int e = threadIdx.x; e < ROWS * kChunks; e += kBwdThreads) {
+    const int r = e / kChunks, c = (e % kChunks) * kPer;
+    const bool valid = row0 + r < len;
+    cp_async16(dst + r * ld + c,
+               src + (valid ? (int64_t)(row0 + r) * row_stride : 0) + c,
+               valid);
+  }
+}
+
+// f32 rows (staged raw, row stride D) -> NP bf16 planes (row stride D + 8).
+template <int D, int ROWS, int NP>
+__device__ __forceinline__ void split_rows(bf16* planes, const float* raw) {
+  constexpr int LD = D + 8;
+  for (int e = threadIdx.x; e < ROWS * D / 4; e += kBwdThreads) {
+    const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+    store_planes<NP>(planes + r * LD + c, ROWS * LD,
+                     *reinterpret_cast<const float4*>(raw + r * D + c));
+  }
+}
+
+// The resident rows of an f32 tensor, read once straight into NP planes.
+template <int D, int NP>
+__device__ __forceinline__ void load_planes(bf16* planes, const float* src,
+                                            int64_t row_stride, int row0,
+                                            int len) {
+  constexpr int LD = D + 8;
+  for (int e = threadIdx.x; e < kBwdRows * D / 4; e += kBwdThreads) {
+    const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+    const float4 x =
+        row0 + r < len
+            ? *reinterpret_cast<const float4*>(
+                  src + (int64_t)(row0 + r) * row_stride + c)
+            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    store_planes<NP>(planes + r * LD + c, kBwdRows * LD, x);
+  }
+}
+
+// The resident 64 rows of q/dO (K6) or k/v (K7) into shared memory.
+template <typename T, int D, int NP>
+__device__ __forceinline__ void load_resident(bf16* planes, const T* src,
+                                              int64_t row_stride, int row0,
+                                              int len) {
+  if constexpr (std::is_same<T, float>::value) {
+    load_planes<D, NP>(planes, src, row_stride, row0, len);
+  } else {
+    copy_rows<bf16, D, kBwdRows>(planes, D + 8, src, row_stride, row0, len);
+  }
+}
+
+__device__ __forceinline__ void store2(void* base, int64_t i, float x,
+                                       float y, int dtype) {
+  if (dtype == kF32) {
+    *reinterpret_cast<float2*>(static_cast<float*>(base) + i) =
+        make_float2(x, y);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(base) + i) =
+        __floats2bfloat162_rn(x, y);
+  }
+}
+
+// Shared-memory plan of one instance (kDkv: K7, else K6): the resident
+// rows, the streamed tiles (two stages for bf16; for f32 one stage of
+// planes plus the raw f32 rows the copies land in), per-row lse/delta of
+// the streamed tile (K7) and segment ids, the last two in two slots. The
+// streamed tiles are 64 rows wide for K6 with bf16 and D <= 64, else 32:
+// K7 keeps dK and dV beside its score strips, and at 32 it fits three
+// blocks an SM at D = 64 without spills.
+template <typename T, int D, bool kDkv>
+struct BwdPlan {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kNP = kF32 ? kF32Planes : 1;  // bf16 planes
+  static constexpr int kN = (kDkv || kF32 || D == 128) ? 32 : 64;
+  static constexpr int LD = D + 8;
+  static constexpr int kStages = kF32 ? 1 : 2;
+  static constexpr int kResident = 2 * kNP * kBwdRows * LD;  // bf16 elems
+  static constexpr int kStage = 2 * kNP * kN * LD;           // bf16 elems
+  static constexpr int kRaw = kF32 ? 2 * kN * D : 0;         // f32 elems
+  static constexpr int bytes = (kResident + kStages * kStage) * 2 +
+                               kRaw * 4 + 2 * 2 * kN * 4 + 2 * kN * 4;
+};
+
+struct BwdSmem {
+  bf16* res;      // [2 tensors][kNP][64][LD]
+  bf16* stream;   // [kStages][2 tensors][kNP][kN][LD]
+  float* raw;     // [2 tensors][kN][D] (f32 only)
+  float* stats;   // [2 slots][lse, delta][kN] (K7)
+  int* seg;       // [2 slots][kN]
+};
+
+template <typename P>
+__device__ __forceinline__ BwdSmem bwd_smem(unsigned char* base) {
+  BwdSmem s;
+  s.res = reinterpret_cast<bf16*>(base);
+  s.stream = s.res + P::kResident;
+  s.raw = reinterpret_cast<float*>(s.stream + P::kStages * P::kStage);
+  s.stats = s.raw + P::kRaw;
+  s.seg = reinterpret_cast<int*>(s.stats + 4 * P::kN);
+  return s;
+}
+
+// Issue the cp.async copies of streamed tile `it` (rows r0 .. r0 + kN of
+// x and y) and commit them as one group.
+template <typename T, int D, typename P>
+__device__ __forceinline__ void issue_tile(const BwdSmem& sm, int it,
+                                           const T* x, int64_t xs,
+                                           const T* y, int64_t ys, int r0,
+                                           int len) {
+  if constexpr (P::kF32) {
+    copy_rows<float, D, P::kN>(sm.raw, D, x, xs, r0, len);
+    copy_rows<float, D, P::kN>(sm.raw + P::kN * D, D, y, ys, r0, len);
+  } else {
+    bf16* st = sm.stream + (it & 1) * P::kStage;
+    copy_rows<bf16, D, P::kN>(st, P::LD, x, xs, r0, len);
+    copy_rows<bf16, D, P::kN>(st + P::kN * P::LD, P::LD, y, ys, r0, len);
+  }
+}
+
+// Wait for streamed tile `it`; for f32 split it into planes. Returns its
+// two tensors' plane base (x; y follows at kNP * kN * LD).
+template <typename T, int D, typename P>
+__device__ __forceinline__ const bf16* land_tile(const BwdSmem& sm, int it) {
+  cp_async_wait_all();
+  __syncthreads();  // the tile landed; everyone is done with tile it - 1
+  if constexpr (P::kF32) {
+    split_rows<D, P::kN, P::kNP>(sm.stream, sm.raw);
+    split_rows<D, P::kN, P::kNP>(sm.stream + P::kNP * P::kN * P::LD,
+                                 sm.raw + P::kN * D);
+    __syncthreads();  // planes ready; the raw rows may be refilled
+    return sm.stream;
+  } else {
+    return sm.stream + (it & 1) * P::kStage;
+  }
+}
+
+// Streamed tile's first two products for one warp: c1 = A1 B1^T and
+// c2 = A2 B2^T over D, A from the resident planes (16 rows at `a1`/`a2`,
+// plane stride 64 * LD), B from the streamed planes (kN rows at `b1`/`b2`,
+// plane stride kN * LD). n8 column tiles at or past `live` are skipped.
+template <int D, typename P>
+__device__ __forceinline__ void scores(float (&c1)[P::kN / 8][4],
+                                       float (&c2)[P::kN / 8][4],
+                                       const bf16* a1, const bf16* a2,
+                                       const bf16* b1, const bf16* b2,
+                                       int live, int lane) {
+  constexpr int NP = P::kNP, LD = P::LD, kN = P::kN;
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c1[j][e] = c2[j][e] = 0.0f;
+  const int a_off = (lane & 15) * LD + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * LD +
+                    ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t x1[NP][4], x2[NP][4];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      ldsm4(x1[p], a1 + p * kBwdRows * LD + a_off + 16 * kk);
+      ldsm4(x2[p], a2 + p * kBwdRows * LD + a_off + 16 * kk);
+    }
+#pragma unroll
+    for (int jj = 0; jj < kN / 16; ++jj) {
+      if (16 * jj >= live) continue;
+      uint32_t y1[NP][4], y2[NP][4];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        ldsm4(y1[p], b1 + p * kN * LD + 16 * jj * LD + b_off + 16 * kk);
+        ldsm4(y2[p], b2 + p * kN * LD + 16 * jj * LD + b_off + 16 * kk);
+      }
+      mma_split<NP, NP>(c1[2 * jj], x1, y1, 0);
+      mma_split<NP, NP>(c2[2 * jj], x2, y2, 0);
+      if (16 * jj + 8 < live) {
+        mma_split<NP, NP>(c1[2 * jj + 1], x1, y1, 1);
+        mma_split<NP, NP>(c2[2 * jj + 1], x2, y2, 1);
+      }
+    }
+  }
+}
+
+// acc += G B for one warp: G the 16 x kN strip in accumulator registers
+// (as NT bf16 terms), B the streamed planes' kN rows at `b` read
+// transposed (k = the streamed rows, n = D). k16 steps at or past `live`
+// are skipped.
+template <int D, int NT, typename P>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
+                                           const float (&g)[P::kN / 8][4],
+                                           const bf16* b, int live,
+                                           int lane) {
+  constexpr int NP = P::kNP, LD = P::LD, kN = P::kN;
+  const int b_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD +
+                    ((lane >> 4) << 3);
+#pragma unroll
+  for (int kk = 0; kk < kN / 16; ++kk) {
+    if (16 * kk >= live) continue;
+    uint32_t x[NT][4];
+    acc_to_a<NT>(g[2 * kk], g[2 * kk + 1], x);
+#pragma unroll
+    for (int nn = 0; nn < D / 16; ++nn) {
+      uint32_t y[NP][4];
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        ldsm4t(y[p], b + p * kN * LD + 16 * kk * LD + b_off + 16 * nn);
+      mma_split<NT, NP>(acc[2 * nn], x, y, 0);
+      mma_split<NT, NP>(acc[2 * nn + 1], x, y, 1);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ const T* slice(const void* base,
+                                          const int64_t (&s)[3], int b,
+                                          int h) {
+  return static_cast<const T*>(base) + b * s[0] + h * s[2];
 }
 
 // K6: one block per 64 query rows; walks the key tiles of its band.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
-  constexpr int LD = D + 1, kC = D / kTx;
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* sdo = sq + kTile * LD;
-  float* sk = sdo + kTile * LD;
-  float* sv = sk + kTile * LD;
-  float* sds = sv + kTile * LD;
-  int* sqseg = reinterpret_cast<int*>(sds + kTile * kPld);
-  int* skseg = sqseg + kTile;
+// NT: bf16 terms of dS in dQ = dS K.
+template <typename T, int D, int NT>
+__global__ void __launch_bounds__(kBwdThreads) flash_dq_kernel(BwdArgs a) {
+  using P = BwdPlan<T, D, false>;
+  constexpr int NP = P::kNP, LD = P::LD, kN = P::kN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const BwdSmem sm = bwd_smem<P>(smem_raw);
+  bf16* sq = sm.res;
+  bf16* sdo = sm.res + NP * kBwdRows * LD;
 
   const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
-  const int row0 = blockIdx.y * kTile;
-  const int ty = threadIdx.x / kTx, tx = threadIdx.x % kTx;
-  const T* q = static_cast<const T*>(a.q) + b * a.qs[0] + h * a.qs[2];
-  const T* k = static_cast<const T*>(a.k) + b * a.ks[0] + h * a.ks[2];
-  const T* v = static_cast<const T*>(a.v) + b * a.vs[0] + h * a.vs[2];
-  const T* dout = static_cast<const T*>(a.dout) + b * a.ds[0] + h * a.ds[2];
-  load_tile<T, D>(sq, q, a.qs[1], row0, a.m.q_len);
-  load_tile<T, D>(sdo, dout, a.ds[1], row0, a.m.q_len);
-  load_seg(sqseg, a.qseg, b, a.m.q_len, row0);
+  const int row0 = blockIdx.y * kBwdRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const T* q = slice<T>(a.q, a.qs, b, h);
+  const T* k = slice<T>(a.k, a.ks, b, h);
+  const T* v = slice<T>(a.v, a.vs, b, h);
+  const T* dout = slice<T>(a.dout, a.ds, b, h);
+  const bool has_seg = a.qseg != nullptr;
+  load_resident<T, D, NP>(sq, q, a.qs[1], row0, a.m.q_len);
+  load_resident<T, D, NP>(sdo, dout, a.ds[1], row0, a.m.q_len);
+  cp_async_commit();
 
-  float lse_i[kRows], delta_i[kRows], acc[kRows][kC];
+  // This lane's two rows (g and g + 8 of the warp's 16): lse in log2
+  // units and delta * scale, so p = exp2(s * scale * log2(e) - lse2) and
+  // dS = p (dP * scale - dl).
+  float lse2_r[2], dl_r[2];
+  int qseg_r[2];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = row0 + ty + kTy * i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 16 * warp + g + 8 * i;
+    const bool valid = r < a.m.q_len;
     const int64_t row = ((int64_t)b * a.m.q_len + r) * a.heads + h;
-    lse_i[i] = r < a.m.q_len ? a.lse[row] : kDeadLse;
-    delta_i[i] = r < a.m.q_len ? a.delta[row] : 0.0f;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) acc[i][c] = 0.0f;
+    lse2_r[i] = (valid ? a.lse[row] : kDeadLse) * kLog2e;
+    dl_r[i] = valid ? a.delta[row] * a.scale : 0.0f;
+    qseg_r[i] = has_seg && valid ? a.qseg[(int64_t)b * a.m.q_len + r] : 0;
   }
+  const float sl2 = a.scale * kLog2e;
 
-  const int rows_hi = min(row0 + kTile, a.m.q_len);
+  const int rows_hi = min(row0 + kBwdRows, a.m.q_len);
   const Range kr = band(a.m, row0, rows_hi, false);
-  for (int c0 = (kr.lo / kTile) * kTile; c0 < kr.hi; c0 += kTile) {
-    __syncthreads();
-    load_tile<T, D>(sk, k, a.ks[1], c0, a.m.kv_len);
-    load_tile<T, D>(sv, v, a.vs[1], c0, a.m.kv_len);
-    load_seg(skseg, a.kseg, b, a.m.kv_len, c0);
-    __syncthreads();
+  const int first = (kr.lo / kN) * kN;
+  const int n_tiles = kr.hi > kr.lo ? (kr.hi - first + kN - 1) / kN : 0;
+  auto issue = [&](int it) {
+    const int c0 = first + it * kN;
+    issue_tile<T, D, P>(sm, it, k, a.ks[1], v, a.vs[1], c0, a.m.kv_len);
+    if (has_seg)
+      for (int r = threadIdx.x; r < kN; r += kBwdThreads) {
+        const bool valid = c0 + r < a.m.kv_len;
+        cp_async4(sm.seg + (it & 1) * kN + r,
+                  a.kseg + (int64_t)b * a.m.kv_len + (valid ? c0 + r : 0),
+                  valid);
+      }
+    cp_async_commit();
+  };
+  if (n_tiles > 0) issue(0);
 
-    float s[kRows][kCols], dp[kRows][kCols];
+  float acc[D / 8][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], ov[kRows], kv[kCols], vv[kCols];
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  const bool warp_live = row0 + 16 * warp < a.m.q_len;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int c0 = first + it * kN;
+    const bf16* sk = land_tile<T, D, P>(sm, it);
+    const bf16* sv = sk + NP * kN * LD;
+    if (it + 1 < n_tiles) issue(it + 1);
+    if (!warp_live) continue;
+    const int live = a.m.kv_len - c0;  // columns inside the key axis
+    float s[kN / 8][4], ds[kN / 8][4];
+    scores<D, P>(s, ds, sq + 16 * warp * LD, sdo + 16 * warp * LD, sk, sv,
+                 live, lane);
+    const int* kseg = sm.seg + (it & 1) * kN;
+    auto jacobian = [&](auto masked) {
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        qv[i] = sq[(ty + kTy * i) * LD + d];
-        ov[i] = sdo[(ty + kTy * i) * LD + d];
-      }
+      for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        kv[j] = sk[(tx + kTx * j) * LD + d];
-        vv[j] = sv[(tx + kTx * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, cl = 8 * j + 2 * t + (e & 1);
+          bool alive = true;
+          if constexpr (decltype(masked)::value)
+            alive = score_live(a.m, row0 + 16 * warp + g + 8 * i, c0 + cl,
+                               qseg_r[i], has_seg ? kseg[cl] : 0);
+          const float p =
+              alive ? exp2f(fmaf(s[j][e], sl2, -lse2_r[i])) : 0.0f;
+          ds[j][e] = p * fmaf(ds[j][e], a.scale, -dl_r[i]);
         }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty + kTy * i;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tx + kTx * j;
-        const bool live =
-            score_live(a.m, row0 + r, c0 + c, sqseg[r], skseg[c]);
-        const float p = live ? expf(s[i][j] * a.scale - lse_i[i]) : 0.0f;
-        sds[r * kPld + c] = p * (dp[i][j] - delta_i[i]) * a.scale;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      float kk[kC];
-#pragma unroll
-      for (int c = 0; c < kC; ++c) kk[c] = sk[j * LD + tx + kTx * c];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float g = sds[(ty + kTy * i) * kPld + j];
-#pragma unroll
-        for (int c = 0; c < kC; ++c) acc[i][c] = fmaf(g, kk[c], acc[i][c]);
-      }
-    }
+    };
+    if (tile_all_live(a.m, has_seg, row0 + 16 * warp + 16, c0 + kN))
+      jacobian(std::false_type{});
+    else
+      jacobian(std::true_type{});
+    accumulate<D, NT, P>(acc, ds, sk, live, lane);
   }
+  cp_async_wait_all();
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = row0 + ty + kTy * i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 16 * warp + g + 8 * i;
     if (r >= a.m.q_len) continue;
     const int64_t row = ((int64_t)b * a.m.q_len + r) * a.heads + h;
 #pragma unroll
-    for (int c = 0; c < kC; ++c)
-      store(a.dq, row * D + tx + kTx * c, acc[i][c], a.dq_dtype);
+    for (int j = 0; j < D / 8; ++j)
+      store2(a.dq, row * D + 8 * j + 2 * t, acc[j][2 * i],
+             acc[j][2 * i + 1], a.dq_dtype);
   }
 }
 
-// K7: one block per 64 key rows; walks the query tiles of its band. A
-// thread's micro-tile is transposed: rows are keys (ty + 16i), columns
-// are queries (tx + 16j).
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(BwdArgs a) {
-  constexpr int LD = D + 1, kC = D / kTx;
-  extern __shared__ float smem[];
-  float* sk = smem;
-  float* sv = sk + kTile * LD;
-  float* sq = sv + kTile * LD;
-  float* sdo = sq + kTile * LD;
-  float* spt = sdo + kTile * LD;
-  float* sdst = spt + kTile * kPld;
-  float* slse = sdst + kTile * kPld;
-  float* sdelta = slse + kTile;
-  int* sqseg = reinterpret_cast<int*>(sdelta + kTile);
-  int* skseg = sqseg + kTile;
+// K7: one block per 64 key rows; walks the query tiles of its band. The
+// score strips are transposed: a warp's rows are keys, columns queries.
+template <typename T, int D, int NT>
+__global__ void __launch_bounds__(kBwdThreads) flash_dkv_kernel(BwdArgs a) {
+  using P = BwdPlan<T, D, true>;
+  constexpr int NP = P::kNP, LD = P::LD, kN = P::kN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const BwdSmem sm = bwd_smem<P>(smem_raw);
+  bf16* sk = sm.res;
+  bf16* sv = sm.res + NP * kBwdRows * LD;
 
   const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
-  const int col0 = blockIdx.y * kTile;
-  const int ty = threadIdx.x / kTx, tx = threadIdx.x % kTx;
-  const T* q = static_cast<const T*>(a.q) + b * a.qs[0] + h * a.qs[2];
-  const T* k = static_cast<const T*>(a.k) + b * a.ks[0] + h * a.ks[2];
-  const T* v = static_cast<const T*>(a.v) + b * a.vs[0] + h * a.vs[2];
-  const T* dout = static_cast<const T*>(a.dout) + b * a.ds[0] + h * a.ds[2];
-  load_tile<T, D>(sk, k, a.ks[1], col0, a.m.kv_len);
-  load_tile<T, D>(sv, v, a.vs[1], col0, a.m.kv_len);
-  load_seg(skseg, a.kseg, b, a.m.kv_len, col0);
+  const int col0 = blockIdx.y * kBwdRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const T* q = slice<T>(a.q, a.qs, b, h);
+  const T* k = slice<T>(a.k, a.ks, b, h);
+  const T* v = slice<T>(a.v, a.vs, b, h);
+  const T* dout = slice<T>(a.dout, a.ds, b, h);
+  const bool has_seg = a.qseg != nullptr;
+  load_resident<T, D, NP>(sk, k, a.ks[1], col0, a.m.kv_len);
+  load_resident<T, D, NP>(sv, v, a.vs[1], col0, a.m.kv_len);
+  cp_async_commit();
 
-  float dk[kRows][kC], dv[kRows][kC];
+  const float sl2 = a.scale * kLog2e;
+  int kseg_r[2];  // this lane's two keys
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < kC; ++c) dk[i][c] = dv[i][c] = 0.0f;
-
-  const int cols_hi = min(col0 + kTile, a.m.kv_len);
-  const Range qr = band(a.m, col0, cols_hi, true);
-  for (int r0 = (qr.lo / kTile) * kTile; r0 < qr.hi; r0 += kTile) {
-    __syncthreads();
-    load_tile<T, D>(sq, q, a.qs[1], r0, a.m.q_len);
-    load_tile<T, D>(sdo, dout, a.ds[1], r0, a.m.q_len);
-    load_seg(sqseg, a.qseg, b, a.m.q_len, r0);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      const int row = r0 + r;
-      const int64_t idx = ((int64_t)b * a.m.q_len + row) * a.heads + h;
-      slse[r] = row < a.m.q_len ? a.lse[idx] : kDeadLse;
-      sdelta[r] = row < a.m.q_len ? a.delta[idx] : 0.0f;
-    }
-    __syncthreads();
-
-    float st[kRows][kCols], dpt[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) st[i][j] = dpt[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[kRows], vv[kRows], qv[kCols], ov[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        kv[i] = sk[(ty + kTy * i) * LD + d];
-        vv[i] = sv[(ty + kTy * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        qv[j] = sq[(tx + kTx * j) * LD + d];
-        ov[j] = sdo[(tx + kTx * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          st[i][j] = fmaf(qv[j], kv[i], st[i][j]);
-          dpt[i][j] = fmaf(ov[j], vv[i], dpt[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int c = ty + kTy * i;  // key
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int r = tx + kTx * j;  // query
-        const bool live =
-            score_live(a.m, r0 + r, col0 + c, sqseg[r], skseg[c]);
-        const float p = live ? expf(st[i][j] * a.scale - slse[r]) : 0.0f;
-        spt[c * kPld + r] = p;
-        sdst[c * kPld + r] = p * (dpt[i][j] - sdelta[r]) * a.scale;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int r = 0; r < kTile; ++r) {
-      float ov[kC], qv[kC];
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        ov[c] = sdo[r * LD + tx + kTx * c];
-        qv[c] = sq[r * LD + tx + kTx * c];
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float p = spt[(ty + kTy * i) * kPld + r];
-        const float g = sdst[(ty + kTy * i) * kPld + r];
-#pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          dv[i][c] = fmaf(p, ov[c], dv[i][c]);
-          dk[i][c] = fmaf(g, qv[c], dk[i][c]);
-        }
-      }
-    }
+  for (int i = 0; i < 2; ++i) {
+    const int c = col0 + 16 * warp + g + 8 * i;
+    kseg_r[i] = has_seg && c < a.m.kv_len
+                    ? a.kseg[(int64_t)b * a.m.kv_len + c]
+                    : 0;
   }
 
+  const int cols_hi = min(col0 + kBwdRows, a.m.kv_len);
+  const Range qr = band(a.m, col0, cols_hi, true);
+  const int first = (qr.lo / kN) * kN;
+  const int n_tiles = qr.hi > qr.lo ? (qr.hi - first + kN - 1) / kN : 0;
+  auto issue = [&](int it) {
+    const int r0 = first + it * kN;
+    issue_tile<T, D, P>(sm, it, q, a.qs[1], dout, a.ds[1], r0, a.m.q_len);
+    float* st = sm.stats + (it & 1) * 2 * kN;
+    for (int r = threadIdx.x; r < kN; r += kBwdThreads) {
+      const bool valid = r0 + r < a.m.q_len;
+      const int64_t row =
+          ((int64_t)b * a.m.q_len + (valid ? r0 + r : 0)) * a.heads + h;
+      cp_async4(st + r, a.lse + row, valid);
+      cp_async4(st + kN + r, a.delta + row, valid);
+      if (has_seg)
+        cp_async4(sm.seg + (it & 1) * kN + r,
+                  a.qseg + (int64_t)b * a.m.q_len + (valid ? r0 + r : 0),
+                  valid);
+    }
+    cp_async_commit();
+  };
+  if (n_tiles > 0) issue(0);
+
+  float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int c = col0 + ty + kTy * i;
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.0f;
+  const bool warp_live = col0 + 16 * warp < a.m.kv_len;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int r0 = first + it * kN;
+    const bf16* sq = land_tile<T, D, P>(sm, it);
+    const bf16* sdo = sq + NP * kN * LD;
+    if (it + 1 < n_tiles) issue(it + 1);
+    if (!warp_live) continue;
+    const int live = a.m.q_len - r0;  // columns inside the query axis
+    float p[kN / 8][4], ds[kN / 8][4];
+    scores<D, P>(p, ds, sk + 16 * warp * LD, sv + 16 * warp * LD, sq, sdo,
+                 live, lane);
+    const float* lse = sm.stats + (it & 1) * 2 * kN;
+    const float* delta = lse + kN;
+    const int* qseg = sm.seg + (it & 1) * kN;
+    auto jacobian = [&](auto masked) {
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        // This lane's two query columns 8j + 2t, + 1: lse in log2 units
+        // and delta * scale, as K6's rows.
+        const float2 l = *reinterpret_cast<const float2*>(lse + 8 * j + 2 * t);
+        const float2 dd =
+            *reinterpret_cast<const float2*>(delta + 8 * j + 2 * t);
+        const float lse2[2] = {l.x * kLog2e, l.y * kLog2e};
+        const float dl[2] = {dd.x * a.scale, dd.y * a.scale};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, rl = 8 * j + 2 * t + (e & 1);
+          bool alive = true;
+          if constexpr (decltype(masked)::value)
+            alive = score_live(a.m, r0 + rl, col0 + 16 * warp + g + 8 * i,
+                               has_seg ? qseg[rl] : 0, kseg_r[i]);
+          const float pe =
+              alive ? exp2f(fmaf(p[j][e], sl2, -lse2[e & 1])) : 0.0f;
+          p[j][e] = pe;
+          ds[j][e] = pe * fmaf(ds[j][e], a.scale, -dl[e & 1]);
+        }
+      }
+    };
+    if (tile_all_live(a.m, has_seg, r0 + kN, col0 + 16 * warp + 16))
+      jacobian(std::false_type{});
+    else
+      jacobian(std::true_type{});
+    accumulate<D, NT, P>(dv, p, sdo, live, lane);
+    accumulate<D, NT, P>(dk, ds, sq, live, lane);
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = col0 + 16 * warp + g + 8 * i;
     if (c >= a.m.kv_len) continue;
     const int64_t row = ((int64_t)b * a.m.kv_len + c) * a.heads + h;
 #pragma unroll
-    for (int cc = 0; cc < kC; ++cc) {
-      store(a.dk, row * D + tx + kTx * cc, dk[i][cc], a.dk_dtype);
-      store(a.dv, row * D + tx + kTx * cc, dv[i][cc], a.dv_dtype);
+    for (int j = 0; j < D / 8; ++j) {
+      store2(a.dk, row * D + 8 * j + 2 * t, dk[j][2 * i], dk[j][2 * i + 1],
+             a.dk_dtype);
+      store2(a.dv, row * D + 8 * j + 2 * t, dv[j][2 * i], dv[j][2 * i + 1],
+             a.dv_dtype);
     }
   }
 }
@@ -645,12 +1027,28 @@ int dispatch(int dtype, int d, F&& f) {
 
 template <typename Args>
 int launch(void (*kernel)(Args), const Args& a, int grid_x, int grid_y,
-           int smem, cudaStream_t stream) {
+           int smem, cudaStream_t stream, int threads = kThreads) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(grid_x, grid_y), kThreads, smem, stream>>>(a);
+  kernel<<<dim3(grid_x, grid_y), threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// dispatch() for the backward, adding the P/dS term count of the instance
+// (f32 inputs: kF32Planes; bf16 inputs: kRingTerms when a gradient is f32,
+// else kBf16Terms) as a third integral_constant.
+template <typename F>
+int dispatch_bwd(int dtype, int d, bool f32_grads, F&& f) {
+  return dispatch(dtype, d, [&](auto t, auto dd) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    if constexpr (std::is_same<T, float>::value) {
+      return f(t, dd, std::integral_constant<int, kF32Planes>{});
+    } else {
+      return f32_grads ? f(t, dd, std::integral_constant<int, kRingTerms>{})
+                       : f(t, dd, std::integral_constant<int, kBf16Terms>{});
+    }
+  });
 }
 
 inline int tiles(int n) { return (n + kTile - 1) / kTile; }
@@ -782,11 +1180,13 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
                        strides, scale, causal, window, kv_start);
   a.dq = dq;
   a.dq_dtype = dq_dtype;
-  return dispatch(dtype, d, [&](auto t, auto dd) {
+  return dispatch_bwd(dtype, d, dq_dtype == kF32, [&](auto t, auto dd,
+                                                      auto nt) {
     using T = std::remove_pointer_t<decltype(t)>;
     constexpr int kD = decltype(dd)::value;
-    return launch(flash_dq_kernel<T, kD>, a, batch * heads, tiles(sq),
-                  dq_smem_bytes<kD>(), stream);
+    return launch(flash_dq_kernel<T, kD, decltype(nt)::value>, a,
+                  batch * heads, (sq + kBwdRows - 1) / kBwdRows,
+                  BwdPlan<T, kD, false>::bytes, stream, kBwdThreads);
   });
 }
 
@@ -803,11 +1203,23 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.dv = dv;
   a.dk_dtype = dk_dtype;
   a.dv_dtype = dv_dtype;
+  return dispatch_bwd(dtype, d, dk_dtype == kF32 || dv_dtype == kF32,
+                      [&](auto t, auto dd, auto nt) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    constexpr int kD = decltype(dd)::value;
+    return launch(flash_dkv_kernel<T, kD, decltype(nt)::value>, a,
+                  batch * heads, (skv + kBwdRows - 1) / kBwdRows,
+                  BwdPlan<T, kD, true>::bytes, stream, kBwdThreads);
+  });
+}
+
+// The dynamic shared memory K6 (dkv 0) or K7 (dkv 1) launches with for
+// this input dtype and head dim, for reports.
+int flash_bwd_smem_bytes(int dkv, int dtype, int d) {
   return dispatch(dtype, d, [&](auto t, auto dd) {
     using T = std::remove_pointer_t<decltype(t)>;
     constexpr int kD = decltype(dd)::value;
-    return launch(flash_dkv_kernel<T, kD>, a, batch * heads, tiles(skv),
-                  dkv_smem_bytes<kD>(), stream);
+    return dkv ? BwdPlan<T, kD, true>::bytes : BwdPlan<T, kD, false>::bytes;
   });
 }
 

@@ -26,7 +26,10 @@ computes ``delta`` in plain torch and launches K6 and K7.
   ``_flash_bwd_dq_kernel`` and ``flash_dkv_kernel`` (K7)
   ``_flash_bwd_dkv_kernel``. They read ``[B, S, H, D]`` tensors through
   their B/S/H strides (the head dim must be contiguous), take f32 or bf16
-  with head dim 32, 64 or 128, and write lse as ``[B, S, H]`` f32.
+  with head dim 32, 64 or 128, and write lse as ``[B, S, H]`` f32. K6/K7
+  run on the tensor cores and copy their tiles with 16-byte ``cp.async``
+  copies: their wrappers hand them tensors whose base and B/S/H strides
+  are 16-byte multiples, copying one that is not.
 - **Plain versions** (:func:`flash_attention_plain`,
   :func:`flash_attention_stats_plain`, :func:`flash_attention_bwd_plain`): dense masked f32 softmax and its
   dense FA-2 backward, with the same dead-row rule. The wrappers take them
@@ -312,13 +315,27 @@ def _fwd_launch(q, k, v, scale, causal, window, kv_start, q_seg, kv_seg,
     return (out, *rows)
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when K6/K7's 16-byte ``cp.async`` copies can read its
+    rows: a base pointer and B/S/H strides that are multiples of 16 bytes
+    (the ViT's q/k/v views of one fused qkv are). Otherwise a contiguous
+    copy of it, made here once per launch, which always is."""
+    size = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s * size % 16 == 0
+                                      for s in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _bwd_prepare(q, k, v, do, lse, delta, out_dtype, q_seg, kv_seg):
-    """Check the backward's inputs; returns the kernels' common arguments
-    and the three gradient dtypes."""
+    """Check the backward's inputs; returns the kernels' common arguments,
+    the tensors they point into, the three gradient dtypes and the
+    q/k/v/dO strides."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     _check([q, k, v, do], [q.shape, (b, skv, h, d), (b, skv, h, d), q.shape],
            "flash_attention_bwd")
+    q, k, v, do = (_aligned16(t) for t in (q, k, v, do))
     dts = [t.dtype if out_dtype is None else out_dtype for t in (q, k, v)]
     for dt in dts:
         if dt not in _DTYPES:
@@ -334,21 +351,22 @@ def _bwd_prepare(q, k, v, do, lse, delta, out_dtype, q_seg, kv_seg):
     q_seg, kv_seg, qs, ks = _seg_args(q_seg, kv_seg, q, k)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), qs, ks)
-    # lse, delta and the segment ids stay referenced until the launches.
-    return ins, (lse, delta, q_seg, kv_seg), dts
+    # Every tensor behind ``ins`` stays referenced until the launches.
+    return (ins, (q, k, v, do, lse, delta, q_seg, kv_seg), dts,
+            _strides(q, k, v, do))
 
 
 def _dq_launch(q, k, v, do, lse, delta, scale, causal, out_dtype, window,
                kv_start, q_seg, kv_seg) -> torch.Tensor:
     """K6: dQ."""
     b, sq, h, d = q.shape
-    ins, keep, dts = _bwd_prepare(q, k, v, do, lse, delta, out_dtype, q_seg,
-                                  kv_seg)
+    ins, keep, dts, strides = _bwd_prepare(q, k, v, do, lse, delta,
+                                           out_dtype, q_seg, kv_seg)
     dq = torch.empty((b, sq, h, d), dtype=dts[0], device=q.device)
     if dq.numel() == 0 or k.shape[1] == 0:
         return dq.zero_()
-    shape = (b, h, sq, k.shape[1], d, _strides(q, k, v, do), scale,
-             int(causal), int(window or 0), int(kv_start))
+    shape = (b, h, sq, k.shape[1], d, strides, scale, int(causal),
+             int(window or 0), int(kv_start))
     with torch.cuda.device(q.device):
         rc = _lib().flash_bwd_dq(*ins, dq.data_ptr(), _DTYPES[q.dtype],
                                  _DTYPES[dts[0]], *shape,
@@ -363,13 +381,13 @@ def _dkv_launch(q, k, v, do, lse, delta, scale, causal, out_dtype, window,
     """K7: dK and dV."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
-    ins, keep, dts = _bwd_prepare(q, k, v, do, lse, delta, out_dtype, q_seg,
-                                  kv_seg)
+    ins, keep, dts, strides = _bwd_prepare(q, k, v, do, lse, delta,
+                                           out_dtype, q_seg, kv_seg)
     dk = torch.empty((b, skv, h, d), dtype=dts[1], device=q.device)
     dv = torch.empty((b, skv, h, d), dtype=dts[2], device=q.device)
     if dk.numel() == 0 or sq == 0:
         return dk.zero_(), dv.zero_()
-    shape = (b, h, sq, skv, d, _strides(q, k, v, do), scale, int(causal),
+    shape = (b, h, sq, skv, d, strides, scale, int(causal),
              int(window or 0), int(kv_start))
     with torch.cuda.device(q.device):
         rc = _lib().flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(),

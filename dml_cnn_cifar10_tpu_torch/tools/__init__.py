@@ -1,0 +1,1 @@
+"""Measurement scripts of the port, run by hand on a CUDA card."""

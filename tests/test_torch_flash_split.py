@@ -1,0 +1,212 @@
+"""The split-bf16 arithmetic of the flash backward kernels K6/K7, emulated
+on the CPU and held against the JAX package.
+
+``csrc/flash_attention.cu`` runs every product of ``flash_dq_kernel`` (K6)
+and ``flash_dkv_kernel`` (K7) on the tensor cores as bf16 x bf16 with f32
+accumulation. Operands that are not bf16 values are split into bf16 terms,
+``x ≈ t0 + t1 + t2`` with ``t_i = bf16(x − t0 − … − t_{i−1})``, and a
+product of two split operands keeps the term pairs ``(i, j)`` with
+``i + j < max(terms of a, terms of b)``. By instance:
+
+- f32 inputs: q, k, v and dO as three bf16 planes each (six products for
+  every matrix product); P and dS as three terms.
+- bf16 inputs, f32 gradients (the ring backward's ``out_dtype``): the
+  first products are exact; P and dS as three terms.
+- bf16 inputs, bf16 gradients: P and dS rounded to bf16 once.
+
+This module repeats that arithmetic in plain torch (each term rounded by
+``.to(torch.bfloat16)``, the products summed by f32 einsums) and holds it
+against the JAX package's interpreted ``flash_attention_bwd`` under the
+pins the card holds the kernels to (``chip_smoke.py`` phases 10 and 16):
+5e-5 on f32 gradients, 1e-2 x max|reference| (at most 0.05) on bf16 ones.
+Two f32 planes ("bf16x3") miss 5e-5 on causal head-dim-128 cases whose
+gradients reach ~5, which is why f32 takes three. The term counts here
+must be the ones the kernel source declares (last test).
+
+``PYTHONPATH=. python tests/test_torch_flash_split.py`` prints the
+emulation's max abs difference from the port's plain f32 version at [8,
+257, 3, 64].
+"""
+
+import os
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dml_cnn_cifar10_tpu.ops import flash_attention as jax_fa
+from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+
+torch.set_num_threads(2)
+
+GRAD_TOL, BF16_REL, BF16_CAP = 5e-5, 1e-2, 0.05
+# bf16 terms per f32 operand, and P/dS terms for bf16 inputs with f32 or
+# bf16 gradients: the kernel's kF32Planes, kRingTerms, kBf16Terms.
+F32_PLANES, RING_TERMS, BF16_TERMS = 3, 3, 1
+
+CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "dml_cnn_cifar10_tpu_torch", "csrc", "flash_attention.cu")
+
+
+def split(x: torch.Tensor, n: int):
+    """``n`` bf16-valued f32 tensors whose sum approximates ``x``."""
+    terms, rest = [], x.float()
+    for _ in range(n):
+        t = rest.to(torch.bfloat16).float()
+        terms.append(t)
+        rest = rest - t
+    return terms
+
+
+def product(eq: str, a_terms, b_terms) -> torch.Tensor:
+    """Σ a_i ⊗ b_j over the pairs ``i + j < max(len(a), len(b))``."""
+    n = max(len(a_terms), len(b_terms))
+    return sum(torch.einsum(eq, a, b) for i, a in enumerate(a_terms)
+               for j, b in enumerate(b_terms) if i + j < n)
+
+
+def emulate_bwd(q, k, v, do, lse, delta, planes: int, p_terms: int,
+                causal=False, window=None, kv_start=0):
+    """``(dq, dk, dv)`` in f32 by the kernels' split products: q, k, v, dO
+    as ``planes`` bf16 terms, P and dS as ``p_terms``."""
+    d = q.shape[-1]
+    scale = d ** -0.5
+    qs, ks, vs, dos = (split(t, planes) for t in (q, k, v, do))
+    live = fa._live(q.shape[1], k.shape[1], q.device, causal, window,
+                    kv_start, None, None)
+    s = product("bqhd,bkhd->bhqk", qs, ks) * scale
+    lse_t = lse.float().permute(0, 2, 1)[..., None]
+    delta_t = delta.float().permute(0, 2, 1)[..., None]
+    p = torch.where(live, torch.exp(torch.where(live, s, fa.NEG_INF)
+                                    - lse_t), 0.0)
+    dp = product("bqhd,bkhd->bhqk", dos, vs)
+    ds = p * (dp - delta_t) * scale
+    pt, dst = split(p, p_terms), split(ds, p_terms)
+    return (product("bhqk,bkhd->bqhd", dst, ks),
+            product("bhqk,bqhd->bkhd", dst, qs),
+            product("bhqk,bqhd->bkhd", pt, dos))
+
+
+def _inputs(shape, seed, q_scale=1.0):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.normal(size=shape).astype(np.float32)
+                   for _ in range(4))
+    return q * np.float32(q_scale), k, v, do
+
+
+# instance, shape [B, S, H, D], q scale, mask. The causal cases scale q so
+# that rows with few live keys reach gradients of ~5, as the ring's window
+# steps do on the card; there two f32 planes miss 5e-5 (~1e-4) and three
+# stay near 8e-6.
+CASES = {
+    "f32_full": ("f32", (2, 130, 2, 64), 1.0, {}),
+    "f32_causal_d128": ("f32", (2, 96, 1, 128), 2.0, {"causal": True}),
+    "ring_causal": ("bf16_f32", (1, 192, 2, 64), 3.0, {"causal": True}),
+    "ring_window": ("bf16_f32", (1, 192, 2, 64), 3.0,
+                    {"window": 24, "kv_start": -40, "causal": True}),
+    "bf16_full": ("bf16", (2, 130, 2, 64), 1.0, {}),
+    "bf16_causal": ("bf16", (1, 192, 2, 64), 3.0, {"causal": True}),
+}
+TERMS = {"f32": (F32_PLANES, F32_PLANES), "bf16_f32": (1, RING_TERMS),
+         "bf16": (1, BF16_TERMS)}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_split_products_match_jax_bwd(case):
+    inst, shape, q_scale, kw = CASES[case]
+    q, k, v, do = _inputs(shape, seed=len(case), q_scale=q_scale)
+    jd = jnp.float32 if inst == "f32" else jnp.bfloat16
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jd) for a in (q, k, v, do))
+    jout, jlse = jax_fa.flash_attention_fwd_lse(jq, jk, jv, **kw)
+    jdelta = jax_fa.attention_delta(jout, jdo)
+    out_dtype = jnp.float32 if inst == "bf16_f32" else None
+    want = jax_fa.flash_attention_bwd(jq, jk, jv, jdo, jlse, jdelta,
+                                      out_dtype=out_dtype, **kw)
+    planes, p_terms = TERMS[inst]
+    tq, tk, tv, tdo = (torch.from_numpy(np.array(a, np.float32))
+                       for a in (jq, jk, jv, jdo))
+    lse = torch.from_numpy(np.array(jlse, np.float32))
+    delta = torch.from_numpy(np.array(jdelta, np.float32))
+    got = emulate_bwd(tq, tk, tv, tdo, lse, delta, planes, p_terms, **kw)
+    for name, g, w in zip("qkv", got, want):
+        w = np.asarray(w, np.float32)
+        if inst == "bf16":
+            g = g.to(torch.bfloat16).float()
+            tol = min(BF16_CAP, BF16_REL * float(np.abs(w).max()))
+        else:
+            tol = GRAD_TOL
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=tol,
+                                   err_msg=f"{case}: d{name}")
+    if inst == "bf16_f32":   # the case is as hard as the ring's windows
+        assert max(float(np.abs(np.asarray(w)).max()) for w in want) > 3.0
+
+
+def test_rows_the_async_copies_cannot_take_are_copied_once():
+    """K6/K7 read their tiles with 16-byte ``cp.async`` copies, so the
+    wrapper hands them tensors whose base and B/S/H strides are 16-byte
+    multiples: the ViT's views of a fused qkv pass as they are; a view 4
+    bytes past its allocation becomes one contiguous copy."""
+    for dtype in (torch.float32, torch.bfloat16):
+        k = torch.randn(2, 257, 3, 3, 64).to(dtype).unbind(3)[1]
+        assert fa._aligned16(k) is k
+    flat = torch.randn(1 + 2 * 257 * 3 * 64)
+    off = flat[1:].view(2, 257, 3, 64)
+    got = fa._aligned16(off)
+    assert got is not off and got.is_contiguous()
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, off)
+
+
+def test_term_counts_are_the_kernels():
+    """The emulated term counts are the ones the kernels are built with."""
+    with open(CU) as f:
+        src = f.read()
+    for name, want in (("kF32Planes", F32_PLANES), ("kRingTerms", RING_TERMS),
+                       ("kBf16Terms", BF16_TERMS)):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == want, name
+
+
+def test_ab_tool_refuses_without_a_card(capsys, monkeypatch):
+    """``tools/flash_bwd_ab.py``, the A/B timing of two K6/K7 sources,
+    exits 1 with a message and builds nothing where no card is present."""
+    from dml_cnn_cifar10_tpu_torch.tools import flash_bwd_ab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(fa, "_LIB", None)
+    assert flash_bwd_ab.main(["--other", CU]) == 1
+    assert "needs a CUDA card" in capsys.readouterr().err
+    assert fa._LIB is None
+
+
+def main() -> None:
+    """The emulation against the port's plain f32 backward (the card's
+    reference) at [8, 257, 3, 64], for each instance and term count."""
+    for inst, planes, p_terms, q_scale, causal in (
+            ("f32", 2, 2, 1.0, False), ("f32", 3, 3, 1.0, False),
+            ("f32", 2, 2, 1.0, True), ("f32", 3, 3, 1.0, True),
+            ("bf16_f32", 1, 3, 3.0, True), ("bf16", 1, 1, 3.0, True)):
+        q, k, v, do = (torch.from_numpy(a) for a in
+                       _inputs((8, 257, 3, 64), seed=0, q_scale=q_scale))
+        if inst != "f32":
+            q, k, v, do = (t.to(torch.bfloat16).float() for t in (q, k, v, do))
+        out, lse = fa.flash_attention_plain(q, k, v, causal=causal)
+        delta = fa.attention_delta(out, do)
+        want = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                            causal=causal)
+        got = emulate_bwd(q, k, v, do, lse, delta, planes, p_terms,
+                          causal=causal)
+        if inst == "bf16":
+            got = [g.to(torch.bfloat16).float() for g in got]
+            want = [w.to(torch.bfloat16).float() for w in want]
+        print(f"{inst:8s} planes {planes} P/dS terms {p_terms} causal "
+              f"{causal}: max abs diff dq/dk/dv "
+              + ", ".join(f"{(g - w).abs().max().item():.3g}"
+                          for g, w in zip(got, want))
+              + "; max |grad| "
+              + ", ".join(f"{w.abs().max().item():.3g}" for w in want))
+
+
+if __name__ == "__main__":
+    main()
