@@ -13,8 +13,10 @@ order; any failure ends the run with a non-zero exit:
 2. build    compile every ``csrc/*.cu`` afresh with ``nvcc`` (one process
             per source, all started together: ``sgd_update.cu`` and
             ``flash_attention.cu``); print ptxas's report, and for each of
-            the 18 K6/K7 instances its registers, stack, spills and
-            dynamic shared memory: the head-dim-64 ones must not spill.
+            the 36 flash instances (K3, K4, K5: dtype x head dim; K6, K7
+            also x P/dS terms) its registers, stack, spills and dynamic
+            shared memory: the head-dim-64 K3/K4/K6/K7 ones must not
+            spill.
 3. parity   K1 ``sgd_update_plain`` and K2 ``sgd_update_momentum`` against
             their plain PyTorch version on the CNN's 10 leaf shapes plus
             ragged and misaligned ones, for (mu, wd) in {0, 0.9} x {0, 5e-4}:
@@ -51,8 +53,9 @@ order; any failure ends the run with a non-zero exit:
 11. flash timing  each flash kernel at [128, 257, 3, 64] f32 and
             [2, 8100, 3, 64] bf16: CUDA events, device time, the plain
             version, ``F.scaled_dot_product_attention`` (a yardstick the
-            port never calls) and the bound; for K6/K7 also the
-            tensor-core bound of the split products they issue.
+            port never calls; by CUDA events and by device time) and the
+            bound, and the tensor-core bound of the split products each
+            kernel issues.
 12. vit train  the main path with ``--model vit_tiny``: ViT-Ti at full
             width (dim 192, depth 12, 3 heads, 64x64 crop = 257 tokens,
             5,399,626 f32 params), AdamW + cosine, batch 128, 200 steps on
@@ -79,11 +82,12 @@ order; any failure ends the run with a non-zero exit:
             -S / +S with window 512, against the plain version: 5e-5.
 17. stats timing  K5 at [2, 4050, 3, 64] bf16: CUDA events, device time,
             the plain version, ``F.scaled_dot_product_attention`` forward
-            and the bound; the ring's K6/K7 at that block on a card alone,
-            with their bounds, TFLOP/s and SDPA's backward on the block
-            (contiguous [B, H, S, D] inputs, warmed up, read A/B/B/A
-            against the pair by CUDA events and by device time; the
-            kernel it picked is printed).
+            (by CUDA events and by device time) and the bound; the
+            ring's K6/K7 at that block on a card alone, with their
+            bounds, TFLOP/s and SDPA's backward on the block (contiguous
+            [B, H, S, D] inputs, warmed up, read A/B/B/A against the pair
+            by CUDA events and by device time; the kernel it picked is
+            printed).
 The distributed phases (``dist_phases``) run each rank as a process of its
 own (this script with ``--rank R --job FILE``, after the build): over NCCL
 with a card each when there are two cards, else both on this card over
@@ -310,20 +314,33 @@ _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
-_BWD_INSTANCE = re.compile(r"(flash_dq_kernel|flash_dkv_kernel)I(f|13__nv_"
-                           r"bfloat16)Li(\d+)ELi(\d+)E")
+_INSTANCE = re.compile(r"(flash_out_kernel|flash_lse_kernel|"
+                       r"flash_stats_kernel|flash_dq_kernel|flash_dkv_kernel)"
+                       r"I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?")
+# Instances a build must hold: K3, K4, K5 per input dtype and head dim;
+# K6, K7 also per P/dS term count.
+_INSTANCES = {"flash_out_kernel": 6, "flash_lse_kernel": 6,
+              "flash_stats_kernel": 6, "flash_dq_kernel": 9,
+              "flash_dkv_kernel": 9}
 
 
-def ptxas_bwd_report(log: str) -> list:
-    """ptxas's registers, stack and spills for every K6/K7 instance (input
-    dtype x head dim x P/dS terms), beside the dynamic shared memory it
-    launches with. Fails unless all 18 are found and the head-dim-64
-    instances (the main paths') spill nothing."""
+def ptxas_report(log: str) -> list:
+    """ptxas's registers, stack and spills for every flash instance (input
+    dtype x head dim, and for K6/K7 x P/dS terms), beside the dynamic
+    shared memory it launches with. Fails unless all 36 are found and the
+    head-dim-64 instances of the tensor-core kernels (K3, K4, K6, K7: the
+    main paths') spill nothing; K5's are reported only."""
     import ctypes
 
     from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
-    smem_of = fa._lib().flash_bwd_smem_bytes
-    smem_of.argtypes, smem_of.restype = [ctypes.c_int] * 3, ctypes.c_int
+    lib = fa._lib()
+    fwd, bwd = lib.flash_fwd_smem_bytes, lib.flash_bwd_smem_bytes
+    for fn in (fwd, bwd):
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    # kernel -> its shared-memory query and that query's first argument
+    smem_of = {"flash_out_kernel": (fwd, 0), "flash_lse_kernel": (fwd, 0),
+               "flash_stats_kernel": (fwd, 1), "flash_dq_kernel": (bwd, 0),
+               "flash_dkv_kernel": (bwd, 1)}
     found, cur = {}, None
     for line in log.splitlines():
         m = _PTXAS_ENTRY.search(line)
@@ -339,33 +356,40 @@ def ptxas_bwd_report(log: str) -> list:
             cur["registers"] = int(m[1])
     report = []
     for name, info in sorted(found.items()):
-        m = _BWD_INSTANCE.search(name)
+        m = _INSTANCE.search(name)
         if not m:
             continue
         dt = 0 if m[2] == "f" else 1
         report.append(dict(kernel=m[1], dtype=["float32", "bfloat16"][dt],
-                           head_dim=int(m[3]), terms=int(m[4]),
-                           smem_bytes=smem_of(int(m[1] == "flash_dkv_kernel"),
-                                              dt, int(m[3])), **info))
+                           head_dim=int(m[3]),
+                           terms=int(m[4]) if m[4] else None,
+                           smem_bytes=smem_of[m[1]][0](smem_of[m[1]][1], dt,
+                                                       int(m[3])), **info))
     for r in report:
-        print(f"[build] {r['kernel']} {r['dtype']} D={r['head_dim']} "
-              f"P/dS terms {r['terms']}: {r.get('registers')} registers, "
+        print(f"[build] {r['kernel']} {r['dtype']} D={r['head_dim']}"
+              + (f" P/dS terms {r['terms']}" if r["terms"] else "")
+              + f": {r.get('registers')} registers, "
               f"{r.get('stack_bytes')} B stack, {r.get('spill_stores')}/"
               f"{r.get('spill_loads')} B spill stores/loads, "
               f"{r['smem_bytes']} B dynamic shared memory")
-    check(len(report) == 18 and all("spill_loads" in r for r in report),
-          f"ptxas reported {len(report)} K6/K7 instances, want 18")
+    counts = {k: sum(r["kernel"] == k and "spill_loads" in r for r in report)
+              for k in _INSTANCES}
+    check(counts == _INSTANCES,
+          f"ptxas reported {counts} flash instances, want {_INSTANCES}")
     check(all(r["spill_stores"] == r["spill_loads"] == 0 for r in report
-              if r["head_dim"] == 64), "a head-dim-64 K6/K7 instance spills")
+              if r["head_dim"] == 64 and r["kernel"] != "flash_stats_kernel"),
+          "a head-dim-64 K3/K4/K6/K7 instance spills")
     return report
 
 
-def bwd_tc_flops(kname: str, f32_in: bool, f32_grads: bool) -> int:
-    """Tensor-core FLOPs per B·H·Sq·Skv·D that K6 (S, dP, dQ) or K7 (S,
-    dP, dV, dK) issue: 2 per product times the term pairs of its split
-    (f32 inputs: 6 for every product; bf16 inputs: 1 for S and dP, and 3
-    for the second products with f32 gradients, else 1)."""
+def tc_flops(kname: str, f32_in: bool, f32_grads: bool = False) -> int:
+    """Tensor-core FLOPs per B·H·Sq·Skv·D that K3/K4 (S, O), K6 (S, dP,
+    dQ) or K7 (S, dP, dV, dK) issue: 2 per product times the term pairs
+    of its split (f32 inputs: 6 for every product; bf16 inputs: 1, but 3
+    for K6/K7's second products with f32 gradients)."""
     first = 6 if f32_in else 1
+    if kname.startswith("flash_fwd"):
+        return 2 * 2 * first
     second = 6 if f32_in else (3 if f32_grads else 1)
     return 2 * (2 * first + (1 if kname == "flash_bwd_dq" else 2) * second)
 
@@ -568,9 +592,13 @@ def flash_timing(dev, card, bytes_per_s, f32_ops) -> dict:
     ms (launch included), the profiler's device ms, the plain version's
     ms, ``F.scaled_dot_product_attention``'s forward (for K3/K4) and its
     autograd backward (for K6+K7 together) as a yardstick the port never
-    calls, and the bound: matrix-product FLOPs over the dtype's peak (f32
-    on the CUDA cores, bf16 on the tensor cores) or the bytes each input
-    and output needs once over the memory rate, whichever is larger."""
+    calls, by CUDA events and by device time, and the bound:
+    matrix-product FLOPs over the dtype's peak (f32 on the CUDA cores,
+    bf16 on the tensor cores) or the bytes each input and output needs
+    once over the memory rate, whichever is larger; beside it the
+    tensor-core bound of the split products each kernel issues. The
+    factor against the library divides device times: at these shapes
+    SDPA's event time can be its host dispatch."""
     import torch.nn.functional as F
 
     from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
@@ -593,8 +621,12 @@ def flash_timing(dev, card, bytes_per_s, f32_ops) -> dict:
         plain_bwd, _ = timed_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, do, lse, delta))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib_fwd, _ = timed_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt))
+
+        def lib_fwd_fn():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        lib_fwd, _ = timed_ms(lib_fwd_fn)
+        lib_fwd_device = sum(kernel_ms(lib_fwd_fn).values())
         lib_fn, lib_backend = sdpa_backward(q, k, v, do)
         lib_bwd, _ = timed_ms(lib_fn)
         lib_bwd_device = sum(kernel_ms(lib_fn).values())
@@ -612,35 +644,34 @@ def flash_timing(dev, card, bytes_per_s, f32_ops) -> dict:
             by_ops = flops / peak * 1e3
             by_bytes = nbytes[kname] / bytes_per_s * 1e3
             fwd = kname.startswith("flash_fwd")
+            lib_dev = lib_fwd_device if fwd else lib_bwd_device
+            # The split products the kernel issues on the tensor cores.
+            tcf = tc_flops(kname, dtype == torch.float32) * b * h * s * s * d
             res[(kname, label)] = dict(
                 shape=[b, s, h, d], dtype=str(dtype).replace("torch.", ""),
                 ms=ms, device_ms=dms, plain_ms=plain_fwd if fwd else plain_bwd,
                 library_ms=lib_fwd if fwd else lib_bwd,
-                **({} if fwd else {"library_device_ms": lib_bwd_device}),
+                library_device_ms=lib_dev,
                 library=("F.scaled_dot_product_attention forward" if fwd else
                          "F.scaled_dot_product_attention backward (dQ, dK "
                          f"and dV together; kernel {lib_backend})"),
                 bound_ms=max(by_ops, by_bytes),
                 bound_by="operations" if by_ops >= by_bytes else "bytes",
-                flops=flops, bytes=nbytes[kname])
+                bound_tc_ms=max(tcf / BF16_PEAK * 1e3, by_bytes),
+                flops=flops, tc_flops=tcf, bytes=nbytes[kname],
+                library_factor=(dms / lib_dev if fwd and dms else None))
             r = res[(kname, label)]
-            tc = ""
-            if not fwd:
-                # The split products K6/K7 issue on the tensor cores.
-                tc_flops = bwd_tc_flops(kname, dtype == torch.float32,
-                                        False) * b * h * s * s * d
-                r["bound_tc_ms"] = max(tc_flops / BF16_PEAK * 1e3, by_bytes)
-                r["tc_flops"] = tc_flops
-                tc = (f", tensor-core bound {r['bound_tc_ms']:.5f} ms "
-                      f"({tc_flops / ms / 1e9:.1f} TFLOP/s issued)")
             print(f"[flash timing] {kname} {label} {[b, s, h, d]} "
                   f"{r['dtype']}: kernel {ms:.5f} ms (device {dms} ms), "
                   f"plain {r['plain_ms']:.5f} ms, library "
-                  f"{r['library_ms']:.5f} ms"
-                  + ("" if fwd else f" (device {lib_bwd_device:.5f} ms)")
-                  + f", bound {r['bound_ms']:.5f} ms "
+                  f"{r['library_ms']:.5f} ms (device {lib_dev:.5f} ms"
+                  + (f"; {r['library_factor']:.2f}x on device time"
+                     if r["library_factor"] else "")
+                  + f"), bound {r['bound_ms']:.5f} ms "
                   f"({r['bound_by']}; {flops / ms / 1e9:.1f} TFLOP/s "
-                  f"achieved){tc} on {card}", flush=True)
+                  f"achieved), tensor-core bound {r['bound_tc_ms']:.5f} ms "
+                  f"({tcf / ms / 1e9:.1f} TFLOP/s issued) on {card}",
+                  flush=True)
         del q, k, v, do, out, lse, delta
     return res
 
@@ -881,9 +912,10 @@ def ring_bwd_parity(dev) -> float:
 def stats_timing(dev, card, bytes_per_s) -> dict:
     """K5 at the SP main path's block [2, 4050, 3, 64] bf16: CUDA-event ms,
     device ms, the plain version, ``F.scaled_dot_product_attention``'s
-    forward (a yardstick the port never calls), and the bound: 4·B·H·S²·D
-    FLOPs over the bf16 tensor-core peak, or the bytes of q, k, v, the
-    f32 acc and m, l over the memory rate, whichever is larger."""
+    forward (a yardstick the port never calls; by events and by device
+    time, the factor on device time), and the bound: 4·B·H·S²·D FLOPs
+    over the bf16 tensor-core peak, or the bytes of q, k, v, the f32 acc
+    and m, l over the memory rate, whichever is larger."""
     import torch.nn.functional as F
 
     from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
@@ -900,20 +932,30 @@ def stats_timing(dev, card, bytes_per_s) -> dict:
     dms = device_ms(fn, "flash_stats_kernel", reps=min(reps, 50))
     plain_ms, _ = timed_ms(lambda: fa.flash_attention_stats_plain(q, k, v))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib_ms, _ = timed_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+
+    def lib_fn():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    lib_ms, _ = timed_ms(lib_fn)
+    lib_dev = sum(kernel_ms(lib_fn).values())
     n, rows = b * s * h * d, b * s * h
     flops = 4 * b * h * s * s * d
     nbytes = 3 * n * q.element_size() + 4 * n + 2 * 4 * rows
     by_ops, by_bytes = flops / BF16_PEAK * 1e3, nbytes / bytes_per_s * 1e3
     res = dict(shape=[b, s, h, d], dtype="bfloat16", ms=ms, device_ms=dms,
                plain_ms=plain_ms, library_ms=lib_ms,
+               library_device_ms=lib_dev,
+               library_factor=dms / lib_dev if dms else None,
                library="F.scaled_dot_product_attention forward",
                bound_ms=max(by_ops, by_bytes),
                bound_by="operations" if by_ops >= by_bytes else "bytes",
                flops=flops, bytes=nbytes)
     print(f"[stats timing] flash_fwd_stats {[b, s, h, d]} bfloat16: kernel "
           f"{ms:.5f} ms (device {dms} ms), plain {plain_ms:.5f} ms, library "
-          f"{lib_ms:.5f} ms, bound {res['bound_ms']:.5f} ms "
+          f"{lib_ms:.5f} ms (device {lib_dev:.5f} ms"
+          + (f"; {res['library_factor']:.2f}x on device time"
+             if res["library_factor"] else "")
+          + f"), bound {res['bound_ms']:.5f} ms "
           f"({res['bound_by']}; {flops / ms / 1e9:.1f} TFLOP/s achieved) "
           f"on {card}", flush=True)
     # The ring backward's K6/K7 at the same block, f32 gradients, on a card
@@ -958,7 +1000,7 @@ def stats_timing(dev, card, bytes_per_s) -> dict:
                          ("flash_bwd_dkv", "flash_dkv_kernel")):
         kms = sum(read[name][0] for read in reads) / 2
         kflops = FLASH_FLOPS[name] * b * h * s * s * d
-        tc_flops = bwd_tc_flops(name, False, True) * b * h * s * s * d
+        tcf = tc_flops(name, False, True) * b * h * s * s * d
         kbytes = 4 * n * q.element_size() + 8 * rows + grad_bytes[name]
         by_ops, by_bytes = kflops / BF16_PEAK * 1e3, kbytes / bytes_per_s * 1e3
         res["ring_bwd_ms"][name] = dict(
@@ -967,8 +1009,8 @@ def stats_timing(dev, card, bytes_per_s) -> dict:
                                 reps=min(reads[0][name][1], 50)),
             bound_ms=max(by_ops, by_bytes),
             bound_by="operations" if by_ops >= by_bytes else "bytes",
-            bound_tc_ms=max(tc_flops / BF16_PEAK * 1e3, by_bytes),
-            flops=kflops, tc_flops=tc_flops, bytes=kbytes,
+            bound_tc_ms=max(tcf / BF16_PEAK * 1e3, by_bytes),
+            flops=kflops, tc_flops=tcf, bytes=kbytes,
             tflops=kflops / kms / 1e9, plain_ms=plain_bwd,
             library_ms=lib_bwd, library_ms_reads=[a[0] for a in lib_a],
             library_device_ms=lib_dev,
@@ -1551,7 +1593,7 @@ def main() -> int:
     for name, log in logs.items():
         print(f"[build] {name}.cu:\n{log.strip()}")
     print(f"[build] {len(logs)} source(s) in {build_s:.2f} s", flush=True)
-    bwd_build = ptxas_bwd_report(logs["flash_attention"])
+    flash_build = ptxas_report(logs["flash_attention"])
 
     # ---- 3. parity -------------------------------------------------------
     model = CNN(ModelConfig(logit_relu=False), DataConfig())
@@ -1916,7 +1958,7 @@ def main() -> int:
         shutil.copy(path, OUT)
     with open(os.path.join(OUT, "vit.json"), "w") as f:
         json.dump({"card": card, "main": vit_rate, "long": long_rate,
-                   "bwd_build": bwd_build,
+                   "flash_build": flash_build,
                    "flash_timing": {f"{k}/{l}": v
                                     for (k, l), v in flash_times.items()},
                    "flash_parity": {f"{k}/{d}": v
@@ -1962,6 +2004,7 @@ def main() -> int:
         "ms": t["ms"], "kernel_ms": t["ms"], "device_ms": t["device_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "library_device_ms": t["library_device_ms"],
         "library": t["library"],
         "work": f"one launch at the SP main path's ring block "
                 f"{t['shape']} {t['dtype']}; launches: rank 0 of the 2-rank "
@@ -1993,12 +2036,14 @@ def main() -> int:
             "ms": t["ms"], "kernel_ms": t["ms"], "device_ms": t["device_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"],
             "library": t["library"],
             "work": f"one launch at the ViT main path's attention "
                     f"{t['shape']} {t['dtype']}",
             "long": {k: long_t[k] for k in ("shape", "dtype", "ms",
                                             "device_ms", "plain_ms",
-                                            "library_ms", "bound_ms",
+                                            "library_ms",
+                                            "library_device_ms", "bound_ms",
                                             "bound_by")},
         })
     print(json.dumps({"kernels": kernels}))

@@ -35,7 +35,7 @@
 // is exactly 0 there.
 //
 // Design. A block owns one 64-row tile of one (batch, head): query rows
-// for K3/K4/K5/K6, key rows for K7. It initialises its own m, l and
+// for K3-K6, key rows for K7. It initialises its own m, l and
 // accumulators, then walks the tiles of the other axis in a loop (the
 // Pallas grid's sequential inner axis becomes this loop; CUDA blocks
 // share no state). band() gives that loop's bounds from the causal/window
@@ -43,42 +43,46 @@
 // mask inside it, so the skip logic cannot drift from the mask (the role
 // of _band_live, :481). Ragged edges are bounds-checked in the kernel:
 // nothing is padded to the tile size.
-//   K3, K4 and K5 are one body, flash_fwd<T, D, Mode>, that differs only
-// in what it stores: 256 threads as 16 x 16; a thread owns a 4 x 4
-// micro-tile of the 64 x 64 score tile (rows ty + 16i, cols tx + 16j,
-// strided so shared-memory rows of stride D + 1 fall in distinct banks)
-// and 4 x D/16 of the output tile, as f32 FMAs on the CUDA cores (bf16
+//   K3, K4, K6 and K7 run every product on the tensor cores (mma.sync
+// m16n8k16, bf16 operands, f32 sums), four warps of 16 rows each: the
+// softmax (K3/K4) and its Jacobian (K6/K7) work on the accumulator
+// fragments, P and dS are repacked in registers as the second product's A
+// operand, streamed tiles are double-buffered by cp.async, and operands
+// that are not bf16 values are split into bf16 terms; see the sections
+// before flash_dq_kernel and flash_fwd_tc.
+//   K5 is flash_fwd<T, D> on the CUDA cores: 256 threads as 16 x 16; a
+// thread owns a 4 x 4 micro-tile of the 64 x 64 score tile (rows ty + 16i,
+// cols tx + 16j, strided so shared-memory rows of stride D + 1 fall in
+// distinct banks) and 4 x D/16 of the output tile, as f32 FMAs (bf16
 // tiles widened to f32 in shared memory); row max and row sums reduce
 // over the 16 lanes that share a row with warp shuffles.
-//   K6 and K7 run every product on the tensor cores (mma.sync m16n8k16,
-// bf16 operands, f32 sums), four warps of 16 rows each, P and dS kept in
-// registers, streamed tiles double-buffered by cp.async, operands that
-// are not bf16 values split into bf16 terms; see the section before
-// flash_dq_kernel.
 //
 // What bounds them on an H100 SXM. The work is 4*B*H*Sq*Skv_live*D FLOPs
 // forward, 6*... for dQ and 8*... for dK/dV. At the ViT main path's
 // [128, 257, 3, 64] f32 the forward is 6.5 GFLOP, ~0.1 ms at the card's
 // 67 TFLOP/s of f32 on the CUDA cores, while its bytes (q, k, v, out:
 // 101 MB) take 0.03 ms at 3.35 TB/s, so operations bound it; the long
-// [2, 8100, 3, 64] bf16 shape and K5's ring block [2, 4050, 3, 64] bf16
-// (25.2 GFLOP, 25 us at 989 TFLOP/s, against 15.7 MB of inputs and
-// outputs, 4.7 us at 3.35 TB/s) are operation-bound at the bf16
-// tensor-core rate too. K6/K7 issue their products at that rate, times
-// the term pairs of their split: 6 for every product with f32 inputs
-// (0.059 + 0.079 ms of tensor-core work at the ViT shape), 1 for S and dP
-// and 3 for the second products with bf16 inputs and f32 gradients, 1
-// with bf16 gradients (0.153 + 0.204 ms at the long shape). ptxas -v
-// for sm_90a: the head-dim-64 instances take 144-177 registers
-// (K6 f32 144, bf16 156; K7 f32 177, bf16 163), no spills, 100,096 B of
+// [2, 8100, 3, 64] bf16 shape (101 GFLOP, 0.102 ms at 989 TFLOP/s) and
+// K5's ring block [2, 4050, 3, 64] bf16 (25.2 GFLOP, 25 us, against 15.7
+// MB of inputs and outputs, 4.7 us at 3.35 TB/s) are operation-bound at
+// the bf16 tensor-core rate too. The tensor-core kernels issue their
+// products at that rate, times the term pairs of their split: 6 for every
+// product with f32 inputs (K3/K4 0.039 ms of tensor-core work at the ViT
+// shape, K6 + K7 0.059 + 0.079 ms); with bf16 inputs 1, and 3 for K6/K7's
+// second products with f32 gradients (at the long shape with bf16
+// gradients K3/K4 0.102 ms, K6 + K7 0.153 + 0.204 ms). ptxas -v for
+// sm_90a: the head-dim-64 backward instances take 144-177 registers (K6
+// f32 144, bf16 156; K7 f32 177, bf16 163), no spills, 100,096 B of
 // dynamic shared memory with f32 inputs, 56,832 (K6) and 37,632 (K7) with
 // bf16 inputs; K7 with f32 and D = 128 holds 255 registers and 190,208 B,
-// one block an SM.
+// one block an SM. The forward's D = 64 instances: f32 131 registers and
+// 71,936 B (three blocks an SM), bf16 128 and 46,592 B (four), no spills;
+// bf16 D = 128 spills 4 B.
 //
-// What remains: K3-K5 still run on the CUDA cores. K6/K7 use mma.sync,
-// not wgmma with TMA loads, warp specialisation and persistent blocks
-// (the FlashAttention-3 design), and K7 recomputes the scores K6 already
-// built.
+// What remains: K5 still runs on the CUDA cores. The tensor-core kernels
+// use mma.sync, not wgmma with TMA loads, warp specialisation and
+// persistent blocks (the FlashAttention-3 design), and K7 recomputes the
+// scores K6 already built.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,21 +103,12 @@ constexpr float kNegInf = -1e30f;   // masked score (not -inf: no NaN rows)
 constexpr float kDeadLse = 1e30f;   // lse of a row with no live key
 
 enum DType { kF32 = 0, kBF16 = 1 };
-// What the forward body stores: K3 out; K4 out and lse; K5 acc, m and l.
+// What a forward kernel stores: K3 out; K4 out and lse; K5 acc, m and l.
 enum FwdMode { kOut = 0, kLse = 1, kStats = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-__device__ __forceinline__ void store(void* base, int64_t i, float v,
-                                      int dtype) {
-  if (dtype == kF32) {
-    static_cast<float*>(base)[i] = v;
-  } else {
-    static_cast<__nv_bfloat16*>(base)[i] = __float2bfloat16_rn(v);
-  }
 }
 
 struct Mask {
@@ -243,7 +238,8 @@ constexpr int fwd_smem_bytes() {
   return (3 * kTile * (D + 1) + kTile * kPld) * 4 + 2 * kTile * 4;
 }
 
-template <typename T, int D, int Mode>
+// K5 on the CUDA cores (see the header); K3/K4 have their own body below.
+template <typename T, int D>
 __device__ __forceinline__ void flash_fwd(const FwdArgs& a) {
   constexpr int LD = D + 1, kC = D / kTx;
   extern __shared__ float smem[];
@@ -347,40 +343,20 @@ __device__ __forceinline__ void flash_fwd(const FwdArgs& a) {
     if (r >= a.m.q_len) continue;
     const bool dead = m_i[i] <= kNegInf * 0.5f;
     const int64_t row = ((int64_t)b * a.m.q_len + r) * a.heads + h;
-    if constexpr (Mode == kStats) {
-      float* acc_out = static_cast<float*>(a.out);
+    float* acc_out = static_cast<float*>(a.out);
 #pragma unroll
-      for (int c = 0; c < kC; ++c)
-        acc_out[row * D + tx + kTx * c] = dead ? 0.0f : acc[i][c];
-      if (tx == 0) {
-        a.m_out[row] = dead ? kNegInf : m_i[i];
-        a.l_out[row] = dead ? 0.0f : l_i[i];
-      }
-    } else {
-      const float l = fmaxf(l_i[i], 1e-30f);
-#pragma unroll
-      for (int c = 0; c < kC; ++c)
-        store(a.out, row * D + tx + kTx * c, dead ? 0.0f : acc[i][c] / l,
-              a.dtype);
-      if (Mode == kLse && tx == 0)
-        a.lse[row] = dead ? kDeadLse : m_i[i] + logf(l);
+    for (int c = 0; c < kC; ++c)
+      acc_out[row * D + tx + kTx * c] = dead ? 0.0f : acc[i][c];
+    if (tx == 0) {
+      a.m_out[row] = dead ? kNegInf : m_i[i];
+      a.l_out[row] = dead ? 0.0f : l_i[i];
     }
   }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_out_kernel(FwdArgs a) {
-  flash_fwd<T, D, kOut>(a);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_lse_kernel(FwdArgs a) {
-  flash_fwd<T, D, kLse>(a);
-}
-
-template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_stats_kernel(FwdArgs a) {
-  flash_fwd<T, D, kStats>(a);
+  flash_fwd<T, D>(a);
 }
 
 struct BwdArgs {
@@ -429,9 +405,9 @@ struct BwdArgs {
 //     one product; P and dS as kRingTerms terms.
 //   bf16 inputs, bf16 gradients: P and dS rounded to bf16 once.
 
-constexpr int kBwdWarps = 4;
-constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kBwdRows = 16 * kBwdWarps;  // rows a block owns
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcRows = 16 * kTcWarps;  // rows a block owns
 constexpr int kF32Planes = 3;  // bf16 terms of an f32 operand (and of P, dS)
 constexpr int kRingTerms = 3;  // P, dS terms: bf16 inputs, f32 gradients
 constexpr int kBf16Terms = 1;  // P, dS terms: bf16 inputs, bf16 gradients
@@ -555,7 +531,7 @@ __device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src,
                                           int64_t row_stride, int row0,
                                           int len) {
   constexpr int kChunks = D * (int)sizeof(T) / 16, kPer = 16 / sizeof(T);
-  for (int e = threadIdx.x; e < ROWS * kChunks; e += kBwdThreads) {
+  for (int e = threadIdx.x; e < ROWS * kChunks; e += kTcThreads) {
     const int r = e / kChunks, c = (e % kChunks) * kPer;
     const bool valid = row0 + r < len;
     cp_async16(dst + r * ld + c,
@@ -568,7 +544,7 @@ __device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src,
 template <int D, int ROWS, int NP>
 __device__ __forceinline__ void split_rows(bf16* planes, const float* raw) {
   constexpr int LD = D + 8;
-  for (int e = threadIdx.x; e < ROWS * D / 4; e += kBwdThreads) {
+  for (int e = threadIdx.x; e < ROWS * D / 4; e += kTcThreads) {
     const int r = e / (D / 4), c = (e % (D / 4)) * 4;
     store_planes<NP>(planes + r * LD + c, ROWS * LD,
                      *reinterpret_cast<const float4*>(raw + r * D + c));
@@ -581,14 +557,14 @@ __device__ __forceinline__ void load_planes(bf16* planes, const float* src,
                                             int64_t row_stride, int row0,
                                             int len) {
   constexpr int LD = D + 8;
-  for (int e = threadIdx.x; e < kBwdRows * D / 4; e += kBwdThreads) {
+  for (int e = threadIdx.x; e < kTcRows * D / 4; e += kTcThreads) {
     const int r = e / (D / 4), c = (e % (D / 4)) * 4;
     const float4 x =
         row0 + r < len
             ? *reinterpret_cast<const float4*>(
                   src + (int64_t)(row0 + r) * row_stride + c)
             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    store_planes<NP>(planes + r * LD + c, kBwdRows * LD, x);
+    store_planes<NP>(planes + r * LD + c, kTcRows * LD, x);
   }
 }
 
@@ -600,7 +576,7 @@ __device__ __forceinline__ void load_resident(bf16* planes, const T* src,
   if constexpr (std::is_same<T, float>::value) {
     load_planes<D, NP>(planes, src, row_stride, row0, len);
   } else {
-    copy_rows<bf16, D, kBwdRows>(planes, D + 8, src, row_stride, row0, len);
+    copy_rows<bf16, D, kTcRows>(planes, D + 8, src, row_stride, row0, len);
   }
 }
 
@@ -615,50 +591,60 @@ __device__ __forceinline__ void store2(void* base, int64_t i, float x,
   }
 }
 
-// Shared-memory plan of one instance (kDkv: K7, else K6): the resident
-// rows, the streamed tiles (two stages for bf16; for f32 one stage of
-// planes plus the raw f32 rows the copies land in), per-row lse/delta of
-// the streamed tile (K7) and segment ids, the last two in two slots. The
-// streamed tiles are 64 rows wide for K6 with bf16 and D <= 64, else 32:
+// Shared-memory plan of one tensor-core instance: RES resident tensors of
+// kTcRows rows, two streamed tensors of N rows (two stages for bf16; for
+// f32 one stage of planes plus the raw f32 rows the copies land in), STATS
+// f32 values per streamed row (K7: lse and delta) and segment ids, the
+// last two in two slots.
+template <typename T, int D, int N, int RES, int STATS>
+struct TilePlan {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kNP = kF32 ? kF32Planes : 1;  // bf16 planes
+  static constexpr int kN = N;
+  static constexpr int LD = D + 8;
+  static constexpr int kStages = kF32 ? 1 : 2;
+  static constexpr int kResident = RES * kNP * kTcRows * LD;  // bf16 elems
+  static constexpr int kStage = 2 * kNP * kN * LD;             // bf16 elems
+  static constexpr int kRaw = kF32 ? 2 * kN * D : 0;           // f32 elems
+  static constexpr int kStats = 2 * STATS * kN;                // f32 elems
+  static constexpr int bytes = (kResident + kStages * kStage) * 2 +
+                               (kRaw + kStats) * 4 + 2 * kN * 4;
+};
+
+// K6 (kDkv false) and K7: q and dO (K6) or k and v (K7) resident; K6
+// keeps K7's lse/delta slots, unused. The streamed tiles are 64 rows wide
+// for K6 with bf16 and D <= 64, else 32:
 // K7 keeps dK and dV beside its score strips, and at 32 it fits three
 // blocks an SM at D = 64 without spills.
 template <typename T, int D, bool kDkv>
-struct BwdPlan {
-  static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int kNP = kF32 ? kF32Planes : 1;  // bf16 planes
-  static constexpr int kN = (kDkv || kF32 || D == 128) ? 32 : 64;
-  static constexpr int LD = D + 8;
-  static constexpr int kStages = kF32 ? 1 : 2;
-  static constexpr int kResident = 2 * kNP * kBwdRows * LD;  // bf16 elems
-  static constexpr int kStage = 2 * kNP * kN * LD;           // bf16 elems
-  static constexpr int kRaw = kF32 ? 2 * kN * D : 0;         // f32 elems
-  static constexpr int bytes = (kResident + kStages * kStage) * 2 +
-                               kRaw * 4 + 2 * 2 * kN * 4 + 2 * kN * 4;
-};
+using BwdPlan =
+    TilePlan<T, D, (kDkv || std::is_same<T, float>::value || D == 128) ? 32
+                                                                       : 64,
+             2, 2>;
 
-struct BwdSmem {
-  bf16* res;      // [2 tensors][kNP][64][LD]
+struct TileSmem {
+  bf16* res;      // [RES tensors][kNP][64][LD]
   bf16* stream;   // [kStages][2 tensors][kNP][kN][LD]
   float* raw;     // [2 tensors][kN][D] (f32 only)
-  float* stats;   // [2 slots][lse, delta][kN] (K7)
+  float* stats;   // [2 slots][STATS][kN] (K7: lse, delta)
   int* seg;       // [2 slots][kN]
 };
 
 template <typename P>
-__device__ __forceinline__ BwdSmem bwd_smem(unsigned char* base) {
-  BwdSmem s;
+__device__ __forceinline__ TileSmem tile_smem(unsigned char* base) {
+  TileSmem s;
   s.res = reinterpret_cast<bf16*>(base);
   s.stream = s.res + P::kResident;
   s.raw = reinterpret_cast<float*>(s.stream + P::kStages * P::kStage);
   s.stats = s.raw + P::kRaw;
-  s.seg = reinterpret_cast<int*>(s.stats + 4 * P::kN);
+  s.seg = reinterpret_cast<int*>(s.stats + P::kStats);
   return s;
 }
 
 // Issue the cp.async copies of streamed tile `it` (rows r0 .. r0 + kN of
 // x and y) and commit them as one group.
 template <typename T, int D, typename P>
-__device__ __forceinline__ void issue_tile(const BwdSmem& sm, int it,
+__device__ __forceinline__ void issue_tile(const TileSmem& sm, int it,
                                            const T* x, int64_t xs,
                                            const T* y, int64_t ys, int r0,
                                            int len) {
@@ -675,7 +661,7 @@ __device__ __forceinline__ void issue_tile(const BwdSmem& sm, int it,
 // Wait for streamed tile `it`; for f32 split it into planes. Returns its
 // two tensors' plane base (x; y follows at kNP * kN * LD).
 template <typename T, int D, typename P>
-__device__ __forceinline__ const bf16* land_tile(const BwdSmem& sm, int it) {
+__device__ __forceinline__ const bf16* land_tile(const TileSmem& sm, int it) {
   cp_async_wait_all();
   __syncthreads();  // the tile landed; everyone is done with tile it - 1
   if constexpr (P::kF32) {
@@ -712,8 +698,8 @@ __device__ __forceinline__ void scores(float (&c1)[P::kN / 8][4],
     uint32_t x1[NP][4], x2[NP][4];
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
-      ldsm4(x1[p], a1 + p * kBwdRows * LD + a_off + 16 * kk);
-      ldsm4(x2[p], a2 + p * kBwdRows * LD + a_off + 16 * kk);
+      ldsm4(x1[p], a1 + p * kTcRows * LD + a_off + 16 * kk);
+      ldsm4(x2[p], a2 + p * kTcRows * LD + a_off + 16 * kk);
     }
 #pragma unroll
     for (int jj = 0; jj < kN / 16; ++jj) {
@@ -773,16 +759,16 @@ __device__ __forceinline__ const T* slice(const void* base,
 // K6: one block per 64 query rows; walks the key tiles of its band.
 // NT: bf16 terms of dS in dQ = dS K.
 template <typename T, int D, int NT>
-__global__ void __launch_bounds__(kBwdThreads) flash_dq_kernel(BwdArgs a) {
+__global__ void __launch_bounds__(kTcThreads) flash_dq_kernel(BwdArgs a) {
   using P = BwdPlan<T, D, false>;
   constexpr int NP = P::kNP, LD = P::LD, kN = P::kN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const BwdSmem sm = bwd_smem<P>(smem_raw);
+  const TileSmem sm = tile_smem<P>(smem_raw);
   bf16* sq = sm.res;
-  bf16* sdo = sm.res + NP * kBwdRows * LD;
+  bf16* sdo = sm.res + NP * kTcRows * LD;
 
   const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
-  const int row0 = blockIdx.y * kBwdRows;
+  const int row0 = blockIdx.y * kTcRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const T* q = slice<T>(a.q, a.qs, b, h);
@@ -810,7 +796,7 @@ __global__ void __launch_bounds__(kBwdThreads) flash_dq_kernel(BwdArgs a) {
   }
   const float sl2 = a.scale * kLog2e;
 
-  const int rows_hi = min(row0 + kBwdRows, a.m.q_len);
+  const int rows_hi = min(row0 + kTcRows, a.m.q_len);
   const Range kr = band(a.m, row0, rows_hi, false);
   const int first = (kr.lo / kN) * kN;
   const int n_tiles = kr.hi > kr.lo ? (kr.hi - first + kN - 1) / kN : 0;
@@ -818,7 +804,7 @@ __global__ void __launch_bounds__(kBwdThreads) flash_dq_kernel(BwdArgs a) {
     const int c0 = first + it * kN;
     issue_tile<T, D, P>(sm, it, k, a.ks[1], v, a.vs[1], c0, a.m.kv_len);
     if (has_seg)
-      for (int r = threadIdx.x; r < kN; r += kBwdThreads) {
+      for (int r = threadIdx.x; r < kN; r += kTcThreads) {
         const bool valid = c0 + r < a.m.kv_len;
         cp_async4(sm.seg + (it & 1) * kN + r,
                   a.kseg + (int64_t)b * a.m.kv_len + (valid ? c0 + r : 0),
@@ -884,16 +870,16 @@ __global__ void __launch_bounds__(kBwdThreads) flash_dq_kernel(BwdArgs a) {
 // K7: one block per 64 key rows; walks the query tiles of its band. The
 // score strips are transposed: a warp's rows are keys, columns queries.
 template <typename T, int D, int NT>
-__global__ void __launch_bounds__(kBwdThreads) flash_dkv_kernel(BwdArgs a) {
+__global__ void __launch_bounds__(kTcThreads) flash_dkv_kernel(BwdArgs a) {
   using P = BwdPlan<T, D, true>;
   constexpr int NP = P::kNP, LD = P::LD, kN = P::kN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const BwdSmem sm = bwd_smem<P>(smem_raw);
+  const TileSmem sm = tile_smem<P>(smem_raw);
   bf16* sk = sm.res;
-  bf16* sv = sm.res + NP * kBwdRows * LD;
+  bf16* sv = sm.res + NP * kTcRows * LD;
 
   const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
-  const int col0 = blockIdx.y * kBwdRows;
+  const int col0 = blockIdx.y * kTcRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const T* q = slice<T>(a.q, a.qs, b, h);
@@ -915,7 +901,7 @@ __global__ void __launch_bounds__(kBwdThreads) flash_dkv_kernel(BwdArgs a) {
                     : 0;
   }
 
-  const int cols_hi = min(col0 + kBwdRows, a.m.kv_len);
+  const int cols_hi = min(col0 + kTcRows, a.m.kv_len);
   const Range qr = band(a.m, col0, cols_hi, true);
   const int first = (qr.lo / kN) * kN;
   const int n_tiles = qr.hi > qr.lo ? (qr.hi - first + kN - 1) / kN : 0;
@@ -923,7 +909,7 @@ __global__ void __launch_bounds__(kBwdThreads) flash_dkv_kernel(BwdArgs a) {
     const int r0 = first + it * kN;
     issue_tile<T, D, P>(sm, it, q, a.qs[1], dout, a.ds[1], r0, a.m.q_len);
     float* st = sm.stats + (it & 1) * 2 * kN;
-    for (int r = threadIdx.x; r < kN; r += kBwdThreads) {
+    for (int r = threadIdx.x; r < kN; r += kTcThreads) {
       const bool valid = r0 + r < a.m.q_len;
       const int64_t row =
           ((int64_t)b * a.m.q_len + (valid ? r0 + r : 0)) * a.heads + h;
@@ -1004,6 +990,283 @@ __global__ void __launch_bounds__(kBwdThreads) flash_dkv_kernel(BwdArgs a) {
              a.dv_dtype);
     }
   }
+}
+
+// ---- K3/K4: the forward on the tensor cores -------------------------------
+//
+// flash_out_kernel (K3) and flash_lse_kernel (K4) are one body,
+// flash_fwd_tc<T, D, Mode>, that differs only in what it stores. A block
+// is 4 warps and owns 64 query rows of one (batch, head); a warp owns 16
+// of them. Q is resident: loaded once, bf16 rows by cp.async, f32 rows as
+// kF32Planes bf16 planes. K and V stream in by cp.async in tiles of kN
+// keys over band(), tile j + 1 in flight while tile j is multiplied (the
+// K6 plan: two stages for bf16; for f32 one stage of planes beside the raw
+// rows the copies land in, split once they land). Per tile, each warp:
+//   S = Q K^T by mma.sync m16n8k16 (K read by ldmatrix), scaled into base-2
+//     units (scale * log2(e) folded in, exp2 below);
+//   runs the online softmax on the accumulator fragments: a lane holds two
+//     rows (g and g + 8 of the warp's 16), their tile max reduces over the
+//     lane's quad (__shfl_xor_sync 1, 2), the running max m rescales l and
+//     the O accumulators by alpha = exp2(m_old - m_new) in registers;
+//   O += P V, P repacked from the S accumulators as the A operand
+//     (acc_to_a), never through shared memory; V read by ldmatrix.trans.
+// score_live() runs only on tiles that tile_all_live() does not clear. A
+// masked score is kNegInf and its p exactly 0, also in a row with no live
+// key so far; a row that never sees one is stored as dead.
+//
+// Precision by instance (tests/test_torch_flash_split.py emulates both
+// against the JAX package's forward):
+//   bf16 inputs: S exact in one product; P rounded to bf16 once for P V,
+//     as FlashAttention-2 does (l sums the unrounded f32 p).
+//   f32 inputs: q, k, v as kF32Planes bf16 planes and P as as many terms,
+//     six products each through mma_split. Two planes reach 3.6e-5 on out
+//     (pin 5e-6), two P terms 6.6e-6: the forward needs the backward's three.
+//
+// Tiles. kN = 64 keys for bf16. f32 streams 32: its raw rows and three
+// planes of K and V at 64 keys would take 116 KB, one block an SM; at 32
+// they take 72 KB, three. Ragged edges: a warp whose 16 rows lie past
+// q_len skips its products (it still meets every __syncthreads), and S's
+// n8 column tiles and P V's k16 steps wholly past kv_len are skipped. At
+// the ViT's 257 tokens = 4 * 64 + 1, 64 x 64 tiles make 25 tile pairs for
+// 16.1 tiles of real work (1.55x; f32's 64 x 32 tiles, 45 for 32.3); with
+// the skips S issues 272 x 264 and P V 272 x 272 of the 257 x 257 scores
+// (1.09x and 1.12x).
+template <typename T, int D>
+using FwdPlan = TilePlan<T, D, std::is_same<T, float>::value ? 32 : 64, 1, 0>;
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.0f;
+}
+
+// c = A B^T for one warp over D: A the warp's 16 resident rows at `a`
+// (plane stride kTcRows * LD), B the kN streamed rows at `b` (plane stride
+// kN * LD). n8 column tiles at or past `live` are skipped (left 0). With
+// split operands each k16 step sums its six products in a fresh
+// accumulator, added to c in f32: the tensor cores truncate the sums they
+// accumulate, and a chain of 6 * D / 16 products into c carries that bias
+// into the scores. On an H100 at the ViT's shape, f32 out was up to 7.3e-6
+// off the plain version (pin 5e-6) with one chain for S and one for O
+// across tiles, 1.7e-6 with both fresh.
+template <int D, typename P>
+__device__ __forceinline__ void score_strip(float (&c)[P::kN / 8][4],
+                                            const bf16* a, const bf16* b,
+                                            int live, int lane) {
+  constexpr int NP = P::kNP, LD = P::LD, kN = P::kN;
+  zero(c);
+  const int a_off = (lane & 15) * LD + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * LD +
+                    ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t x[NP][4];
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      ldsm4(x[p], a + p * kTcRows * LD + a_off + 16 * kk);
+    auto products = [&](float (&d)[kN / 8][4]) {
+#pragma unroll
+      for (int jj = 0; jj < kN / 16; ++jj) {
+        if (16 * jj >= live) continue;
+        uint32_t y[NP][4];
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          ldsm4(y[p], b + p * kN * LD + 16 * jj * LD + b_off + 16 * kk);
+        mma_split<NP, NP>(d[2 * jj], x, y, 0);
+        if (16 * jj + 8 < live) mma_split<NP, NP>(d[2 * jj + 1], x, y, 1);
+      }
+    };
+    if constexpr (NP == 1) {
+      products(c);
+    } else {
+      float t[kN / 8][4];
+      zero(t);
+      products(t);
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[j][e] += t[j][e];
+    }
+  }
+}
+
+// 2^x by the SFU, subnormal results flushed to 0 (as --use_fast_math's
+// exp2f; a softmax weight under 2^-126 is 0 for every pin here).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Reductions over the quad of lanes that hold one accumulator row.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <typename T, int D, int Mode>
+__device__ __forceinline__ void flash_fwd_tc(const FwdArgs& a) {
+  using P = FwdPlan<T, D>;
+  constexpr int NP = P::kNP, LD = P::LD, kN = P::kN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TileSmem sm = tile_smem<P>(smem_raw);
+  const bf16* sq = sm.res;
+
+  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
+  const int row0 = blockIdx.y * kTcRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const T* q = slice<T>(a.q, a.qs, b, h);
+  const T* k = slice<T>(a.k, a.ks, b, h);
+  const T* v = slice<T>(a.v, a.vs, b, h);
+  const bool has_seg = a.qseg != nullptr;
+  load_resident<T, D, NP>(sm.res, q, a.qs[1], row0, a.m.q_len);
+  cp_async_commit();
+
+  int qseg_r[2];  // this lane's two rows
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 16 * warp + g + 8 * i;
+    qseg_r[i] = has_seg && r < a.m.q_len
+                    ? a.qseg[(int64_t)b * a.m.q_len + r]
+                    : 0;
+  }
+  const float sl2 = a.scale * kLog2e;
+
+  const int rows_hi = min(row0 + kTcRows, a.m.q_len);
+  const Range kr = band(a.m, row0, rows_hi, false);
+  const int first = (kr.lo / kN) * kN;
+  const int n_tiles = kr.hi > kr.lo ? (kr.hi - first + kN - 1) / kN : 0;
+  auto issue = [&](int it) {
+    const int c0 = first + it * kN;
+    issue_tile<T, D, P>(sm, it, k, a.ks[1], v, a.vs[1], c0, a.m.kv_len);
+    if (has_seg)
+      for (int r = threadIdx.x; r < kN; r += kTcThreads) {
+        const bool valid = c0 + r < a.m.kv_len;
+        cp_async4(sm.seg + (it & 1) * kN + r,
+                  a.kseg + (int64_t)b * a.m.kv_len + (valid ? c0 + r : 0),
+                  valid);
+      }
+    cp_async_commit();
+  };
+  if (n_tiles > 0) issue(0);
+
+  // Running max of the lane's two rows (unscaled, and ms in base-2 units)
+  // and normalizer; l is the lane's share, reduced over the quad at the
+  // end.
+  float acc[D / 8][4], m[2] = {kNegInf, kNegInf}, ms[2] = {0.0f, 0.0f},
+                       l[2] = {0.0f, 0.0f};
+  zero(acc);
+  const bool warp_live = row0 + 16 * warp < a.m.q_len;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int c0 = first + it * kN;
+    const bf16* sk = land_tile<T, D, P>(sm, it);
+    const bf16* sv = sk + NP * kN * LD;
+    if (it + 1 < n_tiles) issue(it + 1);
+    if (!warp_live) continue;
+    const int live = a.m.kv_len - c0;  // columns inside the key axis
+    float s[kN / 8][4];
+    score_strip<D, P>(s, sq + 16 * warp * LD, sk, live, lane);
+    const int* kseg = sm.seg + (it & 1) * kN;
+    float alpha[2];  // rescale of O and l for this tile
+    auto softmax = [&](auto masked) {
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, cl = 8 * j + 2 * t + (e & 1);
+          if constexpr (decltype(masked)::value)
+            if (!score_live(a.m, row0 + 16 * warp + g + 8 * i, c0 + cl,
+                            qseg_r[i], has_seg ? kseg[cl] : 0))
+              s[j][e] = kNegInf;
+          mx[i] = fmaxf(mx[i], s[j][e]);
+        }
+      // p = exp2(s * sl2 - ms): ms is the row max in base-2 units, or 0
+      // while the row has no live key, so that its masked scores give
+      // exp2(-1e30 * sl2) = 0 and l and acc stay exactly 0 until one
+      // arrives (alpha = 0 then). alpha takes the difference of the kept,
+      // rounded ms: recomputing the old one as m * sl2 - ms contracts to
+      // an FMA whose alpha is 1 - 2e-7, not 1, on every tile (lse off by
+      // 2.3e-5 after 127 tiles at 8,100 keys).
+      float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = quad_max(mx[i]);
+        const float ms_new = mx[i] == kNegInf ? 0.0f : mx[i] * sl2;
+        alpha[i] = m[i] == kNegInf ? 0.0f : fast_exp2(ms[i] - ms_new);
+        m[i] = mx[i];
+        ms[i] = ms_new;
+      }
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = fast_exp2(fmaf(s[j][e], sl2, -ms[e >> 1]));
+          sum[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = fmaf(l[i], alpha[i], sum[i]);
+    };
+    if (tile_all_live(a.m, has_seg, row0 + 16 * warp + 16, c0 + kN))
+      softmax(std::false_type{});
+    else
+      softmax(std::true_type{});
+    // O = alpha O + P V, P as NP terms. With split operands the tile's
+    // products go to a fresh accumulator first, as in score_strip.
+    if constexpr (NP == 1) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+      accumulate<D, NP, P>(acc, s, sv, live, lane);
+    } else {
+      float o[D / 8][4];
+      zero(o);
+      accumulate<D, NP, P>(o, s, sv, live, lane);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[j][e] = fmaf(acc[j][e], alpha[e >> 1], o[j][e]);
+    }
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = quad_sum(l[i]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 16 * warp + g + 8 * i;
+    if (r >= a.m.q_len) continue;
+    const bool dead = m[i] == kNegInf;
+    const float inv = 1.0f / fmaxf(l[i], 1e-30f);
+    const int64_t row = ((int64_t)b * a.m.q_len + r) * a.heads + h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(a.out, row * D + 8 * j + 2 * t,
+             dead ? 0.0f : acc[j][2 * i] * inv,
+             dead ? 0.0f : acc[j][2 * i + 1] * inv, a.dtype);
+    if (Mode == kLse && t == 0)
+      a.lse[row] = dead ? kDeadLse : fmaf(m[i], a.scale, logf(l[i]));
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads) flash_out_kernel(FwdArgs a) {
+  flash_fwd_tc<T, D, kOut>(a);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads) flash_lse_kernel(FwdArgs a) {
+  flash_fwd_tc<T, D, kLse>(a);
 }
 
 // Calls f(T*{}, integral_constant<D>) for the input dtype and head dim the
@@ -1090,11 +1353,13 @@ int fwd(FwdMode mode, const void* q, const void* k, const void* v,
   return dispatch(dtype, d, [&](auto t, auto dd) {
     using T = std::remove_pointer_t<decltype(t)>;
     constexpr int kD = decltype(dd)::value;
-    void (*kernel)(FwdArgs) = mode == kStats ? flash_stats_kernel<T, kD>
-                              : mode == kLse ? flash_lse_kernel<T, kD>
-                                             : flash_out_kernel<T, kD>;
-    return launch(kernel, a, batch * heads, tiles(sq), fwd_smem_bytes<kD>(),
-                  stream);
+    if (mode == kStats)
+      return launch(flash_stats_kernel<T, kD>, a, batch * heads, tiles(sq),
+                    fwd_smem_bytes<kD>(), stream);
+    void (*kernel)(FwdArgs) =
+        mode == kLse ? flash_lse_kernel<T, kD> : flash_out_kernel<T, kD>;
+    return launch(kernel, a, batch * heads, (sq + kTcRows - 1) / kTcRows,
+                  FwdPlan<T, kD>::bytes, stream, kTcThreads);
   });
 }
 
@@ -1185,8 +1450,8 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
     using T = std::remove_pointer_t<decltype(t)>;
     constexpr int kD = decltype(dd)::value;
     return launch(flash_dq_kernel<T, kD, decltype(nt)::value>, a,
-                  batch * heads, (sq + kBwdRows - 1) / kBwdRows,
-                  BwdPlan<T, kD, false>::bytes, stream, kBwdThreads);
+                  batch * heads, (sq + kTcRows - 1) / kTcRows,
+                  BwdPlan<T, kD, false>::bytes, stream, kTcThreads);
   });
 }
 
@@ -1208,8 +1473,8 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
     using T = std::remove_pointer_t<decltype(t)>;
     constexpr int kD = decltype(dd)::value;
     return launch(flash_dkv_kernel<T, kD, decltype(nt)::value>, a,
-                  batch * heads, (skv + kBwdRows - 1) / kBwdRows,
-                  BwdPlan<T, kD, true>::bytes, stream, kBwdThreads);
+                  batch * heads, (skv + kTcRows - 1) / kTcRows,
+                  BwdPlan<T, kD, true>::bytes, stream, kTcThreads);
   });
 }
 
@@ -1220,6 +1485,15 @@ int flash_bwd_smem_bytes(int dkv, int dtype, int d) {
     using T = std::remove_pointer_t<decltype(t)>;
     constexpr int kD = decltype(dd)::value;
     return dkv ? BwdPlan<T, kD, true>::bytes : BwdPlan<T, kD, false>::bytes;
+  });
+}
+
+// The same for K3/K4 (stats 0) or K5 (stats 1).
+int flash_fwd_smem_bytes(int stats, int dtype, int d) {
+  return dispatch(dtype, d, [&](auto t, auto dd) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    constexpr int kD = decltype(dd)::value;
+    return stats ? fwd_smem_bytes<kD>() : FwdPlan<T, kD>::bytes;
   });
 }
 

@@ -1,8 +1,9 @@
-"""The split-bf16 arithmetic of the flash backward kernels K6/K7, emulated
-on the CPU and held against the JAX package.
+"""The split-bf16 arithmetic of the flash kernels K3/K4 (forward) and
+K6/K7 (backward), emulated on the CPU and held against the JAX package.
 
-``csrc/flash_attention.cu`` runs every product of ``flash_dq_kernel`` (K6)
-and ``flash_dkv_kernel`` (K7) on the tensor cores as bf16 x bf16 with f32
+``csrc/flash_attention.cu`` runs every product of ``flash_out_kernel``
+(K3), ``flash_lse_kernel`` (K4), ``flash_dq_kernel`` (K6) and
+``flash_dkv_kernel`` (K7) on the tensor cores as bf16 x bf16 with f32
 accumulation. Operands that are not bf16 values are split into bf16 terms,
 ``x ≈ t0 + t1 + t2`` with ``t_i = bf16(x − t0 − … − t_{i−1})``, and a
 product of two split operands keeps the term pairs ``(i, j)`` with
@@ -12,24 +13,30 @@ product of two split operands keeps the term pairs ``(i, j)`` with
   every matrix product); P and dS as three terms.
 - bf16 inputs, f32 gradients (the ring backward's ``out_dtype``): the
   first products are exact; P and dS as three terms.
-- bf16 inputs, bf16 gradients: P and dS rounded to bf16 once.
+- bf16 inputs, bf16 gradients, and the bf16 forward: P and dS rounded to
+  bf16 once.
 
 This module repeats that arithmetic in plain torch (each term rounded by
 ``.to(torch.bfloat16)``, the products summed by f32 einsums) and holds it
-against the JAX package's interpreted ``flash_attention_bwd`` under the
-pins the card holds the kernels to (``chip_smoke.py`` phases 10 and 16):
-5e-5 on f32 gradients, 1e-2 x max|reference| (at most 0.05) on bf16 ones.
-Two f32 planes ("bf16x3") miss 5e-5 on causal head-dim-128 cases whose
-gradients reach ~5, which is why f32 takes three. The term counts here
-must be the ones the kernel source declares (last test).
+against the JAX package's interpreted ``flash_attention_bwd`` and
+``flash_attention_fwd_lse`` under the pins the card holds the kernels to
+(``chip_smoke.py`` phases 10 and 16): 5e-5 on f32 gradients, 5e-6 on f32
+out, 1e-5 on lse, 1e-2 x max|reference| (at most 0.05) on bf16 out and
+gradients. Two f32 planes ("bf16x3") miss 5e-5 on causal head-dim-128
+cases whose gradients reach ~5, and miss the forward's 5e-6 everywhere
+(~2e-5), which is why f32 takes three; two P terms reach 6.6e-6 on out,
+so the forward takes three as well. The term counts here must be the ones
+the kernel source declares.
 
 ``PYTHONPATH=. python tests/test_torch_flash_split.py`` prints the
-emulation's max abs difference from the port's plain f32 version at [8,
+emulation's max abs difference from the port's plain f32 versions at [8,
 257, 3, 64].
 """
 
+import contextlib
 import os
 import re
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,9 +49,13 @@ from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
 torch.set_num_threads(2)
 
 GRAD_TOL, BF16_REL, BF16_CAP = 5e-5, 1e-2, 0.05
+OUT_TOL, LSE_TOL = 5e-6, 1e-5
 # bf16 terms per f32 operand, and P/dS terms for bf16 inputs with f32 or
 # bf16 gradients: the kernel's kF32Planes, kRingTerms, kBf16Terms.
 F32_PLANES, RING_TERMS, BF16_TERMS = 3, 3, 1
+# The forward's f32 planes of q, k, v and terms of P (both kF32Planes in
+# the source: FwdPlan's planes, and P as many terms as V has planes).
+FWD_F32_PLANES, FWD_F32_P_TERMS = 3, 3
 
 CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "dml_cnn_cifar10_tpu_torch", "csrc", "flash_attention.cu")
@@ -87,6 +98,28 @@ def emulate_bwd(q, k, v, do, lse, delta, planes: int, p_terms: int,
     return (product("bhqk,bkhd->bqhd", dst, ks),
             product("bhqk,bqhd->bkhd", dst, qs),
             product("bhqk,bqhd->bkhd", pt, dos))
+
+
+def emulate_fwd(q, k, v, planes: int, p_terms: int, causal=False,
+                window=None, kv_start=0):
+    """``(out, lse)`` in f32 by the forward kernels' split products: q, k,
+    v as ``planes`` bf16 terms, ``P = exp(s − m)`` as ``p_terms``; ``l``
+    sums the unrounded ``P``. Dead rows give out 0 and lse 1e30."""
+    d = q.shape[-1]
+    scale = d ** -0.5
+    qs, ks, vs = (split(t, planes) for t in (q, k, v))
+    live = fa._live(q.shape[1], k.shape[1], q.device, causal, window,
+                    kv_start, None, None)
+    s = torch.where(live, product("bqhd,bkhd->bhqk", qs, ks) * scale,
+                    fa.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    dead = m <= fa.NEG_INF * 0.5
+    acc = product("bhqk,bkhd->bhqd", split(p, p_terms), vs)
+    out = torch.where(dead, 0.0, acc / l).permute(0, 2, 1, 3)
+    lse = torch.where(dead, fa.DEAD_LSE, m + torch.log(l))[..., 0]
+    return out, lse.permute(0, 2, 1)
 
 
 def _inputs(shape, seed, q_scale=1.0):
@@ -143,11 +176,52 @@ def test_split_products_match_jax_bwd(case):
         assert max(float(np.abs(np.asarray(w)).max()) for w in want) > 3.0
 
 
-def test_rows_the_async_copies_cannot_take_are_copied_once():
-    """K6/K7 read their tiles with 16-byte ``cp.async`` copies, so the
-    wrapper hands them tensors whose base and B/S/H strides are 16-byte
-    multiples: the ViT's views of a fused qkv pass as they are; a view 4
-    bytes past its allocation becomes one contiguous copy."""
+# instance, shape [B, S, H, D], q scale, mask. q x 3 makes the softmax
+# peaky, where two P terms miss the out pin (6.6e-6 on "f32_window").
+FWD_CASES = {
+    "f32_full": ("f32", (2, 130, 2, 64), 3.0, {}),
+    "f32_causal_d128": ("f32", (2, 96, 1, 128), 2.0, {"causal": True}),
+    "f32_window": ("f32", (1, 192, 2, 64), 3.0,
+                   {"window": 24, "kv_start": -40, "causal": True}),
+    "bf16_full": ("bf16", (2, 130, 2, 64), 3.0, {}),
+    "bf16_causal_d128": ("bf16", (2, 96, 1, 128), 2.0, {"causal": True}),
+    "bf16_window": ("bf16", (1, 192, 2, 64), 3.0, {"window": 24}),
+}
+
+
+@pytest.mark.parametrize("case", list(FWD_CASES))
+def test_split_products_match_jax_fwd(case):
+    inst, shape, q_scale, kw = FWD_CASES[case]
+    q, k, v, _ = _inputs(shape, seed=len(case), q_scale=q_scale)
+    jd = jnp.float32 if inst == "f32" else jnp.bfloat16
+    jq, jk, jv = (jnp.asarray(a).astype(jd) for a in (q, k, v))
+    jout, jlse = jax_fa.flash_attention_fwd_lse(jq, jk, jv, **kw)
+    want = np.asarray(jout.astype(jnp.float32))
+    want_lse = np.asarray(jlse)
+    tq, tk, tv = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+                  for a in (jq, jk, jv))
+    planes, p_terms = ((FWD_F32_PLANES, FWD_F32_P_TERMS) if inst == "f32"
+                       else (1, 1))
+    out, lse = emulate_fwd(tq, tk, tv, planes, p_terms, **kw)
+    if inst == "bf16":
+        out = out.to(torch.bfloat16).float()
+        tol = min(BF16_CAP, BF16_REL * float(np.abs(want).max()))
+    else:
+        tol = OUT_TOL
+    np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=tol,
+                               err_msg=f"{case}: out")
+    dead = want_lse >= 1e29
+    assert np.array_equal(lse.numpy() >= 1e29, dead), f"{case}: dead rows"
+    np.testing.assert_allclose(lse.numpy()[~dead], want_lse[~dead], rtol=0,
+                               atol=LSE_TOL, err_msg=f"{case}: lse")
+
+
+def test_rows_the_async_copies_cannot_take_are_copied_once(monkeypatch):
+    """K3, K4, K6 and K7 read their tiles with 16-byte ``cp.async``
+    copies, so the wrappers hand them tensors whose base and B/S/H strides
+    are 16-byte multiples: the ViT's views of a fused qkv pass as they
+    are; a view 4 bytes past its allocation becomes one contiguous copy.
+    K5 reads element by element and takes the tensors as they are."""
     for dtype in (torch.float32, torch.bfloat16):
         k = torch.randn(2, 257, 3, 3, 64).to(dtype).unbind(3)[1]
         assert fa._aligned16(k) is k
@@ -157,32 +231,105 @@ def test_rows_the_async_copies_cannot_take_are_copied_once():
     assert got is not off and got.is_contiguous()
     assert got.data_ptr() % 16 == 0 and torch.equal(got, off)
 
+    # The forward wrapper on the CPU, with a library that records the
+    # pointers each C entry point is given.
+    calls = []
+
+    class Lib:
+        def __getattr__(self, fn_name):
+            def fn(*args):
+                calls.append((fn_name, args[:3]))
+                return 0
+            return fn
+
+    aligned, copies = fa._aligned16, []
+
+    def aligned16(t):
+        got = aligned(t)
+        copies.append(got is not t)
+        return got
+
+    monkeypatch.setattr(fa, "_aligned16", aligned16)
+    monkeypatch.setattr(fa, "_lib", Lib)
+    monkeypatch.setattr(fa, "_check", lambda *args: None)
+    monkeypatch.setattr(fa, "LAUNCHES", dict(fa.LAUNCHES))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    fused = torch.randn(2, 257, 3, 3, 64).unbind(3)
+    for mode in ("out", "lse", "stats"):
+        calls.clear()
+        copies.clear()
+        fa._fwd_launch(*fused, 0.125, False, None, 0, None, None, mode)
+        assert calls[0][1] == tuple(t.data_ptr() for t in fused), mode
+        assert not any(copies), mode
+        calls.clear()
+        copies.clear()
+        fa._fwd_launch(off, *fused[1:], 0.125, False, None, 0, None, None,
+                       mode)
+        (fn_name, (qp, kp, vp)), = calls
+        assert (kp, vp) == (fused[1].data_ptr(), fused[2].data_ptr())
+        if mode == "stats":
+            assert qp == off.data_ptr() and not any(copies)
+        else:
+            assert qp != off.data_ptr() and qp % 16 == 0, mode
+            assert copies == [True, False, False], mode
+
 
 def test_term_counts_are_the_kernels():
-    """The emulated term counts are the ones the kernels are built with."""
+    """The emulated term counts are the ones the kernels are built with:
+    the backward's constants, and the forward's planes (the tile plan's
+    ``kNP``: kF32Planes for f32, 1 for bf16) with P split into as many
+    terms as V has planes."""
     with open(CU) as f:
         src = f.read()
     for name, want in (("kF32Planes", F32_PLANES), ("kRingTerms", RING_TERMS),
                        ("kBf16Terms", BF16_TERMS)):
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m and int(m.group(1)) == want, name
+    assert re.search(r"kNP = kF32 \? kF32Planes : 1;", src)
+    assert FWD_F32_PLANES == FWD_F32_P_TERMS == F32_PLANES
+    body = src[src.index("void flash_fwd_tc("):]
+    body = body[:body.index("\n}\n")]
+    assert "using P = FwdPlan<T, D>;" in body
+    assert "accumulate<D, NP, P>(" in body
 
 
 def test_ab_tool_refuses_without_a_card(capsys, monkeypatch):
-    """``tools/flash_bwd_ab.py``, the A/B timing of two K6/K7 sources,
-    exits 1 with a message and builds nothing where no card is present."""
-    from dml_cnn_cifar10_tpu_torch.tools import flash_bwd_ab
+    """``tools/flash_ab.py``, the A/B timing of two versions of the flash
+    kernels, exits 1 with a message and builds nothing where no card is
+    present."""
+    from dml_cnn_cifar10_tpu_torch.tools import flash_ab
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(fa, "_LIB", None)
-    assert flash_bwd_ab.main(["--other", CU]) == 1
+    assert flash_ab.main(["--other", CU]) == 1
     assert "needs a CUDA card" in capsys.readouterr().err
     assert fa._LIB is None
 
 
 def main() -> None:
-    """The emulation against the port's plain f32 backward (the card's
-    reference) at [8, 257, 3, 64], for each instance and term count."""
+    """The emulation against the port's plain f32 forward and backward
+    (the card's reference) at [8, 257, 3, 64], for each instance and term
+    count."""
+    for inst, planes, p_terms, q_scale, causal in (
+            ("f32", 2, 2, 1.0, False), ("f32", 3, 2, 1.0, False),
+            ("f32", 3, 3, 1.0, False), ("f32", 3, 2, 3.0, True),
+            ("f32", 3, 3, 3.0, True), ("bf16", 1, 1, 3.0, True)):
+        q, k, v, _ = (torch.from_numpy(a) for a in
+                      _inputs((8, 257, 3, 64), seed=0, q_scale=q_scale))
+        if inst != "f32":
+            q, k, v = (t.to(torch.bfloat16).float() for t in (q, k, v))
+        want, want_lse = fa.flash_attention_plain(q, k, v, causal=causal)
+        got, lse = emulate_fwd(q, k, v, planes, p_terms, causal=causal)
+        if inst == "bf16":
+            got = got.to(torch.bfloat16).float()
+        print(f"fwd {inst:4s} q x {q_scale} planes {planes} P terms "
+              f"{p_terms} causal {causal}: max abs diff out "
+              f"{(got - want).abs().max().item():.3g}, lse "
+              f"{(lse - want_lse).abs().max().item():.3g}; max |out| "
+              f"{want.abs().max().item():.3g}")
     for inst, planes, p_terms, q_scale, causal in (
             ("f32", 2, 2, 1.0, False), ("f32", 3, 3, 1.0, False),
             ("f32", 2, 2, 1.0, True), ("f32", 3, 3, 1.0, True),
