@@ -15,22 +15,26 @@ order; any failure ends the run with a non-zero exit:
             ``flash_attention.cu``); print ptxas's report, and for each of
             the 36 flash instances (K3, K4, K5: dtype x head dim; K6, K7
             also x P/dS terms) its registers, stack, spills and dynamic
-            shared memory: the head-dim-64 K3/K4/K6/K7 ones must not
-            spill.
-3. parity   K1 ``sgd_update_plain`` and K2 ``sgd_update_momentum`` against
-            their plain PyTorch version on the CNN's 10 leaf shapes plus
-            ragged and misaligned ones, for (mu, wd) in {0, 0.9} x {0, 5e-4}:
-            max abs difference <= 5e-7.
+            shared memory: the head-dim-64 ones must not spill.
+3. parity   K1 ``sgd_update_plain`` (every f32 leaf of a step in one
+            launch, ``MAX_LEAVES`` a launch) and K2 ``sgd_update_momentum``
+            (one launch a leaf) against their plain PyTorch version, all
+            cases in one call for each (mu, wd) in {0, 0.9} x {0, 5e-4}:
+            the CNN's 10 leaf shapes, a one-element and an empty leaf,
+            ragged and misaligned views, enough leaves for a second K1
+            launch, and a bf16 leaf (the plain version). K1 bit-equal, K2
+            max abs difference <= 5e-7; the launches counted.
 4. timing   each kernel's optimizer step over the CNN's 10 leaves (CUDA
             events, and the kernels' own device time from torch.profiler),
             beside its plain version, ``torch.optim.SGD(fused=True).step()``
-            on the same leaves (a yardstick the port never calls), and the
+            on the same leaves (a yardstick the port never calls; by
+            events and by the device time of its kernels), and the
             bound: the bytes the update must move over the card's memory
             rate, or its f32 operations over the card's f32 rate.
 5. train    the main path, ``cli.main.main``: the reference CNN at full
             width (batch 128, 24x24x3 crop, 1,068,298 params) for 500
             steps on 50,000 synthetic records. Loss finite, K1 launched
-            once per leaf per step, final test accuracy far above chance.
+            once per step, final test accuracy far above chance.
 6. resume   the same log dir to step 600: the global step continues at 500.
 7. eval     ``--mode eval`` restores step 600 and prints the accuracy of the
             in-training eval at step 600.
@@ -82,8 +86,9 @@ order; any failure ends the run with a non-zero exit:
             -S / +S with window 512, against the plain version: 5e-5.
 17. stats timing  K5 at [2, 4050, 3, 64] bf16: CUDA events, device time,
             the plain version, ``F.scaled_dot_product_attention`` forward
-            (by CUDA events and by device time) and the bound; the
-            ring's K6/K7 at that block on a card alone, with their
+            (by CUDA events and by device time), the bound, the
+            tensor-core bound of the products K5 issues and its TFLOP/s;
+            the ring's K6/K7 at that block on a card alone, with their
             bounds, TFLOP/s and SDPA's backward on the block (contiguous
             [B, H, S, D] inputs, warmed up, read A/B/B/A against the pair
             by CUDA events and by device time; the kernel it picked is
@@ -106,7 +111,8 @@ gloo. Each rank starts with every launch count at 0 and writes its counts
             weights). Then a resume to step 15 and ``--mode eval`` over the
             two ranks.
 20. dp cnn  the CNN data-parallel over 2 ranks x 64 images (global batch
-            128), 100 steps: K1 = 100 x 10 per rank, equal digests.
+            128), 100 steps: K1 = 100 per rank (one a step), equal
+            digests.
 21. sp profile  an SP step's time per rank (host clock, batch on the card)
             and its device timeline: the union of its compute kernels'
             intervals over all streams (busy time and share of the step),
@@ -328,8 +334,7 @@ def ptxas_report(log: str) -> list:
     """ptxas's registers, stack and spills for every flash instance (input
     dtype x head dim, and for K6/K7 x P/dS terms), beside the dynamic
     shared memory it launches with. Fails unless all 36 are found and the
-    head-dim-64 instances of the tensor-core kernels (K3, K4, K6, K7: the
-    main paths') spill nothing; K5's are reported only."""
+    head-dim-64 instances (K3-K7: the main paths') spill nothing."""
     import ctypes
 
     from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
@@ -377,19 +382,30 @@ def ptxas_report(log: str) -> list:
     check(counts == _INSTANCES,
           f"ptxas reported {counts} flash instances, want {_INSTANCES}")
     check(all(r["spill_stores"] == r["spill_loads"] == 0 for r in report
-              if r["head_dim"] == 64 and r["kernel"] != "flash_stats_kernel"),
-          "a head-dim-64 K3/K4/K6/K7 instance spills")
+              if r["head_dim"] == 64),
+          "a head-dim-64 flash instance spills")
     return report
 
 
+def cu_constant(name: str) -> int:
+    """``constexpr int <name> = N;`` of ``csrc/flash_attention.cu``."""
+    path = os.path.join(ROOT, "dml_cnn_cifar10_tpu_torch", "csrc",
+                        "flash_attention.cu")
+    with open(path) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);", f.read())[1])
+
+
 def tc_flops(kname: str, f32_in: bool, f32_grads: bool = False) -> int:
-    """Tensor-core FLOPs per B·H·Sq·Skv·D that K3/K4 (S, O), K6 (S, dP,
-    dQ) or K7 (S, dP, dV, dK) issue: 2 per product times the term pairs
-    of its split (f32 inputs: 6 for every product; bf16 inputs: 1, but 3
-    for K6/K7's second products with f32 gradients)."""
+    """Tensor-core FLOPs per B·H·Sq·Skv·D that K3/K4/K5 (S, O), K6 (S,
+    dP, dQ) or K7 (S, dP, dV, dK) issue: 2 per product times the term
+    pairs of its split (f32 inputs: 6 for every product; bf16 inputs: 1,
+    but kStatsBf16Terms for K5's P V and 3 for K6/K7's second products
+    with f32 gradients)."""
     first = 6 if f32_in else 1
     if kname.startswith("flash_fwd"):
-        return 2 * 2 * first
+        pv = first if f32_in or kname != "flash_fwd_stats" else cu_constant(
+            "kStatsBf16Terms")
+        return 2 * (first + pv)
     second = 6 if f32_in else (3 if f32_grads else 1)
     return 2 * (2 * first + (1 if kname == "flash_bwd_dq" else 2) * second)
 
@@ -940,6 +956,7 @@ def stats_timing(dev, card, bytes_per_s) -> dict:
     lib_dev = sum(kernel_ms(lib_fn).values())
     n, rows = b * s * h * d, b * s * h
     flops = 4 * b * h * s * s * d
+    tcf = tc_flops("flash_fwd_stats", False) * b * h * s * s * d
     nbytes = 3 * n * q.element_size() + 4 * n + 2 * 4 * rows
     by_ops, by_bytes = flops / BF16_PEAK * 1e3, nbytes / bytes_per_s * 1e3
     res = dict(shape=[b, s, h, d], dtype="bfloat16", ms=ms, device_ms=dms,
@@ -949,15 +966,18 @@ def stats_timing(dev, card, bytes_per_s) -> dict:
                library="F.scaled_dot_product_attention forward",
                bound_ms=max(by_ops, by_bytes),
                bound_by="operations" if by_ops >= by_bytes else "bytes",
-               flops=flops, bytes=nbytes)
+               bound_tc_ms=max(tcf / BF16_PEAK * 1e3, by_bytes),
+               flops=flops, tc_flops=tcf, bytes=nbytes,
+               tflops=flops / (dms or ms) / 1e9)
     print(f"[stats timing] flash_fwd_stats {[b, s, h, d]} bfloat16: kernel "
           f"{ms:.5f} ms (device {dms} ms), plain {plain_ms:.5f} ms, library "
           f"{lib_ms:.5f} ms (device {lib_dev:.5f} ms"
           + (f"; {res['library_factor']:.2f}x on device time"
              if res["library_factor"] else "")
           + f"), bound {res['bound_ms']:.5f} ms "
-          f"({res['bound_by']}; {flops / ms / 1e9:.1f} TFLOP/s achieved) "
-          f"on {card}", flush=True)
+          f"({res['bound_by']}), tensor-core bound of the products it "
+          f"issues {res['bound_tc_ms']:.5f} ms, {res['tflops']:.1f} TFLOP/s "
+          f"achieved on device time, on {card}", flush=True)
     # The ring backward's K6/K7 at the same block, f32 gradients, on a card
     # of their own (phase 21 sees them beside the other rank's work).
     do = torch.randn(b, s, h, d, device=dev, generator=gen).to(q.dtype)
@@ -1462,10 +1482,10 @@ def dist_phases(backend: str, card: str, worlds=(2,),
             "--output_every", "50", "--checkpoint_every", "1000",
             "--metrics_jsonl", dp_jsonl] + dist_args(world)}, world=world)
         for r in dp:
-            check(r["launches"]["sgd_update_plain"] == DP_STEPS * 10
+            check(r["launches"]["sgd_update_plain"] == DP_STEPS
                   and r["launches"]["sgd_update_momentum"] == 0,
                   f"DP {world} ranks launched {[r['launches'] for r in dp]}, "
-                  f"want K1 = {DP_STEPS} x 10 each")
+                  f"want K1 = {DP_STEPS} (one a step) each")
         check(len({r["digest"] for r in dp}) == 1,
               f"DP {world} ranks ended with different parameters")
         losses = [l for _, l, _ in train_log(dp_jsonl)]
@@ -1606,35 +1626,63 @@ def main() -> int:
     lr = torch.tensor(0.02, device=dev)
     worst = {"sgd_update_plain": 0.0, "sgd_update_momentum": 0.0}
 
-    def leaf(shape, offset=0):
+    def leaf(shape, offset=0, dtype=torch.float32):
         n = math.prod(shape)
-        t = torch.randn(n + offset, device=dev, generator=gen)
+        t = torch.randn(n + offset, device=dev, generator=gen).to(dtype)
         return t[offset:].view(shape)   # offset 1: not 16-byte aligned
 
+    # Every case in one call, as a step gives them: the CNN's leaves, a
+    # one-element and an empty leaf, views 4 and 12 bytes past 16-byte
+    # alignment, enough small leaves to pass K1's MAX_LEAVES (a second
+    # launch), and a bf16 leaf (the plain version).
+    specs = ([(s, 0) for s in leaf_shapes]
+             + [((1,), 0), ((0,), 0), ((37,), 0), ((130, 7), 0),
+                ((130, 7), 1), ((2304, 384), 3)]
+             + [((37,), 0)] * (fused.MAX_LEAVES - 6))
+    n_f32 = sum(math.prod(shape) > 0 for shape, _ in specs)
+    check(n_f32 > fused.MAX_LEAVES, f"{n_f32} leaves fit one K1 launch")
     for mu, wd in CASES:
-        for shape, offset in ([(s, 0) for s in leaf_shapes]
-                              + [((37,), 0), ((130, 7), 0), ((130, 7), 1),
-                                 ((2304, 384), 3)]):
-            p, g = leaf(shape, offset), leaf(shape, offset)
-            m = leaf(shape, offset) if mu else None
-            want_p, want_m = fused.fused_sgd_update_plain(p, g, m, lr, mu,
-                                                          wd)
-            params, grads = {"x": p.clone()}, {"x": g.clone()}
-            mom = {"x": m.clone()} if mu else None
-            if offset:   # keep the misalignment through the clone
-                params["x"] = leaf(shape, offset).copy_(p)
-                if mu:
-                    mom["x"] = leaf(shape, offset).copy_(m)
-            fused.fused_sgd_update(params, grads, mom, lr, mu, wd)
-            torch.cuda.synchronize()
-            diff = (params["x"] - want_p).abs().max().item()
+        params, grads, mom, want = {}, {}, {} if mu else None, {}
+        for i, (shape, offset) in enumerate(specs + [((9,), 0)]):
+            dtype = torch.float32 if i < len(specs) else torch.bfloat16
+            key = f"l{i}" if i < len(specs) else "bf16"
+            params[key], grads[key] = (leaf(shape, offset, dtype)
+                                       for _ in range(2))
             if mu:
-                diff = max(diff, (mom["x"] - want_m).abs().max().item())
-            name = "sgd_update_momentum" if mu else "sgd_update_plain"
-            worst[name] = max(worst[name], diff)
-            check(diff <= ATOL, f"{name} {shape}+{offset} mu={mu} wd={wd}: "
-                                f"max abs diff {diff} > {ATOL}")
-    print(f"[parity] max abs diff vs plain: {worst}", flush=True)
+                mom[key] = leaf(shape, offset, dtype)
+            want[key] = fused.fused_sgd_update_plain(
+                params[key], grads[key], mom[key] if mu else None, lr, mu,
+                wd)
+        before = dict(fused.LAUNCHES)
+        fused.fused_sgd_update(params, grads, mom, lr, mu, wd)
+        torch.cuda.synchronize()
+        launched = {k: fused.LAUNCHES[k] - before[k] for k in before}
+        name = "sgd_update_momentum" if mu else "sgd_update_plain"
+        want_launches = dict.fromkeys(before, 0)
+        want_launches[name] = n_f32 if mu else math.ceil(
+            n_f32 / fused.MAX_LEAVES)
+        check(launched == want_launches,
+              f"mu={mu} wd={wd}: launched {launched}, want {want_launches}")
+        for key, (want_p, want_m) in want.items():
+            got = [params[key]] + ([mom[key]] if mu else [])
+            exp = [want_p] + ([want_m] if mu else [])
+            if not params[key].numel():
+                continue
+            diff = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(got, exp))
+            if key != "bf16":
+                worst[name] = max(worst[name], diff)
+            # K1 is held bit-equal; K2 (and the bf16 leaf's plain
+            # version, the same expression) to ATOL.
+            exact = name == "sgd_update_plain"
+            check(all(torch.equal(a, b) for a, b in zip(got, exp))
+                  if exact else diff <= ATOL,
+                  f"{name} leaf {key} {tuple(params[key].shape)} mu={mu} "
+                  f"wd={wd}: max abs diff {diff}"
+                  + ("" if exact else f" > {ATOL}"))
+    print(f"[parity] max abs diff vs plain: {worst} ({len(specs)} f32 leaves "
+          f"and a bf16 one per call, K1 in "
+          f"{math.ceil(n_f32 / fused.MAX_LEAVES)} launches)", flush=True)
     # On the card the wrapper launches or raises: no quiet fallback.
     for what, bad in (
             ("a non-contiguous leaf", ({"x": leaf((8, 8)).t()},
@@ -1654,7 +1702,7 @@ def main() -> int:
 
     timing = {}
     for name, mu, wd, needle in (
-            ("sgd_update_plain", 0.0, 0.0, "sgd_plain_kernel"),
+            ("sgd_update_plain", 0.0, 0.0, "sgd_plain_multi_kernel"),
             ("sgd_update_momentum", 0.9, 5e-4, "sgd_momentum_kernel")):
         params, grads = cnn_leaves(), cnn_leaves()
         mom = cnn_leaves() if mu else None
@@ -1676,6 +1724,8 @@ def main() -> int:
         dms = device_ms(kernel_step, needle)
         plain_ms = cuda_ms(plain_step)
         library_ms = cuda_ms(lib.step)
+        # fused SGD's device time: every kernel of one lib.step.
+        library_dev = kernel_ms(lib.step)
         per_param_bytes, per_param_ops = (20, 4) if mu else (12, 2)
         if wd:
             per_param_ops += 2
@@ -1685,13 +1735,19 @@ def main() -> int:
         by_ops = need_ops / ops_per_s * 1e3
         timing[name] = dict(
             ms=ms, device_ms=dms, plain_ms=plain_ms, library_ms=library_ms,
+            library_device_ms=sum(library_dev.values()),
+            library_kernels=sorted(library_dev),
             bound_ms=max(by_bytes, by_ops),
             bound_by="bytes" if by_bytes >= by_ops else "operations",
             bytes=need_bytes, mu=mu, wd=wd)
         print(f"[timing] {name} (mu={mu}, wd={wd}, {n_leaves} leaves): "
               f"kernel {ms:.5f} ms/step (device {dms} ms), plain "
               f"{plain_ms:.5f} ms, torch.optim.SGD(fused=True) "
-              f"{library_ms:.5f} ms, bound {timing[name]['bound_ms']:.5f} ms "
+              f"{library_ms:.5f} ms (device "
+              f"{timing[name]['library_device_ms']:.5f} ms in "
+              f"{len(library_dev)} kernel(s): "
+              f"{', '.join(k[:60] for k in sorted(library_dev))}), bound "
+              f"{timing[name]['bound_ms']:.5f} ms "
               f"({timing[name]['bound_by']}) on {card}", flush=True)
 
     # ---- 5. train: the main path ----------------------------------------
@@ -1714,9 +1770,9 @@ def main() -> int:
     check(len(train_recs) == STEPS // 100, f"{len(train_recs)} train records")
     check(all(r["loss"] is not None and math.isfinite(r["loss"])
               for r in train_recs), "non-finite training loss")
-    check(launches["sgd_update_plain"] == STEPS * n_leaves,
-          f"K1 launched {launches['sgd_update_plain']} times, want "
-          f"{STEPS} steps x {n_leaves} leaves")
+    check(launches["sgd_update_plain"] == STEPS,
+          f"K1 launched {launches['sgd_update_plain']} times, want one "
+          f"for each of {STEPS} steps ({n_leaves} leaves each)")
     check(launches["sgd_update_momentum"] == 0,
           f"K2 launched {launches['sgd_update_momentum']} times in a "
           "momentum-free run")
@@ -1740,10 +1796,9 @@ def main() -> int:
                             "--metrics_jsonl", resume_jsonl])
     steps = [int(m[1]) for m in map(STEP_LINE.match, lines) if m]
     check(steps == [RESUME_STEPS], f"resumed run printed steps {steps}")
-    check(fused.LAUNCHES["sgd_update_plain"]
-          == (RESUME_STEPS - STEPS) * n_leaves,
-          f"resume ran {fused.LAUNCHES['sgd_update_plain'] // n_leaves} "
-          f"steps, want {RESUME_STEPS - STEPS} (from step {STEPS})")
+    check(fused.LAUNCHES["sgd_update_plain"] == RESUME_STEPS - STEPS,
+          f"resume ran {fused.LAUNCHES['sgd_update_plain']} steps, want "
+          f"{RESUME_STEPS - STEPS} (from step {STEPS})")
     resumed_acc = [m[1] for m in map(EVAL_LINE.match, lines) if m]
     check(len(resumed_acc) == 1, f"resume evals {resumed_acc}")
     print(f"[resume] continued {STEPS} -> {RESUME_STEPS}", flush=True)
@@ -1986,6 +2041,7 @@ def main() -> int:
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"],
             "library": "torch.optim.SGD(fused=True).step",
             "work": f"one optimizer step over the CNN's {n_leaves} f32 "
                     f"leaves ({n_params} params), mu={t['mu']}, "
@@ -1996,6 +2052,7 @@ def main() -> int:
         "name": "flash_fwd_stats", "kernel": "K5", "route": "cuda",
         "source": "dml_cnn_cifar10_tpu_torch/csrc/flash_attention.cu",
         "cuda_kernel": "flash_stats_kernel",
+        "cuda_body": "flash_fwd_tc<T, D, kStats> (tensor cores, mma.sync)",
         "replaces": "dml_cnn_cifar10_tpu/ops/flash_attention.py:386",
         "launches": sp_launched["flash_fwd_stats"],
         "max_abs_err": stats_worst["float32"],

@@ -43,19 +43,16 @@
 // mask inside it, so the skip logic cannot drift from the mask (the role
 // of _band_live, :481). Ragged edges are bounds-checked in the kernel:
 // nothing is padded to the tile size.
-//   K3, K4, K6 and K7 run every product on the tensor cores (mma.sync
+//   Every kernel runs every product on the tensor cores (mma.sync
 // m16n8k16, bf16 operands, f32 sums), four warps of 16 rows each: the
-// softmax (K3/K4) and its Jacobian (K6/K7) work on the accumulator
+// softmax (K3/K4/K5) and its Jacobian (K6/K7) work on the accumulator
 // fragments, P and dS are repacked in registers as the second product's A
 // operand, streamed tiles are double-buffered by cp.async, and operands
 // that are not bf16 values are split into bf16 terms; see the sections
-// before flash_dq_kernel and flash_fwd_tc.
-//   K5 is flash_fwd<T, D> on the CUDA cores: 256 threads as 16 x 16; a
-// thread owns a 4 x 4 micro-tile of the 64 x 64 score tile (rows ty + 16i,
-// cols tx + 16j, strided so shared-memory rows of stride D + 1 fall in
-// distinct banks) and 4 x D/16 of the output tile, as f32 FMAs (bf16
-// tiles widened to f32 in shared memory); row max and row sums reduce
-// over the 16 lanes that share a row with warp shuffles.
+// before flash_dq_kernel and flash_fwd_tc. K3, K4 and K5 are one body,
+// flash_fwd_tc<T, D, Mode>, that differs only in its epilogue: K5 stores
+// the f32 accumulator unnormalized, m scaled and l, where K3/K4 divide by
+// l and round to the input dtype.
 //
 // What bounds them on an H100 SXM. The work is 4*B*H*Sq*Skv_live*D FLOPs
 // forward, 6*... for dQ and 8*... for dK/dV. At the ViT main path's
@@ -65,12 +62,13 @@
 // [2, 8100, 3, 64] bf16 shape (101 GFLOP, 0.102 ms at 989 TFLOP/s) and
 // K5's ring block [2, 4050, 3, 64] bf16 (25.2 GFLOP, 25 us, against 15.7
 // MB of inputs and outputs, 4.7 us at 3.35 TB/s) are operation-bound at
-// the bf16 tensor-core rate too. The tensor-core kernels issue their
-// products at that rate, times the term pairs of their split: 6 for every
-// product with f32 inputs (K3/K4 0.039 ms of tensor-core work at the ViT
-// shape, K6 + K7 0.059 + 0.079 ms); with bf16 inputs 1, and 3 for K6/K7's
-// second products with f32 gradients (at the long shape with bf16
-// gradients K3/K4 0.102 ms, K6 + K7 0.153 + 0.204 ms). ptxas -v for
+// the bf16 tensor-core rate too. The kernels issue their products at that
+// rate, times the term pairs of their split: 6 for every product with f32
+// inputs (K3/K4 0.039 ms of tensor-core work at the ViT shape, K6 + K7
+// 0.059 + 0.079 ms); with bf16 inputs 1, but 3 for K5's P V and for
+// K6/K7's second products with f32 gradients (K5 0.051 ms at the ring
+// block; at the long shape with bf16 gradients K3/K4 0.102 ms, K6 + K7
+// 0.153 + 0.204 ms). ptxas -v for
 // sm_90a: the head-dim-64 backward instances take 144-177 registers (K6
 // f32 144, bf16 156; K7 f32 177, bf16 163), no spills, 100,096 B of
 // dynamic shared memory with f32 inputs, 56,832 (K6) and 37,632 (K7) with
@@ -79,10 +77,9 @@
 // 71,936 B (three blocks an SM), bf16 128 and 46,592 B (four), no spills;
 // bf16 D = 128 spills 4 B.
 //
-// What remains: K5 still runs on the CUDA cores. The tensor-core kernels
-// use mma.sync, not wgmma with TMA loads, warp specialisation and
-// persistent blocks (the FlashAttention-3 design), and K7 recomputes the
-// scores K6 already built.
+// What remains: the kernels use mma.sync, not wgmma with TMA loads, warp
+// specialisation and persistent blocks (the FlashAttention-3 design), and
+// K7 recomputes the scores K6 already built.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,23 +90,12 @@
 
 namespace {
 
-constexpr int kTile = 64;           // rows of a block's tile = cols of a step
-constexpr int kTx = 16, kTy = 16;   // thread grid of a block
-constexpr int kThreads = kTx * kTy;
-constexpr int kRows = kTile / kTy;  // micro-tile rows per thread
-constexpr int kCols = kTile / kTx;  // micro-tile cols per thread
-constexpr int kPld = kTile + 1;     // row stride of a score tile in smem
 constexpr float kNegInf = -1e30f;   // masked score (not -inf: no NaN rows)
 constexpr float kDeadLse = 1e30f;   // lse of a row with no live key
 
 enum DType { kF32 = 0, kBF16 = 1 };
 // What a forward kernel stores: K3 out; K4 out and lse; K5 acc, m and l.
 enum FwdMode { kOut = 0, kLse = 1, kStats = 2 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 struct Mask {
   int q_len, kv_len;
@@ -181,42 +167,6 @@ __device__ __forceinline__ bool tile_all_live(const Mask& m, bool has_seg,
          c1 <= m.kv_len;
 }
 
-// Rows [row0, row0 + kTile) of one (batch, head) slice into shared memory
-// as f32 (row stride D + 1), zeros past `len`. `src` points at row 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int64_t row_stride, int row0,
-                                          int len) {
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    const int row = row0 + r;
-    dst[r * (D + 1) + d] =
-        row < len ? to_f32(src[(int64_t)row * row_stride + d]) : 0.0f;
-  }
-}
-
-__device__ __forceinline__ void load_seg(int* dst, const int* seg, int b,
-                                         int len, int row0) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    const int row = row0 + r;
-    dst[r] = (seg != nullptr && row < len) ? seg[(int64_t)b * len + row] : 0;
-  }
-}
-
-// Reductions over the 16 lanes that hold one row (lanes ty*16 .. +15).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = kTx / 2; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = kTx / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 struct FwdArgs {
   const void* q;
   const void* k;
@@ -232,132 +182,6 @@ struct FwdArgs {
   float scale;
   Mask m;
 };
-
-template <int D>
-constexpr int fwd_smem_bytes() {
-  return (3 * kTile * (D + 1) + kTile * kPld) * 4 + 2 * kTile * 4;
-}
-
-// K5 on the CUDA cores (see the header); K3/K4 have their own body below.
-template <typename T, int D>
-__device__ __forceinline__ void flash_fwd(const FwdArgs& a) {
-  constexpr int LD = D + 1, kC = D / kTx;
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* sk = sq + kTile * LD;
-  float* sv = sk + kTile * LD;
-  float* sp = sv + kTile * LD;
-  int* sqseg = reinterpret_cast<int*>(sp + kTile * kPld);
-  int* skseg = sqseg + kTile;
-
-  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
-  const int row0 = blockIdx.y * kTile;
-  const int ty = threadIdx.x / kTx, tx = threadIdx.x % kTx;
-  const T* q = static_cast<const T*>(a.q) + b * a.qs[0] + h * a.qs[2];
-  const T* k = static_cast<const T*>(a.k) + b * a.ks[0] + h * a.ks[2];
-  const T* v = static_cast<const T*>(a.v) + b * a.vs[0] + h * a.vs[2];
-  load_tile<T, D>(sq, q, a.qs[1], row0, a.m.q_len);
-  load_seg(sqseg, a.qseg, b, a.m.q_len, row0);
-
-  float m_i[kRows], l_i[kRows], acc[kRows][kC];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m_i[i] = kNegInf;
-    l_i[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) acc[i][c] = 0.0f;
-  }
-
-  const int rows_hi = min(row0 + kTile, a.m.q_len);
-  const Range kr = band(a.m, row0, rows_hi, false);
-  for (int c0 = (kr.lo / kTile) * kTile; c0 < kr.hi; c0 += kTile) {
-    __syncthreads();  // the previous step's readers are done
-    load_tile<T, D>(sk, k, a.ks[1], c0, a.m.kv_len);
-    load_tile<T, D>(sv, v, a.vs[1], c0, a.m.kv_len);
-    load_seg(skseg, a.kseg, b, a.m.kv_len, c0);
-    __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = sq[(ty + kTy * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = sk[(tx + kTx * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty + kTy * i;
-      bool live[kCols];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tx + kTx * j;
-        live[j] = score_live(a.m, row0 + r, c0 + c, sqseg[r], skseg[c]);
-        s[i][j] = live[j] ? s[i][j] * a.scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m_i[i], row_max(mx));
-      const float alpha = expf(m_i[i] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = live[j] ? expf(s[i][j] - m_new) : 0.0f;
-        sp[r * kPld + tx + kTx * j] = p;
-        sum += p;
-      }
-      l_i[i] = l_i[i] * alpha + row_sum(sum);
-      m_i[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      float vv[kC];
-#pragma unroll
-      for (int c = 0; c < kC; ++c) vv[c] = sv[j * LD + tx + kTx * c];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float p = sp[(ty + kTy * i) * kPld + j];
-#pragma unroll
-        for (int c = 0; c < kC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = row0 + ty + kTy * i;
-    if (r >= a.m.q_len) continue;
-    const bool dead = m_i[i] <= kNegInf * 0.5f;
-    const int64_t row = ((int64_t)b * a.m.q_len + r) * a.heads + h;
-    float* acc_out = static_cast<float*>(a.out);
-#pragma unroll
-    for (int c = 0; c < kC; ++c)
-      acc_out[row * D + tx + kTx * c] = dead ? 0.0f : acc[i][c];
-    if (tx == 0) {
-      a.m_out[row] = dead ? kNegInf : m_i[i];
-      a.l_out[row] = dead ? 0.0f : l_i[i];
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_stats_kernel(FwdArgs a) {
-  flash_fwd<T, D>(a);
-}
 
 struct BwdArgs {
   const void* q;
@@ -411,6 +235,7 @@ constexpr int kTcRows = 16 * kTcWarps;  // rows a block owns
 constexpr int kF32Planes = 3;  // bf16 terms of an f32 operand (and of P, dS)
 constexpr int kRingTerms = 3;  // P, dS terms: bf16 inputs, f32 gradients
 constexpr int kBf16Terms = 1;  // P, dS terms: bf16 inputs, bf16 gradients
+constexpr int kStatsBf16Terms = 3;  // P terms of K5 with bf16 inputs
 constexpr float kLog2e = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
@@ -992,10 +817,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_dkv_kernel(BwdArgs a) {
   }
 }
 
-// ---- K3/K4: the forward on the tensor cores -------------------------------
+// ---- K3/K4/K5: the forward on the tensor cores ----------------------------
 //
-// flash_out_kernel (K3) and flash_lse_kernel (K4) are one body,
-// flash_fwd_tc<T, D, Mode>, that differs only in what it stores. A block
+// flash_out_kernel (K3), flash_lse_kernel (K4) and flash_stats_kernel (K5)
+// are one body, flash_fwd_tc<T, D, Mode>, that differs only in what it
+// stores. A block
 // is 4 warps and owns 64 query rows of one (batch, head); a warp owns 16
 // of them. Q is resident: loaded once, bf16 rows by cp.async, f32 rows as
 // kF32Planes bf16 planes. K and V stream in by cp.async in tiles of kN
@@ -1012,12 +838,19 @@ __global__ void __launch_bounds__(kTcThreads) flash_dkv_kernel(BwdArgs a) {
 //     (acc_to_a), never through shared memory; V read by ldmatrix.trans.
 // score_live() runs only on tiles that tile_all_live() does not clear. A
 // masked score is kNegInf and its p exactly 0, also in a row with no live
-// key so far; a row that never sees one is stored as dead.
+// key so far; a row that never sees one is stored as dead (K5: exactly
+// m = -1e30, l = 0, acc = 0, which the ring merge relies on).
 //
-// Precision by instance (tests/test_torch_flash_split.py emulates both
-// against the JAX package's forward):
+// Precision by instance (tests/test_torch_flash_split.py emulates each
+// against the JAX package's forward and stats):
 //   bf16 inputs: S exact in one product; P rounded to bf16 once for P V,
-//     as FlashAttention-2 does (l sums the unrounded f32 p).
+//     as FlashAttention-2 does (l sums the unrounded f32 p). K5 splits P
+//     into kStatsBf16Terms = 3 terms, as the Pallas kernel keeps P in f32
+//     for P V: one term held K5 to its own pins (acc / l at 11% of the
+//     1e-2 x max|out| gate in the emulation, 15% on an H100), but the
+//     2-rank SP run's step-10 loss then lay 1.65e-3 from the ring-free
+//     run's (gate 1e-3; 3.7e-5 with P in f32): AdamW turns the rounding
+//     noise of gradients that are near 0 into steps of lr either way.
 //   f32 inputs: q, k, v as kF32Planes bf16 planes and P as as many terms,
 //     six products each through mma_split. Two planes reach 3.6e-5 on out
 //     (pin 5e-6), two P terms 6.6e-6: the forward needs the backward's three.
@@ -1114,6 +947,9 @@ template <typename T, int D, int Mode>
 __device__ __forceinline__ void flash_fwd_tc(const FwdArgs& a) {
   using P = FwdPlan<T, D>;
   constexpr int NP = P::kNP, LD = P::LD, kN = P::kN;
+  // Terms of P in P V: as many as V has planes; K5's bf16 instance
+  // kStatsBf16Terms.
+  constexpr int NT = P::kF32 ? NP : (Mode == kStats ? kStatsBf16Terms : 1);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const TileSmem sm = tile_smem<P>(smem_raw);
   const bf16* sq = sm.res;
@@ -1219,18 +1055,18 @@ __device__ __forceinline__ void flash_fwd_tc(const FwdArgs& a) {
       softmax(std::false_type{});
     else
       softmax(std::true_type{});
-    // O = alpha O + P V, P as NP terms. With split operands the tile's
+    // O = alpha O + P V, P as NT terms. With split operands the tile's
     // products go to a fresh accumulator first, as in score_strip.
-    if constexpr (NP == 1) {
+    if constexpr (NP == 1 && NT == 1) {
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
-      accumulate<D, NP, P>(acc, s, sv, live, lane);
+      accumulate<D, NT, P>(acc, s, sv, live, lane);
     } else {
       float o[D / 8][4];
       zero(o);
-      accumulate<D, NP, P>(o, s, sv, live, lane);
+      accumulate<D, NT, P>(o, s, sv, live, lane);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
 #pragma unroll
@@ -1247,15 +1083,29 @@ __device__ __forceinline__ void flash_fwd_tc(const FwdArgs& a) {
     const int r = row0 + 16 * warp + g + 8 * i;
     if (r >= a.m.q_len) continue;
     const bool dead = m[i] == kNegInf;
-    const float inv = 1.0f / fmaxf(l[i], 1e-30f);
     const int64_t row = ((int64_t)b * a.m.q_len + r) * a.heads + h;
+    if constexpr (Mode == kStats) {
+      // K5: acc unnormalized in f32; m in the units of the scaled scores
+      // (the max of s * scale is the rounded m * scale: scale > 0); l
+      // relative to exp2(s * sl2 - ms), which is exp(s * scale - m).
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      store2(a.out, row * D + 8 * j + 2 * t,
-             dead ? 0.0f : acc[j][2 * i] * inv,
-             dead ? 0.0f : acc[j][2 * i + 1] * inv, a.dtype);
-    if (Mode == kLse && t == 0)
-      a.lse[row] = dead ? kDeadLse : fmaf(m[i], a.scale, logf(l[i]));
+      for (int j = 0; j < D / 8; ++j)
+        store2(a.out, row * D + 8 * j + 2 * t, dead ? 0.0f : acc[j][2 * i],
+               dead ? 0.0f : acc[j][2 * i + 1], kF32);
+      if (t == 0) {
+        a.m_out[row] = dead ? kNegInf : m[i] * a.scale;
+        a.l_out[row] = dead ? 0.0f : l[i];
+      }
+    } else {
+      const float inv = 1.0f / fmaxf(l[i], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        store2(a.out, row * D + 8 * j + 2 * t,
+               dead ? 0.0f : acc[j][2 * i] * inv,
+               dead ? 0.0f : acc[j][2 * i + 1] * inv, a.dtype);
+      if (Mode == kLse && t == 0)
+        a.lse[row] = dead ? kDeadLse : fmaf(m[i], a.scale, logf(l[i]));
+    }
   }
 }
 
@@ -1267,6 +1117,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_out_kernel(FwdArgs a) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads) flash_lse_kernel(FwdArgs a) {
   flash_fwd_tc<T, D, kLse>(a);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads) flash_stats_kernel(FwdArgs a) {
+  flash_fwd_tc<T, D, kStats>(a);
 }
 
 // Calls f(T*{}, integral_constant<D>) for the input dtype and head dim the
@@ -1288,13 +1143,14 @@ int dispatch(int dtype, int d, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
+// Every kernel is kTcWarps warps of kTcThreads threads.
 template <typename Args>
 int launch(void (*kernel)(Args), const Args& a, int grid_x, int grid_y,
-           int smem, cudaStream_t stream, int threads = kThreads) {
+           int smem, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(grid_x, grid_y), threads, smem, stream>>>(a);
+  kernel<<<dim3(grid_x, grid_y), kTcThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1313,8 +1169,6 @@ int dispatch_bwd(int dtype, int d, bool f32_grads, F&& f) {
     }
   });
 }
-
-inline int tiles(int n) { return (n + kTile - 1) / kTile; }
 
 Mask make_mask(int sq, int skv, int causal, int window, int kv_start) {
   Mask m;
@@ -1353,13 +1207,11 @@ int fwd(FwdMode mode, const void* q, const void* k, const void* v,
   return dispatch(dtype, d, [&](auto t, auto dd) {
     using T = std::remove_pointer_t<decltype(t)>;
     constexpr int kD = decltype(dd)::value;
-    if (mode == kStats)
-      return launch(flash_stats_kernel<T, kD>, a, batch * heads, tiles(sq),
-                    fwd_smem_bytes<kD>(), stream);
-    void (*kernel)(FwdArgs) =
-        mode == kLse ? flash_lse_kernel<T, kD> : flash_out_kernel<T, kD>;
+    void (*kernel)(FwdArgs) = mode == kStats ? flash_stats_kernel<T, kD>
+                              : mode == kLse ? flash_lse_kernel<T, kD>
+                                             : flash_out_kernel<T, kD>;
     return launch(kernel, a, batch * heads, (sq + kTcRows - 1) / kTcRows,
-                  FwdPlan<T, kD>::bytes, stream, kTcThreads);
+                  FwdPlan<T, kD>::bytes, stream);
   });
 }
 
@@ -1451,7 +1303,7 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
     constexpr int kD = decltype(dd)::value;
     return launch(flash_dq_kernel<T, kD, decltype(nt)::value>, a,
                   batch * heads, (sq + kTcRows - 1) / kTcRows,
-                  BwdPlan<T, kD, false>::bytes, stream, kTcThreads);
+                  BwdPlan<T, kD, false>::bytes, stream);
   });
 }
 
@@ -1474,7 +1326,7 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
     constexpr int kD = decltype(dd)::value;
     return launch(flash_dkv_kernel<T, kD, decltype(nt)::value>, a,
                   batch * heads, (skv + kTcRows - 1) / kTcRows,
-                  BwdPlan<T, kD, true>::bytes, stream, kTcThreads);
+                  BwdPlan<T, kD, true>::bytes, stream);
   });
 }
 
@@ -1488,12 +1340,13 @@ int flash_bwd_smem_bytes(int dkv, int dtype, int d) {
   });
 }
 
-// The same for K3/K4 (stats 0) or K5 (stats 1).
+// The same for K3/K4 (stats 0) or K5 (stats 1): one plan for all three.
 int flash_fwd_smem_bytes(int stats, int dtype, int d) {
+  (void)stats;
   return dispatch(dtype, d, [&](auto t, auto dd) {
     using T = std::remove_pointer_t<decltype(t)>;
     constexpr int kD = decltype(dd)::value;
-    return stats ? fwd_smem_bytes<kD>() : FwdPlan<T, kD>::bytes;
+    return FwdPlan<T, kD>::bytes;
   });
 }
 

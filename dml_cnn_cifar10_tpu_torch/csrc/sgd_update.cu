@@ -8,8 +8,10 @@
 //   sgd_update_plain    <- _sgd_kernel_plain (:83), launched by
 //                          _pallas_leaf (:105) at the pallas_call (:140)
 //   sgd_update_momentum <- _sgd_kernel (:70), pallas_call (:129)
+// The Pallas kernel is launched once per leaf; sgd_update_plain takes
+// every leaf of a step in one launch (a multi-tensor apply).
 //
-// What it computes (one leaf, in place):
+// What it computes (per leaf, in place):
 //   plain:    g' = g + wd*p (only when wd != 0);  p = p - lr*g'
 //   momentum: g' = g + wd*p (only when wd != 0);  m = mu*m + g';
 //             p = p - lr*m
@@ -27,12 +29,17 @@
 // (1,068,298 params in 10 leaves) that is 12.8 MB (3.8 us at 3.35 TB/s,
 // H100 SXM) and 21.4 MB (6.4 us). Those bytes fit in the card's 50 MB L2,
 // where the backward pass has just written the gradients, and a launch
-// costs a few microseconds, so at this size the update is bound by its
-// 10 launches (one per leaf), not by memory. The design is the simple
-// one that is right: a grid-stride loop, float4 loads and stores where
-// every pointer of the leaf is 16-byte aligned, and a scalar loop for the
-// ragged tail (no padding to the TPU's 8x128 tile). One multi-tensor
-// launch over all leaves is the next step for speed.
+// costs a few microseconds of device time and some 17 us of host time
+// through ctypes, so at this size the update is bound by its launches,
+// not by memory. K1 therefore updates every leaf of a step in ONE launch:
+// the host passes a table of up to kMaxLeaves {p, g, n} records by value
+// (a kernel parameter, under the 4 KB limit) with the prefix sums of each
+// leaf's kChunk-element chunks; block c finds its leaf by a binary search
+// of those sums and updates its chunk, by float4 where the leaf's
+// pointers are 16-byte aligned and scalar otherwise and for the ragged
+// tail (no padding to the TPU's 8x128 tile). A step with more leaves
+// launches once per kMaxLeaves. K2 still launches once per leaf: a
+// grid-stride loop with the same float4/scalar split.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,6 +48,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 132 * 16;  // 16 blocks per H100 SM
+constexpr int kMaxLeaves = 64;            // leaves one multi-tensor launch takes
+constexpr int kChunk = 16 * kThreads;     // elements a block of it updates
 
 __device__ __forceinline__ float decayed(float g, float p, float wd) {
   return wd != 0.0f ? __fadd_rn(g, __fmul_rn(wd, p)) : g;
@@ -55,34 +64,6 @@ __device__ __forceinline__ float momentum_step(float p, float g, float& m,
                                                float lr, float mu, float wd) {
   m = __fadd_rn(__fmul_rn(mu, m), decayed(g, p, wd));
   return __fsub_rn(p, __fmul_rn(lr, m));
-}
-
-__global__ void sgd_plain_kernel(const float* __restrict__ lr_ptr,
-                                 float* __restrict__ p,
-                                 const float* __restrict__ g, int64_t n,
-                                 float wd, bool vec) {
-  const float lr = *lr_ptr;
-  const int64_t tid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  int64_t done = 0;
-  if (vec) {
-    const int64_t n4 = n / 4;
-    float4* p4 = reinterpret_cast<float4*>(p);
-    const float4* g4 = reinterpret_cast<const float4*>(g);
-    for (int64_t i = tid; i < n4; i += stride) {
-      float4 pv = p4[i];
-      const float4 gv = g4[i];
-      pv.x = plain_step(pv.x, gv.x, lr, wd);
-      pv.y = plain_step(pv.y, gv.y, lr, wd);
-      pv.z = plain_step(pv.z, gv.z, lr, wd);
-      pv.w = plain_step(pv.w, gv.w, lr, wd);
-      p4[i] = pv;
-    }
-    done = n4 * 4;
-  }
-  for (int64_t i = done + tid; i < n; i += stride) {
-    p[i] = plain_step(p[i], g[i], lr, wd);
-  }
 }
 
 __global__ void sgd_momentum_kernel(const float* __restrict__ lr_ptr,
@@ -119,8 +100,74 @@ __global__ void sgd_momentum_kernel(const float* __restrict__ lr_ptr,
   }
 }
 
-inline bool aligned16(const void* a) {
+__host__ __device__ inline bool aligned16(const void* a) {
   return (reinterpret_cast<uintptr_t>(a) & 15u) == 0;
+}
+
+// One leaf of a multi-tensor launch. K2's variant adds its m pointer.
+struct Leaf {
+  float* p;
+  const float* g;
+  int64_t n;  // > 0
+};
+
+// The kernel parameter of a multi-tensor launch: the leaves, and each
+// leaf's first chunk (first[leaves] is the grid size).
+template <typename L>
+struct LeafTable {
+  const float* lr;
+  float wd;
+  int leaves;
+  int first[kMaxLeaves + 1];
+  L leaf[kMaxLeaves];
+};
+// CUDA passes at most 4 KB of kernel parameters; K2's leaf adds 8 B.
+static_assert(sizeof(LeafTable<Leaf>) + 8 * kMaxLeaves <= 4096,
+              "the leaf table must fit the kernel parameter space");
+
+struct Chunk {
+  int leaf;
+  int64_t start, len;  // elements of the leaf
+};
+
+// Block c's chunk: the last leaf whose first chunk is <= c.
+template <typename L>
+__device__ __forceinline__ Chunk chunk_of(const LeafTable<L>& t, int c) {
+  int lo = 0, hi = t.leaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.first[mid] <= c) lo = mid; else hi = mid - 1;
+  }
+  const int64_t start = (int64_t)(c - t.first[lo]) * kChunk;
+  const int64_t left = t.leaf[lo].n - start;
+  return {lo, start, left < kChunk ? left : (int64_t)kChunk};
+}
+
+__global__ void __launch_bounds__(kThreads)
+    sgd_plain_multi_kernel(const __grid_constant__ LeafTable<Leaf> t) {
+  const Chunk c = chunk_of(t, blockIdx.x);
+  float* p = t.leaf[c.leaf].p + c.start;
+  const float* g = t.leaf[c.leaf].g + c.start;
+  const float lr = *t.lr, wd = t.wd;
+  int64_t done = 0;
+  if (aligned16(p) && aligned16(g)) {
+    const int64_t n4 = c.len / 4;
+    float4* p4 = reinterpret_cast<float4*>(p);
+    const float4* g4 = reinterpret_cast<const float4*>(g);
+#pragma unroll 4
+    for (int64_t i = threadIdx.x; i < n4; i += kThreads) {
+      float4 pv = p4[i];
+      const float4 gv = g4[i];
+      pv.x = plain_step(pv.x, gv.x, lr, wd);
+      pv.y = plain_step(pv.y, gv.y, lr, wd);
+      pv.z = plain_step(pv.z, gv.z, lr, wd);
+      pv.w = plain_step(pv.w, gv.w, lr, wd);
+      p4[i] = pv;
+    }
+    done = n4 * 4;
+  }
+  for (int64_t i = done + threadIdx.x; i < c.len; i += kThreads)
+    p[i] = plain_step(p[i], g[i], lr, wd);
 }
 
 inline int blocks_for(int64_t work) {
@@ -133,12 +180,27 @@ inline int blocks_for(int64_t work) {
 
 extern "C" {
 
-// K1. Returns cudaGetLastError() after the launch (0 = launched).
-int sgd_update_plain(const float* lr, float* p, const float* g, int64_t n,
-                     float wd, cudaStream_t stream) {
-  const bool vec = aligned16(p) && aligned16(g);
-  sgd_plain_kernel<<<blocks_for(vec ? n / 4 : n), kThreads, 0, stream>>>(
-      lr, p, g, n, wd, vec);
+// K1 over `leaves` (1 .. kMaxLeaves) f32 leaves in one launch: leaf i is
+// p[i], g[i] of n[i] > 0 elements. Returns cudaGetLastError() after the
+// launch (0 = launched), or cudaErrorInvalidValue without launching.
+int sgd_update_plain(const float* lr, float* const* p, const float* const* g,
+                     const int64_t* n, int leaves, float wd,
+                     cudaStream_t stream) {
+  if (leaves < 1 || leaves > kMaxLeaves) return (int)cudaErrorInvalidValue;
+  LeafTable<Leaf> t;
+  t.lr = lr;
+  t.wd = wd;
+  t.leaves = leaves;
+  int64_t chunks = 0;
+  for (int i = 0; i < leaves; ++i) {
+    if (n[i] <= 0) return (int)cudaErrorInvalidValue;
+    t.leaf[i] = {p[i], g[i], n[i]};
+    t.first[i] = (int)chunks;
+    chunks += (n[i] + kChunk - 1) / kChunk;
+  }
+  if (chunks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  t.first[leaves] = (int)chunks;
+  sgd_plain_multi_kernel<<<(unsigned)chunks, kThreads, 0, stream>>>(t);
   return (int)cudaGetLastError();
 }
 

@@ -28,13 +28,13 @@ computes ``delta`` in plain torch and launches K6 and K7.
   their B/S/H strides (the head dim must be contiguous), take f32 or bf16
   with head dim 32, 64 or 128, and write lse as ``[B, S, H]`` f32. Every
   flash attention FLOP is matrix products, which the card runs 15× faster
-  on its tensor cores (bf16, 989 TFLOP/s) than as f32 FMAs (67). So K3,
-  K4, K6 and K7 run every product as ``mma.sync`` bf16 → f32, with the
-  softmax on the accumulators in registers, and split an f32 operand into
-  three bf16 terms to keep the f32 pins. They copy their tiles with
-  16-byte ``cp.async`` copies: their wrappers hand them tensors whose base
-  and B/S/H strides are 16-byte multiples, copying one that is not. K5
-  still runs f32 FMAs on the CUDA cores and takes any strides.
+  on its tensor cores (bf16, 989 TFLOP/s) than as f32 FMAs (67). So every
+  kernel runs every product as ``mma.sync`` bf16 → f32, with the softmax
+  on the accumulators in registers, and splits an f32 operand into three
+  bf16 terms to keep the f32 pins; K3, K4 and K5 are one forward body that
+  differs only in what it stores. They copy their tiles with 16-byte
+  ``cp.async`` copies: their wrappers hand them tensors whose base and
+  B/S/H strides are 16-byte multiples, copying one that is not.
 - **Plain versions** (:func:`flash_attention_plain`,
   :func:`flash_attention_stats_plain`, :func:`flash_attention_bwd_plain`): dense masked f32 softmax and its
   dense FA-2 backward, with the same dead-row rule. The wrappers take them
@@ -295,8 +295,7 @@ def _fwd_launch(q, k, v, scale, causal, window, kv_start, q_seg, kv_seg,
     skv = k.shape[1]
     _check([q, k, v], [q.shape, (b, skv, h, d), (b, skv, h, d)],
            "flash_attention")
-    if mode != "stats":   # K3/K4 copy their tiles by 16-byte cp.async
-        q, k, v = (_aligned16(t) for t in (q, k, v))
+    q, k, v = (_aligned16(t) for t in (q, k, v))   # 16-byte cp.async
     fn_name, name, n_rows = _FWD[mode]
     out = torch.empty((b, sq, h, d), device=q.device,
                       dtype=torch.float32 if mode == "stats" else q.dtype)
@@ -323,11 +322,10 @@ def _fwd_launch(q, k, v, scale, causal, window, kv_start, q_seg, kv_seg,
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the 16-byte ``cp.async`` copies of K3, K4, K6 and
-    K7 can read its rows: a base pointer and B/S/H strides that are
-    multiples of 16 bytes (the ViT's q/k/v views of one fused qkv are).
-    Otherwise a contiguous copy of it, made here once per launch, which
-    always is."""
+    """``t`` itself when the kernels' 16-byte ``cp.async`` copies can read
+    its rows: a base pointer and B/S/H strides that are multiples of 16
+    bytes (the ViT's q/k/v views of one fused qkv are). Otherwise a
+    contiguous copy of it, made here once per launch, which always is."""
     size = t.element_size()
     if t.data_ptr() % 16 == 0 and all(s * size % 16 == 0
                                       for s in t.stride()[:3]):

@@ -5,8 +5,16 @@ K2 ``_sgd_kernel``) is held against the JAX package's Pallas kernel run in
 interpret mode and against its XLA form ``_xla_leaf``, on the tile-hostile
 leaf shapes of ``tests/test_zero1.py:_leaves``. Tolerance: 5e-7 absolute
 (PARITY.md's pin for the kernel vs its fallback: separate roundings vs a
-possible FMA contraction, a few f32 ULPs, no reductions).
+possible FMA contraction, a few f32 ULPs, no reductions). The wrapper's
+grouping of leaves into K1 launches is checked with a library that
+records its calls.
 """
+
+import contextlib
+import math
+import os
+import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -197,3 +205,124 @@ def test_adamw_update_matches_jax(wd):
             np.testing.assert_allclose(got[name].numpy(),
                                        np.asarray(want[name]), rtol=0,
                                        atol=1e-6, err_msg=name)
+
+
+SGD_CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "dml_cnn_cifar10_tpu_torch", "csrc", "sgd_update.cu")
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports ``is_cuda``, so that the wrapper routes it
+    as it routes a leaf on the card (to a recording library here)."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+class _RecordingLib:
+    """Records every K1/K2 call with the table K1 was given."""
+
+    def __init__(self):
+        self.calls = []
+
+    def sgd_update_plain(self, lr, p, g, n, leaves, wd, stream):
+        self.calls.append(("plain", list(p[:leaves]), list(g[:leaves]),
+                           list(n[:leaves]), wd))
+        return 0
+
+    def sgd_update_momentum(self, lr, p, g, m, n, mu, wd, stream):
+        self.calls.append(("momentum", [p], [g], [n], wd))
+        return 0
+
+
+@pytest.fixture
+def recording_lib(monkeypatch):
+    lib = _RecordingLib()
+    monkeypatch.setattr(fused, "_lib", lambda: lib)
+    monkeypatch.setattr(fused, "LAUNCHES", dict.fromkeys(fused.LAUNCHES, 0))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    return lib
+
+
+def _card_leaves(n_leaves, seed):
+    """``n_leaves`` f32 leaves "on the card" of a few sizes, one of them
+    empty, plus one bf16 leaf; and their gradients."""
+    rng = np.random.default_rng(seed)
+    params, grads = {}, {}
+    for i in range(n_leaves):
+        shape = (0,) if i == 1 else ((37,), (130, 7), (5,))[i % 3]
+        params[f"l{i}"], grads[f"l{i}"] = (
+            torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .as_subclass(_OnCard) for _ in range(2))
+    params["bf16"], grads["bf16"] = (
+        torch.from_numpy(rng.normal(size=(9,)).astype(np.float32))
+        .to(torch.bfloat16).as_subclass(_OnCard) for _ in range(2))
+    return params, grads
+
+
+@pytest.mark.parametrize("n_leaves", [10, 65, 130])
+def test_k1_takes_every_f32_leaf_of_a_step_in_one_launch_per_table(
+        recording_lib, n_leaves):
+    """K1 gets the step's non-empty f32 leaves in order, at most
+    MAX_LEAVES a call: one call for the CNN's 10, ceil(n / MAX_LEAVES)
+    beyond. The empty leaf is skipped, the bf16 leaf takes the plain
+    version, and LAUNCHES counts calls."""
+    params, grads = _card_leaves(n_leaves, seed=n_leaves)
+    bf16_want, _ = fused.fused_sgd_update_plain(
+        params["bf16"].clone(), grads["bf16"], None, 0.05, 0.0, 5e-4)
+    lr = torch.tensor([0.05]).as_subclass(_OnCard)
+    fused.fused_sgd_update(params, grads, None, lr, 0.0, 5e-4)
+    live = [k for k in params if k != "bf16" and params[k].numel()]
+    want = [live[i:i + fused.MAX_LEAVES]
+            for i in range(0, len(live), fused.MAX_LEAVES)]
+    assert len(recording_lib.calls) == len(want) == math.ceil(
+        (n_leaves - 1) / fused.MAX_LEAVES)
+    for (kind, p, g, n, wd), names in zip(recording_lib.calls, want):
+        assert kind == "plain" and wd == 5e-4
+        assert p == [params[k].data_ptr() for k in names]
+        assert g == [grads[k].data_ptr() for k in names]
+        assert n == [params[k].numel() for k in names]
+    assert fused.LAUNCHES == {"sgd_update_plain": len(want),
+                              "sgd_update_momentum": 0}
+    assert torch.equal(params["bf16"], bf16_want)
+
+
+def test_k2_still_launches_once_a_leaf(recording_lib):
+    params, grads = _card_leaves(4, seed=1)
+    moms = {k: torch.zeros_like(v) for k, v in params.items()}
+    lr = torch.tensor(0.05).as_subclass(_OnCard)
+    fused.fused_sgd_update(params, grads, moms, lr, 0.9, 0.0)
+    assert [c[0] for c in recording_lib.calls] == ["momentum"] * 3
+    assert fused.LAUNCHES == {"sgd_update_plain": 0,
+                              "sgd_update_momentum": 3}
+
+
+@pytest.mark.parametrize("what", ["non-contiguous leaf", "lr of two values",
+                                  "gradient of another shape"])
+def test_k1_refuses_what_it_cannot_take(recording_lib, what):
+    """No fallback: a leaf on the card that K1 cannot take raises, and
+    nothing is launched."""
+    params, grads = _card_leaves(3, seed=2)
+    del params["bf16"], grads["bf16"]
+    lr = torch.tensor(0.05).as_subclass(_OnCard)
+    if what == "non-contiguous leaf":
+        params["l0"] = torch.zeros(8, 9).t().as_subclass(_OnCard)
+        grads["l0"] = torch.zeros(9, 8).as_subclass(_OnCard)
+    elif what == "lr of two values":
+        lr = torch.tensor([0.05, 0.1]).as_subclass(_OnCard)
+    else:
+        grads["l2"] = torch.zeros(6).as_subclass(_OnCard)
+    with pytest.raises(ValueError):
+        fused.fused_sgd_update(params, grads, None, lr, 0.0, 0.0)
+    assert recording_lib.calls == [] and sum(fused.LAUNCHES.values()) == 0
+
+
+def test_max_leaves_is_the_kernels():
+    with open(SGD_CU) as f:
+        m = re.search(r"constexpr int kMaxLeaves = (\d+);", f.read())
+    assert m and int(m.group(1)) == fused.MAX_LEAVES

@@ -204,6 +204,60 @@ def test_five_train_steps_match_jax(optim):
                                        err_msg=f"{key}.{name}")
 
 
+# The long-context recipe's path at the test's width: bf16 compute, mean
+# pool, remat, AdamW. Both frameworks round to bf16 (unit roundoff U =
+# 2^-8) after every op, but not at the same places (JAX's LayerNorm rounds
+# each elementwise op, torch's rounds its output once), so the pins are
+# multiples of U:
+# - loss: U relative (an f32 loss of bf16 logits moves by one rounding of
+#   them; measured 1.9e-4);
+# - AdamW's moments mu and nu, linear and quadratic in the gradients, by
+#   relative Frobenius distance per leaf: 8 U. The JAX package's own bf16
+#   run is up to 0.024 (6 U) from its f32 run, and two such runs that
+#   round at different places may differ by their sum; measured at most
+#   0.021 (5.3 U). A 2% error in the bf16 attention scale reaches 0.038.
+#   The LayerNorm leaves 128 U, because torch's CPU layer-norm backward
+#   sums their gradient over the 1,152 rows of the batch with bf16 partial
+#   sums (measured at most 0.32 on ln_f.bias, whose gradient also cancels
+#   over the batch);
+# - params: AdamW moves an element by up to lr a step whatever its
+#   gradient's size, so 5 steps x 2·lr, as for the f32 key bias above.
+# A wrong factor or sign in a gradient gives a distance near 1 or above.
+BF16_U = 2.0 ** -8
+
+
+def test_five_bf16_train_steps_match_jax():
+    optim = OPTIMS[1]
+    jcfg, pcfg = _cfgs(compute_dtype="bfloat16", pool="mean", remat=True)
+    model_def, jocfg, jstate = _jax_setup(jcfg, **optim)
+    model, ocfg, state = _port_state(pcfg, _np(jstate.params), **optim)
+    jtrain = jax_step.make_train_step(model_def, jcfg, jocfg)
+    train = step_lib.make_train_step(model, ocfg)
+    for i in range(5):
+        images, labels = _images(8, seed=10 + i)
+        jstate, jm = jtrain(jstate, images, labels)
+        state, m = train(state, torch.from_numpy(images),
+                         torch.from_numpy(labels.astype(np.int64)))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=BF16_U)
+        assert float(m["accuracy"]) == float(jm["accuracy"])
+    assert int(state.step) == int(jstate.step) == 5
+    for key in ("mu", "nu"):
+        want = convert.params_from_jax(_np(jstate.opt[key]))
+        assert sorted(want) == sorted(state.opt[key])
+        for name, t in state.opt[key].items():
+            got, ref = t.numpy(), want[name].numpy()
+            layer_norm = name.startswith(("ln_f.", "blocks.ln"))
+            pin = (128 if layer_norm else 8) * BF16_U
+            dist = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+            assert dist <= pin, f"{key}.{name}: {dist:.3g} > {pin:.3g}"
+    want = convert.params_from_jax(_np(jstate.params))
+    for name, t in state.params.items():
+        np.testing.assert_allclose(t.detach().numpy(), want[name].numpy(),
+                                   rtol=0, atol=5 * 2 * ocfg.learning_rate,
+                                   err_msg=f"params.{name}")
+
+
 def _adamw_jax_state(steps=2):
     jcfg, _ = _cfgs()
     model_def, ocfg, state = _jax_setup(jcfg, optimizer="adamw",
