@@ -16,14 +16,14 @@ order; any failure ends the run with a non-zero exit:
             the 36 flash instances (K3, K4, K5: dtype x head dim; K6, K7
             also x P/dS terms) its registers, stack, spills and dynamic
             shared memory: the head-dim-64 ones must not spill.
-3. parity   K1 ``sgd_update_plain`` (every f32 leaf of a step in one
-            launch, ``MAX_LEAVES`` a launch) and K2 ``sgd_update_momentum``
-            (one launch a leaf) against their plain PyTorch version, all
-            cases in one call for each (mu, wd) in {0, 0.9} x {0, 5e-4}:
-            the CNN's 10 leaf shapes, a one-element and an empty leaf,
-            ragged and misaligned views, enough leaves for a second K1
-            launch, and a bf16 leaf (the plain version). K1 bit-equal, K2
-            max abs difference <= 5e-7; the launches counted.
+3. parity   K1 ``sgd_update_plain`` and K2 ``sgd_update_momentum`` (one
+            body; every f32 leaf of a step in one launch, ``MAX_LEAVES`` a
+            launch) against their plain PyTorch version, all cases in one
+            call for each (mu, wd) in {0, 0.9} x {0, 5e-4}: the CNN's 10
+            leaf shapes, a one-element and an empty leaf, ragged and
+            misaligned views, enough leaves for a second launch, and a
+            bf16 leaf (the plain version). Both bit-equal; the launches
+            counted.
 4. timing   each kernel's optimizer step over the CNN's 10 leaves (CUDA
             events, and the kernels' own device time from torch.profiler),
             beside its plain version, ``torch.optim.SGD(fused=True).step()``
@@ -39,7 +39,7 @@ order; any failure ends the run with a non-zero exit:
 7. eval     ``--mode eval`` restores step 600 and prints the accuracy of the
             in-training eval at step 600.
 8. momentum 50 steps with ``--momentum 0.9 --weight_decay 5e-4``: K2
-            launched once per leaf per step.
+            launched once per step, K1 never.
 9. profile  where a training step's time goes: the trainer's own rate, a
             step on a batch already on the card, the host's batch
             assembly, and the device's busy time by kernel.
@@ -155,7 +155,6 @@ OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 STEPS, RESUME_STEPS, MOMENTUM_STEPS = 500, 600, 50
 VIT_STEPS, VIT_RESUME_STEPS, LONG_STEPS = 200, 300, 10
 DP_STEPS = 100
-ATOL = 5e-7   # PARITY.md's pin for the update kernel vs its plain form
 CASES = [(0.0, 0.0), (0.0, 5e-4), (0.9, 0.0), (0.9, 5e-4)]
 # Published peaks (NVIDIA data sheets, SXM parts, full power limit):
 # device-memory bytes/s and f32 operations/s outside the tensor cores.
@@ -1633,14 +1632,14 @@ def main() -> int:
 
     # Every case in one call, as a step gives them: the CNN's leaves, a
     # one-element and an empty leaf, views 4 and 12 bytes past 16-byte
-    # alignment, enough small leaves to pass K1's MAX_LEAVES (a second
+    # alignment, enough small leaves to pass MAX_LEAVES (a second
     # launch), and a bf16 leaf (the plain version).
     specs = ([(s, 0) for s in leaf_shapes]
              + [((1,), 0), ((0,), 0), ((37,), 0), ((130, 7), 0),
                 ((130, 7), 1), ((2304, 384), 3)]
              + [((37,), 0)] * (fused.MAX_LEAVES - 6))
     n_f32 = sum(math.prod(shape) > 0 for shape, _ in specs)
-    check(n_f32 > fused.MAX_LEAVES, f"{n_f32} leaves fit one K1 launch")
+    check(n_f32 > fused.MAX_LEAVES, f"{n_f32} leaves fit one launch")
     for mu, wd in CASES:
         params, grads, mom, want = {}, {}, {} if mu else None, {}
         for i, (shape, offset) in enumerate(specs + [((9,), 0)]):
@@ -1659,8 +1658,7 @@ def main() -> int:
         launched = {k: fused.LAUNCHES[k] - before[k] for k in before}
         name = "sgd_update_momentum" if mu else "sgd_update_plain"
         want_launches = dict.fromkeys(before, 0)
-        want_launches[name] = n_f32 if mu else math.ceil(
-            n_f32 / fused.MAX_LEAVES)
+        want_launches[name] = math.ceil(n_f32 / fused.MAX_LEAVES)
         check(launched == want_launches,
               f"mu={mu} wd={wd}: launched {launched}, want {want_launches}")
         for key, (want_p, want_m) in want.items():
@@ -1672,16 +1670,13 @@ def main() -> int:
                        for a, b in zip(got, exp))
             if key != "bf16":
                 worst[name] = max(worst[name], diff)
-            # K1 is held bit-equal; K2 (and the bf16 leaf's plain
-            # version, the same expression) to ATOL.
-            exact = name == "sgd_update_plain"
-            check(all(torch.equal(a, b) for a, b in zip(got, exp))
-                  if exact else diff <= ATOL,
+            # Both kernels (and the bf16 leaf's plain version, the same
+            # expression) are held bit-equal.
+            check(all(torch.equal(a, b) for a, b in zip(got, exp)),
                   f"{name} leaf {key} {tuple(params[key].shape)} mu={mu} "
-                  f"wd={wd}: max abs diff {diff}"
-                  + ("" if exact else f" > {ATOL}"))
+                  f"wd={wd}: max abs diff {diff}")
     print(f"[parity] max abs diff vs plain: {worst} ({len(specs)} f32 leaves "
-          f"and a bf16 one per call, K1 in "
+          f"and a bf16 one per call, K1 and K2 each in "
           f"{math.ceil(n_f32 / fused.MAX_LEAVES)} launches)", flush=True)
     # On the card the wrapper launches or raises: no quiet fallback.
     for what, bad in (
@@ -1702,8 +1697,8 @@ def main() -> int:
 
     timing = {}
     for name, mu, wd, needle in (
-            ("sgd_update_plain", 0.0, 0.0, "sgd_plain_multi_kernel"),
-            ("sgd_update_momentum", 0.9, 5e-4, "sgd_momentum_kernel")):
+            ("sgd_update_plain", 0.0, 0.0, "sgd_multi_kernel<false>"),
+            ("sgd_update_momentum", 0.9, 5e-4, "sgd_multi_kernel<true>")):
         params, grads = cnn_leaves(), cnn_leaves()
         mom = cnn_leaves() if mu else None
 
@@ -1739,7 +1734,7 @@ def main() -> int:
             library_kernels=sorted(library_dev),
             bound_ms=max(by_bytes, by_ops),
             bound_by="bytes" if by_bytes >= by_ops else "operations",
-            bytes=need_bytes, mu=mu, wd=wd)
+            bytes=need_bytes, mu=mu, wd=wd, cuda_kernel=needle)
         print(f"[timing] {name} (mu={mu}, wd={wd}, {n_leaves} leaves): "
               f"kernel {ms:.5f} ms/step (device {dms} ms), plain "
               f"{plain_ms:.5f} ms, torch.optim.SGD(fused=True) "
@@ -1821,9 +1816,9 @@ def main() -> int:
                     "25", "--eval_every", "50", "--momentum", "0.9",
                     "--weight_decay", "5e-4", "--metrics_jsonl", mom_jsonl])
     momentum_k2 = fused.LAUNCHES["sgd_update_momentum"]
-    check(momentum_k2 == MOMENTUM_STEPS * n_leaves,
-          f"K2 launched {momentum_k2} times, want {MOMENTUM_STEPS} x "
-          f"{n_leaves}")
+    check(momentum_k2 == MOMENTUM_STEPS,
+          f"K2 launched {momentum_k2} times, want one for each of "
+          f"{MOMENTUM_STEPS} steps ({n_leaves} leaves each)")
     check(fused.LAUNCHES["sgd_update_plain"] == 0, "K1 ran with momentum")
     check(all(r["loss"] is not None and math.isfinite(r["loss"])
               for r in records(mom_jsonl) if r["kind"] == "train"),
@@ -2034,6 +2029,7 @@ def main() -> int:
                if kid == "K1" else {}),
             "name": name, "kernel": kid, "route": "cuda",
             "source": "dml_cnn_cifar10_tpu_torch/csrc/sgd_update.cu",
+            "cuda_kernel": t["cuda_kernel"],
             "replaces": f"dml_cnn_cifar10_tpu/ops/optimizer.py:{line}",
             "launches": launches,
             "max_abs_err": worst[name], "max_abs_diff": worst[name],

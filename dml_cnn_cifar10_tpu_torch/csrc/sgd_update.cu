@@ -8,8 +8,9 @@
 //   sgd_update_plain    <- _sgd_kernel_plain (:83), launched by
 //                          _pallas_leaf (:105) at the pallas_call (:140)
 //   sgd_update_momentum <- _sgd_kernel (:70), pallas_call (:129)
-// The Pallas kernel is launched once per leaf; sgd_update_plain takes
-// every leaf of a step in one launch (a multi-tensor apply).
+// The Pallas kernel is launched once per leaf; both CUDA kernels take
+// every leaf of a step in one launch (a multi-tensor apply), through one
+// body, sgd_multi_kernel<kMomentum>.
 //
 // What it computes (per leaf, in place):
 //   plain:    g' = g + wd*p (only when wd != 0);  p = p - lr*g'
@@ -21,7 +22,7 @@
 // PyTorch expression bit for bit, which runs each op as its own kernel.
 // lr is read from a device pointer (a 0-d f32 tensor the schedule
 // computes on the card), so the update never waits for the host; wd and
-// mu are launch arguments.
+// mu travel in the launch's table.
 //
 // What bounds it. The update is a pure elementwise pass: K1 reads p and
 // g and writes p (12 B/param), K2 reads p, g, m and writes p, m
@@ -31,15 +32,14 @@
 // where the backward pass has just written the gradients, and a launch
 // costs a few microseconds of device time and some 17 us of host time
 // through ctypes, so at this size the update is bound by its launches,
-// not by memory. K1 therefore updates every leaf of a step in ONE launch:
-// the host passes a table of up to kMaxLeaves {p, g, n} records by value
-// (a kernel parameter, under the 4 KB limit) with the prefix sums of each
-// leaf's kChunk-element chunks; block c finds its leaf by a binary search
-// of those sums and updates its chunk, by float4 where the leaf's
-// pointers are 16-byte aligned and scalar otherwise and for the ragged
-// tail (no padding to the TPU's 8x128 tile). A step with more leaves
-// launches once per kMaxLeaves. K2 still launches once per leaf: a
-// grid-stride loop with the same float4/scalar split.
+// not by memory. So each kernel updates every leaf of a step in ONE
+// launch: the host passes a table of up to kMaxLeaves leaf records
+// ({p, g, n}; K2's {p, g, m, n}) by value (a kernel parameter, under the
+// 4 KB limit) with the prefix sums of each leaf's kChunk-element chunks;
+// block c finds its leaf by a binary search of those sums and updates its
+// chunk, by float4 where the leaf's pointers are 16-byte aligned and
+// scalar otherwise and for the ragged tail (no padding to the TPU's
+// 8x128 tile). A step with more leaves launches once per kMaxLeaves.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,56 +47,22 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 16;  // 16 blocks per H100 SM
-constexpr int kMaxLeaves = 64;            // leaves one multi-tensor launch takes
-constexpr int kChunk = 16 * kThreads;     // elements a block of it updates
+constexpr int kMaxLeaves = 64;         // leaves one launch takes
+constexpr int kChunk = 16 * kThreads;  // elements a block updates
 
 __device__ __forceinline__ float decayed(float g, float p, float wd) {
   return wd != 0.0f ? __fadd_rn(g, __fmul_rn(wd, p)) : g;
 }
 
-__device__ __forceinline__ float plain_step(float p, float g, float lr,
-                                            float wd) {
-  return __fsub_rn(p, __fmul_rn(lr, decayed(g, p, wd)));
-}
-
-__device__ __forceinline__ float momentum_step(float p, float g, float& m,
-                                               float lr, float mu, float wd) {
-  m = __fadd_rn(__fmul_rn(mu, m), decayed(g, p, wd));
-  return __fsub_rn(p, __fmul_rn(lr, m));
-}
-
-__global__ void sgd_momentum_kernel(const float* __restrict__ lr_ptr,
-                                    float* __restrict__ p,
-                                    const float* __restrict__ g,
-                                    float* __restrict__ m, int64_t n,
-                                    float mu, float wd, bool vec) {
-  const float lr = *lr_ptr;
-  const int64_t tid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  int64_t done = 0;
-  if (vec) {
-    const int64_t n4 = n / 4;
-    float4* p4 = reinterpret_cast<float4*>(p);
-    const float4* g4 = reinterpret_cast<const float4*>(g);
-    float4* m4 = reinterpret_cast<float4*>(m);
-    for (int64_t i = tid; i < n4; i += stride) {
-      float4 pv = p4[i];
-      const float4 gv = g4[i];
-      float4 mv = m4[i];
-      pv.x = momentum_step(pv.x, gv.x, mv.x, lr, mu, wd);
-      pv.y = momentum_step(pv.y, gv.y, mv.y, lr, mu, wd);
-      pv.z = momentum_step(pv.z, gv.z, mv.z, lr, mu, wd);
-      pv.w = momentum_step(pv.w, gv.w, mv.w, lr, mu, wd);
-      p4[i] = pv;
-      m4[i] = mv;
-    }
-    done = n4 * 4;
-  }
-  for (int64_t i = done + tid; i < n; i += stride) {
-    float mi = m[i];
-    p[i] = momentum_step(p[i], g[i], mi, lr, mu, wd);
-    m[i] = mi;
+// One element: p (and, for K2, m) updated in place.
+template <bool kMomentum>
+__device__ __forceinline__ void sgd_step(float& p, float g, float& m,
+                                         float lr, float mu, float wd) {
+  if constexpr (kMomentum) {
+    m = __fadd_rn(__fmul_rn(mu, m), decayed(g, p, wd));
+    p = __fsub_rn(p, __fmul_rn(lr, m));
+  } else {
+    p = __fsub_rn(p, __fmul_rn(lr, decayed(g, p, wd)));
   }
 }
 
@@ -104,25 +70,33 @@ __host__ __device__ inline bool aligned16(const void* a) {
   return (reinterpret_cast<uintptr_t>(a) & 15u) == 0;
 }
 
-// One leaf of a multi-tensor launch. K2's variant adds its m pointer.
+// One leaf of a launch: K1's record, and K2's with its m pointer.
+template <bool kMomentum>
 struct Leaf {
   float* p;
   const float* g;
   int64_t n;  // > 0
 };
+template <>
+struct Leaf<true> {
+  float* p;
+  const float* g;
+  float* m;
+  int64_t n;  // > 0
+};
 
-// The kernel parameter of a multi-tensor launch: the leaves, and each
-// leaf's first chunk (first[leaves] is the grid size).
+// The kernel parameter of a launch: the leaves, and each leaf's first
+// chunk (first[leaves] is the grid size).
 template <typename L>
 struct LeafTable {
   const float* lr;
-  float wd;
+  float wd, mu;  // mu: K2 only
   int leaves;
   int first[kMaxLeaves + 1];
   L leaf[kMaxLeaves];
 };
-// CUDA passes at most 4 KB of kernel parameters; K2's leaf adds 8 B.
-static_assert(sizeof(LeafTable<Leaf>) + 8 * kMaxLeaves <= 4096,
+// CUDA passes at most 4 KB of kernel parameters; K2's table is the larger.
+static_assert(sizeof(LeafTable<Leaf<true>>) <= 4096,
               "the leaf table must fit the kernel parameter space");
 
 struct Chunk {
@@ -143,74 +117,91 @@ __device__ __forceinline__ Chunk chunk_of(const LeafTable<L>& t, int c) {
   return {lo, start, left < kChunk ? left : (int64_t)kChunk};
 }
 
+template <bool kMomentum>
 __global__ void __launch_bounds__(kThreads)
-    sgd_plain_multi_kernel(const __grid_constant__ LeafTable<Leaf> t) {
+    sgd_multi_kernel(const __grid_constant__ LeafTable<Leaf<kMomentum>> t) {
   const Chunk c = chunk_of(t, blockIdx.x);
-  float* p = t.leaf[c.leaf].p + c.start;
-  const float* g = t.leaf[c.leaf].g + c.start;
-  const float lr = *t.lr, wd = t.wd;
+  const Leaf<kMomentum>& leaf = t.leaf[c.leaf];
+  float* p = leaf.p + c.start;
+  const float* g = leaf.g + c.start;
+  float* m = nullptr;
+  if constexpr (kMomentum) m = leaf.m + c.start;
+  const float lr = *t.lr, mu = t.mu, wd = t.wd;
   int64_t done = 0;
-  if (aligned16(p) && aligned16(g)) {
+  if (aligned16(p) && aligned16(g) && (!kMomentum || aligned16(m))) {
     const int64_t n4 = c.len / 4;
     float4* p4 = reinterpret_cast<float4*>(p);
     const float4* g4 = reinterpret_cast<const float4*>(g);
+    float4* m4 = reinterpret_cast<float4*>(m);
 #pragma unroll 4
     for (int64_t i = threadIdx.x; i < n4; i += kThreads) {
       float4 pv = p4[i];
       const float4 gv = g4[i];
-      pv.x = plain_step(pv.x, gv.x, lr, wd);
-      pv.y = plain_step(pv.y, gv.y, lr, wd);
-      pv.z = plain_step(pv.z, gv.z, lr, wd);
-      pv.w = plain_step(pv.w, gv.w, lr, wd);
+      float4 mv = {};
+      if constexpr (kMomentum) mv = m4[i];
+      sgd_step<kMomentum>(pv.x, gv.x, mv.x, lr, mu, wd);
+      sgd_step<kMomentum>(pv.y, gv.y, mv.y, lr, mu, wd);
+      sgd_step<kMomentum>(pv.z, gv.z, mv.z, lr, mu, wd);
+      sgd_step<kMomentum>(pv.w, gv.w, mv.w, lr, mu, wd);
       p4[i] = pv;
+      if constexpr (kMomentum) m4[i] = mv;
     }
     done = n4 * 4;
   }
-  for (int64_t i = done + threadIdx.x; i < c.len; i += kThreads)
-    p[i] = plain_step(p[i], g[i], lr, wd);
+  for (int64_t i = done + threadIdx.x; i < c.len; i += kThreads) {
+    float pi = p[i], mi = 0.0f;
+    if constexpr (kMomentum) mi = m[i];
+    sgd_step<kMomentum>(pi, g[i], mi, lr, mu, wd);
+    p[i] = pi;
+    if constexpr (kMomentum) m[i] = mi;
+  }
 }
 
-inline int blocks_for(int64_t work) {
-  int64_t b = (work + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  return (int)(b < kMaxBlocks ? b : kMaxBlocks);
+// One launch over `leaves` (1 .. kMaxLeaves) f32 leaves: leaf i is p[i],
+// g[i] (and m[i] for K2) of n[i] > 0 elements. Returns cudaGetLastError()
+// after the launch (0 = launched), or cudaErrorInvalidValue without
+// launching.
+template <bool kMomentum>
+int launch_multi(const float* lr, float* const* p, const float* const* g,
+                 float* const* m, const int64_t* n, int leaves, float mu,
+                 float wd, cudaStream_t stream) {
+  if (leaves < 1 || leaves > kMaxLeaves) return (int)cudaErrorInvalidValue;
+  LeafTable<Leaf<kMomentum>> t;
+  t.lr = lr;
+  t.wd = wd;
+  t.mu = mu;
+  t.leaves = leaves;
+  int64_t chunks = 0;
+  for (int i = 0; i < leaves; ++i) {
+    if (n[i] <= 0) return (int)cudaErrorInvalidValue;
+    if constexpr (kMomentum) t.leaf[i] = {p[i], g[i], m[i], n[i]};
+    else t.leaf[i] = {p[i], g[i], n[i]};
+    t.first[i] = (int)chunks;
+    chunks += (n[i] + kChunk - 1) / kChunk;
+  }
+  if (chunks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  t.first[leaves] = (int)chunks;
+  sgd_multi_kernel<kMomentum><<<(unsigned)chunks, kThreads, 0, stream>>>(t);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// K1 over `leaves` (1 .. kMaxLeaves) f32 leaves in one launch: leaf i is
-// p[i], g[i] of n[i] > 0 elements. Returns cudaGetLastError() after the
-// launch (0 = launched), or cudaErrorInvalidValue without launching.
+// K1 over `leaves` f32 leaves in one launch (launch_multi).
 int sgd_update_plain(const float* lr, float* const* p, const float* const* g,
                      const int64_t* n, int leaves, float wd,
                      cudaStream_t stream) {
-  if (leaves < 1 || leaves > kMaxLeaves) return (int)cudaErrorInvalidValue;
-  LeafTable<Leaf> t;
-  t.lr = lr;
-  t.wd = wd;
-  t.leaves = leaves;
-  int64_t chunks = 0;
-  for (int i = 0; i < leaves; ++i) {
-    if (n[i] <= 0) return (int)cudaErrorInvalidValue;
-    t.leaf[i] = {p[i], g[i], n[i]};
-    t.first[i] = (int)chunks;
-    chunks += (n[i] + kChunk - 1) / kChunk;
-  }
-  if (chunks > INT32_MAX) return (int)cudaErrorInvalidValue;
-  t.first[leaves] = (int)chunks;
-  sgd_plain_multi_kernel<<<(unsigned)chunks, kThreads, 0, stream>>>(t);
-  return (int)cudaGetLastError();
+  return launch_multi<false>(lr, p, g, nullptr, n, leaves, 0.0f, wd, stream);
 }
 
-// K2. Returns cudaGetLastError() after the launch (0 = launched).
-int sgd_update_momentum(const float* lr, float* p, const float* g, float* m,
-                        int64_t n, float mu, float wd, cudaStream_t stream) {
-  const bool vec = aligned16(p) && aligned16(g) && aligned16(m);
-  sgd_momentum_kernel<<<blocks_for(vec ? n / 4 : n), kThreads, 0, stream>>>(
-      lr, p, g, m, n, mu, wd, vec);
-  return (int)cudaGetLastError();
+// K2 over `leaves` f32 leaves and their momentum buffers in one launch.
+int sgd_update_momentum(const float* lr, float* const* p,
+                        const float* const* g, float* const* m,
+                        const int64_t* n, int leaves, float mu, float wd,
+                        cudaStream_t stream) {
+  return launch_multi<true>(lr, p, g, m, n, leaves, mu, wd, stream);
 }
 
 }  // extern "C"

@@ -6,8 +6,8 @@ interpret mode and against its XLA form ``_xla_leaf``, on the tile-hostile
 leaf shapes of ``tests/test_zero1.py:_leaves``. Tolerance: 5e-7 absolute
 (PARITY.md's pin for the kernel vs its fallback: separate roundings vs a
 possible FMA contraction, a few f32 ULPs, no reductions). The wrapper's
-grouping of leaves into K1 launches is checked with a library that
-records its calls.
+grouping of leaves into K1 and K2 launches is checked with a library
+that records its calls.
 """
 
 import contextlib
@@ -221,18 +221,23 @@ class _OnCard(torch.Tensor):
 
 
 class _RecordingLib:
-    """Records every K1/K2 call with the table K1 was given."""
+    """Records every K1/K2 call with the table it was given."""
 
     def __init__(self):
         self.calls = []
 
     def sgd_update_plain(self, lr, p, g, n, leaves, wd, stream):
-        self.calls.append(("plain", list(p[:leaves]), list(g[:leaves]),
-                           list(n[:leaves]), wd))
+        self.calls.append(dict(kind="plain", p=list(p[:leaves]),
+                               g=list(g[:leaves]), m=None,
+                               n=list(n[:leaves]), leaves=leaves, mu=None,
+                               wd=wd))
         return 0
 
-    def sgd_update_momentum(self, lr, p, g, m, n, mu, wd, stream):
-        self.calls.append(("momentum", [p], [g], [n], wd))
+    def sgd_update_momentum(self, lr, p, g, m, n, leaves, mu, wd, stream):
+        self.calls.append(dict(kind="momentum", p=list(p[:leaves]),
+                               g=list(g[:leaves]), m=list(m[:leaves]),
+                               n=list(n[:leaves]), leaves=leaves, mu=mu,
+                               wd=wd))
         return 0
 
 
@@ -266,63 +271,96 @@ def _card_leaves(n_leaves, seed):
 
 
 @pytest.mark.parametrize("n_leaves", [10, 65, 130])
+@pytest.mark.parametrize("kind", ["plain", "momentum"])
 def test_k1_takes_every_f32_leaf_of_a_step_in_one_launch_per_table(
-        recording_lib, n_leaves):
-    """K1 gets the step's non-empty f32 leaves in order, at most
-    MAX_LEAVES a call: one call for the CNN's 10, ceil(n / MAX_LEAVES)
-    beyond. The empty leaf is skipped, the bf16 leaf takes the plain
+        recording_lib, kind, n_leaves):
+    """K1 (plain) and K2 (momentum) get the step's non-empty f32 leaves in
+    order, at most MAX_LEAVES a call: one call for the CNN's 10,
+    ceil(n / MAX_LEAVES) beyond; K2's table also holds the momentum
+    buffers. The empty leaf is skipped, the bf16 leaf takes the plain
     version, and LAUNCHES counts calls."""
     params, grads = _card_leaves(n_leaves, seed=n_leaves)
-    bf16_want, _ = fused.fused_sgd_update_plain(
-        params["bf16"].clone(), grads["bf16"], None, 0.05, 0.0, 5e-4)
+    mu = 0.9 if kind == "momentum" else 0.0
+    moms = ({k: (v + 1).as_subclass(_OnCard) for k, v in grads.items()}
+            if mu else None)
     lr = torch.tensor([0.05]).as_subclass(_OnCard)
-    fused.fused_sgd_update(params, grads, None, lr, 0.0, 5e-4)
+    bf16_want, bf16_m_want = fused.fused_sgd_update_plain(
+        params["bf16"].clone(), grads["bf16"],
+        moms["bf16"].clone() if mu else None, lr, mu, 5e-4)
+    fused.fused_sgd_update(params, grads, moms, lr, mu, 5e-4)
     live = [k for k in params if k != "bf16" and params[k].numel()]
     want = [live[i:i + fused.MAX_LEAVES]
             for i in range(0, len(live), fused.MAX_LEAVES)]
     assert len(recording_lib.calls) == len(want) == math.ceil(
         (n_leaves - 1) / fused.MAX_LEAVES)
-    for (kind, p, g, n, wd), names in zip(recording_lib.calls, want):
-        assert kind == "plain" and wd == 5e-4
-        assert p == [params[k].data_ptr() for k in names]
-        assert g == [grads[k].data_ptr() for k in names]
-        assert n == [params[k].numel() for k in names]
-    assert fused.LAUNCHES == {"sgd_update_plain": len(want),
-                              "sgd_update_momentum": 0}
-    assert torch.equal(params["bf16"], bf16_want)
+    for call, names in zip(recording_lib.calls, want):
+        assert call["kind"] == kind and call["wd"] == 5e-4
+        assert call["leaves"] == len(names)
+        assert call["p"] == [params[k].data_ptr() for k in names]
+        assert call["g"] == [grads[k].data_ptr() for k in names]
+        assert call["n"] == [params[k].numel() for k in names]
+        if mu:
+            assert call["m"] == [moms[k].data_ptr() for k in names]
+            assert call["mu"] == 0.9
+        else:
+            assert call["m"] is None
+    name = f"sgd_update_{kind}"
+    assert fused.LAUNCHES == {**dict.fromkeys(fused.LAUNCHES, 0),
+                              name: len(want)}
+    # The wrapper copies the plain version's result into the bf16 leaf.
+    assert torch.equal(params["bf16"], bf16_want.to(torch.bfloat16))
+    if mu:
+        assert torch.equal(moms["bf16"], bf16_m_want.to(torch.bfloat16))
 
 
-def test_k2_still_launches_once_a_leaf(recording_lib):
-    params, grads = _card_leaves(4, seed=1)
-    moms = {k: torch.zeros_like(v) for k, v in params.items()}
-    lr = torch.tensor(0.05).as_subclass(_OnCard)
-    fused.fused_sgd_update(params, grads, moms, lr, 0.9, 0.0)
-    assert [c[0] for c in recording_lib.calls] == ["momentum"] * 3
-    assert fused.LAUNCHES == {"sgd_update_plain": 0,
-                              "sgd_update_momentum": 3}
+REFUSALS = ([(what, kind) for kind in ("plain", "momentum")
+             for what in ("non-contiguous leaf", "lr of two values",
+                          "gradient of another shape")]
+            + [("momentum of another shape", "momentum"),
+               ("non-contiguous momentum", "momentum")])
 
 
-@pytest.mark.parametrize("what", ["non-contiguous leaf", "lr of two values",
-                                  "gradient of another shape"])
-def test_k1_refuses_what_it_cannot_take(recording_lib, what):
-    """No fallback: a leaf on the card that K1 cannot take raises, and
-    nothing is launched."""
+@pytest.mark.parametrize("what,kind", REFUSALS)
+def test_k1_refuses_what_it_cannot_take(recording_lib, what, kind):
+    """No fallback: a leaf on the card that K1 or K2 cannot take raises,
+    and nothing is launched."""
     params, grads = _card_leaves(3, seed=2)
     del params["bf16"], grads["bf16"]
+    moms = ({k: torch.zeros_like(v) for k, v in params.items()}
+            if kind == "momentum" else None)
     lr = torch.tensor(0.05).as_subclass(_OnCard)
     if what == "non-contiguous leaf":
         params["l0"] = torch.zeros(8, 9).t().as_subclass(_OnCard)
         grads["l0"] = torch.zeros(9, 8).as_subclass(_OnCard)
+        if moms is not None:
+            moms["l0"] = torch.zeros(9, 8).as_subclass(_OnCard)
     elif what == "lr of two values":
         lr = torch.tensor([0.05, 0.1]).as_subclass(_OnCard)
-    else:
+    elif what == "gradient of another shape":
         grads["l2"] = torch.zeros(6).as_subclass(_OnCard)
+    elif what == "momentum of another shape":
+        moms["l2"] = torch.zeros(6).as_subclass(_OnCard)
+    else:
+        moms["l0"] = torch.zeros(37, 2)[:, 0].as_subclass(_OnCard)
     with pytest.raises(ValueError):
-        fused.fused_sgd_update(params, grads, None, lr, 0.0, 0.0)
+        fused.fused_sgd_update(params, grads, moms, lr,
+                               0.9 if moms else 0.0, 0.0)
     assert recording_lib.calls == [] and sum(fused.LAUNCHES.values()) == 0
 
 
-def test_max_leaves_is_the_kernels():
+@pytest.mark.parametrize("entry", ["sgd_update_plain",
+                                   "sgd_update_momentum"])
+def test_max_leaves_is_the_kernels(entry):
+    """MAX_LEAVES is the source's kMaxLeaves, and each C entry reaches the
+    one launcher, which refuses more leaves than that and sizes the
+    table by it."""
     with open(SGD_CU) as f:
-        m = re.search(r"constexpr int kMaxLeaves = (\d+);", f.read())
-    assert m and int(m.group(1)) == fused.MAX_LEAVES
+        src = f.read()
+    m = re.findall(r"constexpr int kMaxLeaves = (\d+);", src)
+    assert m == [str(fused.MAX_LEAVES)]
+    body = re.search(r"int %s\([^)]*\) \{(.*?)\n\}" % entry, src, re.S)
+    kind = "true" if entry == "sgd_update_momentum" else "false"
+    assert body and f"launch_multi<{kind}>(" in body.group(1)
+    launcher = re.search(r"int launch_multi\(.*?\n\}", src, re.S).group(0)
+    assert "leaves > kMaxLeaves" in launcher
+    assert "L leaf[kMaxLeaves];" in src
