@@ -43,6 +43,23 @@ order; any failure ends the run with a non-zero exit:
 9. profile  where a training step's time goes: the trainer's own rate, a
             step on a batch already on the card, the host's batch
             assembly, and the device's busy time by kernel.
+9b. chunked  the main path with ``--steps_per_dispatch 10``: the train
+            split resident on the card, its rows from the device index
+            stream, each chunk of 10 steps one CUDA graph replay. 500
+            steps: finite losses, test accuracy above 50%, K1 once a step
+            (each replay adds the launches its capture recorded; the
+            warm-up's 10 are kept apart), 50 replays, no index-stream
+            miss; resume to 600 continues at 500; the resident full-split
+            eval counts what the host-fed sweep counts on the same state;
+            50 momentum steps launch K2 once a step; one graphed chunk
+            against the same chunk body run eagerly from one state, cuDNN
+            deterministic (loss 1e-6 relative, params 1e-5; printed
+            without it too); a small ViT (145 tokens, the flash kernels)
+            chunked the same way: a replay launches what the eager body
+            launches, losses within 1e-5 relative; then a profile of 20
+            replays (ms/step, device busy share, no host-to-device copy)
+            beside phase 9's eager numbers, written to
+            ``OUT/chunk.json``.
 10. flash parity  K3 ``flash_fwd``, K4 ``flash_fwd_lse``, K6
             ``flash_bwd_dq`` and K7 ``flash_bwd_dkv`` against their plain
             versions on the card, in the working dtype: the ViT's
@@ -127,7 +144,8 @@ The lines before the last are ``{"kernels": [...]}`` and the card's name
 and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Scratch data and checkpoints go to ``.chip_smoke_work/`` (removed after a
-passing run); the run's metrics JSONL files, the profiles, ``vit.json``
+passing run); the run's metrics JSONL files, the profiles, ``chunk.json``
+(phase 9b), ``vit.json``
 (the ViT phases' numbers), ``dist.json`` (phases 16-21;
 ``dist_nccl.json`` under ``--dist``) and the ranks' logs are written to
 the output directory ``OUT``.
@@ -313,6 +331,344 @@ def profile_step(args, train_recs, card, steps=50) -> None:
           f"the step) in {sum(r[1] for r in rows)} kernels, on {card}")
     for ms, n, name in rows[:12]:
         print(f"[profile]   {ms:.5f} ms/step  x{n}  {name[:110]}")
+    return summary
+
+
+def run_trainer(args):
+    """``Trainer(config_from_args(args)).fit()``, the CLI's train mode
+    with the trainer kept, echoing its console; returns ``(lines,
+    trainer, result)``."""
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.train.loop import Trainer
+    buf = io.StringIO()
+    print("$ python -m dml_cnn_cifar10_tpu_torch " + " ".join(args),
+          flush=True)
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        trainer = Trainer(config_from_args(build_parser().parse_args(args)))
+        try:
+            result = trainer.fit()
+        finally:
+            trainer.logger.close()
+    return buf.getvalue().splitlines(), trainer, result
+
+
+# Steps per dispatch of the chunked phase (9b), and its graphed-vs-eager
+# gate: the loss of ten steps (relative) and every parameter after them.
+# The graph replays the kernels the eager body launches, on the same
+# inputs in the same order, so with cuDNN held to deterministic algorithms
+# for the comparison the two agreed bit for bit on an H100 (PERF.md), as
+# did two eager runs. Without it (printed, not gated), cuDNN may
+# pick backward kernels that sum with atomics, and ten steps of SGD carry
+# the difference along. The gate leaves room for a stray rounding, while
+# a wrong row, a skipped or repeated update (lr x gradient, 1e-4 and up)
+# lands outside it.
+CHUNK_K = 10
+CHUNK_LOSS_TOL, CHUNK_PARAM_TOL = 1e-6, 1e-5
+
+
+def _cnn_copies(cfg, state, n):
+    """``n`` (model, state) pairs of the CNN holding ``state``'s values."""
+    from dml_cnn_cifar10_tpu_torch.models.registry import get_model
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+    out = []
+    for _ in range(n):
+        model = get_model(cfg.model.name)(cfg.model, cfg.data)
+        st = step_lib.init_train_state(model, cfg.optim,
+                                       torch.device("cuda"))
+        with torch.no_grad():
+            for a, b in zip(step_lib._state_tensors(st),
+                            step_lib._state_tensors(state)):
+                a.copy_(b)
+        out.append((model, st))
+    return out
+
+
+def _gaps(a, b):
+    """Largest parameter gap between two states."""
+    return max((x - y).abs().max().item()
+               for x, y in zip(a.params.values(), b.params.values()))
+
+
+def _graph_vs_eager(cfg, state, ds_images, ds_labels, deterministic):
+    """One graphed chunk of the device-stream resident path against the
+    same chunk body run eagerly, twice, each from a copy of ``state``;
+    returns the gaps, the graphed callable and its state."""
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        copies = _cnn_copies(cfg, state, 3)
+        fns = [step_lib.make_train_chunk_resident(
+            m, cfg.optim, ds_images, ds_labels, data_cfg=cfg.data,
+            index_stream=(cfg.data.seed, cfg.batch_size, CHUNK_K))
+            for m, _ in copies]
+        (_, s_g), (_, s_e), (_, s_e2) = copies
+        losses = [float(fns[0](s_g)[1]["loss"]),
+                  float(fns[1].eager(s_e)[1]["loss"]),
+                  float(fns[2].eager(s_e2)[1]["loss"])]
+        fns[0].check()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return ({"loss_graph": losses[0], "loss_eager": losses[1],
+             "loss_gap": abs(losses[0] - losses[1]),
+             "param_gap": _gaps(s_g, s_e),
+             "eager_eager_loss_gap": abs(losses[1] - losses[2]),
+             "eager_eager_param_gap": _gaps(s_e, s_e2)}, fns[0], s_g)
+
+
+def _vit_chunk_check(card) -> dict:
+    """The ViT under chunked dispatch: a small ViT (depth 2, dim 64, 48x48
+    crop = 145 tokens, so the flash kernels run) on the resident device
+    stream, K = 2, AdamW, two graphed chunks against the same body run
+    eagerly from one state: the flash launches a replay adds equal the
+    eager body's, and the losses agree (AdamW turns the rounding of
+    nondeterministic sums into steps of +-lr, so params are printed, not
+    gated)."""
+    import numpy as np
+
+    from dml_cnn_cifar10_tpu_torch.config import (DataConfig, ModelConfig,
+                                                  OptimConfig)
+    from dml_cnn_cifar10_tpu_torch.models.registry import get_model
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+
+    mcfg = ModelConfig(name="vit_tiny", logit_relu=False, vit_depth=2,
+                       vit_dim=64, vit_heads=2)
+    dcfg = DataConfig(image_height=52, image_width=52, crop_height=48,
+                      crop_width=48, random_crop=True,
+                      normalize="standardize")
+    ocfg = OptimConfig(optimizer="adamw", learning_rate=1e-3,
+                       schedule="cosine", cosine_decay_steps=100,
+                       warmup_steps=2, dead_lr_decay=False)
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    images = torch.from_numpy(rng.integers(0, 256, (512, 52, 52, 3),
+                                           dtype=np.uint8)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 10, 512)).to(dev)
+    runs = []
+    for _ in range(2):
+        model = get_model(mcfg.name)(mcfg, dcfg)
+        state = step_lib.init_train_state(model, ocfg, dev,
+                                          torch.Generator().manual_seed(0))
+        runs.append((state, step_lib.make_train_chunk_resident(
+            model, ocfg, images, labels, data_cfg=dcfg,
+            index_stream=(0, 16, 2))))
+    (s_g, f_g), (s_e, f_e) = runs
+    fa.reset_launches()
+    gaps, graph_launches = [], {}
+    for _ in range(2):
+        before = dict(fa.LAUNCHES)
+        loss_g = float(f_g(s_g)[1]["loss"])
+        graph_launches = {n: fa.LAUNCHES[n] - before[n] for n in before}
+        before = dict(fa.LAUNCHES)
+        loss_e = float(f_e.eager(s_e)[1]["loss"])
+        eager_launches = {n: fa.LAUNCHES[n] - before[n] for n in before}
+        check(graph_launches == eager_launches and math.isfinite(loss_g),
+              f"ViT chunk: replay launched {graph_launches}, the eager "
+              f"body {eager_launches}; loss {loss_g}")
+        gaps.append((loss_g, loss_e, _gaps(s_g, s_e)))
+    f_g.check()
+    check(all(abs(g - e) <= 1e-5 * abs(e) for g, e, _ in gaps),
+          f"ViT chunk losses (graph, eager, param gap): {gaps}")
+    check(f_g.graph.replays == 2, f"ViT chunk replays {f_g.graph.replays}")
+    print(f"[chunk vit] depth 2, 145 tokens, K = 2: (graph loss, eager "
+          f"loss, params max gap) per chunk {gaps}; flash launches a "
+          f"replay {graph_launches}; on {card}", flush=True)
+    return {"chunks": gaps, "flash_launches_per_replay": graph_launches}
+
+
+def chunk_phase(base, card, eager_profile) -> dict:
+    """Phase 9b: the CNN main path with ``--steps_per_dispatch 10``,
+    resident on the device index stream (see the module docstring).
+    Returns the numbers, also written to ``OUT/chunk.json``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+
+    k = CHUNK_K
+    args = base + ["--steps_per_dispatch", str(k)]
+    log_dir = os.path.join(WORK, "logs_chunk")
+    jsonl = os.path.join(WORK, "chunk_train.jsonl")
+    fused.reset_launches()
+    t0 = time.perf_counter()
+    lines, trainer, _ = run_trainer(args + [
+        "--log_dir", log_dir, "--total_steps", str(STEPS), "--eval_every",
+        "250", "--metrics_jsonl", jsonl])
+    wall_s = time.perf_counter() - t0
+    fn = trainer.train_fn
+    launches = dict(fused.LAUNCHES)
+    want = {"sgd_update_plain": STEPS, "sgd_update_momentum": 0}
+    check(launches == want, f"chunked run launched {launches}, want {want}"
+          " (K1 once a step)")
+    check(fn.graph.replays == STEPS // k,
+          f"{fn.graph.replays} graph replays for {STEPS // k} chunks")
+    check(fn.graph.warmup_launches == {"sgd_update_plain": k},
+          f"warm-up launches {fn.graph.warmup_launches}")
+    rows = fn.rows
+    check(int(rows.misses) == 0, f"index stream misses {int(rows.misses)}")
+    recs = records(jsonl)
+    train_recs = [r for r in recs if r["kind"] == "train"]
+    losses = [r["loss"] for r in train_recs]
+    check(len(losses) == STEPS // 100 and all(
+        l is not None and math.isfinite(l) for l in losses),
+        f"chunked losses {losses}")
+    accs = [float(m[1]) for m in map(EVAL_LINE.match, lines) if m]
+    check(len(accs) == 2 and accs[-1] > 50.0,
+          f"chunked test accuracies {accs} (chance is 10%)")
+    windows = [r["images_per_sec"] for r in train_recs if r["step"] > 100]
+    loop_ms = 128 / (sum(windows) / len(windows)) * 1e3
+    print(f"[chunk train] {STEPS} steps in {STEPS // k} graph replays of "
+          f"{k} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}, test "
+          f"accuracy {accs[-1]:.2f}%, loop {loop_ms:.4f} ms/step (windows "
+          f"after step 100), {wall_s:.1f} s wall; K1 {STEPS} launches "
+          f"(+{k} in the warm-up, apart); index "
+          f"stream: {rows.epochs_built} epoch tables, {rows.host_reads} "
+          f"host reads, misses {int(rows.misses)}; on {card}", flush=True)
+
+    # Resume: the stream position is the step.
+    fused.reset_launches()
+    lines, trainer, result = run_trainer(args + [
+        "--log_dir", log_dir, "--total_steps", str(RESUME_STEPS),
+        "--eval_every", "100", "--metrics_jsonl",
+        os.path.join(WORK, "chunk_resume.jsonl")])
+    steps = [int(m[1]) for m in map(STEP_LINE.match, lines) if m]
+    check(steps == [RESUME_STEPS], f"chunked resume printed steps {steps}")
+    check(fused.LAUNCHES["sgd_update_plain"] == RESUME_STEPS - STEPS
+          and trainer.train_fn.graph.replays == (RESUME_STEPS - STEPS) // k,
+          f"chunked resume: K1 {fused.LAUNCHES}, "
+          f"{trainer.train_fn.graph.replays} replays")
+    print(f"[chunk resume] continued {STEPS} -> {RESUME_STEPS} in "
+          f"{trainer.train_fn.graph.replays} replays", flush=True)
+
+    # Eval: the resident sweep against the host-fed one, same state.
+    cfg, state = trainer.cfg, result.state
+    test_it = trainer.input_pipeline(train=False, seed=cfg.seed)
+    ev, total = step_lib.make_eval_resident(
+        trainer.model, test_it.images, test_it.labels, cfg.data,
+        torch.device("cuda"), batch_size=cfg.batch_size,
+        expected_batches=test_it.num_padded_sweep_batches())
+    resident_count = int(ev(state))
+    host_count = sum(int(trainer.eval_step(
+        state, *trainer._placed(b))["correct"])
+        for b in test_it.full_sweep_padded())
+    check(resident_count == host_count,
+          f"resident eval counted {resident_count}, the host-fed sweep "
+          f"{host_count}")
+    print(f"[chunk eval] step {RESUME_STEPS}: {resident_count}/{total} "
+          f"correct, resident and host-fed sweeps equal", flush=True)
+
+    # Momentum: K2 once a step under the graph.
+    fused.reset_launches()
+    run_trainer(args + ["--log_dir", os.path.join(WORK, "logs_chunk_mom"),
+                        "--total_steps", str(MOMENTUM_STEPS),
+                        "--output_every", "10", "--eval_every", "50",
+                        "--momentum", "0.9", "--weight_decay", "5e-4"])
+    mom_launches = dict(fused.LAUNCHES)
+    want = {"sgd_update_plain": 0, "sgd_update_momentum": MOMENTUM_STEPS}
+    check(mom_launches == want,
+          f"chunked momentum launched {mom_launches}, want {want}")
+
+    # Graphed against eager: one chunk from one (trained) state, with
+    # cuDNN's deterministic algorithms (gated) and without (printed).
+    train_it = trainer.input_pipeline(train=True, seed=cfg.seed)
+    ds_images = torch.from_numpy(train_it.images).cuda()
+    ds_labels = torch.from_numpy(train_it.labels.astype("int64")).cuda()
+    compare, graphed = {}, {}
+    for det in (False, True):
+        c, *graphed[det] = _graph_vs_eager(cfg, state, ds_images,
+                                           ds_labels, det)
+        compare["deterministic" if det else "default"] = c
+        print(f"[chunk graph vs eager] {k} steps from step {RESUME_STEPS}, "
+              f"cudnn.deterministic={det}: loss {c['loss_graph']!r} vs "
+              f"{c['loss_eager']!r} (gap {c['loss_gap']:.3g}), params max "
+              f"gap {c['param_gap']:.3g}; two eager runs "
+              f"{c['eager_eager_loss_gap']:.3g}, "
+              f"{c['eager_eager_param_gap']:.3g}", flush=True)
+    c = compare["deterministic"]
+    check(c["loss_gap"] <= CHUNK_LOSS_TOL * abs(c["loss_eager"])
+          and c["param_gap"] <= CHUNK_PARAM_TOL,
+          f"graphed chunk differs from the eager body: {c}")
+
+    vit = _vit_chunk_check(card)
+
+    # Profile: replays of the graphed chunk (default cuDNN, as trained).
+    fn_g, s_g = graphed[False]
+    reps = 20
+    for _ in range(2):
+        fn_g(s_g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn_g(s_g)
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) / (reps * k) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn_g(s_g)
+        torch.cuda.synchronize()
+    steps_traced = reps * k
+    prof_rows = _device_rows(prof, steps_traced)
+    busy_ms = sum(r[0] for r in prof_rows)
+    groups = dict.fromkeys(("convolutions (cuDNN)", "GEMMs (cuBLAS)",
+                            "max pool", "K1", "rest"), 0.0)
+    for ms, _, name in prof_rows:
+        group = ("K1" if "sgd_multi_kernel" in name
+                 else "convolutions (cuDNN)" if _CONV.search(name)
+                 else "GEMMs (cuBLAS)" if _GEMM.search(name)
+                 else "max pool" if "pool" in name else "rest")
+        groups[group] += ms
+    h2d = [ev.key for ev in prof.key_averages() if "HtoD" in ev.key]
+    k1_events = sum(ev.count for ev in prof.key_averages()
+                    if getattr(ev, "device_type", None) == DeviceType.CUDA
+                    and "sgd_multi_kernel<false>" in ev.key)
+    fn_g.check()
+    check(not h2d, f"host-to-device copies in a window of replays: {h2d}")
+    summary = {
+        "card": card, "batch": cfg.batch_size, "steps_per_dispatch": k,
+        "loop_ms_per_step": loop_ms, "replay_ms_per_step": window_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_busy_share_of_replays": busy_ms / window_ms,
+        "device_busy_share_of_loop": busy_ms / loop_ms,
+        "groups_ms_per_step": groups,
+        "k1_launches": launches["sgd_update_plain"],
+        "k1_kernel_events_traced": k1_events, "steps_traced": steps_traced,
+        "k2_launches": mom_launches["sgd_update_momentum"],
+        "warmup_launches": fn.graph.warmup_launches,
+        "replays": STEPS // k, "host_to_device_copies": h2d,
+        "index_stream": {"epochs_built": rows.epochs_built,
+                         "host_reads": rows.host_reads, "misses": 0},
+        "losses": losses, "test_accuracy": accs,
+        "resident_eval_correct": resident_count,
+        "host_eval_correct": host_count, "graph_vs_eager": compare,
+        "vit": vit,
+        "eager": {key: eager_profile[key] for key in (
+            "loop_ms_per_step", "step_ms_on_device_batch", "host_batch_ms",
+            "device_busy_ms_per_step", "device_busy_share")},
+        "kernels": [{"ms_per_step": ms, "per_step": n, "name": name}
+                    for ms, n, name in prof_rows]}
+    with open(os.path.join(OUT, "chunk.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    e = summary["eager"]
+    print(f"[chunk profile] chunked loop {loop_ms:.4f} ms/step, replays "
+          f"{window_ms:.4f} ms/step, device busy {busy_ms:.4f} ms/step "
+          f"({100 * busy_ms / window_ms:.1f}% of the replays, "
+          f"{100 * busy_ms / loop_ms:.1f}% of the loop), K1 kernels "
+          f"traced {k1_events} in {steps_traced} steps, host-to-device "
+          f"copies {len(h2d)}; eager (phase 9): loop "
+          f"{e['loop_ms_per_step']:.4f} ms/step, device-batch step "
+          f"{e['step_ms_on_device_batch']:.4f} ms, busy "
+          f"{e['device_busy_ms_per_step']:.4f} ms "
+          f"({100 * e['device_busy_share']:.1f}%); on {card}", flush=True)
+    print("[chunk profile] device ms/step by group: " + ", ".join(
+        f"{g} {ms:.5f} ({100 * ms / busy_ms:.1f}%)"
+        for g, ms in groups.items()), flush=True)
+    for ms, n, name in prof_rows[:12]:
+        print(f"[chunk profile]   {ms:.5f} ms/step  x{n}  {name[:110]}")
+    return summary
 
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
@@ -692,6 +1048,9 @@ def flash_timing(dev, card, bytes_per_s, f32_ops) -> dict:
 
 
 _GEMM = re.compile(r"gemm|xmma|cutlass|cublas", re.I)
+# cuDNN's convolution kernels (checked before _GEMM: implicit-GEMM
+# convolutions carry "gemm" in their names too).
+_CONV = re.compile(r"convolve|dgrad|wgrad|fprop|winograd|cudnn", re.I)
 
 
 def _device_rows(prof, steps):
@@ -1827,8 +2186,12 @@ def main() -> int:
           flush=True)
 
     # ---- 9. where a training step's time goes ---------------------------
-    profile_step(base + ["--log_dir", os.path.join(WORK, "logs_profile")],
-                 records(train_jsonl), card)
+    eager_profile = profile_step(
+        base + ["--log_dir", os.path.join(WORK, "logs_profile")],
+        records(train_jsonl), card)
+
+    # ---- 9b. chunked: resident data, device index stream, CUDA graphs --
+    chunk = chunk_phase(base, card, eager_profile)
 
     # ---- 10. flash parity (K3, K4, K6, K7) -------------------------------
     from dml_cnn_cifar10_tpu_torch import convert
@@ -2027,6 +2390,8 @@ def main() -> int:
         kernels.append({
             **({"launches_dp_per_rank": dist_res["dp2"]["launches"][name]}
                if kid == "K1" else {}),
+            "launches_chunked": chunk["k1_launches" if kid == "K1"
+                                      else "k2_launches"],
             "name": name, "kernel": kid, "route": "cuda",
             "source": "dml_cnn_cifar10_tpu_torch/csrc/sgd_update.cu",
             "cuda_kernel": t["cuda_kernel"],

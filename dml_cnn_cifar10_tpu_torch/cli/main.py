@@ -17,8 +17,11 @@ host memory.
 Models: ``--model cnn`` (the reference, default) and ``--model vit_tiny``
 (ViT-Ti, attention through the hand-written flash kernels from 128 tokens
 up, e.g. ``--crop_size 64``), with the JAX CLI's ViT, optimizer and
-schedule flags. Modes: ``train`` (default) and ``eval`` (restore the
-latest checkpoint and sweep the full test split). The run is on
+schedule flags. ``--steps_per_dispatch K`` runs K steps a dispatch, one
+CUDA graph replay on the card, with the dataset resident on the device and
+its shuffled rows drawn there (``--resident_data``,
+``--device_index_stream``). Modes: ``train`` (default) and ``eval``
+(restore the latest checkpoint and sweep the full test split). The run is on
 ``--device cuda`` unless ``--device cpu`` is given; a missing card
 raises.
 """
@@ -143,6 +146,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fused single-pass SGD update (ops/optimizer.py: "
                         "the hand-written CUDA kernel on the card); false "
                         "keeps the per-transform chain")
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="train steps per device dispatch (one CUDA graph "
+                        "replay of K steps on the card; output/eval/"
+                        "checkpoint cadences must be multiples)")
+    p.add_argument("--resident_data", type="bool", default=True,
+                   help="with --steps_per_dispatch >1, keep the uint8 "
+                        "dataset on the device and gather on device "
+                        "(one process; host-fed raw chunks past "
+                        "the size cap)")
+    p.add_argument("--device_index_stream", type="bool", default=True,
+                   help="resident path only: generate the shuffled index "
+                        "stream ON DEVICE (stateless per-epoch "
+                        "pseudo-permutation keyed on the global step), so "
+                        "a training dispatch uploads nothing and a resume "
+                        "continues the data order exactly. Different "
+                        "(equally valid) permutation than the host "
+                        "stream; toggling changes data order. 'false' "
+                        "restores the host numpy stream")
     p.add_argument("--metrics_jsonl", type=str, default=None)
     p.add_argument("--seed", type=int, default=0)
     return p
@@ -170,8 +191,12 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
         cfg.data.crop_height = cfg.data.crop_width = args.crop_size
     if args.synthetic_train_records is not None:
         cfg.data.synthetic_train_records = args.synthetic_train_records
-    # Seed the data stream from the run seed, as the JAX CLI does.
+    # Seed the data stream (shuffle + device-side augmentation draws)
+    # from the run seed, as the JAX CLI does.
     cfg.data.seed = args.seed
+    cfg.steps_per_dispatch = args.steps_per_dispatch
+    cfg.resident_data = args.resident_data
+    cfg.data.device_index_stream = args.device_index_stream
     cfg.model.name = args.model
     cfg.model.compute_dtype = args.compute_dtype
     cfg.optim.learning_rate = args.learning_rate

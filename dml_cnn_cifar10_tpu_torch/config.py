@@ -44,10 +44,34 @@ class DataConfig:
     normalize: str = "none"               # none | scale | standardize
     prefetch: int = 2                     # host->device prefetch depth
     seed: int = 0
+    # Resident path only (TrainConfig.steps_per_dispatch > 1 with
+    # resident_data): generate the shuffled index stream ON THE DEVICE
+    # (data/device_stream.py: a stateless per-epoch pseudo-permutation
+    # keyed on the global step), so a training dispatch moves nothing
+    # host->device and a resumed run continues the data order exactly.
+    # The shuffle is a different (equally valid) permutation than the
+    # host stream's numpy-PCG one, so toggling this flag changes the data
+    # order; false restores the host numpy stream.
+    device_index_stream: bool = True
     # Synthetic mode generates CIFAR-format .bin files locally (same
     # 3073-byte record layout) for air-gapped testing/benchmarking.
     synthetic_train_records: int = 2048
     synthetic_test_records: int = 512
+
+    # Every randomized-augmentation field and its "off" value: the one
+    # list ``augmented`` and ``without_augmentation`` both derive from.
+    # (The JAX package's brightness/contrast are not ported yet.)
+    _AUG_OFF = (("random_crop", False), ("random_flip", False))
+
+    @property
+    def augmented(self) -> bool:
+        """True when any randomized augmentation is on: the device decode
+        (ops/preprocess.py) then needs a step to key its draws on."""
+        return any(getattr(self, name) != off for name, off in self._AUG_OFF)
+
+    def without_augmentation(self) -> "DataConfig":
+        """Eval-time decode config: every randomized augmentation off."""
+        return dataclasses.replace(self, **dict(self._AUG_OFF))
 
     @property
     def record_bytes(self) -> int:
@@ -180,6 +204,22 @@ class TrainConfig:
     # Where the port runs: "cuda" (the default; raises when no card is
     # present) or "cpu", which the caller must ask for.
     device: str = "cuda"
+    # Steps per dispatch. >1 switches the Trainer to the chunked path
+    # (parallel/step.py:make_train_chunk*): K steps per call, replayed as
+    # one CUDA graph on the card, the host shipping raw uint8 chunks,
+    # index chunks, or nothing at all (resident_data with the device index
+    # stream), and the decode running on the device.
+    # output/eval/checkpoint cadences and the steps to run must be
+    # multiples of K so every observable boundary falls on a dispatch
+    # edge. One process only: capturing NCCL collectives is not ported.
+    steps_per_dispatch: int = 1
+    # With steps_per_dispatch > 1, keep the whole uint8 split resident on
+    # the device and gather each chunk's rows there (indices from the
+    # device stream, or shipped by the host with device_index_stream off).
+    # Falls back to host-fed raw chunks when the split exceeds
+    # resident_data_max_bytes.
+    resident_data: bool = True
+    resident_data_max_bytes: int = 2_000_000_000
 
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)

@@ -109,6 +109,26 @@ class ShuffleBatchIterator:
         idx = self._next_indices(self.batch_size)
         return Batch(self._finish(self.images[idx]), self.labels[idx])
 
+    #: The shuffled stream has an index view (:meth:`next_index_chunk`),
+    #: which the device-resident chunked path needs.
+    supports_index_stream = True
+
+    def next_index_chunk(self, k: int) -> np.ndarray:
+        """``[k, B]`` int64 shuffled indices into ``self.images`` /
+        ``self.labels``: the stream of :meth:`next_raw_chunk` without the
+        gather, for the resident path, which gathers on the device."""
+        return self._next_indices(self.batch_size * k).reshape(
+            k, self.batch_size)
+
+    def next_raw_chunk(self, k: int) -> Batch:
+        """``k`` stacked shuffled batches of RAW uint8 full-size images
+        (``[k, B, H, W, C]``; no crop, cast or normalize) for the device
+        decode (``ops/preprocess.py``): one gather a chunk."""
+        idx = self._next_indices(self.batch_size * k)
+        ims = self.images[idx].reshape(
+            k, self.batch_size, *self.images.shape[1:])
+        return Batch(ims, self.labels[idx].reshape(k, self.batch_size))
+
     def num_padded_sweep_batches(self) -> int:
         """Batches every shard contributes, so a sharded sweep issues the
         same number of collective steps on every rank (strided shards
