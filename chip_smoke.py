@@ -136,17 +136,50 @@ gloo. Each rank starts with every launch count at 0 and writes its counts
             the hops and all-reduces (NCCL kernels, or gloo's host copies)
             apart, the time the two overlap, and K5/K6/K7.
 
+Then the serving path, on phase 6's CNN checkpoint (step 600) and phase
+13's ViT-Ti checkpoint (step 300):
+22. export  ``--mode export`` for each: the artifact (``<log_dir>/
+            model.pt2``) holds 12 flash operator nodes for the ViT-Ti and
+            none for the CNN, loads on the card, and serves b = 1, 8, 32
+            and 128 within 1e-5 of the live weights' eager forward.
+23. serve k3  K3 through ``dml_torch::flash_attention_out`` at the four
+            serving shapes [b, 257, 3, 64] f32 (views of a fused qkv)
+            against its plain version (5e-6), timed at b = 1 and 128:
+            CUDA events, device time, the plain version, SDPA and the
+            bound.
+24. graphs  each engine (the artifact's, and the live weights') captures
+            one CUDA graph a bucket at warm-up; each replay
+            against the eager forward (1e-5 of the largest logit), 12 K3
+            a ViT-Ti replay, at most one copy in (the uint8 batch) and
+            one out (the logits) a served batch, so no weight copy (10
+            traced batches; a trace drops some memcpy events); replay
+            and eager ms a bucket; where a served batch's time goes at
+            b = 1 and 128.
+25. serve http  ``--mode serve`` (``main_serve`` with the CLI's config)
+            in a thread, driven by the port's loadgen in a process of its
+            own: closed loops at 1, 32 and 128 clients, twice each, every
+            answer's class the direct forward's (near-ties left out and
+            counted), no error but 503, and the served ViT-Ti path
+            launched 12 K3 a replay and no other kernel; an open loop past
+            capacity with a 2-deep queue and a 0.5 ms deadline sheds; the
+            CNN's step-500 weights served live with 32 clients while step
+            600 is hot-swapped in: the tags flip, every answer within 1e-4
+            of its version's forward, one ``swap`` record. Numbers in
+            ``OUT/serve.json`` and the loadgen reports.
+
 ``--dist`` runs the build and phases 18-21 alone over NCCL on two or more
 cards, with 4 ranks beside 2 given four cards: SP data 2 x seq 2 against
 its 2 data ranks without the ring, and the DP CNN on 4 ranks.
 
-The lines before the last are ``{"kernels": [...]}`` and the card's name
-and power limit; the last line is
+The lines before the last are ``{"kernels": [...]}`` (K3 twice: its
+training row, and its serving row with ``"path": "serve"``) and the card's
+name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Scratch data and checkpoints go to ``.chip_smoke_work/`` (removed after a
 passing run); the run's metrics JSONL files, the profiles, ``chunk.json``
 (phase 9b), ``vit.json``
-(the ViT phases' numbers), ``dist.json`` (phases 16-21;
+(the ViT phases' numbers), ``serve.json`` (phases 22-25), ``dist.json``
+(phases 16-21;
 ``dist_nccl.json`` under ``--dist``) and the ranks' logs are written to
 the output directory ``OUT``.
 """
@@ -1882,6 +1915,548 @@ def dist_phases(backend: str, card: str, worlds=(2,),
     return res
 
 
+# ---- serving: export, K3 through its operator, graphs, HTTP (22-25) ------
+
+SERVE_BUCKETS = (1, 8, 32, 128)
+SERVE_CONCURRENCY = (1, 32, 128)
+SERVE_RUN_S = 2.0
+# Graph replay against the eager forward, and the artifact against the
+# live engine: the same kernels on the same inputs, held to 1e-5 of the
+# largest logit (a capture that read the wrong buffer or weights misses
+# it by orders of magnitude).
+SERVE_REL = 1e-5
+# A response's logits against its version's forward at another batch
+# size: cuBLAS may pick another kernel for another M, so rows can differ
+# in their last bits; two checkpoints 100 steps apart differ by far more.
+SWAP_TOL = 1e-4
+# Check-set images whose two largest direct logits are closer than this
+# (relative) are left out of the class check: their argmax may flip with
+# the batch a request lands in. Their count is printed.
+MARGIN = 1e-4
+# K3 at the serving shapes, as the ViT-Ti gives them: [b, 257, 3, 64]
+# f32, q/k/v views of one fused qkv.
+SERVE_K3_TIMED = (1, 128)
+
+
+def _rel(a, b) -> float:
+    import numpy as np
+    return float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-30))
+
+
+def _host_ms(fn, reps) -> float:
+    """Median host ms of ``fn()`` (which ends in a device read) over
+    ``reps`` calls after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def _copies(fn, reps=10) -> dict:
+    """Host-to-device and device-to-host copies of ``reps`` calls of
+    ``fn()``, by the profiler's memcpy events. A trace drops some of them
+    (seen on the card: 7 to 9 of 10), so a count bounds the copies from
+    below: the caller checks the upper bound, which a weight copy (one a
+    leaf, 10 or more a batch) would break."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {"HtoD": 0, "DtoH": 0}
+    for ev in prof.key_averages():
+        for kind in out:
+            if f"Memcpy {kind}" in ev.key:
+                out[kind] += ev.count
+    return out
+
+
+def _batch_profile(eng, x, reps=20) -> dict:
+    """Where a served batch's time goes: the host ms of one
+    ``forward_timed`` (input copy, replay, logits back) beside the
+    device's busy ms a batch by kernel group, from ``reps`` traced
+    batches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.forward_timed(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        eng.forward_timed(x)
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            eng.forward_timed(x)
+        torch.cuda.synchronize()
+    groups = dict.fromkeys(("flash (K3)", "convolutions (cuDNN)",
+                            "GEMMs (cuBLAS)", "copies", "rest"), 0.0)
+    for ms, _, name in _device_rows(prof, reps):
+        groups["flash (K3)" if "flash_out_kernel" in name
+               else "copies" if "Memcpy" in name
+               else "convolutions (cuDNN)" if _CONV.search(name)
+               else "GEMMs (cuBLAS)" if _GEMM.search(name)
+               else "rest"] += ms
+    busy = sum(groups.values())
+    return {"host_ms": host_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / host_ms, "groups_ms": groups}
+
+
+def serve_k3(dev, card, bytes_per_s, f32_ops) -> dict:
+    """K3 through the registered operator at the four serving shapes
+    against its plain version (f32 out pin 5e-6), then timed at b = 1 and
+    128: CUDA events, device time, the plain version, SDPA (a yardstick
+    the port never calls) and the bound."""
+    import torch.nn.functional as F
+
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst, res = 0.0, {}
+    fa.reset_launches()
+    for b in SERVE_BUCKETS:
+        q, k, v = torch.randn(b, 257, 3, 3, 64, device=dev,
+                              generator=gen).unbind(3)
+        with torch.no_grad():
+            got = torch.ops.dml_torch.flash_attention_out(
+                q, k, v, None, None, 64 ** -0.5, False, None)
+            via = fa.flash_attention(q, k, v)
+            want = fa.flash_attention_plain(q, k, v)[0]
+        torch.cuda.synchronize()
+        diff = (got - want).abs().max().item()
+        check(torch.equal(got, via), f"K3 at b={b}: flash_attention and "
+              "the operator disagree")
+        check(diff <= FLASH_TOL["out"],
+              f"K3 at [{b}, 257, 3, 64] through the operator: max abs diff "
+              f"{diff} > {FLASH_TOL['out']}")
+        worst = max(worst, diff)
+        print(f"[serve k3] [{b}, 257, 3, 64] f32 (views of a fused qkv) "
+              f"through dml_torch::flash_attention_out: max abs diff "
+              f"{diff:.3g} vs the plain version", flush=True)
+        if b not in SERVE_K3_TIMED:
+            continue
+
+        def fn():
+            return torch.ops.dml_torch.flash_attention_out(
+                q, k, v, None, None, 64 ** -0.5, False, None)
+
+        ms, reps = timed_ms(fn)
+        dms = device_ms(fn, "flash_out_kernel", reps=min(reps, 50))
+        plain_ms, _ = timed_ms(lambda: fa.flash_attention_plain(q, k, v))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def lib_fn():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        lib_ms, _ = timed_ms(lib_fn)
+        lib_dev = sum(kernel_ms(lib_fn).values())
+        flops = FLASH_FLOPS["flash_fwd"] * b * 3 * 257 * 257 * 64
+        nbytes = 4 * b * 257 * 3 * 64 * 4
+        by_ops, by_bytes = flops / f32_ops * 1e3, nbytes / bytes_per_s * 1e3
+        # The split-bf16 products K3 issues on the tensor cores.
+        tcf = tc_flops("flash_fwd", True) * b * 3 * 257 * 257 * 64
+        res[b] = dict(shape=[b, 257, 3, 64], dtype="float32", ms=ms,
+                      device_ms=dms, plain_ms=plain_ms, library_ms=lib_ms,
+                      library_device_ms=lib_dev,
+                      library="F.scaled_dot_product_attention forward",
+                      bound_ms=max(by_ops, by_bytes),
+                      bound_by="operations" if by_ops >= by_bytes
+                      else "bytes",
+                      bound_tc_ms=max(tcf / BF16_PEAK * 1e3, by_bytes),
+                      flops=flops, tc_flops=tcf, bytes=nbytes,
+                      blocks=b * 3 * math.ceil(257 / 64))
+        print(f"[serve k3] timed [{b}, 257, 3, 64] f32: kernel {ms:.5f} ms "
+              f"(device {dms} ms), plain {plain_ms:.5f} ms, SDPA "
+              f"{lib_ms:.5f} ms (device {lib_dev:.5f} ms), bound "
+              f"{res[b]['bound_ms']:.5f} ms ({res[b]['bound_by']}), "
+              f"tensor-core bound {res[b]['bound_tc_ms']:.5f} ms of the "
+              f"split products it issues, on {card}", flush=True)
+    return {"worst": worst, "timed": res}
+
+
+def _check_set(engine, images, path) -> int:
+    """Write the ``--check_labels`` npz: the images whose direct forward
+    (the engine's eager forward, in batches of 128) has a clear argmax,
+    labelled with it. Returns how many were left out."""
+    import numpy as np
+    logits = np.concatenate([engine.forward_eager(images[i:i + 128])
+                             for i in range(0, len(images), 128)])
+    top2 = np.sort(logits, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > MARGIN * np.maximum(
+        1.0, np.abs(top2[:, 1]))
+    np.savez(path, images=images[clear], labels=logits[clear].argmax(1))
+    return int((~clear).sum())
+
+
+def _serve_thread(args, engine=None):
+    """``--mode serve`` of ``args`` in a thread with ready and stop events
+    (``main_serve`` with the CLI's config; ``engine`` serves a caller's
+    engine): ``(thread, stop_event, url, cfg, rc)`` once it is ready."""
+    import threading
+
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.serve.server import main_serve
+
+    port = _free_ports(1)[0]
+    cfg = config_from_args(build_parser().parse_args(
+        args + ["--mode", "serve", "--serve_port", str(port)]))
+    print("$ python -m dml_cnn_cifar10_tpu_torch " + " ".join(args)
+          + f" --mode serve --serve_port {port}", flush=True)
+    ready, stop, rc = threading.Event(), threading.Event(), {}
+
+    def run():
+        rc["rc"] = main_serve(cfg, ready_event=ready, stop_event=stop,
+                              engine=engine)
+
+    t = threading.Thread(target=run, name="serve-main", daemon=True)
+    t.start()
+    while not ready.wait(1.0):
+        check(t.is_alive(), f"--mode serve of {args} died during warm-up")
+    return t, stop, f"http://127.0.0.1:{port}", cfg, rc
+
+
+def _stop_serve(t, stop, rc, what) -> None:
+    stop.set()
+    t.join(120)
+    check(not t.is_alive() and rc.get("rc") == 0,
+          f"{what}: the server did not drain and exit 0")
+
+
+def _loadgen(argv, label) -> dict:
+    """The port's load generator in a process of its own (its client
+    threads do not share the server's interpreter lock)."""
+    report = os.path.join(OUT, f"loadgen_{label}.json")
+    cmd = [sys.executable, "-m", "dml_cnn_cifar10_tpu_torch.tools.loadgen",
+           *argv, "--report", report]
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=300)
+    check(p.returncode == 0, f"loadgen {label} exited {p.returncode}: "
+          f"{p.stderr[-2000:]}")
+    with open(report) as f:
+        return json.load(f)
+
+
+def serve_phases(card, dev, cnn_cli, vit_cli, bytes_per_s, f32_ops) -> dict:
+    """Phases 22-25 on phase 6's CNN checkpoint (step 600) and phase 13's
+    ViT-Ti checkpoint (step 300). ``cnn_cli`` and ``vit_cli`` are their
+    CLI arguments, ``--log_dir`` included."""
+    import numpy as np
+
+    from dml_cnn_cifar10_tpu_torch import export as export_lib
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.data import test_files
+    from dml_cnn_cifar10_tpu_torch.data.pipeline import _load_split
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+    from dml_cnn_cifar10_tpu_torch.serve.engine import ServingEngine
+    from dml_cnn_cifar10_tpu_torch.tools import loadgen
+
+    models = {"cnn": {"cli": cnn_cli, "step": RESUME_STEPS, "k3": 0},
+              "vit": {"cli": vit_cli, "step": VIT_RESUME_STEPS, "k3": 12}}
+    out = {"card": card, "buckets": list(SERVE_BUCKETS)}
+
+    # ---- 22. export: --mode export, one artifact serves every bucket ----
+    for label, m in models.items():
+        cfg = config_from_args(build_parser().parse_args(m["cli"]))
+        m["cfg"] = cfg
+        t0 = time.perf_counter()
+        lines = run_cli(m["cli"] + ["--mode", "export"])
+        m["export_s"] = time.perf_counter() - t0
+        m["path"] = os.path.join(cfg.log_dir, export_lib.ARTIFACT_NAME)
+        check(any(f"exported step-{m['step']} forward" in l for l in lines),
+              f"{label}: --mode export did not export step {m['step']}")
+        images, _ = _load_split(test_files(cfg.data), cfg.data)
+        m["images"] = np.ascontiguousarray(images)
+        art = ServingEngine.from_artifact(m["path"], dev)
+        model, params, step = export_lib.restore_serving_params(cfg, dev)
+        check(step == m["step"], f"{label}: restored step {step}")
+        live = ServingEngine.from_params(model, cfg.data, params, dev,
+                                         version=str(step))
+        graph = export_lib.load_program(m["path"]).graph
+        n_ops = sum(n.target == torch.ops.dml_torch.flash_attention_out.default
+                    for n in graph.nodes)
+        check(n_ops == m["k3"], f"{label}: the artifact's graph holds "
+              f"{n_ops} flash operator nodes, want {m['k3']}")
+        worst = 0.0
+        for b in SERVE_BUCKETS:
+            x = m["images"][:b]
+            got, want = art.forward_eager(x), live.forward_eager(x)
+            check(got.shape == (b, 10) and np.isfinite(got).all(),
+                  f"{label}: the artifact gave {got.shape} at b={b}")
+            worst = max(worst, _rel(got, want))
+        check(worst <= SERVE_REL, f"{label}: artifact vs live weights "
+              f"{worst} > {SERVE_REL} of the largest logit")
+        m.update(art=art, live=live, params=params)
+        out[label] = {"export_s": m["export_s"], "artifact_bytes":
+                      os.path.getsize(m["path"]), "flash_op_nodes": n_ops,
+                      "artifact_vs_live_rel": worst}
+        print(f"[serve export] {label}: step {step} -> {m['path']} "
+              f"({out[label]['artifact_bytes']} bytes, {n_ops} flash "
+              f"operator nodes) in {m['export_s']:.2f} s; one artifact at "
+              f"b = {SERVE_BUCKETS}: within {worst:.3g} of the live "
+              f"weights' forward", flush=True)
+
+    # ---- 23. K3 through the registered operator ------------------------
+    out["k3"] = serve_k3(dev, card, bytes_per_s, f32_ops)
+
+    # ---- 24. one CUDA graph per bucket: replay against eager ------------
+    for label, m in models.items():
+        rows = {}
+        for kind in ("art", "live"):
+            eng = m[kind]
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            eng.warmup(SERVE_BUCKETS)
+            warm_s = time.perf_counter() - t0
+            check(sorted(eng.graphs) == sorted(SERVE_BUCKETS),
+                  f"{label} {kind}: {len(eng.graphs)} graphs captured")
+            check(fa.LAUNCHES["flash_fwd"] == m["k3"] * len(eng.graphs),
+                  f"{label} {kind}: warm-up replays launched "
+                  f"{fa.LAUNCHES['flash_fwd']} K3")
+            for g in eng.graphs.values():
+                check(g.launches == ({"flash_fwd": m["k3"]} if m["k3"]
+                                     else {}),
+                      f"{label} {kind}: a replay launches {g.launches}")
+            for b in SERVE_BUCKETS:
+                x = m["images"][:b]
+                rep, _ = eng.forward_timed(x)
+                eag = eng.forward_eager(x)
+                rel = _rel(rep, eag)
+                check(rel <= SERVE_REL, f"{label} {kind} b={b}: replay vs "
+                      f"eager {rel} > {SERVE_REL}")
+                copies = _copies(lambda: eng.forward_timed(x), reps=10)
+                check(1 <= copies["HtoD"] <= 10 and copies["DtoH"] <= 10,
+                      f"{label} {kind} b={b}: 10 served batches made copies "
+                      f"{copies}; want at most one in (the input) and one "
+                      f"out (the logits) a batch: no weight copy")
+                g = eng.graphs[b]
+                replay_dev = cuda_ms(g.graph.replay, reps=50, warmup=5)
+                with torch.no_grad():
+                    eager_dev = cuda_ms(lambda: eng._run(
+                        g.static_in, eng._params), reps=20, warmup=3)
+                row = dict(rel=rel, copies=copies,
+                           replay_ms=_host_ms(lambda: eng.forward_timed(x),
+                                              30),
+                           eager_ms=_host_ms(lambda: eng.forward_eager(x),
+                                             10),
+                           replay_device_ms=replay_dev,
+                           eager_device_ms=eager_dev)
+                rows.setdefault(kind, {})[b] = row
+                print(f"[serve graphs] {label} {kind} b={b}: replay vs eager "
+                      f"{rel:.3g}; served batch {row['replay_ms']:.4f} ms "
+                      f"(replay), {row['eager_ms']:.4f} ms (eager), input "
+                      f"copy + logits included; by CUDA events "
+                      f"{replay_dev:.4f} ms replay, {eager_dev:.4f} ms eager;"
+                      f" copies {copies}, on {card}", flush=True)
+            rows[kind + "_warmup_s"] = warm_s
+        for b in (1, 128):
+            prof = _batch_profile(m["art"], m["images"][:b])
+            rows.setdefault("profile", {})[b] = prof
+            print(f"[serve profile] {label} artifact b={b}: served batch "
+                  f"{prof['host_ms']:.4f} ms on the host clock, device busy "
+                  f"{prof['device_busy_ms']:.4f} ms "
+                  f"({100 * prof['device_busy_share']:.1f}%): "
+                  + ", ".join(f"{g} {ms:.4f}" for g, ms
+                              in prof["groups_ms"].items())
+                  + f"; on {card}", flush=True)
+        out[label]["graphs"] = rows
+
+    # ---- 25. --mode serve over HTTP, driven by the port's loadgen --------
+    # Each model's artifact behind the server (resolve_engine finds
+    # <log_dir>/model.pt2), closed loops twice each at 1, 32 and 128
+    # clients: every answer's class is the direct forward's, no error but
+    # 503, and the served path launched K3 12 times a replay and nothing
+    # else (counts set to 0 before the server starts, read after it
+    # stops: the warm-up's one replay a bucket, then one a batch).
+    for label, m in models.items():
+        npz = os.path.join(WORK, f"check_{label}.npz")
+        left_out = _check_set(m["art"], m["images"], npz)
+        fa.reset_launches()
+        t, stop, url, cfg, rc = _serve_thread(
+            m["cli"] + ["--metrics_jsonl",
+                        os.path.join(OUT, f"serve_{label}.jsonl"),
+                        "--serve_metrics_every_s", "1"])
+        runs = {}
+        for c in SERVE_CONCURRENCY:
+            for rep in range(2):
+                r = _loadgen(["--target", url, "--mode", "closed",
+                              "--concurrency", str(c), "--duration_s",
+                              str(SERVE_RUN_S), "--check_labels", npz],
+                             f"{label}_c{c}_{rep}")
+                check(r["errors"] == 0 and r["rejected"] == 0,
+                      f"{label} c={c}: errors {r['error_kinds']}")
+                check(r["completed"] > 0 and r.get("label_checked")
+                      == r["completed"] and r["accuracy"] == 1.0,
+                      f"{label} c={c}: {r.get('label_checked')} checked of "
+                      f"{r['completed']}, class agreement "
+                      f"{r.get('accuracy')}")
+                runs.setdefault(c, []).append(
+                    {k: r[k] for k in ("achieved_qps", "latency_ms",
+                                       "completed", "shed", "version_mix")})
+                print(f"[serve http] {label} closed loop c={c} run {rep}: "
+                      f"{r['achieved_qps']} qps, p50 "
+                      f"{r['latency_ms']['p50']} ms, p99 "
+                      f"{r['latency_ms']['p99']} ms, {r['completed']} "
+                      f"completed, {r['shed']} shed, every class the direct "
+                      f"forward's; on {card}", flush=True)
+        _stop_serve(t, stop, rc, f"{label} serve")
+        done = [r for r in records(cfg.metrics_jsonl)
+                if r["kind"] == "serve_done"][-1]
+        launched = dict(fa.LAUNCHES)
+        want = m["k3"] * (done["batches"] + len(SERVE_BUCKETS))
+        check(launched["flash_fwd"] == want
+              and sum(launched.values()) == want,
+              f"{label} serve path launched {launched}; want K3 = "
+              f"{m['k3']} x ({done['batches']} batches + "
+              f"{len(SERVE_BUCKETS)} warm-up replays) and nothing else")
+        out[label]["http"] = {"closed": runs, "left_out_near_ties": left_out,
+                              "serve_done": done, "launches": launched}
+        print(f"[serve http] {label}: {done['batches']} batches, batch fill "
+              f"{done['batch_fill']}, queue wait p50 "
+              f"{done['queue_wait_p50_ms']} ms, device p50 "
+              f"{done['device_p50_ms']} ms; launches {launched}; "
+              f"{left_out} near-tie image(s) left out of the class check",
+              flush=True)
+
+    # Past capacity: the ViT-Ti artifact at bucket 1 with a 2-deep queue
+    # and a 0.5 ms deadline, an open loop at 1,500 requests/s (a bucket-1
+    # replay takes over a millisecond): overload is shed (503), not
+    # buffered, and nothing else fails.
+    t, stop, url, _, rc = _serve_thread(
+        vit_cli + ["--serve_buckets", "1", "--serve_queue_depth", "2",
+                   "--serve_deadline_ms", "0.5"])
+    r = _loadgen(["--target", url, "--mode", "open", "--qps", "1500",
+                  "--duration_s", str(SERVE_RUN_S), "--image_size", "72"],
+                 "vit_open")
+    _stop_serve(t, stop, rc, "overload serve")
+    check(r["shed_fraction"] > 0 and r["errors"] == 0,
+          f"open loop past capacity: shed fraction {r['shed_fraction']}, "
+          f"errors {r['error_kinds']}")
+    out["overload"] = {k: r[k] for k in ("achieved_qps", "latency_ms",
+                                         "completed", "shed",
+                                         "shed_fraction")}
+    print(f"[serve http] open loop at 1500/s past capacity (ViT-Ti, bucket "
+          f"1, queue 2, deadline 0.5 ms): shed fraction "
+          f"{r['shed_fraction']}, {r['achieved_qps']} qps served, p99 "
+          f"{r['latency_ms']['p99']} ms", flush=True)
+    out["swap"] = _swap_under_load(card, dev, models["cnn"])
+    with open(os.path.join(OUT, "serve.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
+def _swap_under_load(card, dev, m) -> dict:
+    """The CNN's step-500 checkpoint served live over HTTP to 32 closed-loop
+    clients; a second in, the step-600 checkpoint is hot-swapped in. The
+    version tags flip (every request sent after the swap returned is
+    answered by 600), and each answer's logits are its version's forward
+    of its image."""
+    import threading
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from dml_cnn_cifar10_tpu_torch import convert
+    from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt
+    from dml_cnn_cifar10_tpu_torch.serve.engine import ServingEngine
+    from dml_cnn_cifar10_tpu_torch.tools import loadgen
+
+    cfg, images = m["cfg"], m["images"][:256]
+    params = {}
+    for step in (STEPS, RESUME_STEPS):
+        with open(os.path.join(cfg.log_dir, f"ckpt_{step}.msgpack"),
+                  "rb") as f:
+            params[step] = convert.params_from_jax(
+                ckpt.from_bytes(f.read())["params"])
+    refs = {}
+    for step, p in params.items():
+        e = ServingEngine.from_params(_fresh_model(cfg), cfg.data, p, dev,
+                                      version=str(step))
+        refs[str(step)] = np.concatenate(
+            [e.forward_eager(images[i:i + 128]) for i in range(0, 256, 128)])
+    apart = float(np.abs(refs[str(STEPS)] - refs[str(RESUME_STEPS)]).max())
+    check(apart > 100 * SWAP_TOL, f"the two checkpoints' logits are only "
+          f"{apart} apart")
+    engine = ServingEngine.from_params(_fresh_model(cfg), cfg.data,
+                                       params[STEPS], dev,
+                                       version=str(STEPS))
+    t, stop, url, scfg, rc = _serve_thread(
+        m["cli"] + ["--metrics_jsonl", os.path.join(OUT, "serve_swap.jsonl")],
+        engine=engine)
+    client = loadgen.HttpClient(url)
+    answers, lock = [], threading.Lock()
+
+    def submit(idx, stats, oversize):
+        t0 = time.perf_counter()
+        try:
+            outcome, payload = client.predict(images[idx].tobytes())
+        except Exception as e:
+            stats.record("error", error=repr(e))
+            return
+        stats.record(outcome, time.perf_counter() - t0,
+                     (payload or {}).get("version"))
+        if outcome == "ok":
+            with lock:
+                answers.append((t0, idx, payload))
+
+    swapped = {}
+
+    def swap():
+        time.sleep(1.0)
+        ok, why = engine.try_swap(params[RESUME_STEPS],
+                                  version=str(RESUME_STEPS))
+        swapped.update(ok=ok, why=why, at=time.perf_counter())
+
+    stats = loadgen.ClientStats()
+    swapper = threading.Thread(target=swap)
+    swapper.start()
+    loadgen.run_closed(submit, list(range(len(images))),
+                       SimpleNamespace(duration_s=3.0, concurrency=32),
+                       stats)
+    swapper.join(60)
+    _stop_serve(t, stop, rc, "swap serve")
+    check(swapped.get("ok") is True, f"hot-swap refused: {swapped}")
+    check(stats.errors == 0, f"errors under the swap: {stats.error_kinds}")
+    versions = {p["version"] for _, _, p in answers}
+    check(versions == {str(STEPS), str(RESUME_STEPS)},
+          f"versions seen under the swap: {versions}")
+    late = [p["version"] for t0, _, p in answers if t0 > swapped["at"]]
+    check(late and set(late) == {str(RESUME_STEPS)},
+          f"{len(late)} answers sent after the swap, versions {set(late)}")
+    worst = 0.0
+    for _, idx, p in answers:
+        ref = refs[p["version"]][idx]
+        diff = float(np.abs(np.asarray(p["logits"]) - ref).max())
+        worst = max(worst, diff / max(1.0, float(np.abs(ref).max())))
+    check(worst <= SWAP_TOL, f"an answer is {worst} from its version's "
+          "forward")
+    swaps = [r for r in records(scfg.metrics_jsonl) if r["kind"] == "swap"]
+    check(len(swaps) == 1 and swaps[0]["from_version"] == str(STEPS),
+          f"swap records {swaps}")
+    res = {"answers": len(answers), "version_mix": dict(stats.versions),
+           "after_swap": len(late), "worst_rel": worst,
+           "versions_apart": apart, "swap_ms": swaps[0]["swap_ms"]}
+    print(f"[serve swap] step {STEPS} -> {RESUME_STEPS} under 32 clients: "
+          f"{len(answers)} answers {dict(stats.versions)}, {len(late)} sent "
+          f"after the swap all answered by {RESUME_STEPS}; every answer "
+          f"within {worst:.3g} of its version's forward (the versions are "
+          f"{apart:.3g} apart); swap {swaps[0]['swap_ms']} ms, on {card}",
+          flush=True)
+    return res
+
+
+def _fresh_model(cfg):
+    from dml_cnn_cifar10_tpu_torch.models.registry import get_model
+    return get_model(cfg.model.name)(cfg.model, cfg.data)
+
+
 def dist_main() -> int:
     """``--dist``: phases 18-21 over NCCL on two or more cards, one rank a
     card, with worlds 2 and (given four cards) 4 — the build, then
@@ -2366,6 +2941,11 @@ def main() -> int:
                   indent=1)
     sp_launched = dist_res["sp2"]["launches"]
 
+    # ---- 22-25. serving: export, K3's operator, graphs, HTTP ------------
+    serve = serve_phases(card, dev, base + ["--log_dir", log_dir],
+                         vit_base + ["--log_dir", vit_log], bytes_per_s,
+                         ops_per_s)
+
     for path in (train_jsonl, resume_jsonl, mom_jsonl, vit_jsonl,
                  os.path.join(WORK, "vit_resume.jsonl"), long_jsonl):
         shutil.copy(path, OUT)
@@ -2464,6 +3044,32 @@ def main() -> int:
                                             "library_device_ms", "bound_ms",
                                             "bound_by")},
         })
+    t, t128 = serve["k3"]["timed"][1], serve["k3"]["timed"][128]
+    kernels.append({
+        "name": "flash_fwd", "kernel": "K3", "path": "serve",
+        "route": "cuda",
+        "source": "dml_cnn_cifar10_tpu_torch/csrc/flash_attention.cu",
+        "cuda_kernel": "flash_out_kernel",
+        "operator": "dml_torch::flash_attention_out",
+        "replaces": "dml_cnn_cifar10_tpu/ops/flash_attention.py:345",
+        "launches": serve["vit"]["http"]["launches"]["flash_fwd"],
+        "max_abs_err": serve["k3"]["worst"],
+        "max_abs_diff": serve["k3"]["worst"],
+        **{k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                             "bound_by", "bound_tc_ms", "tc_flops",
+                             "library_ms", "library_device_ms",
+                             "library")},
+        "kernel_ms": t["ms"],
+        "work": "one launch through the registered operator at the ViT-Ti "
+                "serving shape [1, 257, 3, 64] f32 (views of a fused qkv); "
+                "launches: the ViT-Ti --mode serve run over HTTP (12 a "
+                "replay); max_abs_err over b = 1, 8, 32, 128",
+        "b128": {k: t128[k] for k in ("shape", "ms", "device_ms",
+                                      "plain_ms", "library_ms",
+                                      "library_device_ms", "bound_ms",
+                                      "bound_by", "bound_tc_ms",
+                                      "tc_flops")},
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,8 +20,13 @@ up, e.g. ``--crop_size 64``), with the JAX CLI's ViT, optimizer and
 schedule flags. ``--steps_per_dispatch K`` runs K steps a dispatch, one
 CUDA graph replay on the card, with the dataset resident on the device and
 its shuffled rows drawn there (``--resident_data``,
-``--device_index_stream``). Modes: ``train`` (default) and ``eval``
-(restore the latest checkpoint and sweep the full test split). The run is on
+``--device_index_stream``). Modes: ``train`` (default); ``eval`` (restore
+the latest checkpoint and sweep the full test split); ``export`` (restore
+it and write a self-contained ``torch.export`` serving artifact,
+``export.py``: uint8 images in, the eval decode compiled in front, any
+batch size); ``serve`` (the micro-batching engine over that artifact, or
+over the latest checkpoint's live weights, behind an HTTP server,
+``serve/``), with the JAX CLI's ``--serve_*`` flags. The run is on
 ``--device cuda`` unless ``--device cpu`` is given; a missing card
 raises.
 """
@@ -63,9 +68,50 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Checkpoint/log directory")
     # --- framework flags ---
     p.add_argument("--mode", type=str, default="train",
-                   choices=["train", "eval"],
+                   choices=["train", "eval", "export", "serve"],
                    help="train; eval = restore the latest checkpoint and "
-                        "sweep the full test split")
+                        "sweep the full test split; export = restore it "
+                        "and write a self-contained torch.export serving "
+                        "artifact; serve = run the micro-batching engine "
+                        "over the artifact (or the latest checkpoint) "
+                        "behind an HTTP endpoint")
+    p.add_argument("--export_path", type=str, default=None,
+                   help="output file for --mode export "
+                        "(default <log_dir>/model.pt2)")
+    p.add_argument("--serve_artifact", type=str, default=None,
+                   help="artifact to serve (--mode serve); default "
+                        "<log_dir>/model.pt2 when present, else the "
+                        "latest checkpoint is restored and served live")
+    p.add_argument("--serve_buckets", type=str, default="1,8,32,128",
+                   help="comma-separated batch sizes, one CUDA graph each "
+                        "on the card; a batch of requests pads up to the "
+                        "smallest bucket that fits")
+    p.add_argument("--serve_queue_depth", type=int, default=256,
+                   help="admission control: submits beyond this queue "
+                        "depth are shed at once (HTTP 503)")
+    p.add_argument("--serve_batch_window_ms", type=float, default=2.0,
+                   help="max extra latency the batcher may wait to "
+                        "coalesce a fuller batch")
+    p.add_argument("--serve_deadline_ms", type=float, default=None,
+                   help="per-request deadline; requests queued past it "
+                        "are shed at dispatch (default: none)")
+    p.add_argument("--serve_port", type=int, default=8000,
+                   help="HTTP port for --mode serve (0 = ephemeral)")
+    p.add_argument("--serve_metrics_every_s", type=float, default=5.0,
+                   help="cadence of `serve` JSONL window records")
+    p.add_argument("--serve_drain_deadline_s", type=float, default=5.0,
+                   help="graceful-shutdown budget for --mode serve: on "
+                        "SIGTERM/SIGINT stop accepting, let queued "
+                        "batches finish for at most this long, shed the "
+                        "rest, flush metrics, exit 0")
+    p.add_argument("--serve_cache_size", type=int, default=0,
+                   help="exact-match response cache capacity (entries) "
+                        "keyed by (input digest, version); hits bypass "
+                        "the batcher; flushed on hot-swap. 0 = off")
+    p.add_argument("--trace_sample_rate", type=float, default=0.0,
+                   help="head-sample this fraction of requests for "
+                        "request tracing (rspan records; shed requests "
+                        "are always captured)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--model", type=str, default="cnn",
@@ -226,6 +272,22 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
     cfg.model.remat = args.remat
     cfg.model.attn_causal = args.attn_causal
     cfg.model.attn_window = args.attn_window
+    try:
+        cfg.serve.buckets = tuple(
+            int(b) for b in args.serve_buckets.split(",") if b.strip())
+    except ValueError:
+        raise SystemExit(
+            f"--serve_buckets must be comma-separated ints, got "
+            f"{args.serve_buckets!r}")
+    cfg.serve.max_queue_depth = args.serve_queue_depth
+    cfg.serve.batch_window_ms = args.serve_batch_window_ms
+    cfg.serve.deadline_ms = args.serve_deadline_ms
+    cfg.serve.port = args.serve_port
+    cfg.serve.artifact_path = args.serve_artifact
+    cfg.serve.metrics_every_s = args.serve_metrics_every_s
+    cfg.serve.drain_deadline_s = args.serve_drain_deadline_s
+    cfg.serve.trace_sample_rate = args.trace_sample_rate
+    cfg.serve.cache_size = args.serve_cache_size
     return cfg
 
 
@@ -243,6 +305,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
 
     cfg = config_from_args(args)
+    if args.mode == "export":
+        return _export(cfg, args.export_path)
+    if args.mode == "serve":
+        from dml_cnn_cifar10_tpu_torch.serve.server import main_serve
+        return main_serve(cfg, task_index=args.task_index)
     if args.mode == "eval":
         cfg.eval_full_test_set = True
     import torch.distributed as dist
@@ -280,6 +347,28 @@ def _evaluate(trainer) -> None:
     print(f" --- Test Accuracy = {acc * 100:.2f}%.")
     print(f"[cli] eval at step {step}: {acc * 100:.2f}% on "
           f"{test_it.total_records} records")
+
+
+def _export(cfg, path: Optional[str]) -> int:
+    """``--mode export``: restore the newest checkpoint (the EMA weights
+    when kept) and write the serving artifact."""
+    import os
+
+    from dml_cnn_cifar10_tpu_torch import export as export_lib
+    from dml_cnn_cifar10_tpu_torch.utils.platform import resolve_device
+
+    model, params, step = export_lib.restore_serving_params(
+        cfg, resolve_device(cfg.device))
+    if step == 0:
+        print(f"[cli] warning: no checkpoint under {cfg.log_dir}; "
+              "exporting fresh-initialized weights", file=sys.stderr)
+    path = path or os.path.join(cfg.log_dir, export_lib.ARTIFACT_NAME)
+    program = export_lib.export_forward(model, cfg.data, params)
+    export_lib.save_exported(path, program)
+    print(f"[cli] exported step-{step} forward ({os.path.getsize(path)} "
+          f"bytes, uint8 {export_lib.artifact_image_shape(program)} in, "
+          f"symbolic batch) to {path}")
+    return 0
 
 
 if __name__ == "__main__":

@@ -18,7 +18,7 @@ Fidelity switches (faithful by default, like the JAX package):
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -186,6 +186,44 @@ class ParallelConfig:
 
 
 @dataclasses.dataclass
+class ServeConfig:
+    """Serving (``--mode serve``, the ``serve/`` package): the JAX
+    package's ``ServeConfig`` names and defaults, without its
+    quantization knobs and the ``slo_ms`` its fleet autoscaler reads
+    (neither is ported)."""
+
+    # Batch sizes served. Each is one CUDA graph, captured at warm-up; a
+    # batch of requests pads up to the smallest bucket that fits.
+    buckets: Tuple[int, ...] = (1, 8, 32, 128)
+    # Admission control: submits beyond this queue depth are shed at once
+    # (HTTP 503) instead of growing an unbounded backlog.
+    max_queue_depth: int = 256
+    # Most extra latency the batcher adds to the request at the head of a
+    # batch while it waits to fill it.
+    batch_window_ms: float = 2.0
+    # Per-request deadline: requests still queued past it are shed at
+    # dispatch. None = no deadline.
+    deadline_ms: Optional[float] = None
+    # HTTP port (0 = ephemeral; the chosen port is printed at start).
+    port: int = 8000
+    # Explicit artifact to serve. None = <log_dir>/model.pt2 when present,
+    # else the latest checkpoint restored and served live.
+    artifact_path: Optional[str] = None
+    # Cadence of the `serve` JSONL window records.
+    metrics_every_s: float = 5.0
+    # Graceful-shutdown budget: on SIGTERM/SIGINT stop accepting, let
+    # queued batches finish for at most this long, shed the rest, flush
+    # the metrics, exit 0.
+    drain_deadline_s: float = 5.0
+    # Head-sampling rate of request tracing (`rspan` records; utils/
+    # reqtrace.py). Shed requests are always captured. 0 = off.
+    trace_sample_rate: float = 0.0
+    # Exact-match response cache entries (serve/cache.py), flushed when
+    # the serving version changes. 0 = off.
+    cache_size: int = 0
+
+
+@dataclasses.dataclass
 class TrainConfig:
     """Training driver. Reference: ``cifar10cnn.py:11-14,219-242``."""
 
@@ -226,6 +264,7 @@ class TrainConfig:
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     parallel: ParallelConfig = dataclasses.field(
         default_factory=ParallelConfig)
+    serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
 
 
 def reference_config(**overrides) -> TrainConfig:

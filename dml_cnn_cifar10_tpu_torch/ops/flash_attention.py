@@ -16,8 +16,12 @@ matrix never reaches device memory in either direction:
 
 :func:`flash_attention` is a ``torch.autograd.Function`` wiring them
 together: with grad mode on and an input that requires grad it launches K4
-and saves ``(q, k, v, out, lse)``; otherwise it launches K3; its backward
-computes ``delta`` in plain torch and launches K6 and K7.
+and saves ``(q, k, v, out, lse)``; otherwise it calls the registered
+operator ``dml_torch::flash_attention_out`` (:func:`flash_attention_out`),
+whose CUDA kernel is K3 and whose CPU kernel the plain version, so that
+``torch.export`` keeps it as one node and an exported program launches K3
+on the card (``export.py``); its backward computes ``delta`` in plain torch
+and launches K6 and K7.
 
 - **CUDA kernels** (``csrc/flash_attention.cu``, built for ``sm_90a``):
   ``flash_out_kernel`` (K3) replaces the Pallas ``_flash_kernel``,
@@ -405,18 +409,15 @@ def _dkv_launch(q, k, v, do, lse, delta, scale, causal, out_dtype, window,
     return dk, dv
 
 
-def _forward(q, k, v, scale, causal, window, kv_start, q_seg, kv_seg,
-             with_lse: bool):
-    """Dispatch by device: the kernels for CUDA tensors, the plain version
-    for CPU tensors. Returns ``(out, lse or None)``."""
+def _forward_lse(q, k, v, scale, causal, window, kv_start, q_seg, kv_seg):
+    """Dispatch by device: K4 for CUDA tensors, the plain version for CPU
+    tensors. Returns ``(out, lse)``."""
     if not q.is_cuda:
         seg = None if q_seg is None else (q_seg, kv_seg)
-        out, lse = flash_attention_plain(q, k, v, scale, causal, seg, window,
-                                         kv_start)
-        return out, (lse if with_lse else None)
-    res = _fwd_launch(q, k, v, scale, causal, window, kv_start, q_seg,
-                      kv_seg, "lse" if with_lse else "out")
-    return res[0], (res[1] if with_lse else None)
+        return flash_attention_plain(q, k, v, scale, causal, seg, window,
+                                     kv_start)
+    return _fwd_launch(q, k, v, scale, causal, window, kv_start, q_seg,
+                       kv_seg, "lse")
 
 
 def _backward(q, k, v, do, lse, delta, scale, causal, out_dtype, window,
@@ -431,13 +432,40 @@ def _backward(q, k, v, do, lse, delta, scale, causal, out_dtype, window,
     return (_dq_launch(*args), *_dkv_launch(*args))
 
 
+# K3 as a registered operator: an exported program (``export.py``) keeps
+# it as one opaque node and launches the kernel wherever it runs, where a
+# trace of a device dispatch in Python would take one branch at trace time.
+@torch.library.custom_op("dml_torch::flash_attention_out", mutates_args=())
+def flash_attention_out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_seg: Optional[torch.Tensor],
+                        kv_seg: Optional[torch.Tensor], scale: float,
+                        causal: bool, window: Optional[int]) -> torch.Tensor:
+    """The output-only forward ``[B, Sq, H, D]`` in q's dtype: the plain
+    version here (CPU tensors), K3 on a CUDA tensor (below)."""
+    seg = None if q_seg is None else (q_seg, kv_seg)
+    return flash_attention_plain(q, k, v, scale, causal, seg, window)[0]
+
+
+@flash_attention_out.register_kernel("cuda")
+def _flash_attention_out_cuda(q, k, v, q_seg, kv_seg, scale, causal,
+                              window):
+    return _fwd_launch(q, k, v, scale, causal, window, 0, q_seg, kv_seg,
+                       "out")[0]
+
+
+@flash_attention_out.register_fake
+def _flash_attention_out_fake(q, k, v, q_seg, kv_seg, scale, causal,
+                              window):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
 class _Flash(torch.autograd.Function):
     """K4 forward saving ``(q, k, v, out, lse)``; K6 + K7 backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_seg, kv_seg, scale, causal, window):
-        out, lse = _forward(q, k, v, scale, causal, window, 0, q_seg, kv_seg,
-                            with_lse=True)
+        out, lse = _forward_lse(q, k, v, scale, causal, window, 0, q_seg,
+                                kv_seg)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.segments = (q_seg, kv_seg)
         ctx.config = (scale, causal, window)
@@ -472,8 +500,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_seg, kv_seg = _norm_segments(segment_ids)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _Flash.apply(q, k, v, q_seg, kv_seg, scale, causal, window)
-    return _forward(q, k, v, scale, causal, window, 0, q_seg, kv_seg,
-                    with_lse=False)[0]
+    return flash_attention_out(q, k, v, q_seg, kv_seg, scale, causal, window)
 
 
 @torch.no_grad()
@@ -488,8 +515,8 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
     :func:`flash_attention_bwd`."""
     scale = _resolve(q, scale, window)
     q_seg, kv_seg = _norm_segments(segment_ids)
-    return _forward(q, k, v, scale, causal, window, int(kv_start), q_seg,
-                    kv_seg, with_lse=True)
+    return _forward_lse(q, k, v, scale, causal, window, int(kv_start),
+                        q_seg, kv_seg)
 
 
 @torch.no_grad()

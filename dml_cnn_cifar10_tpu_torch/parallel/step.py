@@ -82,7 +82,7 @@ class TrainState:
         return self.opt["step"]
 
 
-def _f32_parity() -> None:
+def f32_parity() -> None:
     # Keep convolutions and matrix products in full float32 on the card:
     # cuDNN convolutions default to TF32 (~3 decimal digits), which would
     # break parity with the JAX package's float32 math.
@@ -130,7 +130,7 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
     state is updated in place and returned. Over a mesh, ``images`` are
     this data rank's slice of the global batch and the metrics are the
     global batch's."""
-    _f32_parity()
+    f32_parity()
     world = 1 if mesh is None else mesh.world
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
@@ -166,7 +166,7 @@ def make_eval_step(model: nn.Module, mesh: Optional[Mesh] = None
     summable correct count for the full-test-set sweep, both over the
     data group's batches. Uses the parameter EMA when the optimizer keeps
     one."""
-    _f32_parity()
+    f32_parity()
 
     @torch.no_grad()
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
