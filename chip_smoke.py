@@ -67,12 +67,14 @@ order; any failure ends the run with a non-zero exit:
             qkv; ragged S=300; causal; window 100; segment ids; kv_start
             (K4, K6, K7); dead rows (exactly 0); head dims 32 and 128;
             and the main paths' own shapes, [128, 257, 3, 64] f32 and
-            [2, 8100, 3, 64] bf16, as views of a fused qkv. Tolerances: the JAX package's pins in
+            [2, 8100, 3, 64] bf16, as views of a fused qkv, and a Ulysses
+            rank's [2, 8100, 1, 64] bf16. Tolerances: the JAX package's pins in
             f32 (out 5e-6, lse 1e-5, grads 5e-5); in bf16 lse keeps
             1e-5 and out and grads 1e-2 x max|plain| (one bf16 ulp; at most
             0.05). A CUDA input the kernels cannot take must raise.
-11. flash timing  each flash kernel at [128, 257, 3, 64] f32 and
-            [2, 8100, 3, 64] bf16: CUDA events, device time, the plain
+11. flash timing  each flash kernel at [128, 257, 3, 64] f32,
+            [2, 8100, 3, 64] bf16 and a Ulysses rank's [2, 8100, 1, 64]
+            bf16: CUDA events, device time, the plain
             version, ``F.scaled_dot_product_attention`` (a yardstick the
             port never calls; by CUDA events and by device time) and the
             bound, and the tensor-core bound of the split products each
@@ -167,12 +169,51 @@ Then the serving path, on phase 6's CNN checkpoint (step 600) and phase
             of its version's forward, one ``swap`` record. Numbers in
             ``OUT/serve.json`` and the loadgen reports.
 
+Then the slice of Ulysses, telemetry and the optimizer surface:
+26. ulysses op  3 rank processes (ViT-Ti's 3 heads, one a rank; gloo on
+            one card, NCCL given three): Ulysses attention at [2, 8100, 3,
+            64] bf16 (2,700 tokens a rank) and f32 full and causal cases
+            against the one-rank flash attention of the full sequence, out
+            and gradients, with phase 18's pins; the long-context call
+            launches one K4, one K6 and one K7 a rank, at [2, 8100, 1, 64].
+27. ulysses train  ``cli.main.main --seq_axis 3 --sp_mode ulysses`` on the
+            long-context recipe of phase 14, 10 steps: per rank K4 = 10 x
+            24, K6 = K7 = 10 x 12, K3 = 12 per forward-only batch, K5 = K1
+            = K2 = 0; equal parameter digests; every logged loss within
+            1e-3 of phase 14's one-rank run. Then a resume to step 15,
+            ``--mode eval`` (16 batches of 32 on each rank) and rank 0's
+            step time and device timeline.
+28. telemetry  the ``train`` records of the CNN (eager and chunked),
+            ViT-Ti, long-context, ring SP and Ulysses runs carry
+            ``device_step_ms``, ``drain_wait_ms``,
+            ``tflops_per_sec_per_chip`` and ``mfu`` (``--peak_tflops`` 67
+            on the f32 paths, 989 on the bf16 ones); each path's TFLOP/s
+            and MFU printed with the card. Then ``--profile_at_steps
+            30:10`` on 60 CNN steps, eager and chunked: ``devtime``
+            records; the chunked window's ``optimizer_ms`` (K1 by name: a
+            graph replay has no range) within 2x of K1's device time in
+            phase 9b's replays, the eager one's (the ``optimizer``
+            range: the LR schedule, K1, the step counter) within 2x of
+            one update's device time, and the eager window's compute per
+            step within 25% of phase 9's device time.
+29. optimizer  100 CNN steps each with ``--grad_clip_norm 1 --momentum
+            0.9`` (K2 once a step), ``--grad_accum 2`` (K1 once a step),
+            ``--async_staleness 2`` (K1 once a step) and ``--optimizer
+            lars|lamb|adafactor`` (no K1/K2): losses finite and falling.
+            ``--async_staleness 2 --steps_per_dispatch 10``, 100 steps,
+            then one graphed chunk against the eager body from its state,
+            bit for bit with cuDNN deterministic; eager 50 + 50 steps with
+            a resume against 100 steps: the same losses and step-100
+            checkpoint, bit for bit. Numbers in ``OUT/slice10.json``.
+
 ``--dist`` runs the build and phases 18-21 alone over NCCL on two or more
 cards, with 4 ranks beside 2 given four cards: SP data 2 x seq 2 against
-its 2 data ranks without the ring, and the DP CNN on 4 ranks.
+its 2 data ranks without the ring, and the DP CNN on 4 ranks; given three
+or more cards, phases 26-27 over NCCL on 3 of them.
 
-The lines before the last are ``{"kernels": [...]}`` (K3 twice: its
-training row, and its serving row with ``"path": "serve"``) and the card's
+The lines before the last are ``{"kernels": [...]}`` (K3 three times:
+its training row, its serving row with ``"path": "serve"`` and its Ulysses
+row; K4, K6 and K7 twice, with a ``"path": "ulysses"`` row) and the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Scratch data and checkpoints go to ``.chip_smoke_work/`` (removed after a
@@ -212,9 +253,27 @@ CASES = [(0.0, 0.0), (0.0, 5e-4), (0.9, 0.0), (0.9, 5e-4)]
 PEAKS = {"H100": (3.35e12, 67e12), "H200": (4.8e12, 67e12)}
 # bf16 operations/s on the tensor cores (dense), the bf16 kernels' bound.
 BF16_PEAK = 989e12
+# --peak_tflops of each path, the card's dense peak for its dtype: f32
+# outside the tensor cores (TF32 is off on every f32 path), bf16 on them.
+F32_PEAK_TFLOPS, BF16_PEAK_TFLOPS = "67", "989"
 
 EVAL_LINE = re.compile(r"^ --- Test Accuracy = (\d+\.\d\d)%\.$")
 STEP_LINE = re.compile(r"^global_step (\d+), task:0_step (\d+), ")
+
+
+# The train step's record_function ranges (parallel/step.py). The
+# profiler puts each on the device's timeline as an annotation spanning
+# its kernels: device time, but not work of its own.
+STEP_RANGES = ("fwd_bwd", "optimizer")
+
+
+def is_device_work(ev) -> bool:
+    """A device event of a profile that is a kernel, copy or memset (not
+    one of the step's ranges)."""
+    from torch.autograd import DeviceType
+    return (getattr(ev, "device_type", None) == DeviceType.CUDA
+            and getattr(ev, "key", getattr(ev, "name", None))
+            not in STEP_RANGES)
 
 
 def fail(msg: str) -> None:
@@ -316,7 +375,6 @@ def profile_step(args, train_recs, card, steps=50) -> None:
     card (CUDA events), the host's batch assembly, and the device's busy
     time per step by kernel (torch.profiler). Written to
     ``chiprun_out/chip_smoke/profile.json``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
@@ -342,8 +400,7 @@ def profile_step(args, train_recs, card, steps=50) -> None:
         torch.cuda.synchronize()
     rows = sorted(((getattr(ev, "device_time_total", 0.0) / 1e3 / steps,
                     ev.count // steps, ev.key)
-                   for ev in prof.key_averages()
-                   if getattr(ev, "device_type", None) == DeviceType.CUDA),
+                   for ev in prof.key_averages() if is_device_work(ev)),
                   reverse=True)
     busy_ms = sum(r[0] for r in rows)
     windows = [r["images_per_sec"] for r in train_recs
@@ -827,6 +884,9 @@ FLASH_CASES = [
      {"strided": True}),
     ("long context", (2, 8100, 8100, 3, 64), torch.bfloat16,
      {"strided": True}),
+    # Ulysses over 3 seq ranks: each rank's full-sequence head, contiguous
+    # after the all-to-all.
+    ("ulysses", (2, 8100, 8100, 1, 64), torch.bfloat16, {}),
     ("vit f32", (2, 257, 257, 3, 64), torch.float32, {}),
     ("vit bf16", (2, 257, 257, 3, 64), torch.bfloat16, {}),
     ("strided qkv", (2, 257, 257, 3, 64), torch.float32, {"strided": True}),
@@ -849,6 +909,10 @@ def _segment_ids(b, s, gen, dev):
     cuts = torch.rand(b, s, device=dev, generator=gen) < 4.0 / s
     cuts[:, 0] = False
     return torch.cumsum(cuts.to(torch.int32), dim=1).to(torch.int32)
+
+
+# Per case of the last flash_parity, each kernel's max abs difference.
+FLASH_CASE_DIFFS = {}
 
 
 def flash_parity(dev) -> dict:
@@ -919,6 +983,7 @@ def flash_parity(dev) -> dict:
         check(all(g <= t for g, t in zip(gdiff, gtol)),
               f"{name}: grads max abs diff {gdiff} > {gtol}")
         dt_name = "float32" if dtype == torch.float32 else "bfloat16"
+        FLASH_CASE_DIFFS[name] = diffs
         for kname, dval in diffs.items():
             worst[(kname, dt_name)] = max(worst[(kname, dt_name)], dval)
         scale_ref = max(w.float().abs().max().item() for w in want_g)
@@ -946,10 +1011,11 @@ def flash_parity(dev) -> dict:
 
 
 # Shapes of the flash timing: the ViT main path's attention (batch 128,
-# 257 tokens, 3 heads of 64, f32) and the long-context recipe's (8,100
-# tokens, bf16) at batch 2.
+# 257 tokens, 3 heads of 64, f32), the long-context recipe's (8,100
+# tokens, bf16) at batch 2, and its Ulysses rank's (one head of the 3).
 FLASH_TIMING = [("vit", (128, 257, 3, 64), torch.float32),
-                ("long", (2, 8100, 3, 64), torch.bfloat16)]
+                ("long", (2, 8100, 3, 64), torch.bfloat16),
+                ("ulysses", (2, 8100, 1, 64), torch.bfloat16)]
 FLASH_NEEDLES = {"flash_fwd": "flash_out_kernel",
                  "flash_fwd_lse": "flash_lse_kernel",
                  "flash_bwd_dq": "flash_dq_kernel",
@@ -1087,11 +1153,9 @@ _CONV = re.compile(r"convolve|dgrad|wgrad|fprop|winograd|cudnn", re.I)
 
 
 def _device_rows(prof, steps):
-    from torch.autograd import DeviceType
     return sorted(((getattr(ev, "device_time_total", 0.0) / 1e3 / steps,
                     ev.count // steps, ev.key)
-                   for ev in prof.key_averages()
-                   if getattr(ev, "device_type", None) == DeviceType.CUDA),
+                   for ev in prof.key_averages() if is_device_work(ev)),
                   reverse=True)
 
 
@@ -1597,7 +1661,8 @@ def _rank_ring(rank: int, job: dict) -> dict:
     return res
 
 
-FLASH_GROUPS = {"K5 flash_stats_kernel": "flash_stats_kernel",
+FLASH_GROUPS = {"K4 flash_lse_kernel": "flash_lse_kernel",
+                "K5 flash_stats_kernel": "flash_stats_kernel",
                 "K6 flash_dq_kernel": "flash_dq_kernel",
                 "K7 flash_dkv_kernel": "flash_dkv_kernel"}
 # Work of the ring hops and the gradient/pool all-reduces: NCCL's kernels,
@@ -1623,12 +1688,11 @@ def device_timeline(prof, steps: int) -> dict:
     A sum of kernel times overcounts where streams overlap — NCCL's
     kernels spin on their own stream until the peer arrives — the union
     does not. Also the summed time of K5, K6 and K7."""
-    from torch.autograd import DeviceType
 
     compute, comm = [], []
     groups = {g: 0.0 for g in FLASH_GROUPS}
     for ev in prof.events():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+        if not is_device_work(ev):
             continue
         span = (ev.time_range.start, ev.time_range.end)
         (comm if _COMM.search(ev.name) else compute).append(span)
@@ -1732,7 +1796,7 @@ def long_args(work: str) -> list:
             "--optimizer", "adamw", "--learning_rate", "3e-4",
             "--synthetic_train_records", "64", "--fidelity", "fixed",
             "--output_every", "5", "--eval_every", "1000",
-            "--checkpoint_every", "1000"]
+            "--checkpoint_every", "1000", "--peak_tflops", BF16_PEAK_TFLOPS]
 
 
 def cnn_args(work: str) -> list:
@@ -1740,7 +1804,7 @@ def cnn_args(work: str) -> list:
     return ["--dataset", "synthetic", "--data_dir",
             os.path.join(work, "data"), "--synthetic_train_records",
             "50000", "--fidelity", "fixed", "--learning_rate", "0.02",
-            "--batch_size", "128"]
+            "--batch_size", "128", "--peak_tflops", F32_PEAK_TFLOPS]
 
 
 def train_log(path) -> list:
@@ -1760,9 +1824,7 @@ def dist_phases(backend: str, card: str, worlds=(2,),
     count = torch.cuda.device_count()
 
     def dist_args(world):
-        ports = _free_ports(world)
-        return ["--worker_hosts", ",".join(f"localhost:{p}" for p in ports),
-                "--dist_backend", backend]
+        return _dist_args(world, backend)
 
     res = {"card": card, "backend": backend, "cards": count}
     # ---- 18. the 2-rank ring op ------------------------------------------
@@ -1956,23 +2018,33 @@ def _host_ms(fn, reps) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def _copies(fn, reps=10) -> dict:
+def _copies(fn, reps=10, traces=5) -> dict:
     """Host-to-device and device-to-host copies of ``reps`` calls of
     ``fn()``, by the profiler's memcpy events. A trace drops some of them
-    (seen on the card: 7 to 9 of 10), so a count bounds the copies from
-    below: the caller checks the upper bound, which a weight copy (one a
-    leaf, 10 or more a batch) would break."""
+    (seen on the card: 7 to 9 of 10, the first ones), so a count bounds
+    the copies from below: the caller checks the upper bound, which a
+    weight copy (one a leaf, 10 or more a batch) would break. The calls
+    start 50 ms into the trace, in case the tracer starts late. A trace
+    that holds no copy at all (seen on the card in 1 to 2 of 16 traces
+    of a call, both directions empty) recorded nothing: it is traced
+    again, at most ``traces`` times in all, and ``traces`` in the result
+    says how many it took. A function that really copies nothing fails
+    every trace the same."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {"HtoD": 0, "DtoH": 0}
-    for ev in prof.key_averages():
-        for kind in out:
-            if f"Memcpy {kind}" in ev.key:
-                out[kind] += ev.count
-    return out
+    for n in range(1, traces + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {"HtoD": 0, "DtoH": 0}
+        for ev in prof.key_averages():
+            for kind in out:
+                if f"Memcpy {kind}" in ev.key:
+                    out[kind] += ev.count
+        if out["HtoD"] + out["DtoH"]:
+            break
+    return {**out, "traces": n}
 
 
 def _batch_profile(eng, x, reps=20) -> dict:
@@ -2452,6 +2524,429 @@ def _swap_under_load(card, dev, m) -> dict:
     return res
 
 
+# ---- Ulysses (26-27), telemetry (28), the optimizer surface (29) ---------
+
+ULYSSES_SEQ = 3          # ViT-Ti's 3 heads, one a rank
+# name, global [B, S, H, D], dtype, mask: Ulysses over 3 ranks against the
+# one-rank flash_attention of the full sequence: the long-context shape
+# (2,700 tokens a rank), and f32 full and causal cases.
+ULYSSES_OP_CASES = [
+    ("long context", (2, 8100, 3, 64), "bfloat16", {}),
+    ("full", (2, 2049, 3, 64), "float32", {}),
+    ("causal", (2, 2049, 3, 64), "float32", {"causal": True}),
+]
+
+
+def _rank_ulysses(rank: int, job: dict) -> dict:
+    """Ulysses attention on ``ULYSSES_SEQ`` ranks against the
+    full-sequence flash attention; returns this rank's max abs
+    differences and reference scales, and the launches of the Ulysses
+    calls alone at the long-context shape."""
+    import torch.distributed as dist
+
+    from dml_cnn_cifar10_tpu_torch.config import ParallelConfig
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+    from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import multihost
+    from dml_cnn_cifar10_tpu_torch.parallel import ring_attention as ring
+    from dml_cnn_cifar10_tpu_torch.parallel import ulysses
+
+    n = ULYSSES_SEQ
+    par = ParallelConfig(seq_axis=n, coordinator_address=job["address"],
+                         num_processes=n, process_id=rank)
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    multihost.initialize(par, job["backend"], dev)
+    mesh = mesh_lib.build_mesh(par)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    res = {}
+    for name, (b, s, h, d), dtype, kw in ULYSSES_OP_CASES:
+        q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=gen)
+                       .to(getattr(torch, dtype)) for _ in range(4))
+        full = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = fa.flash_attention(*full, **kw)
+        ref_g = torch.autograd.grad(ref, full, do)
+        mine = [ring.seq_shard(t, mesh).detach().clone().requires_grad_()
+                for t in (q, k, v)]
+        torch.cuda.synchronize()
+        before = dict(fa.LAUNCHES)
+        out = ulysses.ulysses_attention_local(*mine, mesh, **kw)
+        got_g = torch.autograd.grad(out, mine, ring.seq_shard(do, mesh))
+        torch.cuda.synchronize()
+        res[name] = {"launches": {key: fa.LAUNCHES[key] - before[key]
+                                  for key in before}}
+        for what, g, w in zip(("out", "dq", "dk", "dv"), (out, *got_g),
+                              (ref, *ref_g)):
+            w = ring.seq_shard(w, mesh).float()
+            res[name][what] = [(g.float() - w).abs().max().item(),
+                               w.abs().max().item()]
+        del q, k, v, do, full, ref, ref_g, mine, out, got_g
+    mesh.barrier()
+    dist.destroy_process_group()
+    return res
+
+
+def _dist_args(world: int, backend: str) -> list:
+    ports = _free_ports(world)
+    return ["--worker_hosts", ",".join(f"localhost:{p}" for p in ports),
+            "--dist_backend", backend]
+
+
+def ulysses_launches(steps: int, fwd_only: int) -> dict:
+    """Per-rank launches of ``steps`` Ulysses steps with remat: K4 = 12
+    blocks x 2 (the remat recomputes the forward), K6 = K7 = 12 a step, at
+    [B, 8100, 1, 64]; K3 = 12 per forward-only batch; K5 = K1 = K2 = 0."""
+    return {"flash_fwd": fwd_only * 12, "flash_fwd_lse": steps * 24,
+            "flash_fwd_stats": 0, "flash_bwd_dq": steps * 12,
+            "flash_bwd_dkv": steps * 12, "sgd_update_plain": 0,
+            "sgd_update_momentum": 0}
+
+
+def ulysses_phases(backend: str, card: str, one_rank_jsonl=None) -> dict:
+    """Phases 26-27 over ``backend`` on ``ULYSSES_SEQ`` rank processes: the
+    Ulysses op against one-rank flash attention, then the long-context
+    recipe with ``--seq_axis 3 --sp_mode ulysses`` for 10 steps against
+    the same batches on one rank (``one_rank_jsonl``, or run here), a
+    resume to step 15, ``--mode eval`` and rank 0's step profile."""
+    n = ULYSSES_SEQ
+    count = torch.cuda.device_count()
+    res = {"card": card, "backend": backend, "cards": min(count, n)}
+    # ---- 26. the Ulysses op ---------------------------------------------
+    op = spawn_ranks(f"ulysses_op_{backend}", {
+        "kind": "ulysses", "backend": backend,
+        "address": f"localhost:{_free_ports(1)[0]}"}, world=n,
+        timeout_s=300)
+    for name, _, dtype, kw in ULYSSES_OP_CASES:
+        for what in ("out", "dq", "dk", "dv"):
+            diff = max(r[name][what][0] for r in op)
+            scale = max(r[name][what][1] for r in op)
+            tol = RING_OP_TOL["out" if what == "out" else "grad"] \
+                if dtype == "float32" else min(BF16_CAP, BF16_REL * scale)
+            check(diff <= tol, f"ulysses op {name}: {what} max abs diff "
+                               f"{diff} > {tol}")
+        print(f"[ulysses op] {name} {dtype} {kw} ({n} ranks, {backend}): "
+              f"max abs diff vs the full sequence's flash attention "
+              + ", ".join(f"{w} {max(r[name][w][0] for r in op):.3g}"
+                          for w in ("out", "dq", "dk", "dv")), flush=True)
+    want = {"flash_fwd": 0, "flash_fwd_lse": 1, "flash_fwd_stats": 0,
+            "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    check(all(r["long context"]["launches"] == want for r in op),
+          f"Ulysses op launched {[r['long context']['launches'] for r in op]}"
+          f" per rank, want {want}")
+    res["op"] = op
+
+    # ---- 27. Ulysses long context: 8,100 tokens, one head a rank --------
+    long = long_args(WORK) + ["--batch_size", "2"]
+    if one_rank_jsonl is None:
+        one_rank_jsonl = os.path.join(WORK, "ulysses_ref.jsonl")
+        run_cli(long + ["--total_steps", str(LONG_STEPS), "--log_dir",
+                        os.path.join(WORK, "logs_ulysses_ref"),
+                        "--metrics_jsonl", one_rank_jsonl])
+    sp = ["--seq_axis", str(n), "--sp_mode", "ulysses"]
+    log = os.path.join(WORK, f"logs_ulysses_{backend}")
+    jsonl = os.path.join(WORK, f"vit_ulysses_{backend}.jsonl")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(f"ulysses_{backend}", {"kind": "cli", "argv": long
+                        + sp + ["--total_steps", str(LONG_STEPS),
+                                "--log_dir", log, "--metrics_jsonl", jsonl]
+                        + _dist_args(n, backend)}, world=n)
+    wall = time.perf_counter() - t0
+    want = ulysses_launches(LONG_STEPS, LONG_STEPS // 5)
+    check(all(r["launches"] == want for r in ranks),
+          f"Ulysses ranks launched {[r['launches'] for r in ranks]}, want "
+          f"{want}")
+    check(len({r["digest"] for r in ranks}) == 1,
+          "Ulysses ranks ended with different parameters")
+    got, ref = train_log(jsonl), train_log(one_rank_jsonl)
+    gaps = [abs(g[1] - r[1]) for g, r in zip(got, ref)]
+    check(len(got) == len(ref) == LONG_STEPS // 5
+          and [g[0] for g in got] == [r[0] for r in ref]
+          and all(math.isfinite(g[1]) for g in got)
+          and max(gaps) <= SP_LOSS_TOL,
+          f"Ulysses (step, loss, images/s) {got}; one rank {ref}; gaps "
+          f"{gaps} (gate {SP_LOSS_TOL})")
+    res["train"] = {"train": got, "reference": ref, "loss_gaps": gaps,
+                    "step_ms": 2 / got[-1][2] * 1e3,
+                    "tokens_per_s": got[-1][2] * 8100, "wall_s": wall,
+                    "launches": ranks[0]["launches"], "jsonl": jsonl}
+    shutil.copy(jsonl, OUT)
+    print(f"[ulysses train] {n} ranks (seq {n}, {backend}), batch 2 x 8,100 "
+          f"tokens, one head a rank: (step, loss, images/s) {got}; one rank "
+          f"{ref}; loss gaps {gaps} (gate {SP_LOSS_TOL}); "
+          f"{res['train']['step_ms']:.1f} ms/step in steps 6-10; launches "
+          f"per rank {ranks[0]['launches']}, equal parameters, {wall:.1f} s "
+          f"wall, on {min(count, n)} x {card}", flush=True)
+    label = f"ulysses_resume_{backend}"
+    resume = spawn_ranks(label, {"kind": "cli", "argv": long + sp + [
+        "--log_dir", log, "--total_steps", str(LONG_STEPS + 5)]
+        + _dist_args(n, backend)}, world=n)
+    check(all(r["launches"] == ulysses_launches(5, 1) for r in resume),
+          f"Ulysses resume ran {[r['launches'] for r in resume]}, want 5 "
+          f"steps from step {LONG_STEPS}")
+    steps = [int(m[1]) for m in map(STEP_LINE.match, rank_log(label)) if m]
+    check(steps == [LONG_STEPS + 5], f"Ulysses resume printed steps {steps}")
+    # The full test split (512 records) at 32 images a batch.
+    label = f"ulysses_eval_{backend}"
+    ev = spawn_ranks(label, {"kind": "cli", "argv": long[:-2] + sp + [
+        "--batch_size", "32", "--log_dir", log, "--mode", "eval"]
+        + _dist_args(n, backend)}, world=n)
+    accs = []
+    for r in range(n):
+        lines = rank_log(label, r)
+        check(any(f"eval at step {LONG_STEPS + 5}" in l for l in lines),
+              f"Ulysses eval rank {r} did not restore step {LONG_STEPS + 5}")
+        accs.append([m[1] for m in map(EVAL_LINE.match, lines) if m])
+    check(len(accs[0]) == 1 and all(a == accs[0] for a in accs),
+          f"Ulysses --mode eval printed {accs}")
+    check(ev[0]["launches"]["flash_fwd"] == 16 * 12,
+          f"Ulysses eval launched {ev[0]['launches']} (16 batches of 32)")
+    res["eval_accuracy"] = accs[0][0]
+    print(f"[ulysses resume] continued {LONG_STEPS} -> {LONG_STEPS + 5}; "
+          f"--mode eval over {n} ranks: {accs[0][0]}% on each", flush=True)
+    prof = spawn_ranks(f"ulysses_profile_{backend}", {
+        "kind": "profile", "steps": 2, "argv": long + sp + [
+            "--log_dir", os.path.join(WORK, "logs_ulysses_profile")]
+        + _dist_args(n, backend)}, world=n)
+    res["profile"] = prof
+    p = prof[0]
+    print(f"[ulysses profile] rank 0 ({backend}): {p['step_ms']:.2f} ms/step "
+          f"(host clock, batch on the card); device timeline a step: compute "
+          f"{p['compute_ms']:.2f} ms ({100 * p['compute_share']:.1f}% of the "
+          f"step), all-to-alls and all-reduces {p['comm_ms']:.2f} ms, of "
+          f"which {p['overlap_ms']:.2f} ms beside compute; "
+          + ", ".join(f"{k} {v:.2f}" for k, v in p["flash_ms"].items())
+          + f"; on {card}", flush=True)
+    for k in p["kernels"][:8]:
+        print(f"[ulysses profile]   rank 0 {k['ms_per_step']:.4f} ms/step "
+              f"x{k['per_step']} {k['name'][:100]}")
+    return res
+
+
+# Train records checked for the run telemetry: every record after the
+# first carries these (the first may close a window that opened at it).
+TELEMETRY_KEYS = ("device_step_ms", "drain_wait_ms",
+                  "tflops_per_sec_per_chip", "mfu")
+
+
+def telemetry_check(paths: dict, card: str) -> dict:
+    """Hold each path's ``train`` records to ``TELEMETRY_KEYS`` and print
+    its TFLOP/s and MFU. ``paths``: label -> (jsonl, peak TFLOP/s)."""
+    res = {}
+    for label, (path, peak) in paths.items():
+        train = [r for r in records(path) if r["kind"] == "train"]
+        check(len(train) >= 2, f"{label}: {len(train)} train records")
+        for r in train[1:]:
+            missing = [key for key in TELEMETRY_KEYS if r.get(key) is None]
+            check(not missing, f"{label}: step {r['step']} lacks {missing}")
+        check(train[0].get("flops_stack") is not None,
+              f"{label}: no flops_stack label")
+        last = train[-1]
+        res[label] = {"flops_stack": train[0]["flops_stack"],
+                      "peak_tflops": float(peak),
+                      **{key: last[key] for key in
+                         ("step", "images_per_sec", *TELEMETRY_KEYS)}}
+        print(f"[telemetry] {label}: step {last['step']}, "
+              f"{last['tflops_per_sec_per_chip']} TFLOP/s a card, MFU "
+              f"{last['mfu']} of {peak} TFLOP/s, device step "
+              f"{last['device_step_ms']} ms, drain wait "
+              f"{last['drain_wait_ms']} ms (flops {train[0]['flops_stack']});"
+              f" on {card}", flush=True)
+    return res
+
+
+def devtime_phase(base, card, k1_device_ms, k1_replay_ms,
+                  eager_busy_ms) -> dict:
+    """Phase 28's profile windows on the CNN main path: eager and chunked
+    (graph replay), 60 steps each, ``--profile_at_steps 30:10``. Each
+    writes ``devtime`` records. The chunked window counts the update
+    kernels by name (a replay has no ``optimizer`` range): its
+    ``optimizer_ms`` is within 2x of K1's device time in phase 9b's
+    replays (the same graph; phase 4's K1, timed alone with its leaves in
+    L2, reads about half of it: printed). The eager
+    window counts the kernels inside the step's ``optimizer`` range: K1
+    and the LR schedule's and step counter's small kernels, so it is held
+    within 2x of one ``sgd_update``'s device time, measured here, with
+    K1's share printed; its compute per step is within 25% of phase 9's
+    device time."""
+    from dml_cnn_cifar10_tpu_torch.config import (DataConfig, ModelConfig,
+                                                  OptimConfig)
+    from dml_cnn_cifar10_tpu_torch.models.cnn import CNN
+    from dml_cnn_cifar10_tpu_torch.train import optim as optim_lib
+
+    check(k1_device_ms is not None, "phase 4 traced no K1 kernel")
+    dev = torch.device("cuda")
+    params = {n: p.detach().clone().to(dev) for n, p in CNN(
+        ModelConfig(), DataConfig()).named_parameters()}
+    grads = {n: torch.randn_like(p) for n, p in params.items()}
+    ocfg = OptimConfig(learning_rate=0.02, dead_lr_decay=False)
+    opt = optim_lib.sgd_init(params, ocfg, dev)
+    update = kernel_ms(lambda: optim_lib.sgd_update(grads, opt, params,
+                                                    ocfg))
+    update_ms = sum(update.values())
+    print(f"[devtime] one sgd_update (the fixed recipe's LR schedule, K1, "
+          f"the step counter): {update_ms:.5f} ms of device time in "
+          f"{len(update)} kernels, K1 {k1_device_ms} ms of it", flush=True)
+    res = {"update_device_ms": update_ms, "update_kernels": sorted(update)}
+    for label, extra in (("eager", []),
+                         ("chunked", ["--steps_per_dispatch", "10"])):
+        log = os.path.join(WORK, f"logs_devtime_{label}")
+        jsonl = os.path.join(WORK, f"devtime_{label}.jsonl")
+        run_cli(base + extra + ["--log_dir", log, "--total_steps", "60",
+                                "--output_every", "10", "--eval_every",
+                                "1000", "--checkpoint_every", "1000",
+                                "--profile_at_steps", "30:10",
+                                "--metrics_jsonl", jsonl])
+        recs = records(jsonl)
+        dev = [r for r in recs if r["kind"] == "devtime"]
+        check(dev and all(r["step"] == 40 for r in dev),
+              f"{label}: devtime records {dev}")
+        lane = max(dev, key=lambda r: r["compute_ms"])
+        opt_ms = [r["optimizer_ms"] for r in recs
+                  if r["kind"] == "train" and r["step"] > 40]
+        check(opt_ms and opt_ms[0] is not None,
+              f"{label}: train records after the window carry "
+              f"optimizer_ms {opt_ms}")
+        traces = os.listdir(os.path.join(log, "devprof"))
+        with open(os.path.join(log, "devprof", traces[0])) as f:
+            cats = {e.get("cat") for e in json.load(f)["traceEvents"]}
+        compute = lane["compute_ms"] / 10
+        top = lane["top_ops"][:3]
+        want_ms = update_ms if label == "eager" else k1_replay_ms
+        check(0.5 <= opt_ms[0] / want_ms <= 2.0,
+              f"{label}: optimizer_ms {opt_ms[0]} against "
+              f"{'one update' if label == 'eager' else 'K1'}'s device "
+              f"{want_ms} ms")
+        if label == "eager":
+            check(abs(compute / eager_busy_ms - 1) <= 0.25,
+                  f"eager window compute {compute} ms/step against phase "
+                  f"9's device {eager_busy_ms} ms/step")
+        res[label] = {"lanes": [r["device"] for r in dev],
+                      "compute_ms_per_step": compute,
+                      "collective_ms": lane["collective_ms"],
+                      "infeed_ms": lane["infeed_ms"],
+                      "optimizer_ms_per_step": opt_ms[0],
+                      "held_to_ms": want_ms,
+                      "scope_on_device": "gpu_user_annotation" in cats,
+                      "top_ops": lane["top_ops"][:5]}
+        shutil.copy(jsonl, OUT)
+        print(f"[devtime] {label}: lanes {res[label]['lanes']}; compute "
+              f"{compute:.4f} ms/step (phase 9's device {eager_busy_ms:.4f}),"
+              f" infeed {lane['infeed_ms']} ms, optimizer_ms "
+              f"{opt_ms[0]} ms/step against {want_ms:.5f} ("
+              f"{opt_ms[0] / k1_device_ms:.2f}x phase 4's K1 alone; the "
+              f"update's annotation on the device: "
+              f"{res[label]['scope_on_device']});"
+              f" top {[(o['name'][:40], o['dur_ms']) for o in top]}; on "
+              f"{card}", flush=True)
+    return res
+
+
+OPT_STEPS = 100
+# name -> (flags, K1 launches, K2 launches): 100 CNN steps at full width.
+OPT_RUNS = {
+    "clip_momentum": (["--grad_clip_norm", "1", "--momentum", "0.9"], 0,
+                      OPT_STEPS),
+    "grad_accum": (["--grad_accum", "2"], OPT_STEPS, 0),
+    "staleness": (["--async_staleness", "2"], OPT_STEPS, 0),
+    # LARS leaves 1-D leaves (the biases) unadapted, so with its momentum
+    # of 0.9 they step by about 10 x lr x g: at lr 1.0 the CNN's loss
+    # oscillates and ends above its first reading in some runs on the
+    # card; from 0.1 to 0.5 it falls in every run (chip_optim_repeat.py).
+    "lars": (["--optimizer", "lars", "--learning_rate", "0.1"], 0, 0),
+    "lamb": (["--optimizer", "lamb", "--learning_rate", "0.001"], 0, 0),
+    "adafactor": (["--optimizer", "adafactor", "--learning_rate", "0.01"],
+                  0, 0),
+}
+
+
+def optim_phase(base, card) -> dict:
+    """Phase 29: each ``OPT_RUNS`` entry for 100 steps (losses finite and
+    falling, K1/K2 counted); ``--async_staleness 2 --steps_per_dispatch
+    10`` for 100 steps, then one graphed chunk from its state against the
+    eager body, bit for bit with cuDNN deterministic; eager 50 + 50 steps
+    with a resume against 100, bit for bit (cuDNN deterministic)."""
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+
+    res = {}
+    for name, (flags, k1, k2) in OPT_RUNS.items():
+        jsonl = os.path.join(WORK, f"opt_{name}.jsonl")
+        fused.reset_launches()
+        run_cli(base + flags + ["--log_dir",
+                                os.path.join(WORK, f"logs_{name}"),
+                                "--total_steps", str(OPT_STEPS),
+                                "--output_every", "25", "--eval_every",
+                                "1000", "--checkpoint_every", "1000",
+                                "--metrics_jsonl", jsonl])
+        losses = [l for _, l, _ in train_log(jsonl)]
+        launched = (fused.LAUNCHES["sgd_update_plain"],
+                    fused.LAUNCHES["sgd_update_momentum"])
+        check(len(losses) == 4 and all(math.isfinite(l) for l in losses)
+              and losses[-1] < losses[0],
+              f"{name}: losses {losses} (finite and falling)")
+        check(launched == (k1, k2),
+              f"{name}: K1/K2 launched {launched}, want {(k1, k2)}")
+        res[name] = {"losses": losses, "k1": launched[0], "k2": launched[1]}
+        print(f"[optim] {name} {' '.join(flags)}: losses {losses}; K1 "
+              f"{launched[0]}, K2 {launched[1]} launches in {OPT_STEPS} "
+              f"steps; on {card}", flush=True)
+
+    # Staleness under the graph: the snapshot slot is read on the card.
+    fused.reset_launches()
+    stale = ["--async_staleness", "2"]
+    lines, trainer, result = run_trainer(base + stale + [
+        "--steps_per_dispatch", str(CHUNK_K), "--log_dir",
+        os.path.join(WORK, "logs_stale_chunk"), "--total_steps",
+        str(OPT_STEPS), "--output_every", "50", "--eval_every", "1000",
+        "--checkpoint_every", "1000"])
+    check(fused.LAUNCHES["sgd_update_plain"] == OPT_STEPS
+          and trainer.train_fn.graph.replays == OPT_STEPS // CHUNK_K,
+          f"chunked staleness: {fused.LAUNCHES}, "
+          f"{trainer.train_fn.graph.replays} replays")
+    cfg = trainer.cfg
+    train_it = trainer.input_pipeline(train=True, seed=cfg.seed)
+    ds_images = torch.from_numpy(train_it.images).cuda()
+    ds_labels = torch.from_numpy(train_it.labels.astype("int64")).cuda()
+    c, _, _ = _graph_vs_eager(cfg, result.state, ds_images, ds_labels, True)
+    check(c["loss_gap"] == 0 and c["param_gap"] == 0,
+          f"staleness: graphed chunk differs from the eager body: {c}")
+    res["staleness_graph_vs_eager"] = c
+    print(f"[optim] async_staleness 2 under the graph: {OPT_STEPS} steps in "
+          f"{OPT_STEPS // CHUNK_K} replays, K1 {OPT_STEPS}; one chunk from "
+          f"step {OPT_STEPS}: loss {c['loss_graph']!r} graphed, "
+          f"{c['loss_eager']!r} eager, params max gap {c['param_gap']} "
+          f"(cudnn.deterministic)", flush=True)
+
+    # Exact resume on the card: the host streams continue.
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        logs = {}
+        for label, stops in (("whole", (100,)), ("split", (50, 100))):
+            log = os.path.join(WORK, f"logs_resume_{label}")
+            logs[label] = []
+            for stop in stops:
+                jsonl = os.path.join(WORK, f"resume_{label}_{stop}.jsonl")
+                run_cli(base + ["--log_dir", log, "--total_steps", str(stop),
+                                "--output_every", "25", "--eval_every",
+                                "1000", "--checkpoint_every", "50",
+                                "--metrics_jsonl", jsonl])
+                logs[label] += [(s, l) for s, l, _ in train_log(jsonl)]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    blobs = []
+    for label in ("whole", "split"):
+        with open(os.path.join(WORK, f"logs_resume_{label}",
+                               "ckpt_100.msgpack"), "rb") as f:
+            blobs.append(f.read())
+    check(logs["whole"] == logs["split"] and blobs[0] == blobs[1],
+          f"resumed run (step, loss) {logs['split']} against the whole "
+          f"run's {logs['whole']}; checkpoints equal: {blobs[0] == blobs[1]}")
+    res["resume"] = logs
+    print(f"[optim] eager 50 + 50 steps with a resume: (step, loss) "
+          f"{logs['split']}, the 100-step run's bit for bit, and the same "
+          f"step-100 checkpoint (cudnn.deterministic); on {card}", flush=True)
+    return res
+
+
 def _fresh_model(cfg):
     from dml_cnn_cifar10_tpu_torch.models.registry import get_model
     return get_model(cfg.model.name)(cfg.model, cfg.data)
@@ -2481,6 +2976,9 @@ def dist_main() -> int:
         shutil.rmtree(WORK)
     os.makedirs(OUT, exist_ok=True)
     res = dist_phases("nccl", card, worlds=(2, 4) if count >= 4 else (2,))
+    if count >= ULYSSES_SEQ:
+        res["ulysses"] = ulysses_phases(
+            "nccl", card, one_rank_jsonl=os.path.join(WORK, "ref2.jsonl"))
     with open(os.path.join(OUT, "dist_nccl.json"), "w") as f:
         json.dump(res, f, indent=1)
     shutil.rmtree(WORK)
@@ -2502,7 +3000,7 @@ def rank_main(argv) -> int:
     from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    run = {"cli": _rank_cli, "ring": _rank_ring,
+    run = {"cli": _rank_cli, "ring": _rank_ring, "ulysses": _rank_ulysses,
            "profile": _rank_profile}[job["kind"]]
     res = run(rank, job)
     res["launches"] = {**fa.LAUNCHES, **fused.LAUNCHES}
@@ -2787,7 +3285,8 @@ def main() -> int:
                 "--batch_size", "128", "--optimizer", "adamw",
                 "--learning_rate", "3e-4", "--schedule", "cosine",
                 "--warmup_steps", "20", "--eval_every", "100",
-                "--checkpoint_every", "100", "--output_every", "50"]
+                "--checkpoint_every", "100", "--output_every", "50",
+                "--peak_tflops", F32_PEAK_TFLOPS]
     vit_jsonl = os.path.join(WORK, "vit_train.jsonl")
     fused.reset_launches()
     fa.reset_launches()
@@ -2946,6 +3445,36 @@ def main() -> int:
                          vit_base + ["--log_dir", vit_log], bytes_per_s,
                          ops_per_s)
 
+    # ---- 26-27. Ulysses: the op, then train/resume/eval/profile ----------
+    # One card each over NCCL when there are three, else all on this card
+    # over gloo.
+    ul_backend = "nccl" if count >= ULYSSES_SEQ else "gloo"
+    print(f"[dist] {ULYSSES_SEQ} ranks over {ul_backend} on "
+          f"{min(count, ULYSSES_SEQ)} card(s)", flush=True)
+    uly = ulysses_phases(ul_backend, card, one_rank_jsonl=long_jsonl)
+
+    # ---- 28. telemetry: TFLOP/s and MFU of every path; profile windows ---
+    telemetry = telemetry_check({
+        "cnn eager": (train_jsonl, F32_PEAK_TFLOPS),
+        "cnn chunked": (os.path.join(WORK, "chunk_train.jsonl"),
+                        F32_PEAK_TFLOPS),
+        "vit-ti": (vit_jsonl, F32_PEAK_TFLOPS),
+        "long context": (long_jsonl, BF16_PEAK_TFLOPS),
+        "sp ring (2 ranks)": (os.path.join(WORK, "vit_sp2.jsonl"),
+                              BF16_PEAK_TFLOPS),
+        "sp ulysses (3 ranks)": (uly["train"]["jsonl"], BF16_PEAK_TFLOPS)},
+        card)
+    devtime = devtime_phase(base, card,
+                            timing["sgd_update_plain"]["device_ms"],
+                            chunk["groups_ms_per_step"]["K1"],
+                            eager_profile["device_busy_ms_per_step"])
+
+    # ---- 29. the optimizer surface --------------------------------------
+    optim = optim_phase(base, card)
+    with open(os.path.join(OUT, "slice10.json"), "w") as f:
+        json.dump({"card": card, "ulysses": uly, "telemetry": telemetry,
+                   "devtime": devtime, "optim": optim}, f, indent=1)
+
     for path in (train_jsonl, resume_jsonl, mom_jsonl, vit_jsonl,
                  os.path.join(WORK, "vit_resume.jsonl"), long_jsonl):
         shutil.copy(path, OUT)
@@ -3043,6 +3572,32 @@ def main() -> int:
                                             "library_ms",
                                             "library_device_ms", "bound_ms",
                                             "bound_by")},
+        })
+    for name, kid, line, needle in (
+            ("flash_fwd", "K3", 345, "flash_out_kernel"),
+            ("flash_fwd_lse", "K4", 360, "flash_lse_kernel"),
+            ("flash_bwd_dq", "K6", 688, "flash_dq_kernel"),
+            ("flash_bwd_dkv", "K7", 736, "flash_dkv_kernel")):
+        t = flash_times[(name, "ulysses")]
+        err = FLASH_CASE_DIFFS["ulysses"][name]
+        kernels.append({
+            "name": name, "kernel": kid, "path": "ulysses", "route": "cuda",
+            "source": "dml_cnn_cifar10_tpu_torch/csrc/flash_attention.cu",
+            "cuda_kernel": needle,
+            "replaces": f"dml_cnn_cifar10_tpu/ops/flash_attention.py:{line}",
+            "launches": uly["train"]["launches"][name],
+            "max_abs_err": err, "max_abs_err_bf16": err,
+            **{k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "bound_tc_ms", "flops",
+                                 "library_ms", "library_device_ms",
+                                 "library")},
+            "kernel_ms": t["ms"],
+            "tflops_per_s": t["flops"] / t["ms"] / 1e9,
+            "work": f"one launch at a Ulysses rank's shape {t['shape']} "
+                    f"{t['dtype']} (the 8,100-token recipe over 3 seq "
+                    f"ranks); launches: rank 0 of the 3-rank run, 10 "
+                    f"steps (K3: its 2 forward-only batches); max_abs_err "
+                    f"against the plain version at that shape",
         })
     t, t128 = serve["k3"]["timed"][1], serve["k3"]["timed"][128]
     kernels.append({

@@ -93,8 +93,9 @@ def state_to_tree(state: TrainState) -> Dict[str, Any]:
     opt = {}
     for key in sorted(state.opt):
         value = state.opt[key]
-        opt[key] = convert.params_to_jax(value) if isinstance(value, Mapping) \
-            else value.detach().to("cpu").numpy()
+        opt[key] = convert.params_to_jax(
+            value, convert.OPT_LAYOUTS.get(key, "port")) \
+            if isinstance(value, Mapping) else value.detach().to("cpu").numpy()
     return {"params": convert.params_to_jax(state.params), "opt": opt,
             "model_state": {}}
 
@@ -109,7 +110,9 @@ def _checked(target: Mapping[str, torch.Tensor], tree: Mapping, where: str
              ) -> Dict[str, torch.Tensor]:
     """Checkpoint tree (JAX layout) → ``{name: tensor}`` checked against
     the target's names, shapes and dtypes."""
-    flat = convert.params_from_jax(tree)
+    flat = convert.params_from_jax(tree,
+                                   layout=convert.OPT_LAYOUTS.get(where,
+                                                                  "port"))
     _same_keys(target, flat, where)
     for name, t in target.items():
         v = flat[name]
@@ -228,12 +231,40 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
         old = _ckpt_path(ckpt_dir, old_step)
         try:
             os.remove(old)
-            if os.path.isfile(checksum_path(old)):
-                os.remove(checksum_path(old))
+            for sidecar in (checksum_path(old),
+                            _data_state_path(ckpt_dir, old_step)):
+                if os.path.isfile(sidecar):
+                    os.remove(sidecar)
         except OSError as e:
             print(f"[ckpt] retention prune of {old} failed: {e!r} — old "
                   "checkpoints are accumulating", file=sys.stderr)
     return path
+
+
+def _data_state_path(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f"data_state_{step}.json")
+
+
+def save_data_state(ckpt_dir: str, step: int, counts: dict) -> None:
+    """Sidecar for exact-resume data order: the cumulative number of
+    batches each host stream has CONSUMED by ``step``, written atomically
+    next to the checkpoint of that step (the JAX package's file and
+    fields, ``ckpt/checkpoint.py:261-285``)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = _data_state_path(ckpt_dir, step)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(counts, f)
+    os.replace(tmp, path)
+
+
+def load_data_state(ckpt_dir: str, step: int) -> Optional[dict]:
+    """Counts written by :func:`save_data_state`, or None."""
+    path = _data_state_path(ckpt_dir, step)
+    if not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
 
 
 def restore_checkpoint(ckpt_dir: str, target: TrainState) -> TrainState:
@@ -287,11 +318,16 @@ class CheckpointManager:
         return step != self._last_saved_step
 
     def maybe_save(self, state: TrainState, step: int,
-                   force: bool = False) -> bool:
+                   force: bool = False,
+                   data_state: Optional[dict] = None) -> bool:
+        """Save when due; ``data_state`` (the streams' consumed batch
+        counts) goes into its sidecar after the checkpoint is committed."""
         if not self.due(step, force):
             return False
         if self.mesh is None or self.mesh.chief:
             save_checkpoint(self.ckpt_dir, state, step, keep=self.keep)
+            if data_state is not None:
+                save_data_state(self.ckpt_dir, step, data_state)
         if self.mesh is not None:
             self.mesh.barrier()
         self._last_saved_step = step

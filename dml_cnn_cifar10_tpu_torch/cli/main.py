@@ -8,8 +8,9 @@ accepted and ignored, and ``--worker_hosts h:p0,h:p1 --task_index i``
 starts rank ``i`` of a ``torch.distributed`` world with one process per
 worker and its rendezvous at the first one (``parallel/multihost.py``).
 The world is ``data x --seq_axis`` ranks: data parallelism for every
-model, and ring sequence parallelism for the ViT when ``--seq_axis`` > 1
-(``--pool`` then defaults to ``mean``). ``--dist_backend`` names the
+model, and sequence parallelism for the ViT when ``--seq_axis`` > 1
+(``--sp_mode ring`` or ``ulysses``; ``--pool`` then defaults to
+``mean``). ``--dist_backend`` names the
 backend: ``nccl`` (the default on cuda) needs a card per rank; ``gloo``
 (the default on cpu) also lets several ranks share one card, through
 host memory.
@@ -17,7 +18,12 @@ host memory.
 Models: ``--model cnn`` (the reference, default) and ``--model vit_tiny``
 (ViT-Ti, attention through the hand-written flash kernels from 128 tokens
 up, e.g. ``--crop_size 64``), with the JAX CLI's ViT, optimizer and
-schedule flags. ``--steps_per_dispatch K`` runs K steps a dispatch, one
+schedule flags, and the rest of its optimizer surface
+(``--optimizer lars|lamb|adafactor``, ``--grad_clip_norm``,
+``--grad_accum``, ``--async_staleness``, ``--label_smoothing``).
+``--peak_tflops`` adds ``mfu`` to the ``train`` records, and
+``--profile_at_steps N:K`` writes ``devtime`` records of a torch.profiler
+window (``utils/devprof.py``). ``--steps_per_dispatch K`` runs K steps a dispatch, one
 CUDA graph replay on the card, with the dataset resident on the device and
 its shuffled rows drawn there (``--resident_data``,
 ``--device_index_stream``). Modes: ``train`` (default); ``eval`` (restore
@@ -142,10 +148,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer", type=str, default="sgd",
                    choices=["sgd", "adamw", "lars", "lamb", "adafactor"],
                    help="sgd = reference; adamw for the transformer "
-                        "ladder (lars/lamb/adafactor are not ported yet)")
+                        "ladder; lars/lamb add the per-layer trust ratio "
+                        "for large-global-batch scaling; adafactor keeps "
+                        "factored second moments")
     p.add_argument("--momentum", type=float, default=0.0,
                    help="SGD momentum (reference uses plain SGD)")
     p.add_argument("--weight_decay", type=float, default=0.0)
+    p.add_argument("--label_smoothing", type=float, default=0.0)
+    p.add_argument("--grad_clip_norm", type=float, default=None,
+                   help="global-norm gradient clipping")
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="microbatches per optimizer update (gradient "
+                        "accumulation inside the step)")
+    p.add_argument("--async_staleness", type=int, default=0,
+                   help="emulate the reference's async-PS gradient "
+                        "staleness deterministically: grads taken at a "
+                        "snapshot S-1 updates old (0/1 = synchronous)")
     p.add_argument("--schedule", type=str, default="exponential",
                    choices=["exponential", "cosine", "constant"],
                    help="LR schedule family (exponential = reference "
@@ -172,7 +190,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sp_mode", type=str, default="ring",
                    choices=["ring", "ulysses"],
                    help="sequence-parallel attention strategy: ring (K/V "
-                        "shards walk the ring); ulysses is not ported")
+                        "shards walk the ring) or ulysses (all-to-all "
+                        "seq<->heads; needs vit_heads % seq_axis == 0)")
     p.add_argument("--dist_backend", type=str, default=None,
                    choices=["nccl", "gloo"],
                    help="torch.distributed backend (default nccl on cuda, "
@@ -210,7 +229,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "(equally valid) permutation than the host "
                         "stream; toggling changes data order. 'false' "
                         "restores the host numpy stream")
+    p.add_argument("--peak_tflops", type=float, default=None,
+                   help="per-chip peak TFLOP/s; enables the MFU metric "
+                        "in the jsonl stream")
     p.add_argument("--metrics_jsonl", type=str, default=None)
+    p.add_argument("--profile_dir", type=str, default=None)
+    p.add_argument("--profile_at_steps", type=str, default=None,
+                   help="device-time attribution window 'N:K': capture "
+                        "a torch.profiler trace from global step N for K "
+                        "steps (closing at the next drained metrics "
+                        "boundary), parse it host-side, and log `devtime` "
+                        "records (top kernels; compute / collective / "
+                        "infeed buckets). Writes under --profile_dir when "
+                        "set, else <log_dir>/devprof")
     p.add_argument("--seed", type=int, default=0)
     return p
 
@@ -228,7 +259,15 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
         metrics_jsonl=args.metrics_jsonl,
         seed=args.seed,
         device=args.device,
+        peak_tflops=args.peak_tflops,
+        profile_dir=args.profile_dir,
+        profile_at_steps=args.profile_at_steps,
     )
+    from dml_cnn_cifar10_tpu_torch.utils import devprof
+    try:
+        devprof.parse_profile_at_steps(args.profile_at_steps)
+    except ValueError as e:
+        raise SystemExit(str(e))
     cfg.data.dataset = args.dataset
     cfg.data.data_dir = args.data_dir
     if args.image_size is not None:
@@ -251,6 +290,10 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
     cfg.optim.weight_decay = args.weight_decay
     cfg.optim.ema_decay = args.ema_decay
     cfg.optim.fused_optimizer = args.fused_optimizer
+    cfg.optim.label_smoothing = args.label_smoothing
+    cfg.optim.grad_clip_norm = args.grad_clip_norm
+    cfg.optim.grad_accum = args.grad_accum
+    cfg.optim.async_staleness = args.async_staleness
     cfg.optim.schedule = args.schedule
     cfg.optim.warmup_steps = args.warmup_steps
     cfg.optim.cosine_decay_steps = args.cosine_decay_steps

@@ -115,9 +115,9 @@ class ModelConfig:
     # Causal (autoregressive) attention mask for the transformer blocks.
     attn_causal: bool = False
     # Sequence-parallel attention when ParallelConfig.seq_axis > 1: "ring"
-    # (K/V shards walk the ring, parallel/ring_attention.py). The JAX
-    # package's "ulysses" (seq<->heads all-to-all) is not ported and
-    # raises (ROADMAP.md Queue 1).
+    # (K/V shards walk the ring, parallel/ring_attention.py) or "ulysses"
+    # (a tokens<->heads all-to-all around full-sequence attention,
+    # parallel/ulysses.py; needs vit_heads % seq_axis == 0).
     sp_mode: str = "ring"                 # ring | ulysses
 
 
@@ -139,20 +139,37 @@ class OptimConfig:
     warmup_steps: int = 0
     cosine_decay_steps: int = 0
     # "sgd" (+ optional momentum) is the reference's; "adamw" (decoupled
-    # weight decay, bias-corrected moments) the transformer standard. The
-    # JAX package's lars/lamb/adafactor are not ported and raise.
-    optimizer: str = "sgd"                # sgd | adamw
+    # weight decay, bias-corrected moments) the transformer standard;
+    # "lars"/"lamb" add the per-layer trust ratio for large global
+    # batches (You et al. 2017/2019); "adafactor" (Shazeer & Stern 2018)
+    # factors the second moment into row/column statistics.
+    optimizer: str = "sgd"        # sgd | adamw | lars | lamb | adafactor
+    # LARS trust coefficient (eta in the paper) and norm-guard epsilon.
+    lars_trust_coef: float = 0.001
+    lars_eps: float = 1e-9
     # Label smoothing ε for the CE loss (0 = reference parity).
     label_smoothing: float = 0.0
     adam_b1: float = 0.9
     adam_b2: float = 0.999
     adam_eps: float = 1e-8
+    # Global-norm gradient clipping (None = off); the norm stays on the
+    # device.
+    grad_clip_norm: Optional[float] = None
+    # Async-PS staleness emulation (cifar10cnn.py:162: the reference's
+    # workers take gradients at parameters up to W-1 updates old). S >= 2
+    # takes the gradients at a round-robin snapshot S-1 updates old and
+    # applies them to the live parameters, deterministically; the S
+    # snapshots live in the optimizer state. 0/1 = synchronous.
+    async_staleness: int = 0
     # Eval-time parameter EMA (0 disables); no reference counterpart.
     ema_decay: float = 0.0
     # Fused single-pass SGD update (ops/optimizer.py): weight decay +
     # momentum + LR in ONE pass over the param bytes — a hand-written
     # CUDA kernel on the card. False keeps the per-transform chain.
     fused_optimizer: bool = True
+    # Gradient accumulation: each batch is split into this many
+    # microbatches, their gradients averaged, and ONE update applied.
+    grad_accum: int = 1
 
 
 @dataclasses.dataclass
@@ -258,6 +275,16 @@ class TrainConfig:
     # resident_data_max_bytes.
     resident_data: bool = True
     resident_data_max_bytes: int = 2_000_000_000
+
+    # Per-card peak TFLOP/s of the path's dtype; with it the `train`
+    # records carry `mfu` beside `tflops_per_sec_per_chip`.
+    peak_tflops: Optional[float] = None
+    # Device-time attribution window "N:K" (utils/devprof.py): a
+    # torch.profiler capture from global step N for K steps, parsed into
+    # `devtime` records, written under profile_dir (default
+    # <log_dir>/devprof).
+    profile_at_steps: Optional[str] = None
+    profile_dir: Optional[str] = None
 
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)

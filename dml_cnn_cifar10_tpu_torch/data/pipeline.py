@@ -113,6 +113,50 @@ class ShuffleBatchIterator:
     #: which the device-resident chunked path needs.
     supports_index_stream = True
 
+    #: :meth:`skip_batches` can fast-forward the stream: the basis of the
+    #: exact-resume data order (``train/loop.py``).
+    supports_skip = True
+
+    # The augmentations skip_batches replays. A new field in
+    # DataConfig._AUG_OFF needs its draw mirrored below (and a case in
+    # tests/test_torch_resume.py); skip_batches raises until it has one.
+    _SKIP_MIRRORED_AUGS = frozenset({"random_crop", "random_flip"})
+
+    def skip_batches(self, n: int, aug: bool = False) -> None:
+        """Fast-forward the stream by ``n`` batches without building them:
+        the same index draws and, with ``aug=True``, the same per-batch
+        augmentation draws that ``_finish`` makes on the host-decode path,
+        so the next batch is the one an unskipped iterator of the same
+        seed gives after ``n`` (the JAX package's
+        ``data/pipeline.py:158-210``)."""
+        cfg = self.cfg
+        b = self.batch_size
+        if not (aug and self.train and cfg.augmented):
+            # A chunked draw is cursor-equivalent to n single draws; draw
+            # at most one epoch at a time (memory O(dataset)).
+            remaining = b * n
+            cap = max(self.n, 1)
+            while remaining > 0:
+                take = min(remaining, cap)
+                self._next_indices(take)
+                remaining -= take
+            return
+        active = {name for name, off in cfg._AUG_OFF
+                  if getattr(cfg, name) != off}
+        unmirrored = active - self._SKIP_MIRRORED_AUGS
+        if unmirrored:
+            raise NotImplementedError(
+                f"skip_batches has no draw mirror for {sorted(unmirrored)}")
+        for _ in range(n):
+            self._next_indices(b)
+            if cfg.random_crop:
+                self.rng.integers(
+                    0, cfg.image_height - cfg.crop_height + 1, size=b)
+                self.rng.integers(
+                    0, cfg.image_width - cfg.crop_width + 1, size=b)
+            if cfg.random_flip:
+                self.rng.random(b)
+
     def next_index_chunk(self, k: int) -> np.ndarray:
         """``[k, B]`` int64 shuffled indices into ``self.images`` /
         ``self.labels``: the stream of :meth:`next_raw_chunk` without the

@@ -29,8 +29,11 @@ Parity traps, mirrored on purpose:
 
 Sequence parallelism (``vit.py:184-226``): with a mesh whose ``seq`` > 1
 the patches are embedded and ``pos`` added on the full image, each rank
-keeps its ``S/seq`` token slice through the blocks, attention is ring
-attention over the seq ranks (``parallel/ring_attention.py``), and the
+keeps its ``S/seq`` token slice through the blocks, attention runs over
+the seq ranks by ``ModelConfig.sp_mode`` — ``"ring"`` (K/V shards walk
+the ring, ``parallel/ring_attention.py``) or ``"ulysses"`` (a
+tokens-to-heads all-to-all around full-sequence attention,
+``parallel/ulysses.py``, which needs ``heads % seq == 0``) — and the
 mean pool sums the token slices with a differentiable all-reduce. That
 needs ``pool="mean"`` (a cls token breaks even seq sharding) and a token
 count the seq ranks divide.
@@ -51,8 +54,10 @@ from dml_cnn_cifar10_tpu_torch.ops import attention as attn
 from dml_cnn_cifar10_tpu_torch.ops import layers as L
 from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
 from dml_cnn_cifar10_tpu_torch.parallel import ring_attention as ring
+from dml_cnn_cifar10_tpu_torch.parallel import ulysses
 
 MLP_RATIO = 4
+SP_MODES = ("ring", "ulysses")
 LN_EPS = 1e-6
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # Per-block leaves (module, leaf); kernels are He-normal initialised.
@@ -94,10 +99,11 @@ class ViT(nn.Module):
                              f"{cfg.vit_heads}")
         self.seq = ph * pw + (1 if cfg.pool == "cls" else 0)
         if self.mesh is not None:
-            if cfg.sp_mode != "ring":
-                raise NotImplementedError(
-                    f"sp_mode {cfg.sp_mode!r} is not ported; the port has "
-                    "ring attention (ROADMAP.md Queue 1)")
+            if cfg.sp_mode not in SP_MODES:
+                raise ValueError(f"unknown sp_mode {cfg.sp_mode!r}; have "
+                                 f"{SP_MODES}")
+            if cfg.sp_mode == "ulysses":
+                ulysses.check_heads(cfg.vit_heads, self.mesh.seq)
             if cfg.pool != "mean":
                 raise ValueError(
                     "sequence parallelism needs pool='mean' (a cls token "
@@ -155,13 +161,19 @@ class ViT(nn.Module):
         qkv = L.dense(h, p["qkv.kernel"], p["qkv.bias"])
         qkv = qkv.reshape(b, s, cfg.vit_heads, 3, dim // cfg.vit_heads)
         q, k, v = qkv.unbind(3)                       # heads-major
-        if self.mesh is not None:
+        if self.mesh is None:
+            o = attn.dispatch_attention(q, k, v, causal=cfg.attn_causal,
+                                        window=cfg.attn_window)
+        elif cfg.sp_mode == "ulysses":
+            o = ulysses.ulysses_attention_local(q, k, v, self.mesh,
+                                                causal=cfg.attn_causal,
+                                                window=cfg.attn_window)
+        elif cfg.sp_mode == "ring":
             o = ring.ring_attention_local(q, k, v, self.mesh,
                                           causal=cfg.attn_causal,
                                           window=cfg.attn_window)
         else:
-            o = attn.dispatch_attention(q, k, v, causal=cfg.attn_causal,
-                                        window=cfg.attn_window)
+            raise ValueError(f"unknown sp_mode {cfg.sp_mode!r}")
         x = x + L.dense(o.reshape(b, s, dim), p["proj.kernel"],
                         p["proj.bias"])
         h = F.layer_norm(x, (dim,), p["ln2.scale"], p["ln2.bias"], LN_EPS)

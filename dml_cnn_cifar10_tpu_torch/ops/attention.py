@@ -25,6 +25,7 @@ import torch
 from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
 
 NEG_INF = fa.NEG_INF  # finite: exp(-inf - -inf) would NaN a masked row
+FLASH_MIN_TOKENS = 128   # the JAX package's cut: flash from here up
 
 
 def mask_scores(scores: torch.Tensor, q_len: int, kv_len: int,
@@ -66,7 +67,7 @@ def dispatch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        window: Optional[int] = None) -> torch.Tensor:
     """The flash kernels from 128 tokens up, where they gain; the dense
     path below. Both differentiate and honor every mask."""
-    if q.shape[1] >= 128:
+    if q.shape[1] >= FLASH_MIN_TOKENS:
         return fa.flash_attention(q, k, v, scale=scale, causal=causal,
                                   segment_ids=segment_ids, window=window)
     return xla_attention(q, k, v, scale=scale, causal=causal,

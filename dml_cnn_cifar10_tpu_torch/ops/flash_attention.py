@@ -21,7 +21,11 @@ operator ``dml_torch::flash_attention_out`` (:func:`flash_attention_out`),
 whose CUDA kernel is K3 and whose CPU kernel the plain version, so that
 ``torch.export`` keeps it as one node and an exported program launches K3
 on the card (``export.py``); its backward computes ``delta`` in plain torch
-and launches K6 and K7.
+and launches K6 and K7. K4 and the K6 + K7 backward are registered
+operators too (``dml_torch::flash_attention_fwd_lse``,
+``dml_torch::flash_attention_bwd``), and all three carry a FLOP formula,
+so a training step runs on the ``meta`` device and
+``torch.utils.flop_counter`` counts it (``utils/profiling.py``).
 
 - **CUDA kernels** (``csrc/flash_attention.cu``, built for ``sm_90a``):
   ``flash_out_kernel`` (K3) replaces the Pallas ``_flash_kernel``,
@@ -409,27 +413,79 @@ def _dkv_launch(q, k, v, do, lse, delta, scale, causal, out_dtype, window,
     return dk, dv
 
 
-def _forward_lse(q, k, v, scale, causal, window, kv_start, q_seg, kv_seg):
-    """Dispatch by device: K4 for CUDA tensors, the plain version for CPU
-    tensors. Returns ``(out, lse)``."""
-    if not q.is_cuda:
-        seg = None if q_seg is None else (q_seg, kv_seg)
-        return flash_attention_plain(q, k, v, scale, causal, seg, window,
-                                     kv_start)
+# K4 and the K6 + K7 backward as registered operators, like K3 below: the
+# CUDA kernel launches the kernels (``_fwd_launch``, ``_dq_launch``,
+# ``_dkv_launch``), the CPU kernel is the plain version, and the fake
+# kernel gives the outputs' shapes, so that a step runs on the ``meta``
+# device, where ``utils/profiling.py`` counts its FLOPs with the formulas
+# at the end of this module.
+@torch.library.custom_op("dml_torch::flash_attention_fwd_lse",
+                         mutates_args=())
+def _forward_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_seg: Optional[torch.Tensor],
+                    kv_seg: Optional[torch.Tensor], scale: float,
+                    causal: bool, window: Optional[int], kv_start: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    seg = None if q_seg is None else (q_seg, kv_seg)
+    return flash_attention_plain(q, k, v, scale, causal, seg, window,
+                                 kv_start)
+
+
+@_forward_lse_op.register_kernel("cuda")
+def _forward_lse_cuda(q, k, v, q_seg, kv_seg, scale, causal, window,
+                      kv_start):
     return _fwd_launch(q, k, v, scale, causal, window, kv_start, q_seg,
                        kv_seg, "lse")
 
 
-def _backward(q, k, v, do, lse, delta, scale, causal, out_dtype, window,
-              kv_start, q_seg, kv_seg):
-    if not q.is_cuda:
-        seg = None if q_seg is None else (q_seg, kv_seg)
-        return flash_attention_bwd_plain(q, k, v, do, lse, delta, scale,
-                                         causal, out_dtype, seg, window,
-                                         kv_start)
+@_forward_lse_op.register_fake
+def _forward_lse_fake(q, k, v, q_seg, kv_seg, scale, causal, window,
+                      kv_start):
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
+@torch.library.custom_op("dml_torch::flash_attention_bwd", mutates_args=())
+def _backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 q_seg: Optional[torch.Tensor],
+                 kv_seg: Optional[torch.Tensor], scale: float, causal: bool,
+                 out_dtype: Optional[torch.dtype], window: Optional[int],
+                 kv_start: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    seg = None if q_seg is None else (q_seg, kv_seg)
+    return flash_attention_bwd_plain(q, k, v, do, lse, delta, scale, causal,
+                                     out_dtype, seg, window, kv_start)
+
+
+@_backward_op.register_kernel("cuda")
+def _backward_cuda(q, k, v, do, lse, delta, q_seg, kv_seg, scale, causal,
+                   out_dtype, window, kv_start):
     args = (q, k, v, do, lse, delta, scale, causal, out_dtype, window,
             kv_start, q_seg, kv_seg)
     return (_dq_launch(*args), *_dkv_launch(*args))
+
+
+@_backward_op.register_fake
+def _backward_fake(q, k, v, do, lse, delta, q_seg, kv_seg, scale, causal,
+                   out_dtype, window, kv_start):
+    return tuple(torch.empty(t.shape, device=t.device,
+                             dtype=t.dtype if out_dtype is None else out_dtype)
+                 for t in (q, k, v))
+
+
+def _forward_lse(q, k, v, scale, causal, window, kv_start, q_seg, kv_seg):
+    """K4 for CUDA tensors, the plain version for CPU tensors. Returns
+    ``(out, lse)``."""
+    return _forward_lse_op(q, k, v, q_seg, kv_seg, scale, causal, window,
+                           kv_start)
+
+
+def _backward(q, k, v, do, lse, delta, scale, causal, out_dtype, window,
+              kv_start, q_seg, kv_seg):
+    """K6 then K7 for CUDA tensors, the plain version for CPU tensors."""
+    return _backward_op(q, k, v, do, lse, delta, q_seg, kv_seg, scale,
+                        causal, out_dtype, window, kv_start)
 
 
 # K3 as a registered operator: an exported program (``export.py``) keeps
@@ -554,3 +610,35 @@ def flash_attention_bwd(q, k, v, do, lse, delta,
     q_seg, kv_seg = _norm_segments(segment_ids)
     return _backward(q, k, v, do, lse, delta, scale, causal, out_dtype,
                      window, int(kv_start), q_seg, kv_seg)
+
+
+# ---------------------------------------------------------------------------
+# FLOP formulas of the operators, for torch.utils.flop_counter
+# (``utils/profiling.py:step_flops``): the dense-equivalent count, what the
+# same attention differentiated as dense matrix products does — the
+# forward's QKᵀ and PV (2 products of 2·B·H·Sq·Skv·D), the backward's
+# dP, dS·K, dSᵀ·Q and Pᵀ·dO (4 more). The kernels' own recomputation of the
+# scores in the backward is not counted, and masked blocks count in full
+# (the JAX package's ``block_flops_probe`` ``bf_true``).
+# ---------------------------------------------------------------------------
+
+
+def _product_flops(q_shape, k_shape) -> int:
+    b, sq, h, d = q_shape
+    return 2 * b * h * sq * k_shape[1] * d
+
+
+def _register_flop_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula([torch.ops.dml_torch.flash_attention_out,
+                            torch.ops.dml_torch.flash_attention_fwd_lse])
+    def _fwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs):
+        return 2 * _product_flops(q_shape, k_shape)
+
+    @register_flop_formula(torch.ops.dml_torch.flash_attention_bwd)
+    def _bwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs):
+        return 4 * _product_flops(q_shape, k_shape)
+
+
+_register_flop_formulas()

@@ -9,7 +9,9 @@ order: ``reshape(data, model, seq, pipe)`` puts ``seq`` fastest, so
 - ``data``: the batch is split over the data ranks, and the gradients are
   summed over the world (the all-reduce that stands in for ``psum``).
 - ``seq``: a ViT's tokens are split over the seq ranks of one data row,
-  whose K/V shards walk the ring (``parallel/ring_attention.py``).
+  whose K/V shards walk the ring (``parallel/ring_attention.py``) or are
+  re-partitioned from tokens to heads by an all-to-all
+  (``parallel/ulysses.py``).
 
 Every rank holds one process group per data row (its ring, ``"seq"``) and
 per seq column (its metric average, ``"data"``) — ``new_group`` is called
@@ -17,8 +19,9 @@ by every rank for every group, in one order. The collectives here take
 one of those names or ``"world"``.
 
 On the ``gloo`` backend a CUDA tensor goes through host memory explicitly
-(gloo's send/recv take no CUDA tensors); that is how several ranks share
-one card, which NCCL refuses. On ``nccl`` the collectives run on the cards.
+(gloo's send/recv and all-to-all take no CUDA tensors); that is how
+several ranks share one card, which NCCL refuses. On ``nccl`` the
+collectives run on the cards.
 """
 
 from __future__ import annotations
@@ -72,6 +75,54 @@ class Mesh:
         else:
             dist.all_reduce(t, group=group)
         return t
+
+    def all_to_all(self, t: torch.Tensor, over: str, split_axis: int,
+                   concat_axis: int) -> torch.Tensor:
+        """``lax.all_to_all(t, over, split_axis, concat_axis, tiled=True)``:
+        ``t`` is cut into ``n`` equal chunks along ``split_axis``, chunk
+        ``j`` goes to the group's rank ``j``, and the chunks received are
+        concatenated along ``concat_axis`` in rank order. Returns a new
+        contiguous tensor on ``t``'s device; not differentiable
+        (:func:`all_to_all` is)."""
+        n = self.size(over)
+        if n == 1:
+            return t
+        shape = list(t.shape)
+        if shape[split_axis] % n:
+            raise ValueError(f"dim {split_axis} of size {shape[split_axis]} "
+                             f"does not split over {n} ranks")
+        # [..., n, size/n, ...] with the chunk index first: all_to_all_single
+        # sends slice j of dim 0 to rank j.
+        shape[split_axis:split_axis + 1] = [n, shape[split_axis] // n]
+        x = t.reshape(shape).movedim(split_axis, 0).contiguous()
+        group = None if over == "world" else self.groups[over]
+        if self._staged(x):
+            host = x.cpu()
+            recv = torch.empty_like(host)
+            dist.all_to_all_single(recv, host, group=group)
+            recv = recv.to(t.device)
+        else:
+            recv = torch.empty_like(x)
+            dist.all_to_all_single(recv, x, group=group)
+        # recv[i] is rank i's chunk: put the rank index just before the
+        # concat dim and merge the two, rank-major.
+        rest = list(recv.shape[1:])
+        rest[concat_axis] *= n
+        return recv.movedim(0, concat_axis).reshape(rest).contiguous()
+
+    def all_gather(self, t: torch.Tensor, over: str, dim: int
+                   ) -> torch.Tensor:
+        """The group's ``t`` concatenated along ``dim`` in rank order
+        (``lax.all_gather(..., tiled=True)``); not differentiable."""
+        n = self.size(over)
+        if n == 1:
+            return t
+        group = None if over == "world" else self.groups[over]
+        src = t.detach().cpu() if self._staged(t) else t.detach()
+        src = src.contiguous()
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=group)
+        return torch.cat(parts, dim=dim).to(t.device)
 
     def barrier(self) -> None:
         if self.world > 1:
@@ -135,6 +186,31 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh, over: str) -> torch.Tensor:
     if mesh.size(over) == 1:
         return t
     return _AllReduceSum.apply(t, mesh, over)
+
+
+class _AllToAll(torch.autograd.Function):
+    """All-to-all forward; the reverse all-to-all (concat and split axes
+    swapped) backward, its transpose."""
+
+    @staticmethod
+    def forward(ctx, t, mesh: Mesh, over: str, split_axis: int,
+                concat_axis: int):
+        ctx.config = (mesh, over, split_axis, concat_axis)
+        return mesh.all_to_all(t, over, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, over, split_axis, concat_axis = ctx.config
+        return (mesh.all_to_all(grad, over, concat_axis, split_axis),
+                None, None, None, None)
+
+
+def all_to_all(t: torch.Tensor, mesh: Mesh, over: str, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """Differentiable :meth:`Mesh.all_to_all`."""
+    if mesh.size(over) == 1:
+        return t
+    return _AllToAll.apply(t, mesh, over, split_axis, concat_axis)
 
 
 def build_mesh(cfg: Optional[ParallelConfig] = None) -> Mesh:

@@ -23,7 +23,19 @@ loss from the same pooled features, and the pool's all-reduce sums the
 gradient back over the seq ranks, so every leaf (token-side and post-pool
 alike) arrives ``seq`` times over before the ``1/world`` share. The loss
 and accuracy metrics are averaged over the data group; the eval step sums
-``correct`` over it. Staleness emulation is not ported.
+``correct`` over it.
+
+Within a step (JAX ``parallel/step.py:311-414``): ``grad_accum`` A > 1
+splits the batch into A microbatches, sums their gradients in order,
+divides by A and applies ONE update (the update kernel still launches
+once a step); the metrics are the microbatches' mean. ``async_staleness``
+S >= 2 takes the gradients at the snapshot in slot ``step % S`` of the
+optimizer state's ring (S − 1 updates old), applies them to the live
+parameters, and writes the updated parameters into that slot; the slot is
+a device tensor, so a captured step reads it on the card. The gradient
+and the update run inside ``torch.profiler.record_function("fwd_bwd")``
+and ``("optimizer")``, the JAX package's scope names, which a profile
+window (``utils/devprof.py``) attributes device time by.
 
 Chunked dispatch, one process (``TrainConfig.steps_per_dispatch``):
 :func:`make_train_chunk` (host-fed raw uint8 chunks) and
@@ -132,27 +144,65 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
     global batch's."""
     f32_parity()
     world = 1 if mesh is None else mesh.world
+    accum = max(1, optim_cfg.grad_accum)
+    staleness = max(0, optim_cfg.async_staleness)
+
+    def grads_and_metrics(params, names, images, labels):
+        logits = functional_call(model, params, (images,))
+        loss = loss_lib.softmax_cross_entropy(
+            logits, labels, optim_cfg.label_smoothing)
+        # The update kernels take contiguous leaves; a kernel that
+        # reaches its layer through a permute (the ViT's HWIO patch
+        # embed) gets its gradient back as a permuted view.
+        grads = [g.contiguous() for g in torch.autograd.grad(
+            loss / world if world > 1 else loss,
+            [params[n] for n in names])]
+        return grads, loss.detach(), metrics_lib.batch_accuracy(logits,
+                                                                labels)
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         names = list(state.params)
-        with torch.enable_grad():
-            logits = functional_call(model, state.params, (images,))
-            loss = loss_lib.softmax_cross_entropy(
-                logits, labels, optim_cfg.label_smoothing)
-            # The update kernels take contiguous leaves; a kernel that
-            # reaches its layer through a permute (the ViT's HWIO patch
-            # embed) gets its gradient back as a permuted view.
-            grads = [g.contiguous() for g in torch.autograd.grad(
-                loss / world if world > 1 else loss,
-                [state.params[n] for n in names])]
-        with torch.no_grad():
+        if staleness >= 2:
+            slot = (state.opt["step"] % staleness).long().reshape(1)
+            fwd = {n: torch.index_select(state.opt["stale"][n], 0, slot)[0]
+                   .requires_grad_() for n in names}
+        else:
+            fwd = state.params
+        with torch.profiler.record_function("fwd_bwd"), \
+                torch.enable_grad():
+            if accum == 1:
+                grads, loss, acc = grads_and_metrics(fwd, names, images,
+                                                     labels)
+            else:
+                b = images.shape[0]
+                if b % accum:
+                    raise ValueError(
+                        f"batch {b} not divisible by grad_accum {accum}")
+                grads = loss = acc = None
+                for ims, lbs in zip(images.split(b // accum),
+                                    labels.split(b // accum)):
+                    g, l, a = grads_and_metrics(fwd, names, ims, lbs)
+                    if grads is None:
+                        grads, loss, acc = g, l, a
+                    else:
+                        grads = [x + y for x, y in zip(grads, g)]
+                        loss, acc = loss + l, acc + a
+                grads = [g / accum for g in grads]
+                loss, acc = loss / accum, acc / accum
             if world > 1:
-                _sum_grads(grads, mesh)
-            loss_m, acc = _data_mean(
-                [loss.detach(), metrics_lib.batch_accuracy(logits, labels)],
-                mesh)
+                with torch.no_grad():
+                    _sum_grads(grads, mesh)
+        with torch.no_grad():
+            loss_m, acc = _data_mean([loss, acc], mesh)
+        with torch.profiler.record_function("optimizer"), torch.no_grad():
             optim_lib.sgd_update(dict(zip(names, grads)), state.opt,
                                  state.params, optim_cfg)
+            if staleness >= 2:
+                # The slot just consumed receives the updated params (the
+                # worker pushes its apply and fetches again).
+                for n in names:
+                    state.opt["stale"][n].index_copy_(
+                        0, slot, state.params[n].detach()[None])
         return state, {"loss": loss_m, "accuracy": acc}
 
     return step

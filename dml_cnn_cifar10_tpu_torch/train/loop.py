@@ -41,15 +41,32 @@ past the size cap it ships raw uint8 chunks. The cadences and the steps
 to run must be multiples of K. Several processes with K > 1 raise:
 capturing NCCL collectives in the graph is not ported.
 
-Left out: the supervisor, peers, fault injection, the autopilot, and
-exact-resume data order on the host streams (a resumed run restarts the
-host data stream from its seed, as the reference's MonitoredTrainingSession
-restart does).
+Exact resume (JAX ``train/loop.py:449-455,702-727``): every checkpoint
+gets a ``data_state_{step}.json`` sidecar with the batches each host
+stream (train, fresh-batch accuracy, single-batch test) has consumed, and
+a resumed run skips its streams past them (``skip_batches``, replaying
+the augmentation draws the host decode makes), so the eager, host-index
+and host-fed runs continue their data order exactly, as the device index
+stream does by construction.
+
+Run telemetry, all on numbers the host already has (JAX
+``train/loop.py:752-1055``): each ``train`` record carries
+``device_step_ms`` and ``drain_wait_ms`` (``utils/devprof.py``
+``DeviceStepEstimator``: two clock reads around the boundary's one fetch),
+``tflops_per_sec_per_chip`` (the step's FLOPs, counted once at start by
+``utils/profiling.py:step_flops``, times the steps a second) and, with
+``peak_tflops``, ``mfu``; the first also carries ``flops_stack``, what the
+count means. ``profile_at_steps`` arms a torch.profiler window whose trace
+becomes ``devtime`` records, and later ``train`` records carry its
+``optimizer_ms``.
+
+Left out: the supervisor, peers, fault injection and the autopilot.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Optional
 
@@ -65,6 +82,7 @@ from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
 from dml_cnn_cifar10_tpu_torch.parallel import multihost
 from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
 from dml_cnn_cifar10_tpu_torch.train import optim as optim_lib
+from dml_cnn_cifar10_tpu_torch.utils import devprof, profiling
 from dml_cnn_cifar10_tpu_torch.utils.logging import MetricsLogger
 from dml_cnn_cifar10_tpu_torch.utils.platform import (default_backend,
                                                       rank_device)
@@ -204,6 +222,19 @@ class Trainer:
                     and getattr(train_it, "supports_index_stream", False)
                     and _split_bytes(train_it)
                     <= cfg.resident_data_max_bytes)
+        # Exact resume: skip each host stream past what the checkpointed
+        # run consumed (its data_state sidecar). Only the eager path
+        # decodes training batches on the host (their augmentation draws
+        # replay); the accuracy stream does unless resident.
+        base = {"train": 0, "acc": 0, "test": 0}
+        prior = (ckpt_lib.load_data_state(cfg.log_dir, start_step)
+                 if start_step > 0 else None)
+        if prior:
+            base.update({name: int(prior.get(name, 0)) for name in base})
+            train_it.skip_batches(base["train"], aug=(k == 1))
+            acc_it.skip_batches(base["acc"], aug=not resident)
+            test_it.skip_batches(base["test"])
+        consumed = {"acc": 0, "test": 0}
         if resident:
             # The uint8 splits live on the device; a chunk gathers and
             # decodes its rows there (parallel/step.py).
@@ -272,72 +303,124 @@ class Trainer:
         ckpt_mgr = ckpt_lib.CheckpointManager(
             cfg.log_dir, cfg.checkpoint_every, keep=cfg.keep_checkpoints,
             mesh=self.mesh)
+
+        def data_state(step):
+            return {"train": base["train"] + step - start_step,
+                    "acc": base["acc"] + consumed["acc"],
+                    "test": base["test"] + consumed["test"]}
+
         metrics = None
         # Throughput windows run between drained boundaries and skip the
-        # boundary work (eval, checkpoint) itself.
-        mark_t, mark_step = None, start_step
+        # boundary work (eval, checkpoint) itself; the device step-time
+        # estimate shares their marks.
+        meter = profiling.DrainMeter(cfg.batch_size)
+        dev_est = devprof.DeviceStepEstimator()
+        devwin = devprof.ProfileWindow.from_config(cfg, logger=self.logger)
+        # One step's FLOPs on this rank and what the figure means, counted
+        # once (utils/profiling.py); none when the count fails.
+        try:
+            flops, flops_label = profiling.step_flops(
+                cfg, data=self.mesh.data, seq=self.mesh.seq)
+        except Exception as e:      # telemetry must not stop a run
+            print(f"[profiling] step FLOP count failed: {e!r}; no "
+                  "TFLOP/s or MFU in this run", file=sys.stderr)
+            flops, flops_label = None, "count_failed"
         run_t0 = None
 
         print("Starting Training")  # parity: cifar10cnn.py:225
         i = 0  # local step, like the reference's `i` (cifar10cnn.py:224)
         global_step = start_step
         try:
-            while global_step < total_steps:
-                state, metrics = step_fn(state, *next(prefetch))
-                global_step += k
-                if run_t0 is None:
-                    # First dispatch done enqueueing: one-time set-up (CUDA
-                    # context, cuDNN plans, the graph's capture) is behind
-                    # us.
-                    run_t0 = mark_t = time.perf_counter()
-                    mark_step = global_step
-                drained = False
-                if (i + k) % cfg.output_every == 0:
-                    if acc_eval is not None:
-                        acc_t = acc_eval(state, self._index(
-                            acc_it.next_index_chunk(1)[0]))
-                    else:
-                        acc_t = self.eval_step(
-                            state, *self._placed(next(acc_it)))["accuracy"]
-                    fetched = torch.stack([metrics["loss"], acc_t]).tolist()
-                    boundary_check()
-                    now = time.perf_counter()
-                    rate = ((global_step - mark_step) * cfg.batch_size
-                            / max(now - mark_t, 1e-9))
-                    loss, acc = fetched
-                    self.logger.train_print(global_step, i + k - 1, acc)
-                    self.logger.log(
-                        "train", step=global_step, loss=loss,
-                        train_accuracy=acc, images_per_sec=rate,
-                        lr=_current_lr(cfg, global_step),
-                        # Device-side step estimates and the optimizer
-                        # profile are not ported: null, never a host number.
-                        device_step_ms=None, drain_wait_ms=None,
-                        optimizer_ms=None)
-                    drained = True
-                if (i + k) % cfg.eval_every == 0:
-                    boundary_check()
-                    ta = self.evaluate(state, test_it)
-                    self.logger.eval_print(ta)
-                    self.logger.log("eval", step=global_step,
-                                    test_accuracy=ta)
-                    drained = True
-                if ckpt_mgr.due(global_step):
-                    boundary_check()
-                if ckpt_mgr.maybe_save(state, global_step):
-                    drained = True
-                if drained:
-                    mark_t, mark_step = time.perf_counter(), global_step
-                i += k
+            # A profile window owns the profiler when armed; else
+            # profile_dir alone captures the whole loop.
+            with profiling.profile_trace(
+                    cfg.profile_dir if devwin is None else None):
+                while global_step < total_steps:
+                    if devwin is not None:
+                        devwin.maybe_start(global_step)
+                    state, metrics = step_fn(state, *next(prefetch))
+                    global_step += k
+                    if run_t0 is None:
+                        # First dispatch done enqueueing: one-time set-up (CUDA
+                        # context, cuDNN plans, the graph's capture) is behind
+                        # us.
+                        run_t0 = time.perf_counter()
+                        meter.mark(global_step)
+                        dev_est.mark(global_step)
+                    drained = False
+                    if (i + k) % cfg.output_every == 0:
+                        if acc_eval is not None:
+                            acc_t = acc_eval(state, self._index(
+                                acc_it.next_index_chunk(1)[0]))
+                        else:
+                            acc_t = self.eval_step(
+                                state, *self._placed(next(acc_it)))["accuracy"]
+                        consumed["acc"] += 1
+                        # The boundary's one device read; the clock reads
+                        # around it feed the device step-time estimate.
+                        t_drain0 = time.perf_counter()
+                        loss, acc = torch.stack([metrics["loss"],
+                                                 acc_t]).tolist()
+                        t_drain1 = time.perf_counter()
+                        boundary_check()
+                        device_step_ms, drain_wait_ms = dev_est.boundary(
+                            global_step, t_drain0, t_drain1)
+                        rate = meter.rate(global_step)
+                        perf = {}
+                        if flops and rate > 0:
+                            tf = flops * (rate / cfg.batch_size) / 1e12
+                            perf["tflops_per_sec_per_chip"] = round(tf, 3)
+                            if cfg.peak_tflops:
+                                perf["mfu"] = round(tf / cfg.peak_tflops, 4)
+                        if flops_label is not None:
+                            # Once, outside the rate guard: what the count
+                            # means (utils/profiling.py).
+                            perf["flops_stack"] = flops_label
+                            flops_label = None
+                        self.logger.train_print(global_step, i + k - 1, acc)
+                        self.logger.log(
+                            "train", step=global_step, loss=loss,
+                            train_accuracy=acc, images_per_sec=rate,
+                            lr=_current_lr(cfg, global_step),
+                            device_step_ms=device_step_ms,
+                            drain_wait_ms=drain_wait_ms,
+                            optimizer_ms=(devwin.optimizer_step_ms
+                                          if devwin is not None else None),
+                            **perf)
+                        drained = True
+                    if (i + k) % cfg.eval_every == 0:
+                        boundary_check()
+                        ta = self.evaluate(state, test_it)
+                        if not cfg.eval_full_test_set:
+                            consumed["test"] += 1
+                        self.logger.eval_print(ta)
+                        self.logger.log("eval", step=global_step,
+                                        test_accuracy=ta)
+                        drained = True
+                    if ckpt_mgr.due(global_step):
+                        boundary_check()
+                    if ckpt_mgr.maybe_save(state, global_step,
+                                           data_state=data_state(global_step)):
+                        drained = True
+                    if drained:
+                        # The next window starts after this boundary's work.
+                        meter.mark(global_step)
+                        dev_est.mark(global_step)
+                    if devwin is not None:
+                        devwin.maybe_stop(global_step, drained=drained)
+                    i += k
             avg_rate = 0.0
             if run_t0 is not None:
                 float(metrics["loss"])  # waits for the last step
                 avg_rate = ((global_step - start_step) * cfg.batch_size
                             / max(time.perf_counter() - run_t0, 1e-9))
             boundary_check()
-            ckpt_mgr.maybe_save(state, global_step, force=True)
+            ckpt_mgr.maybe_save(state, global_step, force=True,
+                                data_state=data_state(global_step))
             self.logger.log("done", step=global_step, images_per_sec=avg_rate)
         finally:
+            if devwin is not None:
+                devwin.close(global_step)
             prefetch.close()
             self.logger.flush()
         return TrainResult(global_step, avg_rate, state)

@@ -118,6 +118,37 @@ def ring_cases(rank, world, seq, cases):
     return res
 
 
+def ulysses_cases(rank, world, seq, cases):
+    """Each case: ``(name, q, k, v, seg, kw)`` global ``[B, S, H, D]``
+    arrays and ``[B, S]`` segment ids or None (float32, or with
+    ``kw["dtype"] == "bfloat16"`` cast to bf16). This rank takes its data
+    rank's batch rows and its seq shard, runs Ulysses attention forward
+    and the backward of ``sum(sin(out))``, and returns ``{name: (out, dq,
+    dk, dv)}`` of its shard as float32 arrays."""
+    from dml_cnn_cifar10_tpu_torch.config import ParallelConfig
+    from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import ulysses
+
+    mesh = mesh_lib.build_mesh(ParallelConfig(seq_axis=seq))
+    res = {}
+    for name, q, k, v, seg, kw in cases:
+        kw = dict(kw)
+        dtype = getattr(torch, kw.pop("dtype", "float32"))
+        b = q.shape[0] // mesh.data
+        rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+        s = q.shape[1] // seq
+        cols = slice(mesh.seq_rank * s, (mesh.seq_rank + 1) * s)
+        shards = [torch.tensor(a[rows, cols]).to(dtype).requires_grad_()
+                  for a in (q, k, v)]
+        if seg is not None:
+            kw["segment_ids"] = torch.tensor(seg[rows, cols])
+        out = ulysses.ulysses_attention_local(*shards, mesh, **kw)
+        torch.sin(out.float()).sum().backward()
+        res[name] = tuple(t.detach().float().numpy()
+                          for t in (out, *(x.grad for x in shards)))
+    return res
+
+
 def all_reduce_grad(rank, world):
     """The differentiable all-reduce: forward sum, backward sum."""
     from dml_cnn_cifar10_tpu_torch.config import ParallelConfig

@@ -26,6 +26,15 @@ torch.set_num_threads(2)
 OUT_TOL, LSE_TOL, GRAD_TOL, BF16_TOL = 5e-6, 1e-5, 5e-5, 0.05
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _warm_cpu_exp():
+    """One ``torch.exp`` before the module's tests: with torch 2.13.0+cpu
+    (MKL 2024.2, AVX-512) the first ``exp`` of a freshly started worker
+    process can be off by 1.5e-4 relative when several workers start
+    together, and is exact from the second call on (ROADMAP.md Queue 3)."""
+    torch.exp(torch.linspace(-10.0, 0.0, 1 << 16))
+
+
 def _inputs(shape, seed, kv_len=None, n=3):
     rng = np.random.default_rng(seed)
     kv_shape = shape if kv_len is None else (shape[0], kv_len, *shape[2:])

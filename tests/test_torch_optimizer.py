@@ -169,12 +169,21 @@ def test_learning_rate_matches_jax(kw):
 
 
 def test_other_optimizer_families_raise():
-    params = {"w": torch.zeros(3)}
-    for name in ("lars", "lamb", "adafactor"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            optim.sgd_init(params, OptimConfig(optimizer=name))
-    with pytest.raises(ValueError, match="momentum"):
-        optim.sgd_init(params, OptimConfig(optimizer="adamw", momentum=0.9))
+    """The families without a momentum knob refuse one (as the JAX
+    package's do), and an unknown family raises; lars, lamb and adafactor
+    build the JAX package's state keys (their updates are held to JAX in
+    ``tests/test_torch_optim_surface.py``)."""
+    params = {"w": torch.zeros(3), "k": torch.zeros(4, 5)}
+    for name in ("adamw", "lamb", "adafactor"):
+        with pytest.raises(ValueError, match="momentum"):
+            optim.sgd_init(params, OptimConfig(optimizer=name, momentum=0.9))
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        optim.sgd_init(params, OptimConfig(optimizer="adagrad"))
+    keys = {name: sorted(optim.sgd_init(params, OptimConfig(optimizer=name)))
+            for name in ("lars", "lamb", "adafactor")}
+    assert keys == {"lars": ["momentum", "step"],
+                    "lamb": ["mu", "nu", "step"],
+                    "adafactor": ["step", "v", "vc", "vr"]}
 
 
 @pytest.mark.parametrize("wd", [0.0, 0.05])

@@ -172,7 +172,8 @@ def test_two_rank_cli_checkpoint_restores_in_one_process(tmp_path, capsys):
             "--dist_backend", "gloo", "--metrics_jsonl", jsonl])
     assert rcs == [0, 0]
     logs = sorted(os.listdir(tmp_path / "logs"))
-    assert logs == ["checkpoint", "ckpt_20.msgpack", "ckpt_20.msgpack.sha256"]
+    assert logs == ["checkpoint", "ckpt_20.msgpack", "ckpt_20.msgpack.sha256",
+                    "data_state_20.json"]
     with open(jsonl) as f:
         lines = f.read().splitlines()
     assert lines and all('"task": 0' in l for l in lines)   # chief only
