@@ -189,13 +189,14 @@ Then the slice of Ulysses, telemetry and the optimizer surface:
             ``tflops_per_sec_per_chip`` and ``mfu`` (``--peak_tflops`` 67
             on the f32 paths, 989 on the bf16 ones); each path's TFLOP/s
             and MFU printed with the card. Then ``--profile_at_steps
-            30:10`` on 60 CNN steps, eager and chunked: ``devtime``
-            records; the chunked window's ``optimizer_ms`` (K1 by name: a
-            graph replay has no range) within 2x of K1's device time in
-            phase 9b's replays, the eager one's (the ``optimizer``
-            range: the LR schedule, K1, the step counter) within 2x of
-            one update's device time, and the eager window's compute per
-            step within 25% of phase 9's device time.
+            30:10`` on 60 CNN steps, eager and chunked, with SGD, AdamW
+            and LARS: ``devtime`` records; the eager SGD window's
+            ``optimizer_ms`` (the ``optimizer`` range: the LR schedule,
+            K1, the step counter) within 2x of one update's device time
+            and its compute per step within 25% of phase 9's device time;
+            each chunked window's (a replay has no range: the replayed
+            kernels that the graph's profiled warm-up ran inside it) above
+            0 and within 2x of its optimizer's eager window.
 29. optimizer  100 CNN steps each with ``--grad_clip_norm 1 --momentum
             0.9`` (K2 once a step), ``--grad_accum 2`` (K1 once a step),
             ``--async_staleness 2`` (K1 once a step) and ``--optimizer
@@ -206,12 +207,41 @@ Then the slice of Ulysses, telemetry and the optimizer surface:
             a resume against 100 steps: the same losses and step-100
             checkpoint, bit for bit. Numbers in ``OUT/slice10.json``.
 
-``--dist`` runs the build and phases 18-21 alone over NCCL on two or more
-cards, with 4 ranks beside 2 given four cards: SP data 2 x seq 2 against
-its 2 data ranks without the ring, and the DP CNN on 4 ranks; given three
-or more cards, phases 26-27 over NCCL on 3 of them.
+Then chunked dispatch over several ranks:
+30. dp chunk gloo  the DP CNN on 2 rank processes over gloo on this card,
+            2 x 64 images, ``--steps_per_dispatch 10``, 100 steps: each
+            chunk runs its eager body (gloo stages each collective through
+            host memory, which no CUDA graph can hold), as the ranks'
+            ``[dist]`` lines say; K1 once a step per rank, equal parameter
+            digests, every logged loss (each chunk's) within 1e-3
+            relative of a one-rank chunked run at batch 128 (same seed,
+            rows, augmentation draws and steps) that sums the ranks'
+            halves as they do (``--grad_accum 2``), cuDNN deterministic;
+            the run summing 128 at once printed beside it. Numbers in
+            ``OUT/slice11.json``.
+31. chunk nccl  (``--dist`` only) each chunk one CUDA graph replay with
+            its NCCL collectives captured: the DP CNN on 2 and 4 ranks, K
+            = 10, 500 steps (K1 = 500 per rank in 50 replays, the
+            warm-up's 10 apart; equal digests; no index-stream miss); ring
+            SP at seq 2 on phase 19's recipe and Ulysses at seq 3 on
+            phase 27's, K = 5, 10 steps (per-rank K3-K7 as in phases 19
+            and 27). On every rank one graphed chunk against the eager
+            body from the trained state, cuDNN deterministic (the replay
+            launches what the body launches; DP loss 1e-6 relative and
+            params 1e-5, as phase 9b; SP loss 1e-5 relative), then replays
+            timed and traced: ms/step, the device's busy share (the union
+            of its kernels over every stream), the NCCL kernels' time, no
+            host-to-device copy. Each path's ms/step is printed beside its
+            per-step NCCL run of the same call.
 
-The lines before the last are ``{"kernels": [...]}`` (K3 three times:
+``--dist`` runs the build, phase 31, then phases 18-21 over NCCL on two
+or more cards, with 4 ranks beside 2 given four cards: SP data 2 x seq 2
+against its 2 data ranks without the ring, and the DP CNN on 4 ranks;
+given three or more cards, phases 26-27 (and phase 31's Ulysses run)
+over NCCL on 3 of them.
+
+The lines before the last are ``{"kernels": [...]}`` (K1 twice: its main
+path row and phase 30's with ``"path": "dp_chunk"``; K3 three times:
 its training row, its serving row with ``"path": "serve"`` and its Ulysses
 row; K4, K6 and K7 twice, with a ``"path": "ulysses"`` row) and the card's
 name and power limit; the last line is
@@ -221,8 +251,9 @@ passing run); the run's metrics JSONL files, the profiles, ``chunk.json``
 (phase 9b), ``vit.json``
 (the ViT phases' numbers), ``serve.json`` (phases 22-25), ``dist.json``
 (phases 16-21;
-``dist_nccl.json`` under ``--dist``) and the ranks' logs are written to
-the output directory ``OUT``.
+``dist_nccl.json`` under ``--dist``, with phase 31), ``slice10.json``
+(phases 26-29), ``slice11.json`` (phase 30) and the ranks' logs are
+written to the output directory ``OUT``.
 """
 
 from __future__ import annotations
@@ -457,15 +488,15 @@ CHUNK_K = 10
 CHUNK_LOSS_TOL, CHUNK_PARAM_TOL = 1e-6, 1e-5
 
 
-def _cnn_copies(cfg, state, n):
-    """``n`` (model, state) pairs of the CNN holding ``state``'s values."""
+def _state_copies(cfg, state, n, mesh=None):
+    """``n`` (model, state) pairs of ``cfg``'s model (over ``mesh``)
+    holding ``state``'s values, on its device."""
     from dml_cnn_cifar10_tpu_torch.models.registry import get_model
     from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
     out = []
     for _ in range(n):
-        model = get_model(cfg.model.name)(cfg.model, cfg.data)
-        st = step_lib.init_train_state(model, cfg.optim,
-                                       torch.device("cuda"))
+        model = get_model(cfg.model.name)(cfg.model, cfg.data, mesh=mesh)
+        st = step_lib.init_train_state(model, cfg.optim, state.step.device)
         with torch.no_grad():
             for a, b in zip(step_lib._state_tensors(st),
                             step_lib._state_tensors(state)):
@@ -480,22 +511,37 @@ def _gaps(a, b):
                for x, y in zip(a.params.values(), b.params.values()))
 
 
-def _graph_vs_eager(cfg, state, ds_images, ds_labels, deterministic):
-    """One graphed chunk of the device-stream resident path against the
-    same chunk body run eagerly, twice, each from a copy of ``state``;
-    returns the gaps, the graphed callable and its state."""
+def _launched(fn):
+    """``fn()``'s result and the kernel launches it counted."""
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+    before = {**fa.LAUNCHES, **fused.LAUNCHES}
+    out = fn()
+    after = {**fa.LAUNCHES, **fused.LAUNCHES}
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+
+
+def _graph_vs_eager(cfg, state, ds_images, ds_labels, deterministic,
+                    k=None, mesh=None):
+    """One graphed chunk of the device-stream resident path (``k`` steps,
+    ``CHUNK_K`` by default, over ``mesh``) against the same chunk body
+    run eagerly, twice, each from a copy of ``state``; returns the gaps
+    and each run's launches, the graphed callable and its state."""
     from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = deterministic
     try:
-        copies = _cnn_copies(cfg, state, 3)
+        copies = _state_copies(cfg, state, 3, mesh)
         fns = [step_lib.make_train_chunk_resident(
             m, cfg.optim, ds_images, ds_labels, data_cfg=cfg.data,
-            index_stream=(cfg.data.seed, cfg.batch_size, CHUNK_K))
+            index_stream=(cfg.data.seed, cfg.batch_size, k or CHUNK_K),
+            mesh=mesh)
             for m, _ in copies]
         (_, s_g), (_, s_e), (_, s_e2) = copies
-        losses = [float(fns[0](s_g)[1]["loss"]),
-                  float(fns[1].eager(s_e)[1]["loss"]),
+        (_, m_g), graph_launches = _launched(lambda: fns[0](s_g))
+        (_, m_e), eager_launches = _launched(lambda: fns[1].eager(s_e))
+        losses = [float(m_g["loss"]), float(m_e["loss"]),
                   float(fns[2].eager(s_e2)[1]["loss"])]
         fns[0].check()
     finally:
@@ -504,7 +550,9 @@ def _graph_vs_eager(cfg, state, ds_images, ds_labels, deterministic):
              "loss_gap": abs(losses[0] - losses[1]),
              "param_gap": _gaps(s_g, s_e),
              "eager_eager_loss_gap": abs(losses[1] - losses[2]),
-             "eager_eager_param_gap": _gaps(s_e, s_e2)}, fns[0], s_g)
+             "eager_eager_param_gap": _gaps(s_e, s_e2),
+             "launches_graph": graph_launches,
+             "launches_eager": eager_launches}, fns[0], s_g)
 
 
 def _vit_chunk_check(card) -> dict:
@@ -2753,20 +2801,29 @@ def telemetry_check(paths: dict, card: str) -> dict:
     return res
 
 
+# Phase 28's profile windows: optimizer -> its flags. Each runs eager and
+# chunked (one graph replay a chunk of CHUNK_K steps).
+DEVTIME_OPTIMIZERS = {
+    "sgd": [],
+    "adamw": ["--optimizer", "adamw", "--learning_rate", "0.001"],
+    "lars": ["--optimizer", "lars", "--learning_rate", "0.1"],
+}
+
+
 def devtime_phase(base, card, k1_device_ms, k1_replay_ms,
                   eager_busy_ms) -> dict:
-    """Phase 28's profile windows on the CNN main path: eager and chunked
-    (graph replay), 60 steps each, ``--profile_at_steps 30:10``. Each
-    writes ``devtime`` records. The chunked window counts the update
-    kernels by name (a replay has no ``optimizer`` range): its
-    ``optimizer_ms`` is within 2x of K1's device time in phase 9b's
-    replays (the same graph; phase 4's K1, timed alone with its leaves in
-    L2, reads about half of it: printed). The eager
-    window counts the kernels inside the step's ``optimizer`` range: K1
-    and the LR schedule's and step counter's small kernels, so it is held
-    within 2x of one ``sgd_update``'s device time, measured here, with
-    K1's share printed; its compute per step is within 25% of phase 9's
-    device time."""
+    """Phase 28's profile windows on the CNN main path, 60 steps each,
+    ``--profile_at_steps 30:10``, eager and chunked (graph replay), with
+    SGD, AdamW and LARS. Each writes ``devtime`` records. The eager window
+    counts the kernels inside the step's ``optimizer`` range; for SGD
+    those are K1 and the LR schedule's and step counter's small kernels,
+    held within 2x of one ``sgd_update``'s device time, measured here,
+    with K1's share printed, and its compute per step is within 25% of
+    phase 9's device time. A replay has no range: the chunked window
+    counts the replayed kernels that the graph's profiled warm-up ran
+    inside the range (the update's, whatever the optimizer), held above 0
+    and within 2x of the same optimizer's eager window; K1's device time
+    in phase 9b's replays is printed beside SGD's."""
     from dml_cnn_cifar10_tpu_torch.config import (DataConfig, ModelConfig,
                                                   OptimConfig)
     from dml_cnn_cifar10_tpu_torch.models.cnn import CNN
@@ -2785,58 +2842,68 @@ def devtime_phase(base, card, k1_device_ms, k1_replay_ms,
     print(f"[devtime] one sgd_update (the fixed recipe's LR schedule, K1, "
           f"the step counter): {update_ms:.5f} ms of device time in "
           f"{len(update)} kernels, K1 {k1_device_ms} ms of it", flush=True)
-    res = {"update_device_ms": update_ms, "update_kernels": sorted(update)}
-    for label, extra in (("eager", []),
-                         ("chunked", ["--steps_per_dispatch", "10"])):
-        log = os.path.join(WORK, f"logs_devtime_{label}")
-        jsonl = os.path.join(WORK, f"devtime_{label}.jsonl")
-        run_cli(base + extra + ["--log_dir", log, "--total_steps", "60",
-                                "--output_every", "10", "--eval_every",
-                                "1000", "--checkpoint_every", "1000",
-                                "--profile_at_steps", "30:10",
-                                "--metrics_jsonl", jsonl])
-        recs = records(jsonl)
-        dev = [r for r in recs if r["kind"] == "devtime"]
-        check(dev and all(r["step"] == 40 for r in dev),
-              f"{label}: devtime records {dev}")
-        lane = max(dev, key=lambda r: r["compute_ms"])
-        opt_ms = [r["optimizer_ms"] for r in recs
-                  if r["kind"] == "train" and r["step"] > 40]
-        check(opt_ms and opt_ms[0] is not None,
-              f"{label}: train records after the window carry "
-              f"optimizer_ms {opt_ms}")
-        traces = os.listdir(os.path.join(log, "devprof"))
-        with open(os.path.join(log, "devprof", traces[0])) as f:
-            cats = {e.get("cat") for e in json.load(f)["traceEvents"]}
-        compute = lane["compute_ms"] / 10
-        top = lane["top_ops"][:3]
-        want_ms = update_ms if label == "eager" else k1_replay_ms
-        check(0.5 <= opt_ms[0] / want_ms <= 2.0,
-              f"{label}: optimizer_ms {opt_ms[0]} against "
-              f"{'one update' if label == 'eager' else 'K1'}'s device "
-              f"{want_ms} ms")
-        if label == "eager":
-            check(abs(compute / eager_busy_ms - 1) <= 0.25,
-                  f"eager window compute {compute} ms/step against phase "
-                  f"9's device {eager_busy_ms} ms/step")
-        res[label] = {"lanes": [r["device"] for r in dev],
-                      "compute_ms_per_step": compute,
-                      "collective_ms": lane["collective_ms"],
-                      "infeed_ms": lane["infeed_ms"],
-                      "optimizer_ms_per_step": opt_ms[0],
-                      "held_to_ms": want_ms,
-                      "scope_on_device": "gpu_user_annotation" in cats,
-                      "top_ops": lane["top_ops"][:5]}
-        shutil.copy(jsonl, OUT)
-        print(f"[devtime] {label}: lanes {res[label]['lanes']}; compute "
-              f"{compute:.4f} ms/step (phase 9's device {eager_busy_ms:.4f}),"
-              f" infeed {lane['infeed_ms']} ms, optimizer_ms "
-              f"{opt_ms[0]} ms/step against {want_ms:.5f} ("
-              f"{opt_ms[0] / k1_device_ms:.2f}x phase 4's K1 alone; the "
-              f"update's annotation on the device: "
-              f"{res[label]['scope_on_device']});"
-              f" top {[(o['name'][:40], o['dur_ms']) for o in top]}; on "
-              f"{card}", flush=True)
+    res = {"update_device_ms": update_ms, "update_kernels": sorted(update),
+           "k1_replay_ms": k1_replay_ms}
+    for opt_name, flags in DEVTIME_OPTIMIZERS.items():
+        eager_ms = None
+        for mode, extra in (("eager", []),
+                            ("chunked", ["--steps_per_dispatch",
+                                         str(CHUNK_K)])):
+            label = mode if opt_name == "sgd" else f"{opt_name} {mode}"
+            log = os.path.join(WORK, f"logs_devtime_{opt_name}_{mode}")
+            jsonl = os.path.join(WORK, f"devtime_{opt_name}_{mode}.jsonl")
+            run_cli(base + flags + extra + [
+                "--log_dir", log, "--total_steps", "60", "--output_every",
+                "10", "--eval_every", "1000", "--checkpoint_every", "1000",
+                "--profile_at_steps", "30:10", "--metrics_jsonl", jsonl])
+            recs = records(jsonl)
+            devs = [r for r in recs if r["kind"] == "devtime"]
+            check(devs and all(r["step"] == 40 for r in devs),
+                  f"{label}: devtime records {devs}")
+            lane = max(devs, key=lambda r: r["compute_ms"])
+            opt_ms = [r["optimizer_ms"] for r in recs
+                      if r["kind"] == "train" and r["step"] > 40]
+            check(opt_ms and opt_ms[0] is not None and opt_ms[0] > 0,
+                  f"{label}: train records after the window carry "
+                  f"optimizer_ms {opt_ms}")
+            traces = os.listdir(os.path.join(log, "devprof"))
+            with open(os.path.join(log, "devprof", traces[0])) as f:
+                cats = {e.get("cat") for e in json.load(f)["traceEvents"]}
+            compute = lane["compute_ms"] / 10
+            top = lane["top_ops"][:3]
+            if mode == "eager":
+                eager_ms = opt_ms[0]
+                want_ms = update_ms if opt_name == "sgd" else None
+            else:
+                want_ms = eager_ms
+            if want_ms is not None:
+                check(0.5 <= opt_ms[0] / want_ms <= 2.0,
+                      f"{label}: optimizer_ms {opt_ms[0]} against "
+                      f"{'one update' if mode == 'eager' else 'the eager window'}"
+                      f"'s device {want_ms} ms")
+            if label == "eager":
+                check(abs(compute / eager_busy_ms - 1) <= 0.25,
+                      f"eager window compute {compute} ms/step against "
+                      f"phase 9's device {eager_busy_ms} ms/step")
+            res[label] = {"lanes": [r["device"] for r in devs],
+                          "compute_ms_per_step": compute,
+                          "collective_ms": lane["collective_ms"],
+                          "infeed_ms": lane["infeed_ms"],
+                          "optimizer_ms_per_step": opt_ms[0],
+                          "held_to_ms": want_ms,
+                          "scope_on_device": "gpu_user_annotation" in cats,
+                          "top_ops": lane["top_ops"][:5]}
+            shutil.copy(jsonl, OUT)
+            print(f"[devtime] {label}: lanes {res[label]['lanes']}; compute "
+                  f"{compute:.4f} ms/step (phase 9's device "
+                  f"{eager_busy_ms:.4f}), infeed {lane['infeed_ms']} ms, "
+                  f"optimizer_ms {opt_ms[0]} ms/step against "
+                  f"{want_ms} ms ({opt_ms[0] / k1_device_ms:.2f}x phase "
+                  f"4's K1 alone; K1 in phase 9b's replays "
+                  f"{k1_replay_ms:.5f}; the update's annotation on the "
+                  f"device: {res[label]['scope_on_device']}); top "
+                  f"{[(o['name'][:40], o['dur_ms']) for o in top]}; on "
+                  f"{card}", flush=True)
     return res
 
 
@@ -2947,15 +3014,348 @@ def optim_phase(base, card) -> dict:
     return res
 
 
+# ---- chunked dispatch over several ranks (30-31) ------------------------
+
+# Phase 30 holds every logged loss of the 2-rank chunked DP CNN to a
+# one-rank chunked run of the same global batch, rows and augmentation
+# draws that sums its batch as the two ranks do: two microbatches of 64
+# (--grad_accum 2; halving a gradient is exact, so (g0 + g1) / 2 equals
+# g0/2 + g1/2), with cuDNN's deterministic algorithms on both sides. Then
+# the two agree up to the decode's rounding, as phase 19's gate
+# (SP_LOSS_TOL) reads it, relative here; on an H100 they agreed bit for
+# bit (PERF.md). A one-rank run that sums all 128 images in one pass is
+# printed beside it, not gated: 100 SGD steps carry its other summation
+# order far (2.4e-4 relative at step 10, 0.74 at step 40 on an H100).
+DP_CHUNK_LOSS_RTOL = 1e-3
+# Phase 31: the DP CNN's steps, and the chunk of the ring SP and Ulysses
+# long-context runs (their 10 steps in 2 replays).
+DIST_CHUNK_STEPS, SP_CHUNK_K = 500, 5
+
+
+def _rank_chunk(rank: int, job: dict) -> dict:
+    """A chunked run as this rank (``Trainer.fit`` on the CLI's config):
+    its launches, parameter digest, replays and index-stream misses; then
+    on the trained state one graphed chunk against the eager body (cuDNN
+    deterministic, ``_graph_vs_eager``) and ``job["reps"]`` replays timed
+    by the host clock, then traced on rank 0 (``device_timeline``; the
+    other ranks replay beside it). The graphs go before the process
+    group: they hold resources of the communicators they captured. Each
+    stage is printed to the rank's log as it ends."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.data import pipeline as pipe
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+    from dml_cnn_cifar10_tpu_torch.train import loop
+
+    def stage(name):
+        print(f"[chunk rank {rank}] {name} done", flush=True)
+
+    cfg = config_from_args(build_parser().parse_args(
+        job["argv"] + ["--task_index", str(rank)]))
+    trainer = loop.Trainer(cfg, task_index=rank)
+    try:
+        result = trainer.fit()
+    finally:
+        trainer.logger.close()
+    stage("fit")
+    fn, k = trainer.train_fn, trainer.steps_per_dispatch
+    res = {"launches": {**fa.LAUNCHES, **fused.LAUNCHES},
+           "digest": _params_digest(result.state.params),
+           "replays": fn.graph.replays,
+           "warmup_launches": fn.graph.warmup_launches,
+           "misses": int(fn.rows.misses), "device": str(trainer.device)}
+    images, labels = loop._full_split_arrays(
+        trainer.input_pipeline(train=True, seed=cfg.seed),
+        lambda: pipe.input_pipeline(cfg.data, trainer.local_batch,
+                                    train=True, seed=cfg.seed))
+    ds_images = torch.from_numpy(images).to(trainer.device)
+    ds_labels = torch.from_numpy(labels.astype("int64")).to(trainer.device)
+    c, fn_g, s_g = _graph_vs_eager(cfg, result.state, ds_images, ds_labels,
+                                   True, k=k, mesh=trainer.mesh)
+    res["graph_vs_eager"] = c
+    stage("graph vs eager")
+    reps = job["reps"]
+    fn_g(s_g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn_g(s_g)
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) / (reps * k) * 1e3
+    res["replay_ms_per_step"] = replay_ms
+    stage("timed replays")
+    trainer.mesh.barrier()
+    tracer = (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if rank == 0 else contextlib.nullcontext())
+    with tracer as prof:
+        for _ in range(reps):
+            fn_g(s_g)
+        torch.cuda.synchronize()
+    fn_g.check()
+    stage("traced replays")
+    if rank == 0:
+        timeline = device_timeline(prof, reps * k)
+        res.update(timeline,
+                   busy_share=timeline["device_any_ms"] / replay_ms,
+                   h2d=[ev.key for ev in prof.key_averages()
+                        if "HtoD" in ev.key],
+                   kernels=[{"ms_per_step": ms, "per_step": n, "name": name}
+                            for ms, n, name in _device_rows(prof,
+                                                            reps * k)[:12]])
+    fn_g.graph.release()
+    trainer.close()
+    torch.cuda.synchronize()
+    stage("graphs released")
+    trainer.mesh.barrier()
+    dist.destroy_process_group()
+    stage("process group destroyed")
+    return res
+
+
+def _dist_log_says(label: str, world: int, text: str) -> None:
+    for r in range(world):
+        check(any(l.startswith("[dist]") and text in l
+                  for l in rank_log(label, r)),
+              f"{label}: rank {r}'s [dist] line does not say {text!r}")
+
+
+def chunk_gloo_phase(card) -> dict:
+    """Phase 30: the DP CNN chunked on 2 ranks over gloo on this card, 2 x
+    64 images, ``--steps_per_dispatch 10``, 100 steps: each chunk runs its
+    eager body (gloo stages each collective through host memory, which no
+    graph can hold; the ``[dist]`` line says so). K1 once a step per
+    rank, equal parameter digests, and every logged loss (each chunk's)
+    within ``DP_CHUNK_LOSS_RTOL`` of the one-rank chunked run at batch 128
+    that sums the two halves as the ranks do (same seed, rows, draws and
+    steps; cuDNN deterministic); the plain one-rank run printed beside."""
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+
+    common = cnn_args(WORK) + [
+        "--steps_per_dispatch", str(CHUNK_K), "--total_steps", str(DP_STEPS),
+        "--eval_every", "1000", "--output_every", str(CHUNK_K),
+        "--checkpoint_every", "1000"]
+    refs = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, extra in (("halves", ["--grad_accum", "2"]),
+                            ("whole", [])):
+            jsonl = os.path.join(WORK, f"dp_chunk_ref_{name}.jsonl")
+            fused.reset_launches()
+            run_cli(common + extra + [
+                "--log_dir", os.path.join(WORK, f"logs_dp_chunk_{name}"),
+                "--metrics_jsonl", jsonl])
+            check(fused.LAUNCHES["sgd_update_plain"] == DP_STEPS,
+                  f"one-rank chunked reference launched {fused.LAUNCHES}")
+            refs[name] = train_log(jsonl)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    label, jsonl = "dp_chunk_gloo", os.path.join(WORK, "dp_chunk_gloo.jsonl")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(label, {"kind": "cli", "deterministic": True,
+                                "argv": common + [
+        "--log_dir", os.path.join(WORK, "logs_dp_chunk_gloo"),
+        "--metrics_jsonl", jsonl] + _dist_args(2, "gloo")})
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        check(r["launches"]["sgd_update_plain"] == DP_STEPS
+              and r["launches"]["sgd_update_momentum"] == 0,
+              f"chunked DP over gloo launched "
+              f"{[x['launches'] for x in ranks]}, want K1 = {DP_STEPS}")
+    check(len({r["digest"] for r in ranks}) == 1,
+          "chunked DP ranks over gloo ended with different parameters")
+    _dist_log_says(label, 2, "chunks of 10 steps: the eager body")
+    got = train_log(jsonl)
+    gaps = {name: [abs(g[1] - r[1]) / abs(r[1]) for g, r in zip(got, ref)]
+            for name, ref in refs.items()}
+    ref = refs["halves"]
+    check(len(got) == len(ref) == DP_STEPS // CHUNK_K
+          and [g[0] for g in got] == [r[0] for r in ref]
+          and all(math.isfinite(g[1]) for g in got)
+          and max(gaps["halves"]) <= DP_CHUNK_LOSS_RTOL,
+          f"chunked DP (step, loss, images/s) {got}; one rank in two "
+          f"halves {ref}; relative gaps {gaps['halves']} (gate "
+          f"{DP_CHUNK_LOSS_RTOL})")
+    res = {"card": card, "train": got, "reference": ref,
+           "reference_whole_batch": refs["whole"], "loss_rtol": gaps,
+           "step_ms": 128 / got[-1][2] * 1e3,
+           "reference_step_ms": 128 / ref[-1][2] * 1e3, "wall_s": wall,
+           "launches": ranks[0]["launches"]}
+    shutil.copy(jsonl, OUT)
+    print(f"[dp chunk gloo] 2 ranks x 64 images on one card, chunks of "
+          f"{CHUNK_K} run eagerly (gloo), cuDNN deterministic: (step, loss) "
+          f"{[(s, l) for s, l, _ in got]}; relative loss gaps to one rank "
+          f"summing the same halves {gaps['halves']} (gate "
+          f"{DP_CHUNK_LOSS_RTOL}), to one rank summing 128 at once "
+          f"{gaps['whole']} (printed); {res['step_ms']:.3f} ms/step against "
+          f"{res['reference_step_ms']:.4f} on one rank; K1 "
+          f"{ranks[0]['launches']['sgd_update_plain']} per rank, equal "
+          f"parameters; {wall:.1f} s wall; on {card}", flush=True)
+    return res
+
+
+def _check_chunk_ranks(label, ranks, want, replays, warmup) -> None:
+    """Phase 31's per-rank gates: the main path's launches, its replays
+    and the warm-up's launches kept apart, no index-stream miss, equal
+    digests, no host-to-device copy among the replays, and the replay's
+    launches equal to the eager body's."""
+    for r, x in enumerate(ranks):
+        check(x["launches"] == want, f"{label}: rank {r} launched "
+              f"{x['launches']}, want {want}")
+        check(x["replays"] == replays and x["misses"] == 0,
+              f"{label}: rank {r} {x['replays']} replays (want {replays}), "
+              f"{x['misses']} index-stream misses")
+        check(x["warmup_launches"] == warmup,
+              f"{label}: rank {r} warm-up launched {x['warmup_launches']}, "
+              f"want {warmup}")
+        c = x["graph_vs_eager"]
+        check(c["launches_graph"] == c["launches_eager"],
+              f"{label}: rank {r} replay launched {c['launches_graph']}, "
+              f"the eager body {c['launches_eager']}")
+    check(len({x["digest"] for x in ranks}) == 1,
+          f"{label}: ranks ended with different parameters")
+    check(not ranks[0]["h2d"], f"{label}: host-to-device copies in rank "
+          f"0's replays: {ranks[0]['h2d']}")
+
+
+def chunk_nccl_phase(card, worlds) -> dict:
+    """Phase 31 over NCCL, a card a rank, each chunk one CUDA graph replay
+    with its collectives captured: the DP CNN on each of ``worlds`` ranks
+    (K = 10, 500 steps), ring SP on 2 (phase 19's recipe) and, given three
+    cards, Ulysses on 3 (phase 27's), K = 5 for 10 steps; each rank then
+    holds one graphed chunk against the eager body and traces replays
+    (``_rank_chunk``)."""
+    count = torch.cuda.device_count()
+    res = {"card": card, "cards": count}
+    for world in worlds:
+        label = f"dp_chunk{world}_nccl"
+        jsonl = os.path.join(WORK, f"{label}.jsonl")
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(label, {"kind": "chunk", "reps": 20, "argv":
+                            cnn_args(WORK) + [
+            "--steps_per_dispatch", str(CHUNK_K), "--log_dir",
+            os.path.join(WORK, f"logs_{label}"), "--total_steps",
+            str(DIST_CHUNK_STEPS), "--eval_every", "1000",
+            "--output_every", "50", "--checkpoint_every", "1000",
+            "--metrics_jsonl", jsonl] + _dist_args(world, "nccl")},
+            world=world, timeout_s=300)
+        wall = time.perf_counter() - t0
+        _check_chunk_ranks(label, ranks, {
+            "sgd_update_plain": DIST_CHUNK_STEPS, "sgd_update_momentum": 0,
+            **dict.fromkeys(("flash_fwd", "flash_fwd_lse",
+                             "flash_fwd_stats", "flash_bwd_dq",
+                             "flash_bwd_dkv"), 0)},
+            DIST_CHUNK_STEPS // CHUNK_K, {"sgd_update_plain": CHUNK_K})
+        _dist_log_says(label, world, "one CUDA graph replay each")
+        for r, x in enumerate(ranks):
+            c = x["graph_vs_eager"]
+            check(c["loss_gap"] <= CHUNK_LOSS_TOL * abs(c["loss_eager"])
+                  and c["param_gap"] <= CHUNK_PARAM_TOL,
+                  f"{label}: rank {r}'s graphed chunk differs from the "
+                  f"eager body: {c}")
+        train = train_log(jsonl)
+        windows = [ips for step, _, ips in train if step > 100]
+        loop_ms = 128 / (sum(windows) / len(windows)) * 1e3
+        check(all(math.isfinite(l) for _, l, _ in train),
+              f"{label}: losses {train}")
+        x = ranks[0]
+        res[f"dp{world}"] = {
+            "losses": [l for _, l, _ in train], "loop_ms_per_step": loop_ms,
+            "wall_s": wall, **{key: x[key] for key in (
+                "replay_ms_per_step", "compute_ms", "comm_ms", "overlap_ms",
+                "device_any_ms", "busy_share", "launches", "replays",
+                "warmup_launches", "graph_vs_eager", "kernels", "device")},
+            "replay_ms_by_rank": [y["replay_ms_per_step"] for y in ranks]}
+        shutil.copy(jsonl, OUT)
+        print(f"[dp chunk nccl] {world} ranks x {128 // world} images, "
+              f"{DIST_CHUNK_STEPS} steps in {x['replays']} replays of "
+              f"{CHUNK_K}: loop {loop_ms:.4f} ms/step (windows after step "
+              f"100); 20 replays {x['replay_ms_per_step']:.4f} ms/step, rank "
+              f"0's device busy {x['device_any_ms']:.4f} ms/step "
+              f"({100 * x['busy_share']:.1f}%; replays on every rank "
+              f"{[round(y['replay_ms_per_step'], 4) for y in ranks]} "
+              f"ms/step), NCCL "
+              f"{x['comm_ms']:.4f} ms/step of which {x['overlap_ms']:.4f} "
+              f"beside compute; graph vs eager: loss "
+              f"{x['graph_vs_eager']['loss_gap']:.3g}, params "
+              f"{x['graph_vs_eager']['param_gap']:.3g}; K1 "
+              f"{x['launches']['sgd_update_plain']} per rank (+{CHUNK_K} in "
+              f"the warm-up, apart), equal parameters, no H2D copy; "
+              f"{wall:.1f} s wall; on {min(count, world)} x {card}",
+              flush=True)
+        for kern in x["kernels"][:6]:
+            print(f"[dp chunk nccl]   rank 0 {kern['ms_per_step']:.5f} "
+                  f"ms/step x{kern['per_step']} {kern['name'][:100]}")
+    # name, ranks, flags, the launch counts: of 10 steps with a
+    # forward-only batch every 5 (phases 19 and 27), and of one chunk.
+    sp_runs = [("ring", 2, ["--seq_axis", "2"], sp_launches)]
+    if count >= ULYSSES_SEQ:
+        sp_runs.append(("ulysses", ULYSSES_SEQ,
+                        ["--seq_axis", str(ULYSSES_SEQ), "--sp_mode",
+                         "ulysses"], ulysses_launches))
+    for name, world, flags, launches in sp_runs:
+        label = f"{name}_chunk_nccl"
+        jsonl = os.path.join(WORK, f"{label}.jsonl")
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(label, {"kind": "chunk", "reps": 2, "argv":
+                            long_args(WORK) + flags + [
+            "--batch_size", "2", "--steps_per_dispatch", str(SP_CHUNK_K),
+            "--total_steps", str(LONG_STEPS), "--log_dir",
+            os.path.join(WORK, f"logs_{label}"), "--metrics_jsonl", jsonl]
+            + _dist_args(world, "nccl")}, world=world, timeout_s=420)
+        wall = time.perf_counter() - t0
+        _check_chunk_ranks(
+            label, ranks, launches(LONG_STEPS, LONG_STEPS // 5),
+            LONG_STEPS // SP_CHUNK_K,
+            {k: n for k, n in launches(SP_CHUNK_K, 0).items() if n})
+        _dist_log_says(label, world, "one CUDA graph replay each")
+        for r, x in enumerate(ranks):
+            c = x["graph_vs_eager"]
+            check(c["loss_gap"] <= 1e-5 * abs(c["loss_eager"]),
+                  f"{label}: rank {r}'s graphed chunk differs from the "
+                  f"eager body: {c}")
+        train = train_log(jsonl)
+        check(len(train) == LONG_STEPS // 5
+              and all(math.isfinite(l) for _, l, _ in train),
+              f"{label}: (step, loss, images/s) {train}")
+        x = ranks[0]
+        res[name] = {"train": train, "step_ms": 2 / train[-1][2] * 1e3,
+                     "wall_s": wall, **{key: x[key] for key in (
+                         "replay_ms_per_step", "compute_ms", "comm_ms",
+                         "overlap_ms", "device_any_ms", "busy_share",
+                         "flash_ms", "launches", "replays",
+                         "warmup_launches", "graph_vs_eager", "kernels")}}
+        shutil.copy(jsonl, OUT)
+        print(f"[{name} chunk nccl] {world} ranks, batch 2 x 8,100 tokens, "
+              f"chunks of {SP_CHUNK_K}: (step, loss, images/s) {train}; "
+              f"{res[name]['step_ms']:.2f} ms/step in steps 6-10; 2 replays "
+              f"{x['replay_ms_per_step']:.2f} ms/step, rank 0's device "
+              f"busy {x['device_any_ms']:.2f} ms/step "
+              f"({100 * x['busy_share']:.1f}%), compute "
+              f"{x['compute_ms']:.2f}, collectives {x['comm_ms']:.2f} of "
+              f"which {x['overlap_ms']:.2f} beside compute; graph vs eager: "
+              f"loss {x['graph_vs_eager']['loss_gap']:.3g}, params "
+              f"{x['graph_vs_eager']['param_gap']:.3g}; launches per rank "
+              f"{x['launches']}, equal parameters; {wall:.1f} s wall; on "
+              f"{min(count, world)} x {card}", flush=True)
+    return res
+
+
 def _fresh_model(cfg):
     from dml_cnn_cifar10_tpu_torch.models.registry import get_model
     return get_model(cfg.model.name)(cfg.model, cfg.data)
 
 
 def dist_main() -> int:
-    """``--dist``: phases 18-21 over NCCL on two or more cards, one rank a
-    card, with worlds 2 and (given four cards) 4 — the build, then
-    ``dist_phases``; phases 1-17 are skipped. Numbers go to
+    """``--dist``: phases 31 and 18-21 over NCCL on two or more cards, one
+    rank a card, with worlds 2 and (given four cards) 4 — the build, then
+    ``chunk_nccl_phase`` and ``dist_phases`` (and, given three cards,
+    ``ulysses_phases``); phases 1-17 are skipped. Numbers go to
     ``OUT/dist_nccl.json``; the last line is the same ``{"ok": true, ...}``
     object."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
@@ -2975,10 +3375,27 @@ def dist_main() -> int:
     if os.path.isdir(WORK):
         shutil.rmtree(WORK)
     os.makedirs(OUT, exist_ok=True)
-    res = dist_phases("nccl", card, worlds=(2, 4) if count >= 4 else (2,))
+    worlds = (2, 4) if count >= 4 else (2,)
+    # Phase 31 first: a capture that fails ends the run early.
+    chunked = chunk_nccl_phase(card, worlds)
+    res = dist_phases("nccl", card, worlds=worlds)
     if count >= ULYSSES_SEQ:
         res["ulysses"] = ulysses_phases(
             "nccl", card, one_rank_jsonl=os.path.join(WORK, "ref2.jsonl"))
+    res["chunked"] = chunked
+    # Each chunked path beside its per-step run of this call.
+    pairs = [(f"DP CNN, {w} ranks", chunked[f"dp{w}"]["loop_ms_per_step"],
+              res[f"dp{w}"]["step_ms"]) for w in worlds]
+    pairs.append(("ring SP, 2 ranks", chunked["ring"]["step_ms"],
+                  res["sp2"]["step_ms"]))
+    if "ulysses" in chunked:
+        pairs.append((f"Ulysses, {ULYSSES_SEQ} ranks",
+                      chunked["ulysses"]["step_ms"],
+                      res["ulysses"]["train"]["step_ms"]))
+    for name, chunk_ms, step_ms in pairs:
+        print(f"[chunk vs step] {name} over NCCL: {chunk_ms:.4f} ms/step "
+              f"chunked (one graph a chunk) against {step_ms:.4f} a step "
+              f"dispatched alone, in this call, on {card}", flush=True)
     with open(os.path.join(OUT, "dist_nccl.json"), "w") as f:
         json.dump(res, f, indent=1)
     shutil.rmtree(WORK)
@@ -3000,10 +3417,12 @@ def rank_main(argv) -> int:
     from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = bool(job.get("deterministic"))
     run = {"cli": _rank_cli, "ring": _rank_ring, "ulysses": _rank_ulysses,
-           "profile": _rank_profile}[job["kind"]]
+           "profile": _rank_profile, "chunk": _rank_chunk}[job["kind"]]
     res = run(rank, job)
-    res["launches"] = {**fa.LAUNCHES, **fused.LAUNCHES}
+    # A job that runs more than its main path keeps that path's counts.
+    res.setdefault("launches", {**fa.LAUNCHES, **fused.LAUNCHES})
     with open(job["out"].format(rank=rank), "w") as f:
         json.dump(res, f)
     return 0
@@ -3475,6 +3894,11 @@ def main() -> int:
         json.dump({"card": card, "ulysses": uly, "telemetry": telemetry,
                    "devtime": devtime, "optim": optim}, f, indent=1)
 
+    # ---- 30. the DP CNN chunked on 2 ranks over gloo on this card -------
+    dp_chunk = chunk_gloo_phase(card)
+    with open(os.path.join(OUT, "slice11.json"), "w") as f:
+        json.dump({"card": card, "dp_chunk_gloo": dp_chunk}, f, indent=1)
+
     for path in (train_jsonl, resume_jsonl, mom_jsonl, vit_jsonl,
                  os.path.join(WORK, "vit_resume.jsonl"), long_jsonl):
         shutil.copy(path, OUT)
@@ -3517,6 +3941,23 @@ def main() -> int:
                     f"leaves ({n_params} params), mu={t['mu']}, "
                     f"wd={t['wd']}",
         })
+    t = timing["sgd_update_plain"]
+    kernels.append({
+        "name": "sgd_update_plain", "kernel": "K1", "path": "dp_chunk",
+        "route": "cuda",
+        "source": "dml_cnn_cifar10_tpu_torch/csrc/sgd_update.cu",
+        "cuda_kernel": t["cuda_kernel"],
+        "replaces": "dml_cnn_cifar10_tpu/ops/optimizer.py:83",
+        "launches": dp_chunk["launches"]["sgd_update_plain"],
+        "max_abs_err": worst["sgd_update_plain"],
+        **{k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms", "library_device_ms")},
+        "library": "torch.optim.SGD(fused=True).step",
+        "work": f"one optimizer step over the CNN's {n_leaves} f32 leaves "
+                f"({n_params} params) as phase 4 times it; launches: rank "
+                f"0 of phase 30's 2-rank chunked DP run (gloo on one card, "
+                f"the eager chunk body), {DP_STEPS} steps",
+    })
     t = stats_time
     kernels.append({
         "name": "flash_fwd_stats", "kernel": "K5", "route": "cuda",

@@ -369,7 +369,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 print(f"[cli] done at step {result.final_step}; "
                       f"{result.images_per_sec:.1f} images/sec")
         finally:
-            trainer.logger.close()
+            trainer.close()
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -191,6 +191,10 @@ class ParallelConfig:
     coordinator_address: Optional[str] = None
     num_processes: int = 1
     process_id: int = 0
+    # The --worker_hosts entries themselves, one a process: a rank's card
+    # is its index among the entries of its own host
+    # (utils/platform.py:rank_device). Empty = every rank on one host.
+    worker_hosts: Tuple[str, ...] = ()
     # One rendezvous attempt's timeout, and how many attempts (bounded
     # exponential backoff) before a slow-to-start rank 0 is a failure.
     coordinator_timeout_s: float = 60.0

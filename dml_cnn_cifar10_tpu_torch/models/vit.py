@@ -204,7 +204,12 @@ class ViT(nn.Module):
         for i in range(cfg.vit_depth):
             p = {name: t[i] for name, t in stacked.items()}
             if cfg.remat:
-                x = checkpoint(self._block, x, p, use_reentrant=False)
+                # A block draws no random numbers, so there is no RNG
+                # state to stash: restoring the card's generator state is
+                # refused inside a CUDA graph capture, and a chunk captures
+                # the remat backward.
+                x = checkpoint(self._block, x, p, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = self._block(x, p)
         x = F.layer_norm(x, (dim,), self.ln_f.scale.to(cdt),

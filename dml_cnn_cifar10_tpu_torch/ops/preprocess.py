@@ -23,7 +23,9 @@ package's threefry bits; they are a counter-based hash (the port's
 in its batch), so they are deterministic, the same on the CPU and the
 card, and need no host seed inside a captured graph. A ``[K, B, ...]``
 chunk decoded at ``step`` draws batch ``k`` at ``step + k``: the chunk
-decodes exactly as its K batches would one step at a time.
+decodes exactly as its K batches would one step at a time. A data rank
+that decodes its own columns of a global batch passes their first index
+(``col0``), so each image draws as it would in the whole batch.
 """
 
 from __future__ import annotations
@@ -44,39 +46,41 @@ _TOP, _LEFT, _FLIP = 0, 1, 2
 
 
 def device_preprocess(images_u8: torch.Tensor, cfg: DataConfig,
-                      step: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      step: Optional[torch.Tensor] = None,
+                      col0: int = 0) -> torch.Tensor:
     """uint8 ``[..., B, H, W, C]`` full-size images → float32
     ``[..., B, crop_h, crop_w, C]``, cropped/augmented and normalized per
     ``cfg``: the device-side mirror of the host pipeline's ``_finish``.
     A randomized augmentation (``cfg.augmented``) draws at global ``step``
     (an int or a 0-d integer tensor; leading index ``k`` of a ``[K, B]``
-    chunk draws at ``step + k``) and raises without one."""
+    chunk draws at ``step + k``) and raises without one; image ``i`` of a
+    batch draws as image ``col0 + i`` of the global batch."""
     if cfg.augmented and step is None:
         raise ValueError(
             "random crop/flip on the device draw from the global step; "
             "pass step= or use the host pipeline")
     x = images_u8
     if cfg.random_crop:
-        x = _random_crop(x, cfg, step, flip=cfg.random_flip)
+        x = _random_crop(x, cfg, step, col0, flip=cfg.random_flip)
     else:
         x = _center_crop(x, cfg)
         if cfg.random_flip:
-            x = _random_flip(x, cfg, step)
+            x = _random_flip(x, cfg, step, col0)
     return _normalize(x.to(torch.float32), cfg)
 
 
-def _draws(cfg: DataConfig, step, lead, salt: int,
+def _draws(cfg: DataConfig, step, col0: int, lead, salt: int,
            device: torch.device) -> torch.Tensor:
     """One uint32 (in an int64) per image of leading shape ``lead``
-    (``[..., B]``): a hash of (seed, image's global step, its index in its
-    batch, salt)."""
+    (``[..., B]``): a hash of (seed, image's global step, its index in the
+    global batch, which is ``col0`` + its index here, salt)."""
     b = lead[-1] if lead else 1
     r = torch.arange(math.prod(lead), dtype=torch.int64, device=device)
     if isinstance(step, torch.Tensor):
         step = step.to(device=device, dtype=torch.int64)
     steps = (step + r // b) & _M32
     key = _mix(((cfg.seed & _M32) * _C0 & _M32) ^ _mul32(steps, _C1))
-    return _mix(key ^ _mix((r % b) * 4 + salt))
+    return _mix(key ^ _mix((r % b + col0) * 4 + salt))
 
 
 def _center_crop(x: torch.Tensor, cfg: DataConfig) -> torch.Tensor:
@@ -91,7 +95,7 @@ def _center_crop(x: torch.Tensor, cfg: DataConfig) -> torch.Tensor:
     return x[..., oh:oh + cfg.crop_height, ow:ow + cfg.crop_width, :]
 
 
-def _random_crop(x: torch.Tensor, cfg: DataConfig, step,
+def _random_crop(x: torch.Tensor, cfg: DataConfig, step, col0: int,
                  flip: bool) -> torch.Tensor:
     """Per-image random window, with the optional horizontal flip folded
     into its column indices (the JAX function's formulation: a flipped
@@ -104,12 +108,12 @@ def _random_crop(x: torch.Tensor, cfg: DataConfig, step,
                          f"{h}x{w} images")
     flat = x.reshape(-1, h, w, c)
     dev = x.device
-    tops = _draws(cfg, step, lead, _TOP, dev) % (h - ch + 1)
-    lefts = _draws(cfg, step, lead, _LEFT, dev) % (w - cw + 1)
+    tops = _draws(cfg, step, col0, lead, _TOP, dev) % (h - ch + 1)
+    lefts = _draws(cfg, step, col0, lead, _LEFT, dev) % (w - cw + 1)
     rows = tops[:, None] + torch.arange(ch, device=dev)        # [N, ch]
     cols = lefts[:, None] + torch.arange(cw, device=dev)       # [N, cw]
     if flip:
-        flipped = (_draws(cfg, step, lead, _FLIP, dev) & 1).bool()
+        flipped = (_draws(cfg, step, col0, lead, _FLIP, dev) & 1).bool()
         cols = torch.where(flipped[:, None],
                            (w - 1 - lefts)[:, None]
                            - torch.arange(cw, device=dev), cols)
@@ -118,11 +122,12 @@ def _random_crop(x: torch.Tensor, cfg: DataConfig, step,
     return out.reshape(lead + (ch, cw, c))
 
 
-def _random_flip(x: torch.Tensor, cfg: DataConfig, step) -> torch.Tensor:
+def _random_flip(x: torch.Tensor, cfg: DataConfig, step,
+                 col0: int) -> torch.Tensor:
     """Per-image horizontal flip with p = 1/2."""
     lead = x.shape[:-3]
     flat = x.reshape(-1, *x.shape[-3:])
-    flipped = (_draws(cfg, step, lead, _FLIP, x.device) & 1).bool()
+    flipped = (_draws(cfg, step, col0, lead, _FLIP, x.device) & 1).bool()
     out = torch.where(flipped[:, None, None, None], flat.flip(-2), flat)
     return out.reshape(x.shape)
 

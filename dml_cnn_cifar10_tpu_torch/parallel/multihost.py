@@ -65,7 +65,8 @@ def parallel_from_hosts(worker_hosts: List[str], task_index: int,
     """README-recipe compat: ``--worker_hosts=a:2222,b:2222
     --task_index=i`` fills ``cfg``'s bootstrap fields (validated)."""
     validate_hosts(worker_hosts, task_index)
-    cfg.coordinator_address = worker_hosts[0].strip()
+    cfg.worker_hosts = tuple(entry.strip() for entry in worker_hosts)
+    cfg.coordinator_address = cfg.worker_hosts[0]
     cfg.num_processes = len(worker_hosts)
     cfg.process_id = task_index
     return cfg

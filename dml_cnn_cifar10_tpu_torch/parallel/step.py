@@ -37,7 +37,7 @@ and the update run inside ``torch.profiler.record_function("fwd_bwd")``
 and ``("optimizer")``, the JAX package's scope names, which a profile
 window (``utils/devprof.py``) attributes device time by.
 
-Chunked dispatch, one process (``TrainConfig.steps_per_dispatch``):
+Chunked dispatch (``TrainConfig.steps_per_dispatch``):
 :func:`make_train_chunk` (host-fed raw uint8 chunks) and
 :func:`make_train_chunk_resident` (the uint8 split resident on the device,
 its rows gathered there by host indices or by the device index stream) run
@@ -55,6 +55,21 @@ into the graph, whose private memory pool keeps the gradients' addresses.
 :func:`make_eval_resident` sweeps a resident split and
 :func:`make_batch_eval_resident` scores one index-fed batch; they run
 eagerly (once a boundary).
+
+Over a mesh (the JAX package's ``make_train_chunk*`` over its mesh), the
+chunk runs the mesh's step: every rank holds the whole split, the device
+index stream gives every rank the same global ``[K, B]`` rows (a pure
+function of the step and the seed), and each data rank gathers and
+decodes its own ``b = B / data`` columns, ``[:, data_rank·b :
+(data_rank+1)·b]``, drawing each image's augmentation at its column of
+the global batch; the seq ranks of a data row take the same columns.
+Host indices arrive as global rows (:func:`global_rows`). Over NCCL the
+collectives of the K steps (the gradient all-reduce, the metric means,
+the ring hops, the all-to-alls) are captured in the graph with the
+kernels. Over gloo a collective on the card stages through host memory,
+which no graph can hold, so there the chunk runs its K steps eagerly, the
+body the CPU runs (:func:`chunk_is_graphed`). The evals sweep each data
+rank's strided shard and sum the counts over the data ranks.
 """
 
 from __future__ import annotations
@@ -245,20 +260,42 @@ _DECODE_IN_LOOP_BYTES = 1 << 30
 _COUNTERS = (optimizer.LAUNCHES, flash_attention.LAUNCHES)
 
 
+def _data_rank(mesh: Optional[Mesh]) -> int:
+    return 0 if mesh is None else mesh.data_rank
+
+
+def global_rows(idx: np.ndarray, mesh: Optional[Mesh]) -> np.ndarray:
+    """Rows of a data rank's strided shard (``records[data_rank::data]``,
+    ``data/pipeline.py``) as rows of the whole split: ``shard + idx ·
+    num_shards`` (JAX ``train/loop.py:476-479``)."""
+    if mesh is None or mesh.data == 1:
+        return idx
+    return mesh.data_rank + idx * mesh.data
+
+
+def chunk_is_graphed(mesh: Optional[Mesh]) -> bool:
+    """Whether a chunk whose state is on the card runs as one CUDA graph:
+    yes, unless its collectives stage through host memory (gloo on the
+    card), which a graph cannot hold; then the K steps run eagerly."""
+    return mesh is None or mesh.world == 1 or mesh.backend != "gloo"
+
+
 def _chunk_body(model: nn.Module, optim_cfg: OptimConfig,
-                data_cfg: Optional[DataConfig]):
-    """``(state, images [K, B, ...], labels [K, B]) -> (state, metrics of
-    the LAST step)``: the K-step math shared by every ``make_train_chunk*``.
+                data_cfg: Optional[DataConfig], mesh: Optional[Mesh] = None):
+    """``(state, images [K, b, ...], labels [K, b]) -> (state, metrics of
+    the LAST step)``: the K-step math shared by every ``make_train_chunk*``,
+    over ``mesh`` on this data rank's ``b`` columns of the global batch.
 
     With ``data_cfg`` the images are RAW uint8 and the decode runs first,
-    over the whole chunk at once (``[K, B]`` rows draw their augmentation
-    at ``state.step + k``), or one batch a step past
-    ``_DECODE_IN_LOOP_BYTES``; either way each batch decodes exactly as it
-    would alone."""
-    one_step = make_train_step(model, optim_cfg)
+    over the whole chunk at once (``[K, b]`` rows draw their augmentation
+    at ``state.step + k`` and at their column of the global batch), or one
+    batch a step past ``_DECODE_IN_LOOP_BYTES``; either way each batch
+    decodes exactly as it would alone."""
+    one_step = make_train_step(model, optim_cfg, mesh)
 
     def run(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         decode_in_loop = False
+        col0 = _data_rank(mesh) * images.shape[1]
         if data_cfg is not None:
             k, b, h, w = images.shape[:4]
             decoded = (k * b * max(h, data_cfg.crop_height)
@@ -266,12 +303,13 @@ def _chunk_body(model: nn.Module, optim_cfg: OptimConfig,
                        * data_cfg.num_channels * 4)
             decode_in_loop = decoded > _DECODE_IN_LOOP_BYTES
             if not decode_in_loop:
-                images = device_preprocess(images, data_cfg, state.step)
+                images = device_preprocess(images, data_cfg, state.step,
+                                           col0)
         metrics = None
         for i in range(images.shape[0]):
             imgs = images[i]
             if decode_in_loop:
-                imgs = device_preprocess(imgs, data_cfg, state.step)
+                imgs = device_preprocess(imgs, data_cfg, state.step, col0)
             state, metrics = one_step(state, imgs, labels[i])
         return state, metrics
 
@@ -309,24 +347,35 @@ class _GraphedChunk:
 
     The first call runs the body once on a side stream (the warm-up that
     capture needs: cuDNN and cuBLAS choose their algorithms and
-    workspaces, the kernels' libraries load), puts every tensor of the
-    state back as it was, captures the body once on the caller's state and
-    static input buffers, and replays it. Every call is one replay. The
-    kernel launch counters count the caller's steps: each replay adds the
-    launches its capture recorded; the warm-up's, whose results are thrown
-    away, are kept apart in :attr:`warmup_launches`. The metrics returned
-    are the graph's own output buffers, overwritten by the next replay.
+    workspaces, the kernels' libraries load, and over NCCL every
+    communicator the body uses is set up, on every rank, by the
+    collectives themselves), puts every tensor of the state back as it
+    was, captures the body once on the caller's state and static input
+    buffers, and replays it. Every call is one replay. The ranks of a mesh
+    warm up, capture and replay in lockstep: each runs the same calls in
+    the same order. The kernel launch counters count the caller's steps:
+    each replay adds the launches its capture recorded; the warm-up's,
+    whose results are thrown away, are kept apart in
+    :attr:`warmup_launches`. The metrics returned are the graph's own
+    output buffers, overwritten by the next replay.
 
     ``prepare(step)``, when given, runs on the host before the warm-up and
     before every replay with the chunk's first global step, which the
     wrapper tracks on the host (read from ``state.step`` once, at
     capture, then advanced by ``k`` a call): the device index stream's
     table refresh (``data/device_stream.py:EpochRows``).
+
+    With :attr:`learn_update` set before the first call (a profile window
+    will read the replays), the warm-up runs under torch.profiler, unless
+    a profiler is already running, and :attr:`update_signature` keeps
+    which of its device events the update launched
+    (``utils/devprof.py:update_signature``).
     """
 
     def __init__(self, body: Callable, prepare: Optional[Callable] = None,
-                 k: int = 0):
+                 k: int = 0, mesh: Optional[Mesh] = None):
         self._body, self._prepare, self._k = body, prepare, k
+        self._mesh = mesh
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._tensors: List[torch.Tensor] = []
         self._inputs: List[torch.Tensor] = []
@@ -336,6 +385,8 @@ class _GraphedChunk:
         #: Replays run, and the launches of the warm-up before capture.
         self.replays = 0
         self.warmup_launches: Dict[str, int] = {}
+        self.learn_update = False
+        self.update_signature: Optional[Dict[str, Tuple[int, ...]]] = None
 
     def __call__(self, state: TrainState, *inputs: torch.Tensor):
         dev = state.step.device
@@ -366,6 +417,41 @@ class _GraphedChunk:
                 counter[name] += n
         return state, self._metrics
 
+    def release(self) -> None:
+        """Free the graph and its memory pool; the next call captures
+        anew. Over NCCL a graph holds resources of the communicators it
+        captured, so it must go before they are destroyed."""
+        if self._graph is not None:
+            self._graph.reset()
+            self._graph, self._metrics = None, None
+
+    def _warm_up(self, state: TrainState) -> None:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._body(state, *self._inputs)
+        torch.cuda.current_stream().wait_stream(side)
+
+    def _profiled_warm_up(self, state: TrainState) -> None:
+        """The warm-up under torch.profiler; keeps the update's events."""
+        import json
+        import os
+        import tempfile
+
+        from torch.profiler import ProfilerActivity, profile
+
+        from dml_cnn_cifar10_tpu_torch.utils import devprof
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            self._warm_up(state)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "warmup.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                self.update_signature = devprof.update_signature(json.load(f))
+
     def _capture(self, state: TrainState, inputs) -> None:
         self._tensors = _state_tensors(state)
         self._inputs = [t.clone() for t in inputs]
@@ -374,11 +460,10 @@ class _GraphedChunk:
         saved = [t.detach().clone() for t in self._tensors]
         if self._prepare is not None:
             self._prepare(self._step)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self._body(state, *self._inputs)
-        torch.cuda.current_stream().wait_stream(side)
+        if self.learn_update and not torch._C._autograd._profiler_enabled():
+            self._profiled_warm_up(state)
+        else:
+            self._warm_up(state)
         with torch.no_grad():
             for t, s in zip(self._tensors, saved):
                 t.copy_(s)
@@ -386,20 +471,35 @@ class _GraphedChunk:
         warm = _delta(before)
         self.warmup_launches = {k: n for d in warm for k, n in d.items()}
         _set_counts(before)
+        # Over several ranks, ProcessGroupNCCL's watchdog thread queries
+        # the CUDA events of the warm-up's collectives while this thread
+        # captures. Under the default "global" mode any such call from
+        # another thread invalidates the capture; "thread_local" checks
+        # this thread's calls only. Wait for the warm-up first, so the
+        # watchdog has no work in flight left to query.
+        mode = "global"
+        if self._mesh is not None and self._mesh.world > 1:
+            torch.cuda.synchronize()
+            mode = "thread_local"
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode=mode):
             _, metrics = self._body(state, *self._inputs)
         self._captured = _delta(before)
         _set_counts(before)
         self._graph, self._metrics = graph, metrics
 
 
-def _dispatch(eager: Callable,
-              graphed: Optional[_GraphedChunk]) -> Callable:
+def _dispatch(eager: Callable, graphed: Optional[_GraphedChunk],
+              mesh: Optional[Mesh] = None) -> Callable:
     """What ``make_train_chunk*`` return: ``eager`` for a state on the
-    CPU, the graph for a state on the card (never the other way round)."""
+    CPU, the graph for a state on the card (never the other way round),
+    or ``eager`` on the card where :func:`chunk_is_graphed` says no."""
+    graph_on_card = chunk_is_graphed(mesh)
+    if not graph_on_card:
+        graphed = None
+
     def chunk(state: TrainState, *inputs: torch.Tensor):
-        if not state.step.is_cuda:
+        if not state.step.is_cuda or not graph_on_card:
             return eager(state, *inputs)
         if graphed is None:
             raise ValueError("the state is on the card but the resident "
@@ -413,17 +513,20 @@ def _dispatch(eager: Callable,
 
 
 def make_train_chunk(model: nn.Module, optim_cfg: OptimConfig,
-                     data_cfg: Optional[DataConfig] = None
+                     data_cfg: Optional[DataConfig] = None,
+                     mesh: Optional[Mesh] = None
                      ) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
                                    Tuple[TrainState, dict]]:
-    """K training steps a call: ``(state, images [K, B, ...], labels
-    [K, B]) -> (state, metrics of the LAST step)``, the state updated in
-    place. With ``data_cfg`` the images are RAW uint8 full-size
-    ``[K, B, H, W, C]`` and the decode runs on the device. On the card the
-    K steps are one CUDA graph replay; the inputs are copied into its
-    static buffers, so they must keep the shapes of the first call."""
-    body = _chunk_body(model, optim_cfg, data_cfg)
-    return _dispatch(body, _GraphedChunk(body))
+    """K training steps a call: ``(state, images [K, b, ...], labels
+    [K, b]) -> (state, metrics of the LAST step)``, the state updated in
+    place; over ``mesh`` the images are this data rank's ``b`` columns of
+    the global batch. With ``data_cfg`` the images are RAW uint8
+    full-size ``[K, b, H, W, C]`` and the decode runs on the device. On
+    the card the K steps are one CUDA graph replay (but see
+    :func:`chunk_is_graphed`); the inputs are copied into its static
+    buffers, so they must keep the shapes of the first call."""
+    body = _chunk_body(model, optim_cfg, data_cfg, mesh)
+    return _dispatch(body, _GraphedChunk(body, mesh=mesh), mesh)
 
 
 def make_train_chunk_resident(
@@ -433,16 +536,20 @@ def make_train_chunk_resident(
     dataset_labels: torch.Tensor,
     data_cfg: Optional[DataConfig] = None,
     index_stream: Optional[Tuple[int, int, int]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable:
     """Chunked training against a device-resident split: ``(state, idx
-    [K, B]) -> (state, metrics of the LAST step)``. ``dataset_images``
-    ``[N, H, W, C]`` uint8 and ``dataset_labels`` ``[N]`` live on the
-    state's device; the gather, the decode and the K steps run there, the
-    host ships only the indices. Same math as :func:`make_train_chunk` on
-    the same rows.
+    [K, b]) -> (state, metrics of the LAST step)``. ``dataset_images``
+    ``[N, H, W, C]`` uint8 and ``dataset_labels`` ``[N]`` (the whole
+    split, on every rank of a mesh) live on the state's device; the
+    gather, the decode and the K steps run there, the host ships only the
+    indices, rows of the whole split (:func:`global_rows`), this data
+    rank's ``b`` columns of the global batch. Same math as
+    :func:`make_train_chunk` on the same rows.
 
     ``index_stream=(seed, global_batch, K)`` generates the indices on the
-    device too (``data/device_stream.py``, keyed on ``state.step``), and
+    device too (``data/device_stream.py``, keyed on ``state.step``): the
+    global ``[K, B]`` rows, of which this data rank takes its columns, and
     the call becomes ``(state,) -> (state, metrics)``: a training dispatch
     moves nothing host→device, and a resumed state continues the data
     order exactly. On the CPU the rows come from the exact cycle walk; in
@@ -458,32 +565,36 @@ def make_train_chunk_resident(
         raise ValueError(
             "make_train_chunk_resident requires data_cfg (the gathered "
             "dataset rows are raw uint8 and must be decoded on device)")
-    body = _chunk_body(model, optim_cfg, data_cfg)
+    body = _chunk_body(model, optim_cfg, data_cfg, mesh)
 
     if index_stream is None:
         def chunk_idx(state: TrainState, idx: torch.Tensor):
             return body(state, dataset_images[idx], dataset_labels[idx])
 
-        return _dispatch(chunk_idx, _GraphedChunk(chunk_idx))
+        return _dispatch(chunk_idx, _GraphedChunk(chunk_idx, mesh=mesh),
+                         mesh)
 
     seed, global_batch, k = index_stream
     n = dataset_images.shape[0]
+    b = global_batch // (1 if mesh is None else mesh.data)
+    cols = slice(_data_rank(mesh) * b, (_data_rank(mesh) + 1) * b)
 
     def chunk_exact(state: TrainState):
-        idx = device_stream.chunk_shuffle_indices(seed, state.step,
-                                                  global_batch, k, n)
+        idx = device_stream.chunk_shuffle_indices(
+            seed, state.step, global_batch, k, n)[:, cols]
         return body(state, dataset_images[idx], dataset_labels[idx])
 
-    if not dataset_images.is_cuda:
-        return _dispatch(chunk_exact, None)
+    if not dataset_images.is_cuda or not chunk_is_graphed(mesh):
+        return _dispatch(chunk_exact, None, mesh)
     rows = device_stream.EpochRows(seed, global_batch, k, n,
                                    dataset_images.device)
 
     def chunk_table(state: TrainState):
-        idx = rows.lookup(state.step)
+        idx = rows.lookup(state.step)[:, cols]
         return body(state, dataset_images[idx], dataset_labels[idx])
 
-    fn = _dispatch(chunk_exact, _GraphedChunk(chunk_table, rows.prepare, k))
+    fn = _dispatch(chunk_exact, _GraphedChunk(chunk_table, rows.prepare, k,
+                                              mesh), mesh)
     fn.rows = rows
     fn.check = rows.check
     return fn
@@ -497,15 +608,32 @@ def _eval_data_cfg(data_cfg: DataConfig) -> DataConfig:
 def make_eval_resident(model: nn.Module, images_u8: np.ndarray,
                        labels: np.ndarray, data_cfg: DataConfig,
                        device: torch.device, batch_size: int = 128,
-                       expected_batches: Optional[int] = None):
+                       expected_batches: Optional[int] = None,
+                       mesh: Optional[Mesh] = None,
+                       total_records: Optional[int] = None):
     """Full-split eval against a device-resident split: returns ``(fn,
     total)`` with ``fn(state) -> correct count`` (a device scalar) over
     all ``total`` records. The split is padded on the host to whole
     batches (pad labels -1 count 0, as ``full_sweep_padded``), placed on
     ``device`` once as ``[M, B, ...]`` uint8, and each call decodes and
-    scores the M batches with one read at the end."""
+    scores the M batches with one read at the end.
+
+    Over a mesh with several data ranks, ``images_u8`` and ``labels`` are
+    this data rank's strided shard of a split of ``total_records`` and
+    ``batch_size`` its share of the eval batch: every rank pads to the
+    batches of the largest shard, ``M = ceil(ceil(total / data) / B)``,
+    and the count is summed over the data ranks (JAX ``train/
+    loop.py:517-532``)."""
+    shards = 1 if mesh is None else mesh.data
     n = images_u8.shape[0]
-    m = -(-n // batch_size)
+    if shards > 1 and total_records is None:
+        # M from the local shard would differ between ranks (strided
+        # shards differ by one record): unequal sweeps hang the sum.
+        raise ValueError("make_eval_resident over several data ranks needs "
+                         "total_records (the split's size before sharding)")
+    total = n if total_records is None else int(total_records)
+    largest_shard = -(-total // shards)
+    m = -(-largest_shard // batch_size)
     if expected_batches is not None and m != expected_batches:
         # The iterator's padded-sweep rule and this one must agree: the
         # host-fed and resident paths count over the same geometry.
@@ -522,26 +650,33 @@ def make_eval_resident(model: nn.Module, images_u8: np.ndarray,
         m, batch_size, *images_u8.shape[1:]))).to(device)
     lbs = torch.from_numpy(labels.reshape(m, batch_size).astype(
         np.int64)).to(device)
+    # The model's own collectives (a seq rank's tokens) run inside the
+    # step; the count is summed once, after the sweep.
     eval_step = make_eval_step(model)
     eval_cfg = _eval_data_cfg(data_cfg)
 
     def fn(state: TrainState) -> torch.Tensor:
-        total = torch.zeros((), dtype=torch.int64, device=device)
+        count = torch.zeros((), dtype=torch.int64, device=device)
         for i in range(m):
-            total += eval_step(state, device_preprocess(ims[i], eval_cfg),
+            count += eval_step(state, device_preprocess(ims[i], eval_cfg),
                                lbs[i])["correct"]
-        return total
+        if shards > 1:
+            mesh.all_reduce_(count, "data")
+        return count
 
-    return fn, n
+    return fn, total
 
 
 def make_batch_eval_resident(model: nn.Module, dataset_images: torch.Tensor,
                              dataset_labels: torch.Tensor,
-                             data_cfg: DataConfig):
+                             data_cfg: DataConfig,
+                             mesh: Optional[Mesh] = None):
     """Single-batch accuracy against a device-resident split: ``fn(state,
-    idx [B]) -> accuracy`` (device scalar), the index-fed mirror of
-    :func:`make_eval_step` for the boundary metrics."""
-    eval_step = make_eval_step(model)
+    idx [b]) -> accuracy`` (device scalar), the index-fed mirror of
+    :func:`make_eval_step` for the boundary metrics; over a mesh ``idx``
+    is this data rank's slice of the batch, in rows of the whole split,
+    and the accuracy the data ranks' mean."""
+    eval_step = make_eval_step(model, mesh)
     eval_cfg = _eval_data_cfg(data_cfg)
 
     def fn(state: TrainState, idx: torch.Tensor) -> torch.Tensor:

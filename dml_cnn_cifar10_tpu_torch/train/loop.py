@@ -19,8 +19,9 @@ The host reads the device only at those boundaries: the loss and the
 fresh-batch accuracy (one copy), the eval count, and the checkpoint.
 
 Several processes (``ParallelConfig.num_processes`` > 1) form one
-``data x seq`` mesh (``parallel/mesh.py``), one card each at
-``cuda:{rank % device_count}``: each data rank trains on its
+``data x seq`` mesh (``parallel/mesh.py``), one card each, a rank's card
+being its index among the ranks of its own host in ``--worker_hosts``
+(``utils/platform.py:rank_device``): each data rank trains on its
 ``batch_size // data`` slice of the global batch, read from its own
 ``[data_rank::data]`` shard of the records; the seq ranks of one data
 row read the same slice and split its tokens. The chief generates the
@@ -28,18 +29,25 @@ synthetic data and writes the checkpoints; every rank prints its own
 console lines, and only the chief writes the metrics JSONL. ``images/s``
 counts the global batch.
 
-Chunked dispatch (``steps_per_dispatch`` K > 1, one process): K steps a
-call through ``parallel/step.py:make_train_chunk*``, one CUDA graph replay
-a chunk on the card. By default the uint8 train split is resident on the
-device (``resident_data``, up to ``resident_data_max_bytes``) and the
-device index stream (``data.device_index_stream``) draws its rows from
+Chunked dispatch (``steps_per_dispatch`` K > 1): K steps a call through
+``parallel/step.py:make_train_chunk*``, one CUDA graph replay a chunk on
+the card, its NCCL collectives captured in it. By default the uint8 train
+split is resident on the device (``resident_data``, up to
+``resident_data_max_bytes``, judged on the whole split) and the device
+index stream (``data.device_index_stream``) draws its rows from
 ``state.step``: a training dispatch moves nothing host→device, the
 boundary evals gather from resident splits too, and a resumed run
 continues the data order exactly, because the stream position is the
 step. With the device stream off the host ships each chunk's indices;
 past the size cap it ships raw uint8 chunks. The cadences and the steps
-to run must be multiples of K. Several processes with K > 1 raise:
-capturing NCCL collectives in the graph is not ported.
+to run must be multiples of K. Over several processes (JAX ``train/
+loop.py:455-545``) every rank holds the whole split and takes its data
+rank's columns of the global rows; host indices, drawn from the rank's
+shard, ship as rows of the whole split; the full-split eval sums each
+data rank's strided shard; the host-fed path ships each rank its own
+shard's raw chunks. Over gloo on the card a chunk runs its K steps
+eagerly (its collectives stage through host memory); the ``[dist]`` line
+says which.
 
 Exact resume (JAX ``train/loop.py:449-455,702-727``): every checkpoint
 gets a ``data_state_{step}.json`` sidecar with the batches each host
@@ -53,12 +61,15 @@ Run telemetry, all on numbers the host already has (JAX
 ``train/loop.py:752-1055``): each ``train`` record carries
 ``device_step_ms`` and ``drain_wait_ms`` (``utils/devprof.py``
 ``DeviceStepEstimator``: two clock reads around the boundary's one fetch),
-``tflops_per_sec_per_chip`` (the step's FLOPs, counted once at start by
-``utils/profiling.py:step_flops``, times the steps a second) and, with
-``peak_tflops``, ``mfu``; the first also carries ``flops_stack``, what the
-count means. ``profile_at_steps`` arms a torch.profiler window whose trace
-becomes ``devtime`` records, and later ``train`` records carry its
-``optimizer_ms``.
+``tflops_per_sec_per_chip`` (the step's FLOPs, the update's included,
+counted once at start by ``utils/profiling.py:step_flops``, times the
+steps a second) and, with ``peak_tflops``, ``mfu``; the first also carries
+``flops_stack``, what the count means. ``profile_at_steps`` arms a
+torch.profiler window whose trace becomes ``devtime`` records, and later
+``train`` records carry its ``optimizer_ms``. On a chunked run the window
+opens no earlier than the second dispatch (the first captures the graph,
+whose profiled warm-up tells the window which replayed kernels are the
+update's).
 
 Left out: the supervisor, peers, fault injection and the autopilot.
 """
@@ -101,13 +112,8 @@ class Trainer:
         self.task_index = task_index
         par = cfg.parallel
         k = self.steps_per_dispatch = max(1, cfg.steps_per_dispatch)
-        if k > 1 and par.num_processes > 1:
-            raise ValueError(
-                f"steps_per_dispatch={k} runs on one process only: a chunk "
-                f"is one CUDA graph, and capturing the NCCL collectives of "
-                f"{par.num_processes} ranks in it is not ported yet "
-                f"(ROADMAP.md Queue 1); use steps_per_dispatch=1")
-        self.device = rank_device(cfg.device, par.process_id)
+        self.device = rank_device(cfg.device, par.process_id,
+                                  par.worker_hosts)
         if par.num_processes > 1:
             backend = par.dist_backend or default_backend(self.device)
             multihost.initialize(par, backend, self.device)
@@ -118,10 +124,22 @@ class Trainer:
                              f"over {m.data} data rank(s)")
         self.local_batch = cfg.batch_size // m.data
         if m.world > 1:
+            chunks = ""
+            if k > 1:
+                if self.device.type != "cuda":
+                    how = "the eager body, on the CPU"
+                elif step_lib.chunk_is_graphed(m):
+                    how = ("one CUDA graph replay each, its NCCL "
+                           "collectives captured")
+                else:
+                    how = ("the eager body: gloo stages each collective "
+                           "through host memory, which a CUDA graph "
+                           "cannot hold")
+                chunks = f"; chunks of {k} steps: {how}"
             print(f"[dist] rank {m.rank}/{m.world} (data {m.data_rank}/"
                   f"{m.data}, seq {m.seq_rank}/{m.seq}) on {self.device}, "
-                  f"backend {m.backend}, {self.local_batch} images a step",
-                  flush=True)
+                  f"backend {m.backend}, {self.local_batch} images a step"
+                  f"{chunks}", flush=True)
             # One writer for the shared synthetic files; the others wait.
             if m.chief:
                 download.ensure_dataset(cfg.data)
@@ -141,7 +159,7 @@ class Trainer:
                         f"of steps_per_dispatch={k} so every observable "
                         f"boundary lands on a dispatch edge")
             self.train_chunk = step_lib.make_train_chunk(
-                self.model, cfg.optim, data_cfg=cfg.data)
+                self.model, cfg.optim, data_cfg=cfg.data, mesh=m)
         # Resident-eval functions, set up by fit() on the resident path.
         self._resident_full_eval = None
         self._resident_test_eval = None
@@ -169,7 +187,10 @@ class Trainer:
                                    shard=shard, num_shards=self.mesh.data)
 
     def _index(self, idx: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(idx).to(self.device)
+        """Indices drawn from this data rank's shard, as rows of the whole
+        split on the device (the resident splits are whole)."""
+        return torch.from_numpy(step_lib.global_rows(idx, self.mesh)).to(
+            self.device)
 
     def evaluate(self, state: step_lib.TrainState,
                  test_it: pipe.ShuffleBatchIterator) -> float:
@@ -236,8 +257,8 @@ class Trainer:
             test_it.skip_batches(base["test"])
         consumed = {"acc": 0, "test": 0}
         if resident:
-            # The uint8 splits live on the device; a chunk gathers and
-            # decodes its rows there (parallel/step.py).
+            # The uint8 splits live on the device, whole on every rank; a
+            # chunk gathers and decodes its rows there (parallel/step.py).
             host_imgs, host_lbls = _full_split_arrays(
                 train_it, lambda: pipe.input_pipeline(
                     cfg.data, self.local_batch, train=True, seed=cfg.seed))
@@ -253,20 +274,24 @@ class Trainer:
                 self.model, cfg.optim, ds_images, ds_labels,
                 data_cfg=cfg.data,
                 index_stream=((cfg.data.seed, cfg.batch_size, k)
-                              if dev_stream else None))
+                              if dev_stream else None), mesh=self.mesh)
             acc_eval = step_lib.make_batch_eval_resident(
-                self.model, ds_images, ds_labels, cfg.data)
+                self.model, ds_images, ds_labels, cfg.data, mesh=self.mesh)
             if cfg.eval_full_test_set:
                 self._resident_full_eval = step_lib.make_eval_resident(
                     self.model, test_it.images, test_it.labels, cfg.data,
                     self.device, batch_size=self.local_batch,
-                    expected_batches=test_it.num_padded_sweep_batches())
+                    expected_batches=test_it.num_padded_sweep_batches(),
+                    mesh=self.mesh, total_records=test_it.total_records)
             else:
+                t_imgs, t_lbls = _full_split_arrays(
+                    test_it, lambda: pipe.input_pipeline(
+                        cfg.data, self.local_batch, train=False,
+                        seed=cfg.seed))
                 self._resident_test_eval = step_lib.make_batch_eval_resident(
-                    self.model,
-                    torch.from_numpy(test_it.images).to(self.device),
-                    torch.from_numpy(test_it.labels.astype(np.int64)).to(
-                        self.device), cfg.data)
+                    self.model, torch.from_numpy(t_imgs).to(self.device),
+                    torch.from_numpy(t_lbls.astype(np.int64)).to(
+                        self.device), cfg.data, mesh=self.mesh)
             if dev_stream:
                 # The chunk generates its own rows: no inputs at all.
                 prefetch = _NoInputs()
@@ -294,6 +319,7 @@ class Trainer:
             step_fn = self.train_step
 
         self.train_fn = step_fn
+        graph = getattr(step_fn, "graph", None)
 
         def boundary_check():
             # Before anything of the window is logged or saved.
@@ -316,6 +342,8 @@ class Trainer:
         meter = profiling.DrainMeter(cfg.batch_size)
         dev_est = devprof.DeviceStepEstimator()
         devwin = devprof.ProfileWindow.from_config(cfg, logger=self.logger)
+        if graph is not None:
+            graph.learn_update = devwin is not None
         # One step's FLOPs on this rank and what the figure means, counted
         # once (utils/profiling.py); none when the count fails.
         try:
@@ -336,7 +364,7 @@ class Trainer:
             with profiling.profile_trace(
                     cfg.profile_dir if devwin is None else None):
                 while global_step < total_steps:
-                    if devwin is not None:
+                    if devwin is not None and (k == 1 or run_t0 is not None):
                         devwin.maybe_start(global_step)
                     state, metrics = step_fn(state, *next(prefetch))
                     global_step += k
@@ -347,6 +375,8 @@ class Trainer:
                         run_t0 = time.perf_counter()
                         meter.mark(global_step)
                         dev_est.mark(global_step)
+                        if devwin is not None and graph is not None:
+                            devwin.update_signature = graph.update_signature
                     drained = False
                     if (i + k) % cfg.output_every == 0:
                         if acc_eval is not None:
@@ -424,6 +454,16 @@ class Trainer:
             prefetch.close()
             self.logger.flush()
         return TrainResult(global_step, avg_rate, state)
+
+    def close(self) -> None:
+        """Close the metrics stream and free the chunk graphs (over NCCL
+        before the process group goes: a graph holds resources of the
+        communicators it captured)."""
+        self.logger.close()
+        for fn in (self.train_fn, getattr(self, "train_chunk", None)):
+            graph = getattr(fn, "graph", None)
+            if graph is not None:
+                graph.release()
 
 
 class _NoInputs:

@@ -29,9 +29,15 @@ time inside the train step's ``record_function("optimizer")``: the
 profiler puts the range on the device's timeline as a
 ``gpu_user_annotation`` interval, and each kernel of the same stream that
 starts inside it counts. A CUDA graph replays kernels without the ranges
-they were captured in; a lane with no ``optimizer`` interval counts the
-update kernels by name instead (K1/K2, ``sgd_multi_kernel``), which covers
-the SGD update only. On a host lane the range's own event counts.
+they were captured in, and the update's plain-torch kernels carry the
+same names as kernels of the forward and backward. So a graphed chunk
+learns, from a profiled run of its body before the capture, which
+occurrences of each name the update launches (:func:`update_signature`:
+a replay repeats the body's kernels in their order), and in a window's
+trace the device events that share one launch's correlation id (a graph
+replay; an eager launch has one) count when their name's occurrence in
+that replay is one of the update's. On a host lane the range's own event
+counts.
 """
 
 from __future__ import annotations
@@ -41,15 +47,13 @@ import os
 import re
 import sys
 import time
-from typing import List, Optional
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 #: Device-time buckets, in report order.
 DEVTIME_BUCKETS = ("compute", "collective", "infeed")
 
 #: The step's update scope (parallel/step.py: record_function).
 SCOPE_RE = re.compile(r"optimizer")
-#: The update kernels a CUDA graph replays without their scope.
-UPDATE_KERNEL_RE = re.compile(r"sgd_multi_kernel")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation")
 
@@ -93,34 +97,96 @@ def parse_profile_at_steps(spec: Optional[str]):
     return start, n
 
 
+#: Per event name, the occurrences in one replay that the update
+#: launched (:func:`update_signature`).
+Signature = Mapping[str, Sequence[int]]
+
+
 def _inside(ev, spans) -> bool:
     """``ev`` starts inside one of ``spans`` (``(start, end)`` µs)."""
     return any(lo <= ev["ts"] < hi for lo, hi in spans)
 
 
-def parse_trace_doc(doc: dict, top_k: int = 12) -> List[dict]:
-    """Chrome-trace dict (torch.profiler's export) → per-lane device-time
-    records (no I/O): the device lanes when the trace has device events,
-    else the host lanes, else any lane with complete events."""
-    events = doc.get("traceEvents") or []
-    pid_names = {}
-    for e in events:
-        if e.get("ph") == "M" and e.get("name") == "process_name":
-            pid_names[e.get("pid")] = (e.get("args") or {}).get("name", "")
-    xs = [e for e in events
-          if e.get("ph") == "X" and e.get("dur") is not None]
-    if not xs:
-        return []
-    device = [e for e in xs if e.get("cat") in DEVICE_CATS]
-    host = [e for e in xs if e.get("cat") in HOST_CATS]
-    lane_events = device or host or xs
-    # The update scope's intervals on the device's timeline, by stream.
+def _complete(doc: dict) -> List[dict]:
+    return [e for e in doc.get("traceEvents") or []
+            if e.get("ph") == "X" and e.get("dur") is not None]
+
+
+def _update_scopes(xs) -> Dict[Tuple, List[Tuple[float, float]]]:
+    """The update scope's intervals on the device's timeline, by
+    ``(pid, tid)`` stream."""
     scopes = {}
     for e in xs:
         if e.get("cat") == "gpu_user_annotation" and \
                 SCOPE_RE.search((e.get("name") or "").lower()):
             scopes.setdefault((e.get("pid"), e.get("tid")), []).append(
                 (e["ts"], e["ts"] + e["dur"]))
+    return scopes
+
+
+def _occurrences(events):
+    """``(event, i)``: each event in start order with the number of
+    events of its name before it."""
+    seen = {}
+    for e in sorted(events, key=lambda e: e["ts"]):
+        name = e.get("name") or "?"
+        seen[name] = seen.get(name, -1) + 1
+        yield e, seen[name]
+
+
+def update_signature(doc: dict) -> Dict[str, Tuple[int, ...]]:
+    """From the trace of one eager run of a CUDA graph's body, the device
+    events the update launched: for each name, the indices of its
+    occurrences (in start order over the device) that start inside an
+    ``optimizer`` annotation of their stream. A replay repeats the body's
+    device events in this order."""
+    xs = _complete(doc)
+    scopes = _update_scopes(xs)
+    out: Dict[str, List[int]] = {}
+    device = [e for e in xs if e.get("cat") in DEVICE_CATS]
+    for e, i in _occurrences(device):
+        if _inside(e, scopes.get((e.get("pid"), e.get("tid")), ())):
+            out.setdefault(e.get("name") or "?", []).append(i)
+    return {name: tuple(ix) for name, ix in out.items()}
+
+
+def _replay_update_events(device, signature: Signature) -> set:
+    """``id``s of the device events of graph replays that ``signature``
+    marks as the update's. A replay's events share its launch's
+    correlation id; an eager launch has one event of its own."""
+    replays = {}
+    for e in device:
+        corr = (e.get("args") or {}).get("correlation")
+        if corr is not None:
+            replays.setdefault((e.get("pid"), corr), []).append(e)
+    hits = set()
+    for events in replays.values():
+        if len(events) < 2:
+            continue
+        for e, i in _occurrences(events):
+            if i in signature.get(e.get("name") or "?", ()):
+                hits.add(id(e))
+    return hits
+
+
+def parse_trace_doc(doc: dict, top_k: int = 12,
+                    signature: Optional[Signature] = None) -> List[dict]:
+    """Chrome-trace dict (torch.profiler's export) → per-lane device-time
+    records (no I/O): the device lanes when the trace has device events,
+    else the host lanes, else any lane with complete events. ``signature``
+    marks the update's events in graph replays."""
+    pid_names = {}
+    for e in doc.get("traceEvents") or []:
+        if e.get("ph") == "M" and e.get("name") == "process_name":
+            pid_names[e.get("pid")] = (e.get("args") or {}).get("name", "")
+    xs = _complete(doc)
+    if not xs:
+        return []
+    device = [e for e in xs if e.get("cat") in DEVICE_CATS]
+    host = [e for e in xs if e.get("cat") in HOST_CATS]
+    lane_events = device or host or xs
+    scopes = _update_scopes(xs)
+    replayed = _replay_update_events(device, signature or {})
     out = []
     pids = {e.get("pid") for e in lane_events}
     for pid in sorted(pids, key=lambda p: (str(pid_names.get(p, "")),
@@ -130,15 +196,14 @@ def parse_trace_doc(doc: dict, top_k: int = 12) -> List[dict]:
         optimizer_us = 0.0
         t_lo = min(e["ts"] for e in evs)
         t_hi = max(e["ts"] + e["dur"] for e in evs)
-        lane_scoped = any(p == pid for p, _ in scopes)
         for e in evs:
             name = e.get("name") or "?"
             agg = by_op.setdefault(name, [0.0, 0])
             agg[0] += e["dur"]          # microseconds
             agg[1] += 1
             if device:
-                hit = (_inside(e, scopes.get((pid, e.get("tid")), ()))
-                       if lane_scoped else UPDATE_KERNEL_RE.search(name))
+                hit = (id(e) in replayed
+                       or _inside(e, scopes.get((pid, e.get("tid")), ())))
             else:
                 hit = SCOPE_RE.search(name.lower())
             if hit:
@@ -191,6 +256,9 @@ class ProfileWindow:
         #: Per-step device time inside the update scope from the parsed
         #: window (mean over lanes); None until a window completes.
         self.optimizer_step_ms: Optional[float] = None
+        #: The update's events in a graph replay, from the graphed
+        #: chunk's profiled warm-up (set by the trainer).
+        self.update_signature: Optional[Signature] = None
         #: The parsed lanes of the completed window.
         self.lanes: List[dict] = []
 
@@ -243,7 +311,8 @@ class ProfileWindow:
             os.makedirs(self.out_dir, exist_ok=True)
             self._prof.export_chrome_trace(path)
             with open(path) as f:
-                lanes = parse_trace_doc(json.load(f), top_k=self.top_k)
+                lanes = parse_trace_doc(json.load(f), top_k=self.top_k,
+                                        signature=self.update_signature)
         except Exception as e:
             print(f"[devprof] profiler stop/parse failed at step {step}: "
                   f"{e!r}", file=sys.stderr)

@@ -7,6 +7,8 @@ numbers under a device's name.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 
@@ -23,13 +25,28 @@ def resolve_device(name: str = "cuda") -> torch.device:
     return dev
 
 
-def rank_device(name: str, rank: int) -> torch.device:
-    """The device of process ``rank``: ``cuda:{rank % device_count}`` for a
-    bare "cuda" (several ranks share a card when there are more ranks
-    than cards), ``name`` itself otherwise."""
+def local_index(worker_hosts: Sequence[str], rank: int) -> int:
+    """Rank ``rank``'s index among the ranks of its own host: the entries
+    of ``worker_hosts`` (``host:port``, one a rank) before it that name
+    the same host. Hosts may run unequal numbers of ranks, in any order.
+    With no list every rank is on one host, and the index is ``rank``."""
+    if not worker_hosts:
+        return rank
+    host = worker_hosts[rank].rpartition(":")[0]
+    return sum(entry.rpartition(":")[0] == host
+               for entry in worker_hosts[:rank])
+
+
+def rank_device(name: str, rank: int,
+                worker_hosts: Sequence[str] = ()) -> torch.device:
+    """The device of process ``rank``: for a bare "cuda", card
+    ``local_index(worker_hosts, rank) % device_count`` of its host
+    (several ranks of a host share a card when it has more ranks than
+    cards); ``name`` itself otherwise."""
     dev = resolve_device(name)
     if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", rank % torch.cuda.device_count())
+        return torch.device("cuda", local_index(worker_hosts, rank)
+                            % torch.cuda.device_count())
     return dev
 
 

@@ -13,17 +13,20 @@ the dispatcher as registered operators whose FLOP formulas give the
 dense-equivalent count (``ops/flash_attention.py``), and the remat
 recompute runs and counts as it does in training. Every counted FLOP is
 linear in the batch, so the batch-1 count times the rank's batch is the
-rank's step. The optimizer update is not counted: its ctypes kernels do
-not run on ``meta``, and it is a few FLOPs a parameter (K1: 2, K2 with
-weight decay: 6), against thousands of a parameter in the forward and
-backward.
+rank's step. The optimizer update, which every rank runs whole, is added
+by :func:`update_flops`, counted per parameter from the update's own
+expressions (``train/optim.py``): FlopCounterMode counts no elementwise
+work, and the update's ctypes kernels do not run on ``meta``. It is a
+few FLOPs a parameter (K1: 2, K2 with weight decay: 6, AdamW: 16),
+against thousands in the CNN's forward and backward.
 
 The label :func:`step_flops` returns with the count says what it means,
 and the ``train`` records carry it once as ``flops_stack``:
 
 - ``exact``: the whole step of this rank, counted as it runs;
 - ``seq_share_x{n}``: under sequence parallelism over ``n`` seq ranks,
-  the full sequence's step of this rank's data row, divided by ``n``.
+  the full sequence's forward and backward of this rank's data row,
+  divided by ``n``, and the whole update.
   Exact per rank for Ulysses (each rank runs 1/n of the heads over the
   whole sequence, and 1/n of the tokens elsewhere) and for the ring
   without a causal mask or a window (each rank attends its 1/n of the
@@ -36,9 +39,10 @@ and the ``train`` records carry it once as ``flops_stack``:
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import time
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch.func import functional_call
@@ -75,18 +79,71 @@ class DrainMeter:
         self._mark = (step, time.perf_counter())
 
 
-def _image_flops(cfg) -> int:
+def update_flops(optim_cfg, shapes: Mapping[str, Sequence[int]]) -> int:
+    """FLOPs of one optimizer update of ``optim_cfg`` (an ``OptimConfig``)
+    over leaves of ``shapes`` (``{name: port-layout shape}``), as
+    ``train/optim.py`` and the K1/K2 kernels compute it: one FLOP for each
+    element of each add, multiply, divide, square, square root or
+    reciprocal square root on a tensor of a leaf's size (or of its rows'
+    or columns'), and one for each element a reduction sums; the work on
+    0-d values (the LR schedule, bias corrections, the square roots of
+    norms, trust ratios, clip scales) is left out. Per parameter:
+
+    - SGD: ``p - lr·g`` 2, weight decay ``g + wd·p`` 2, momentum
+      ``mu·m + g`` 2 (K1 2; K2 with weight decay 6);
+    - AdamW 16 (``mu`` 3, ``nu`` 4, the step ``r`` 7, ``p - lr·r`` 2);
+      LAMB 20 (the two norms of its trust ratio, 2 each);
+    - LARS 6 (``g + wd·p``, momentum, ``p - lr·m``), and 5 more on leaves
+      of two or more dims (two norms and the local-LR product);
+    - Adafactor, on the JAX-layout view: 15 on a factored leaf (2 or more
+      dims; plus 7 a row, 5 a column and 1 a leading index: the factored
+      moments, their means and rsqrts), 16 on another;
+    - clipping 3 (the global norm's square and sum, the scale),
+      accumulation over A microbatches A (A − 1 sums, the division), the
+      EMA 3.
+    """
+    from dml_cnn_cifar10_tpu_torch import convert
+
+    o = optim_cfg
+    sizes = {n: math.prod(s) for n, s in shapes.items()}
+    n = sum(sizes.values())
+    per = 3 * (o.grad_clip_norm is not None) + 3 * bool(o.ema_decay)
+    if o.grad_accum > 1:
+        per += o.grad_accum
+    if o.optimizer in ("adamw", "lamb"):
+        return (per + 16 + 4 * (o.optimizer == "lamb")) * n
+    if o.optimizer == "lars":
+        return (per + 6) * n + 5 * sum(sizes[k] for k, s in shapes.items()
+                                       if len(s) > 1)
+    if o.optimizer == "adafactor":
+        total = per * n
+        for name, shape in shapes.items():
+            s = convert.jax_shape(name, shape)
+            if len(s) < 2:
+                total += 16 * sizes[name]
+                continue
+            lead = math.prod(s[:-2])
+            total += (15 * sizes[name] + 7 * lead * s[-2]
+                      + 5 * lead * s[-1] + lead)
+        return total
+    return (per + 2 + 2 * bool(o.weight_decay) + 2 * bool(o.momentum)) * n
+
+
+def _meta_model(cfg):
+    from dml_cnn_cifar10_tpu_torch.models.registry import get_model
+    with torch.device("meta"):
+        return get_model(cfg.model.name)(cfg.model, cfg.data)
+
+
+def _image_flops(cfg, model) -> int:
     """FLOPs of one training image's forward and backward for ``cfg``
-    (a ``TrainConfig``), counted on the ``meta`` device over the whole
-    sequence (no mesh)."""
+    (a ``TrainConfig``) through ``model`` on the ``meta`` device, over the
+    whole sequence (no mesh)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from dml_cnn_cifar10_tpu_torch.models.registry import get_model
     from dml_cnn_cifar10_tpu_torch.train import loss as loss_lib
 
     d = cfg.data
-    with torch.device("meta"):
-        model = get_model(cfg.model.name)(cfg.model, d)
     params = {n: p.detach().requires_grad_()
               for n, p in model.named_parameters()}
     images = torch.empty((1, d.crop_height, d.crop_width, d.num_channels),
@@ -104,16 +161,20 @@ def step_flops(cfg, data: int = 1, seq: int = 1) -> Tuple[float, str]:
     """``(FLOPs of one training step on one rank, label)`` for ``cfg`` (a
     ``TrainConfig``) on a ``data x seq`` mesh: the forward and backward
     of this rank's ``batch_size / data`` images (all ``grad_accum``
-    microbatches), its ``1/seq`` share under sequence parallelism. The
-    labels are the module docstring's."""
-    flops = _image_flops(cfg) * (cfg.batch_size // data)
+    microbatches), its ``1/seq`` share under sequence parallelism, and
+    the whole update (:func:`update_flops`). The labels are the module
+    docstring's."""
+    model = _meta_model(cfg)
+    flops = _image_flops(cfg, model) * (cfg.batch_size // data)
+    update = update_flops(cfg.optim, {n: tuple(p.shape) for n, p
+                                      in model.named_parameters()})
     if seq <= 1:
-        return float(flops), "exact"
+        return float(flops + update), "exact"
     m = cfg.model
     even = m.sp_mode == "ulysses" or (not m.attn_causal
                                       and m.attn_window is None)
     label = f"seq_share_x{seq}" if even else f"seq_mean_share_x{seq}"
-    return flops / seq, label
+    return flops / seq + update, label
 
 
 @contextlib.contextmanager

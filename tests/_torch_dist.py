@@ -44,6 +44,18 @@ def _entry(fn_name, rank, world, init_file, out_dir, args):
             dist.destroy_process_group()
 
 
+def free_ports(n):
+    """``n`` free TCP ports on the loopback interface."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
 def run_ranks(fn_name: str, world: int, tmp_dir, *args,
               timeout_s: float = 150.0):
     """Run ``fn_name(rank, world, *args)`` on ``world`` gloo ranks; returns
@@ -212,3 +224,151 @@ def cli_rank(rank, world, argv):
     from dml_cnn_cifar10_tpu_torch.cli.main import main
     dist.destroy_process_group()
     return main(list(argv) + ["--task_index", str(rank)])
+
+
+def _port_state(net, ocfg, params):
+    """A port train state on the CPU holding ``params`` (a JAX-layout
+    numpy tree)."""
+    from dml_cnn_cifar10_tpu_torch import convert
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+
+    state = step_lib.init_train_state(net, ocfg, torch.device("cpu"),
+                                      torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, value in convert.params_from_jax(params).items():
+            state.params[name].copy_(value)
+    return state
+
+
+def _final(state):
+    return {k: v.detach().numpy().copy() for k, v in state.params.items()}
+
+
+def dp_chunks(rank, world, data, optim, params, split, test_split, k,
+              batch, host_idx, seed):
+    """The DP CNN's chunked paths over ``world`` data ranks, each from
+    ``params``: the resident chunk on the device index stream (seed
+    ``seed``, global ``batch``), the resident chunk on host indices
+    (``host_idx``: per dispatch the global ``[k, batch]`` rows, whose
+    columns of data rank r all lie in shard r; this rank takes its
+    columns as shard rows, which ``global_rows`` maps back), the host-fed
+    raw chunk of the same rows beside ``k`` single DP steps decoded at
+    their columns, and the resident full-test eval of this rank's shard
+    at the final stream state. Returns each path's per-dispatch (loss,
+    accuracy) and final params, and the eval count."""
+    from dml_cnn_cifar10_tpu_torch.config import (DataConfig, ModelConfig,
+                                                  OptimConfig,
+                                                  ParallelConfig)
+    from dml_cnn_cifar10_tpu_torch.models.cnn import CNN
+    from dml_cnn_cifar10_tpu_torch.ops.preprocess import device_preprocess
+    from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+
+    mesh = mesh_lib.build_mesh(ParallelConfig())
+    dcfg, ocfg = DataConfig(**data), OptimConfig(**optim)
+    images = torch.from_numpy(split[0])
+    labels = torch.from_numpy(split[1].astype(np.int64))
+    b = batch // mesh.data
+    cols = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+    out = {}
+
+    def metrics(m):
+        return float(m["loss"]), float(m["accuracy"])
+
+    net = CNN(ModelConfig(logit_relu=False), dcfg)
+    state = _port_state(net, ocfg, params)
+    chunk = step_lib.make_train_chunk_resident(
+        net, ocfg, images, labels, data_cfg=dcfg,
+        index_stream=(seed, batch, k), mesh=mesh)
+    runs = [metrics(chunk(state)[1]) for _ in range(len(host_idx))]
+    out["stream"] = (runs, _final(state))
+    stream_state = state
+
+    net = CNN(ModelConfig(logit_relu=False), dcfg)
+    state = _port_state(net, ocfg, params)
+    chunk = step_lib.make_train_chunk_resident(
+        net, ocfg, images, labels, data_cfg=dcfg, mesh=mesh)
+    runs = []
+    for idx in host_idx:
+        local = (idx[:, cols] - mesh.data_rank) // mesh.data
+        rows = torch.from_numpy(step_lib.global_rows(local, mesh))
+        runs.append(metrics(chunk(state, rows)[1]))
+    out["host_idx"] = (runs, _final(state))
+
+    net = CNN(ModelConfig(logit_relu=False), dcfg)
+    state = _port_state(net, ocfg, params)
+    fed = step_lib.make_train_chunk(net, ocfg, data_cfg=dcfg, mesh=mesh)
+    runs = [metrics(fed(state, images[idx[:, cols]],
+                        labels[idx[:, cols]])[1]) for idx in host_idx]
+    out["host_fed"] = (runs, _final(state))
+
+    net = CNN(ModelConfig(logit_relu=False), dcfg)
+    state = _port_state(net, ocfg, params)
+    one = step_lib.make_train_step(net, ocfg, mesh)
+    runs = []
+    for idx in host_idx:
+        for i in range(k):
+            rows = idx[i, cols]
+            _, m = one(state, device_preprocess(
+                images[rows], dcfg, state.step, mesh.data_rank * b),
+                labels[rows])
+        runs.append(metrics(m))
+    out["single"] = (runs, _final(state))
+
+    t_images, t_labels = test_split
+    ev, total = step_lib.make_eval_resident(
+        net, t_images[mesh.data_rank::mesh.data],
+        t_labels[mesh.data_rank::mesh.data], dcfg, torch.device("cpu"),
+        batch_size=b, mesh=mesh, total_records=len(t_labels))
+    out["eval"] = (int(ev(stream_state)), total)
+    return out
+
+
+def sp_chunks(rank, world, seq, model, optim, params, images, labels):
+    """A ViT chunk of ``len(images)`` steps over a ``data x seq`` mesh on
+    decoded images (global ``[K, B, H, W, C]``, this rank takes its data
+    rank's columns), and the same steps one at a time, each from
+    ``params``, for ``sp_mode`` ring and ulysses. Returns per mode the
+    chunk's last (loss, accuracy) and final params, and the steps'."""
+    from dml_cnn_cifar10_tpu_torch.config import (DataConfig, ModelConfig,
+                                                  OptimConfig,
+                                                  ParallelConfig)
+    from dml_cnn_cifar10_tpu_torch.models.registry import get_model
+    from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+
+    mesh = mesh_lib.build_mesh(ParallelConfig(seq_axis=seq))
+    ocfg = OptimConfig(**optim)
+    dcfg = DataConfig(crop_height=images.shape[2],
+                      crop_width=images.shape[3])
+    b = images.shape[1] // mesh.data
+    cols = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+    ims = torch.from_numpy(images[:, cols])
+    lbs = torch.from_numpy(labels[:, cols].astype(np.int64))
+    out = {}
+    for mode in ("ring", "ulysses"):
+        mcfg = ModelConfig(**model, sp_mode=mode)
+        net = get_model(mcfg.name)(mcfg, dcfg, mesh=mesh)
+        state = _port_state(net, ocfg, params)
+        _, m = step_lib.make_train_chunk(net, ocfg, mesh=mesh)(state, ims,
+                                                               lbs)
+        chunk = ((float(m["loss"]), float(m["accuracy"])), _final(state))
+        net = get_model(mcfg.name)(mcfg, dcfg, mesh=mesh)
+        state = _port_state(net, ocfg, params)
+        one = step_lib.make_train_step(net, ocfg, mesh)
+        for i in range(len(ims)):
+            _, m = one(state, ims[i], lbs[i])
+        out[mode] = (chunk, ((float(m["loss"]), float(m["accuracy"])),
+                             _final(state)))
+    return out
+
+
+def cli_runs(rank, world, runs):
+    """``cli.main.main`` once for each argv of ``runs``, in order, as this
+    rank (each run joins its own rendezvous, named by its --worker_hosts,
+    and leaves it); returns the exit codes."""
+    import torch.distributed as dist
+
+    from dml_cnn_cifar10_tpu_torch.cli.main import main
+    dist.destroy_process_group()
+    return [main(list(argv) + ["--task_index", str(rank)]) for argv in runs]

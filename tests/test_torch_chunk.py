@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_dist
+
 from dml_cnn_cifar10_tpu.config import DataConfig as JaxDataConfig
 from dml_cnn_cifar10_tpu.config import ModelConfig as JaxModelConfig
 from dml_cnn_cifar10_tpu.config import OptimConfig as JaxOptimConfig
@@ -276,8 +278,18 @@ def test_cli_chunk_cadence_and_multi_rank_raise(tmp_path):
     with pytest.raises(ValueError, match="remaining steps"):
         main(_args(tmp_path, "logs", "--steps_per_dispatch", "5",
                    "--total_steps", "12"))
-    # Several processes: raises before any process group starts.
-    with pytest.raises(ValueError, match="ROADMAP"):
-        main(_args(tmp_path, "logs", "--steps_per_dispatch", "5",
-                   "--total_steps", "10", "--worker_hosts",
-                   "localhost:1,localhost:2", "--task_index", "0"))
+    # Several processes: a 2-rank chunked run trains (its parity with JAX
+    # and with one rank is tests/test_torch_chunk_dist.py's).
+    hosts = ",".join(f"localhost:{p}" for p in _torch_dist.free_ports(2))
+    jsonl = str(tmp_path / "two" / "m.jsonl")
+    rcs = _torch_dist.run_ranks(
+        "cli_rank", 2, tmp_path / "ranks", _args(
+            tmp_path, "two", "--steps_per_dispatch", "5", "--total_steps",
+            "10", "--worker_hosts", hosts, "--dist_backend", "gloo",
+            "--metrics_jsonl", jsonl))
+    assert rcs == [0, 0]
+    with open(jsonl) as f:
+        recs = [json.loads(l) for l in f]
+    train = [r for r in recs if r["kind"] == "train"]
+    assert [r["step"] for r in train] == [10]
+    assert np.isfinite(train[0]["loss"]) and recs[-1]["kind"] == "done"

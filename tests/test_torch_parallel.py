@@ -17,7 +17,6 @@ the same seeded numpy inputs and the same initial params:
 
 import os
 import re
-import socket
 
 import jax
 import numpy as np
@@ -143,16 +142,6 @@ def test_hosts_fill_the_parallel_config():
         multihost.is_chief(cfg)
 
 
-def _free_ports(n):
-    socks = [socket.socket() for _ in range(n)]
-    for s in socks:
-        s.bind(("127.0.0.1", 0))
-    ports = [s.getsockname()[1] for s in socks]
-    for s in socks:
-        s.close()
-    return ports
-
-
 EVAL_LINE = re.compile(r"^ --- Test Accuracy = (\d+\.\d\d)%\.$")
 
 
@@ -164,7 +153,7 @@ def test_two_rank_cli_checkpoint_restores_in_one_process(tmp_path, capsys):
             "--learning_rate", "0.02", "--batch_size", "32",
             "--output_every", "10", "--eval_every", "20",
             "--checkpoint_every", "20"]
-    hosts = ",".join(f"localhost:{p}" for p in _free_ports(2))
+    hosts = ",".join(f"localhost:{p}" for p in _torch_dist.free_ports(2))
     jsonl = str(tmp_path / "m.jsonl")
     rcs = _torch_dist.run_ranks(
         "cli_rank", 2, tmp_path / "ranks", args + [

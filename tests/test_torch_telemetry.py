@@ -8,10 +8,15 @@ records.
 - The copied classes give the JAX classes' outputs exactly on the same
   clock readings; the parsers give the JAX parsers' results and errors
   where the input is theirs too (a trace whose device lane both read).
-- The CNN's step at batch 128 counts 13,477,773,312 FLOPs, the analytic
+- The CNN's step at batch 128 counts 13,479,909,908 FLOPs, the analytic
   count (forward 4,728,520,704; backward 8,749,252,608, conv1 taking no
-  input gradient), exactly. XLA's cost analysis of the JAX step is
-  printed beside it and not asserted: it counts 0.844x that.
+  input gradient; the SGD update 2 a parameter, 2,136,596), exactly.
+  XLA's cost analysis of the JAX step is printed beside it and not
+  asserted: it counts 0.844x the forward and backward. Each optimizer's
+  update count equals a hand count over the CNN's 1,068,298 parameters.
+- Under a CUDA graph the update's kernels are learned from a profiled
+  eager run of the chunk body: in a replay's trace only the update's
+  occurrences of names the forward and backward launch too count.
 - A 2-block ViT (4 heads of 16) over 64 tokens, counted on ``meta``
   through the flash operators' formulas, equals the same step counted on
   the CPU with the dense attention, exactly: the formulas are the dense
@@ -42,13 +47,17 @@ from dml_cnn_cifar10_tpu.utils import devprof as jax_devprof
 from dml_cnn_cifar10_tpu.utils import profiling as jax_profiling
 from dml_cnn_cifar10_tpu_torch import config
 from dml_cnn_cifar10_tpu_torch.cli.main import main
+from dml_cnn_cifar10_tpu_torch.models.cnn import CNN
 from dml_cnn_cifar10_tpu_torch.ops import attention as attn
 from dml_cnn_cifar10_tpu_torch.utils import devprof, profiling
 
 torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CNN_STEP_FLOPS = 13_477_773_312
+CNN_FWD_BWD_FLOPS = 13_477_773_312
+CNN_PARAMS = 1_068_298
+CNN_UPDATE_FLOPS = 2 * CNN_PARAMS                 # plain SGD, no decay
+CNN_STEP_FLOPS = CNN_FWD_BWD_FLOPS + CNN_UPDATE_FLOPS
 
 
 class _Clock:
@@ -159,9 +168,8 @@ def _device_doc(extra=()):
 def test_parse_trace_doc_matches_jax_on_a_device_lane():
     got = devprof.parse_trace_doc(_device_doc(), top_k=3)
     want = jax_devprof.parse_trace_doc(_device_doc(), top_k=3)
-    # A graph replay's update kernel counts by name (JAX: none in scope).
-    assert got[0]["optimizer_ms"] == 0.01
-    got[0]["optimizer_ms"] = want[0]["optimizer_ms"]
+    # No update scope and no replay signature: no update time, as JAX.
+    assert got[0]["optimizer_ms"] == 0.0
     assert got == want
     lane = got[0]
     assert lane["device"] == "/device:GPU:0"
@@ -213,6 +221,101 @@ def test_parse_trace_doc_reads_a_recorded_cpu_trace(tmp_path):
     assert devprof.parse_trace_doc({"traceEvents": []}) == []
 
 
+def _replay_docs():
+    """A profiled eager run of a 2-step body (the warm-up: each kernel its
+    own launch, the update inside ``optimizer`` annotations) and a trace
+    of two replays of its graph (every event of a replay sharing the
+    launch's correlation id), beside an eager kernel of the same name.
+    The update's plain-torch kernels share names with the forward's and
+    backward's."""
+    mul, add = ("void at::native::vectorized_elementwise_kernel<4, "
+                "at::native::BinaryFunctor<float, float, float, Mul>>"), \
+        ("void at::native::vectorized_elementwise_kernel<4, "
+         "at::native::CUDAFunctorOnSelf_add<float>>")
+    tensor = "void at::native::multi_tensor_apply_kernel<TensorListMetadata>"
+    gemm = "sm90_xmma_gemm_f32f32_f32f32_f32_tn_n"
+    one_step = [(gemm, False, 30), (mul, False, 4), (add, False, 3),
+                (mul, True, 2), (tensor, True, 5), (add, True, 1)]
+    body = one_step * 2
+    warm, ts = [], 1000
+    for corr, (name, upd, dur) in enumerate(body):
+        warm.append({"ph": "X", "cat": "kernel", "name": name, "pid": 0,
+                     "tid": 7, "ts": ts, "dur": dur,
+                     "args": {"correlation": 10 + corr}})
+        if upd:
+            warm.append({"ph": "X", "cat": "gpu_user_annotation",
+                         "name": "optimizer", "pid": 0, "tid": 7,
+                         "ts": ts, "dur": dur})
+        ts += dur + 1
+    replays, ts = [], 5000
+    for corr in (900, 901):
+        for name, _, dur in body:
+            replays.append({"ph": "X", "cat": "kernel", "name": name,
+                            "pid": 0, "tid": 7, "ts": ts, "dur": dur,
+                            "args": {"correlation": corr}})
+            ts += dur
+        # An eager kernel between replays (a table refresh): one event
+        # of its own launch, not a replay's.
+        replays.append({"ph": "X", "cat": "kernel", "name": mul, "pid": 0,
+                        "tid": 7, "ts": ts + 5, "dur": 7,
+                        "args": {"correlation": corr + 50}})
+        ts += 20
+    return {"traceEvents": warm}, {"traceEvents": replays}, (mul, tensor,
+                                                             add)
+
+
+def test_update_signature_counts_only_the_updates_kernels_in_a_replay():
+    warm, replays, (mul, tensor, add) = _replay_docs()
+    sig = devprof.update_signature(warm)
+    # Occurrences in the body's order: mul and add twice a step, the
+    # update's the second of each step's.
+    assert sig == {mul: (1, 3), tensor: (0, 1), add: (1, 3)}
+    lane, = devprof.parse_trace_doc(replays, signature=sig)
+    # Two replays x two steps x the update's 2 + 5 + 1 µs.
+    assert lane["optimizer_ms"] == 0.032
+    assert lane["total_ms"] == 0.194             # 2 x 90 + 2 x 7 µs
+    # Without the signature a replay's update reads nothing.
+    assert devprof.parse_trace_doc(replays)[0]["optimizer_ms"] == 0.0
+    # The warm-up itself reads its annotations.
+    assert devprof.parse_trace_doc(warm)[0]["optimizer_ms"] == 0.016
+
+
+# Each optimizer's update over the CNN's leaves, by hand (train/optim.py):
+# 1,067,584 parameters in its 5 kernels, 714 in its biases. Adafactor
+# factors each kernel's JAX layout over its trailing two dims: conv1
+# [5, 5, 3, 64] and conv2 [5, 5, 64, 64] (25 leading indices), full1
+# [2304, 384], full2 [384, 192], full3 [192, 10]: 4,555 rows and 3,786
+# columns in all, 53 leading indices.
+UPDATE_CASES = {
+    "sgd": (dict(), 2 * CNN_PARAMS),
+    "momentum_decay": (dict(momentum=0.9, weight_decay=5e-4),
+                       6 * CNN_PARAMS),
+    "decay": (dict(weight_decay=5e-4), 4 * CNN_PARAMS),
+    "adamw": (dict(optimizer="adamw"), 16 * CNN_PARAMS),
+    "lamb": (dict(optimizer="lamb"), 20 * CNN_PARAMS),
+    "lars": (dict(optimizer="lars"), 6 * CNN_PARAMS + 5 * 1_067_584),
+    "adafactor": (dict(optimizer="adafactor"),
+                  15 * 1_067_584 + 7 * 4_555 + 5 * 3_786 + 53 + 16 * 714),
+    "clip_accum": (dict(grad_clip_norm=1.0, grad_accum=2),
+                   (2 + 3 + 2) * CNN_PARAMS),
+    "adamw_ema": (dict(optimizer="adamw", ema_decay=0.99),
+                  (16 + 3) * CNN_PARAMS),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UPDATE_CASES))
+def test_update_flops_equal_a_hand_count_on_the_cnn(case):
+    kw, want = UPDATE_CASES[case]
+    cfg = config.reference_config(batch_size=128)
+    for k, v in kw.items():
+        setattr(cfg.optim, k, v)
+    shapes = {n: tuple(p.shape) for n, p in
+              CNN(cfg.model, cfg.data).named_parameters()}
+    assert sum(np.prod(s) for s in shapes.values()) == CNN_PARAMS
+    assert profiling.update_flops(cfg.optim, shapes) == want
+    assert profiling.step_flops(cfg)[0] == CNN_FWD_BWD_FLOPS + want
+
+
 def test_cnn_step_counts_the_analytic_flops():
     cfg = config.reference_config(batch_size=128)
     flops, label = profiling.step_flops(cfg)
@@ -223,10 +326,12 @@ def test_cnn_step_counts_the_analytic_flops():
     forward = sum(per_image.values()) * 128
     backward = (2 * sum(per_image.values()) - per_image["conv1"]) * 128
     assert (forward, backward) == (4_728_520_704, 8_749_252_608)
-    assert (flops, label) == (forward + backward, "exact") \
-        == (CNN_STEP_FLOPS, "exact")
-    # Linear in the batch; a data rank counts its share.
-    assert profiling.step_flops(cfg, data=2)[0] == CNN_STEP_FLOPS / 2
+    assert (flops, label) == (forward + backward + 2 * CNN_PARAMS,
+                              "exact") == (CNN_STEP_FLOPS, "exact")
+    # Linear in the batch; a data rank counts its share, and the whole
+    # update, which every rank runs.
+    assert profiling.step_flops(cfg, data=2)[0] == \
+        CNN_FWD_BWD_FLOPS / 2 + CNN_UPDATE_FLOPS
     # XLA's cost analysis of the JAX step, beside it (not asserted).
     mcfg, ocfg = JaxModelConfig(), JaxOptimConfig()
     model_def = jax_get_model("cnn")
@@ -274,17 +379,25 @@ def _cpu_dense_flops(cfg) -> int:
     return counter.get_total_flops()
 
 
+def _vit_shapes(cfg):
+    from dml_cnn_cifar10_tpu_torch.models.registry import get_model
+    return {n: tuple(p.shape) for n, p in get_model("vit_tiny")(
+        cfg.model, cfg.data).named_parameters()}
+
+
 @pytest.mark.parametrize("model", [dict(), dict(remat=True),
                                    dict(attn_causal=True)],
                          ids=["plain", "remat", "causal"])
 def test_vit_flash_formulas_equal_the_dense_count(monkeypatch, model):
     cfg = _vit_cfg(**model)
     dense = _cpu_dense_flops(cfg)
-    assert profiling.step_flops(cfg)[0] == 8 * dense   # dense at 64 tokens
+    update = profiling.update_flops(cfg.optim, _vit_shapes(cfg))
+    # Dense at 64 tokens.
+    assert profiling.step_flops(cfg)[0] == 8 * dense + update
     # The same step through the flash operators on meta.
     monkeypatch.setattr(attn, "FLASH_MIN_TOKENS", 0)
     flops, label = profiling.step_flops(cfg)
-    assert (flops, label) == (8 * dense, "exact")
+    assert (flops, label) == (8 * dense + update, "exact")
     for mode, causal, want in (("ulysses", False, "seq_share_x2"),
                                ("ring", False, "seq_share_x2"),
                                ("ring", True, "seq_mean_share_x2")):
@@ -308,7 +421,7 @@ def test_train_records_carry_device_time_tflops_and_mfu(tmp_path, capsys):
         recs = [json.loads(line) for line in f]
     train = [r for r in recs if r["kind"] == "train"]
     assert [r["step"] for r in train] == [5, 10, 15, 20]
-    flops = CNN_STEP_FLOPS / 4                       # batch 32
+    flops = CNN_FWD_BWD_FLOPS / 4 + CNN_UPDATE_FLOPS    # batch 32
     for r in train:
         for key in ("device_step_ms", "drain_wait_ms",
                     "tflops_per_sec_per_chip", "mfu"):
