@@ -234,14 +234,51 @@ Then chunked dispatch over several ranks:
             host-to-device copy. Each path's ms/step is printed beside its
             per-step NCCL run of the same call.
 
-``--dist`` runs the build, phase 31, then phases 18-21 over NCCL on two
-or more cards, with 4 ranks beside 2 given four cards: SP data 2 x seq 2
-against its 2 data ranks without the ring, and the DP CNN on 4 ranks;
-given three or more cards, phases 26-27 (and phase 31's Ulysses run)
-over NCCL on 3 of them.
+Then run safety, on the CNN main path at full width (``--fidelity
+fixed``: random crop and flip; K1 once a step on every run, K2 under
+momentum):
+32. run safety  200 resident chunked steps (K = 10) with ``--random_brightness
+            63 --random_contrast 0.8 --telemetry --trace_events_path
+            --health_metrics``: finite losses, test accuracy at least 20%
+            (chance 10%), ``span``/``goodput``/``hbm`` records (goodput
+            summing to 1 within 1e-6; ``0 < peak_bytes <= bytes_limit``),
+            finite health with the update ratio in (0, 1), a Chrome trace
+            that loads, the stream strict under
+            ``tools/check_jsonl_schema.py``, and one graphed chunk against
+            its eager body bit for bit (loss, parameters, health; cuDNN
+            deterministic); loop and replay ms/step beside the same run
+            with these flags off. ``--check_numerics --fault_spec
+            nan@105`` chunked: ``skip`` recovers at 150 and runs to 200
+            with every checkpoint on disk finite, ``halt`` and
+            ``rollback`` raise at 150 leaving checkpoints 50 and 100; an
+            eager ``skip`` under ``--momentum 0.9`` restores K2's momenta.
+            ``--fault_spec sigterm@150`` eager and chunked: stopped at the
+            next dispatch with its checkpoint and a ``preempt`` record,
+            then resumed to 300 bit-equal to an uninterrupted run.
+            ``--async_checkpoint`` files byte-identical to sync ones (and
+            the eager loop's ms/step across the saves, sync against
+            async, twice each); ``--checkpoint_every_secs 0.1`` saves on
+            the clock at least as often as the run's time allows;
+            ``ckpt_corrupt@110`` then a crash: the restore falls back to
+            step 50. ``--tensorboard_dir`` writes event files, or, where
+            ``tensorboardX`` is missing, raises ``ImportError`` before any
+            step. Then 2 rank processes over gloo on this card: SIGTERM
+            to rank 1 alone stops both at one step with one checkpoint,
+            clock saves at the same steps on both, ``skip`` recovers on
+            both. Numbers in ``OUT/slice12.json``.
 
-The lines before the last are ``{"kernels": [...]}`` (K1 twice: its main
-path row and phase 30's with ``"path": "dp_chunk"``; K3 three times:
+``--dist`` runs the build, phase 31, phase 32's two ranks over NCCL
+(chunks of 10 as CUDA graphs; the ranks' flag exchange runs between
+replays), then phases 18-21 over NCCL on two or more cards, with 4
+ranks beside 2 given four cards: SP data 2 x seq 2 against its 2 data
+ranks without the ring, and the DP CNN on 4 ranks; given three or more
+cards, phases 26-27 (and phase 31's Ulysses run) over NCCL on 3 of them.
+``--phase 32`` (alone or with ``--dist``) runs the build and that phase
+only, a debugging run.
+
+The lines before the last are ``{"kernels": [...]}`` (K1 three times:
+its main path row, phase 30's with ``"path": "dp_chunk"`` and phase 32's
+with ``"path": "run_safety"``; K3 three times:
 its training row, its serving row with ``"path": "serve"`` and its Ulysses
 row; K4, K6 and K7 twice, with a ``"path": "ulysses"`` row) and the card's
 name and power limit; the last line is
@@ -251,14 +288,16 @@ passing run); the run's metrics JSONL files, the profiles, ``chunk.json``
 (phase 9b), ``vit.json``
 (the ViT phases' numbers), ``serve.json`` (phases 22-25), ``dist.json``
 (phases 16-21;
-``dist_nccl.json`` under ``--dist``, with phase 31), ``slice10.json``
-(phases 26-29), ``slice11.json`` (phase 30) and the ranks' logs are
-written to the output directory ``OUT``.
+``dist_nccl.json`` under ``--dist``, with phase 31 and phase 32's NCCL
+ranks), ``slice10.json`` (phases 26-29), ``slice11.json`` (phase 30),
+``slice12.json`` (phase 32, with its telemetry stream and Chrome trace)
+and the ranks' logs are written to the output directory ``OUT``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -523,11 +562,13 @@ def _launched(fn):
 
 
 def _graph_vs_eager(cfg, state, ds_images, ds_labels, deterministic,
-                    k=None, mesh=None):
+                    k=None, mesh=None, health=False):
     """One graphed chunk of the device-stream resident path (``k`` steps,
-    ``CHUNK_K`` by default, over ``mesh``) against the same chunk body
-    run eagerly, twice, each from a copy of ``state``; returns the gaps
-    and each run's launches, the graphed callable and its state."""
+    ``CHUNK_K`` by default, over ``mesh``; with ``health`` the health
+    scalars computed in it) against the same chunk body run eagerly,
+    twice, each from a copy of ``state``; returns the gaps (and each
+    run's health scalars) and each run's launches, the graphed callable
+    and its state."""
     from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = deterministic
@@ -536,17 +577,20 @@ def _graph_vs_eager(cfg, state, ds_images, ds_labels, deterministic,
         fns = [step_lib.make_train_chunk_resident(
             m, cfg.optim, ds_images, ds_labels, data_cfg=cfg.data,
             index_stream=(cfg.data.seed, cfg.batch_size, k or CHUNK_K),
-            mesh=mesh)
+            mesh=mesh, health_metrics=health)
             for m, _ in copies]
         (_, s_g), (_, s_e), (_, s_e2) = copies
         (_, m_g), graph_launches = _launched(lambda: fns[0](s_g))
         (_, m_e), eager_launches = _launched(lambda: fns[1].eager(s_e))
         losses = [float(m_g["loss"]), float(m_e["loss"]),
                   float(fns[2].eager(s_e2)[1]["loss"])]
+        healths = [{key: float(m[key]) for key in m
+                    if key.startswith("health_")} for m in (m_g, m_e)]
         fns[0].check()
     finally:
         torch.backends.cudnn.deterministic = saved
-    return ({"loss_graph": losses[0], "loss_eager": losses[1],
+    return ({"health_graph": healths[0], "health_eager": healths[1],
+             "loss_graph": losses[0], "loss_eager": losses[1],
              "loss_gap": abs(losses[0] - losses[1]),
              "param_gap": _gaps(s_g, s_e),
              "eager_eager_loss_gap": abs(losses[1] - losses[2]),
@@ -3346,6 +3390,585 @@ def chunk_nccl_phase(card, worlds) -> dict:
     return res
 
 
+# Phase 32, run safety: the steps of its runs, the chunk size, the test
+# accuracy the augmented telemetry run must reach after 200 steps (twice
+# chance; the synthetic classes are separable, phase 9b reaches 50% by
+# step 500), and the 2-rank runs' steps.
+RS_STEPS, RS_K, RS_ACC_MIN = 200, 10, 0.2
+RS_RANK_STEPS = 60
+# Wall-clock cadence of the clock-save runs, and a bound on the time from
+# one clock save's end to the next check of the clock: one eager dispatch
+# and its boundary work (a few ms at batch 128).
+RS_EVERY_SECS, RS_ITER_BOUND_S = 0.1, 0.05
+# The 2-rank runs' cadence: due at every exchange (10 steps apart).
+RS_RANK_EVERY_SECS = 0.01
+
+
+def _rs_args(name, *extra):
+    """Phase 32's CNN main-path recipe (``cnn_args``: fixed fidelity, so
+    random crop and flip, standardize, the full-split eval) with its own
+    log dir and metrics stream; ``extra`` flags come last and win."""
+    return cnn_args(WORK) + [
+        "--log_dir", os.path.join(WORK, f"logs_rs_{name}"),
+        "--metrics_jsonl", os.path.join(WORK, f"rs_{name}.jsonl"),
+        "--total_steps", str(RS_STEPS), "--output_every", "50",
+        "--eval_every", "100", "--checkpoint_every", "50", *extra]
+
+
+def _rs_fit(args, expect=None, keep=None):
+    """``Trainer.fit`` on the CLI's config of ``args``, echoing its
+    console; returns ``(trainer, result, wall_s, K1/K2 launches)``, or
+    with ``expect`` the exception of that type the run must raise in
+    place of the result. The caller closes the trainer (its graph)."""
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+    from dml_cnn_cifar10_tpu_torch.train.loop import Trainer
+    print("$ python -m dml_cnn_cifar10_tpu_torch " + " ".join(args),
+          flush=True)
+    cfg = config_from_args(build_parser().parse_args(args))
+    if keep is not None:
+        cfg.keep_checkpoints = keep
+    trainer = Trainer(cfg)
+    fused.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = trainer.fit()
+    except Exception as e:
+        if expect is None or not isinstance(e, expect):
+            raise
+        out = e
+    else:
+        check(expect is None, f"{args}: expected {expect} and the run "
+              f"ended at step {out.final_step}")
+    wall = time.perf_counter() - t0
+    return trainer, out, wall, dict(fused.LAUNCHES)
+
+
+def _rs_records(name, kind=None):
+    recs = records(os.path.join(WORK, f"rs_{name}.jsonl"))
+    return [r for r in recs if kind is None or r["kind"] == kind]
+
+
+def _rs_ckpts(name):
+    """``{step: path}`` of the checkpoints in a phase 32 log dir."""
+    d = os.path.join(WORK, f"logs_rs_{name}")
+    return {int(n[5:-8]): os.path.join(d, n) for n in os.listdir(d)
+            if n.startswith("ckpt_") and n.endswith(".msgpack")}
+
+
+def _finite_ckpt(path) -> bool:
+    from dml_cnn_cifar10_tpu_torch import convert
+    from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt_lib
+    with open(path, "rb") as f:
+        tree = ckpt_lib.from_bytes(f.read())
+    return all(bool(torch.isfinite(t).all()) for t in
+               convert.params_from_jax(tree["params"]).values())
+
+
+def _chunk_costs(cfg, state, ds_images, ds_labels, reps=30) -> dict:
+    """Replay ms/step of the resident chunk (K = ``RS_K``) with the jitter
+    (brightness and contrast) and the health scalars each on and off,
+    each from a copy of ``state``: captured once each, then ``reps``
+    replays timed by the host clock around a synchronize, in turns
+    (plain, health, jitter, both, then back), each the mean of its two
+    turns."""
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+    plain = dataclasses.replace(cfg.data, random_brightness=0.0,
+                                random_contrast=0.0)
+    variants = {"plain": (plain, False), "health": (plain, True),
+                "jitter": (cfg.data, False), "both": (cfg.data, True)}
+    fns = {}
+    for (name, (data, health)), (model, st) in zip(
+            variants.items(), _state_copies(cfg, state, len(variants))):
+        fn = step_lib.make_train_chunk_resident(
+            model, cfg.optim, ds_images, ds_labels, data_cfg=data,
+            index_stream=(cfg.data.seed, cfg.batch_size, RS_K),
+            health_metrics=health)
+        fn(st)                                   # the capture
+        fns[name] = (fn, st)
+    times = {name: [] for name in variants}
+    for name in list(variants) + list(variants)[::-1]:
+        fn, st = fns[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(st)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / (reps * RS_K) * 1e3)
+    for fn, _ in fns.values():
+        if fn.graph is not None:        # None on the CPU (a rehearsal)
+            fn.graph.release()
+    return {name: sum(v) / len(v) for name, v in times.items()}
+
+
+def _window_ms(name) -> float:
+    """Mean ms/step of a run's ``train`` windows after its first."""
+    ips = [r["images_per_sec"] for r in _rs_records(name, "train")][1:]
+    return 128 / (sum(ips) / len(ips)) * 1e3
+
+
+def rs_telemetry(card) -> dict:
+    """Phase 32.1: 200 resident chunked steps (K = 10) with brightness,
+    contrast, telemetry, the Chrome trace and health on, beside the same
+    run with these flags off, in this call."""
+    from dml_cnn_cifar10_tpu_torch.train import loop
+
+    trace = os.path.join(WORK, "rs_trace.json")
+    chunked = ["--steps_per_dispatch", str(RS_K)]
+    res = {}
+    for name, extra in (("plain", []), ("telemetry", [
+            "--random_brightness", "63", "--random_contrast", "0.8",
+            "--telemetry", "true", "--trace_events_path", trace,
+            "--health_metrics", "true"])):
+        trainer, result, wall, launched = _rs_fit(_rs_args(
+            name, *chunked, *extra))
+        check(launched == {"sgd_update_plain": RS_STEPS,
+                           "sgd_update_momentum": 0},
+              f"run safety {name}: launched {launched}, want K1 = "
+              f"{RS_STEPS}")
+        res[name] = {"window_ms_per_step": _window_ms(name), "wall_s": wall,
+                     "launches": launched}
+        if name == "telemetry":
+            cfg = trainer.cfg
+            images, labels = loop._full_split_arrays(
+                trainer.input_pipeline(train=True, seed=cfg.seed), None)
+            ds_images = torch.from_numpy(images).to(trainer.device)
+            ds_labels = torch.from_numpy(labels.astype("int64")).to(
+                trainer.device)
+            c, _, _ = _graph_vs_eager(cfg, result.state, ds_images,
+                                      ds_labels, True, health=True)
+            res["graph_vs_eager"] = c
+            res["replay_ms_per_step"] = _chunk_costs(
+                cfg, result.state, ds_images, ds_labels)
+        trainer.close()
+    c = res["graph_vs_eager"]
+    check(c["loss_gap"] == 0 and c["param_gap"] == 0
+          and c["health_graph"] == c["health_eager"]
+          and len(c["health_graph"]) == 3
+          and c["launches_graph"] == c["launches_eager"],
+          f"run safety: a graphed chunk with brightness, contrast and "
+          f"health differs from its eager body under deterministic cuDNN: "
+          f"{c}")
+    recs = _rs_records("telemetry")
+    train = [r for r in recs if r["kind"] == "train"]
+    health = ("health_grad_norm", "health_param_norm",
+              "health_update_ratio")
+    check(len(train) == RS_STEPS // 50 and all(
+        r["loss"] is not None and math.isfinite(r["loss"])
+        and all(r[key] is not None and math.isfinite(r[key])
+                for key in health)
+        and 0 < r["health_update_ratio"] < 1 for r in train),
+        f"run safety: train records {train}")
+    acc = [r["test_accuracy"] for r in recs if r["kind"] == "eval"]
+    check(acc and acc[-1] >= RS_ACC_MIN,
+          f"run safety: test accuracy {acc}, gate {RS_ACC_MIN}")
+    spans = {r["name"] for r in recs if r["kind"] == "span"}
+    gps = [r for r in recs if r["kind"] == "goodput"]
+    hbm = [r for r in recs if r["kind"] == "hbm"]
+    check({"data_wait", "compile_first_dispatch", "dispatch",
+           "boundary_drain", "eval", "checkpoint"} <= spans,
+          f"run safety: spans {spans}")
+    check(gps and gps[-1].get("final") == 1 and all(
+        abs(sum(v for k, v in g.items() if k.endswith("_frac")) - 1)
+        <= 1e-6 for g in gps), f"run safety: goodput {gps}")
+    check(hbm and all(h["available"] and 0 < h["peak_bytes"]
+                      <= h["bytes_limit"] for h in hbm),
+          f"run safety: hbm {hbm}")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    check(events, "run safety: empty Chrome trace")
+    lint = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "check_jsonl_schema.py"),
+         "--strict", os.path.join(WORK, "rs_telemetry.jsonl")],
+        capture_output=True, text=True, timeout=120)
+    check(lint.returncode == 0, f"run safety: schema lint {lint.stdout} "
+          f"{lint.stderr}")
+    shutil.copy(os.path.join(WORK, "rs_telemetry.jsonl"), OUT)
+    shutil.copy(trace, OUT)
+    res.update(test_accuracy=acc[-1], goodput=gps[-1], hbm=hbm[-1],
+               health={key: train[-1][key] for key in health},
+               spans=sorted(spans), trace_events=len(events))
+    on, off = res["telemetry"], res["plain"]
+    rep = res["replay_ms_per_step"]
+    print(f"[run safety] 200 chunked steps with brightness 63, contrast "
+          f"0.8, telemetry, trace and health: test accuracy "
+          f"{100 * acc[-1]:.2f}% (gate {100 * RS_ACC_MIN:.0f}%), health "
+          f"{res['health']}, goodput {gps[-1]}, peak device memory "
+          f"{hbm[-1]['peak_bytes']} of {hbm[-1]['bytes_limit']} bytes, "
+          f"{len(events)} trace events, schema strict OK; graph vs eager "
+          f"bit-equal (loss, params, health) under deterministic cuDNN; "
+          f"K1 {on['launches']['sgd_update_plain']}; loop "
+          f"{on['window_ms_per_step']:.4f} ms/step against "
+          f"{off['window_ms_per_step']:.4f} with the flags off; replays "
+          f"(ms/step, in turns) plain {rep['plain']:.4f}, health "
+          f"{rep['health']:.4f}, brightness+contrast {rep['jitter']:.4f}, "
+          f"both {rep['both']:.4f}; on {card}", flush=True)
+    return res
+
+
+def rs_tensorboard(card) -> dict:
+    """Phase 32's ``--tensorboard_dir``: with ``tensorboardX`` importable
+    here, 50 eager steps write event files; without it the trainer
+    raises ``ImportError`` naming the package before any step."""
+    import importlib.util
+    tb = os.path.join(WORK, "rs_tb")
+    args = _rs_args("tensorboard", "--total_steps", "50", "--eval_every",
+                    "1000", "--tensorboard_dir", tb)
+    if importlib.util.find_spec("tensorboardX") is None:
+        try:
+            _rs_fit(args)
+        except ImportError as e:
+            check("tensorboardX" in str(e) and not os.path.exists(
+                os.path.join(WORK, "rs_tensorboard.jsonl")),
+                f"run safety tensorboard: {e}")
+            res = {"tensorboardX": False, "error": str(e)}
+        else:
+            fail("run safety: --tensorboard_dir without tensorboardX ran")
+    else:
+        trainer, result, _, _ = _rs_fit(args)
+        trainer.close()
+        sizes = [os.path.getsize(os.path.join(tb, n)) for n in os.listdir(tb)]
+        check(result.final_step == 50 and sizes and all(sizes),
+              f"run safety tensorboard: event files {sizes}")
+        res = {"tensorboardX": True, "event_bytes": sum(sizes)}
+    print(f"[run safety] --tensorboard_dir: {res}; on {card}", flush=True)
+    return res
+
+
+def rs_numerics(card) -> dict:
+    """Phase 32.2: ``--check_numerics --fault_spec nan@105`` chunked with
+    skip, halt and rollback, and skip eagerly under momentum."""
+    res = {}
+    guard = ["--check_numerics", "true", "--fault_spec", "nan@105"]
+    chunked = ["--steps_per_dispatch", str(RS_K)]
+    trainer, result, wall, launched = _rs_fit(_rs_args(
+        "skip", *chunked, *guard, "--on_nonfinite", "skip"))
+    trainer.close()
+    got = [(r["kind"], r["step"], r.get("injected", r.get("action")))
+           for r in _rs_records("skip") if r["kind"] in ("fault",
+                                                         "recovery")]
+    losses = [r["loss"] for r in _rs_records("skip", "train")]
+    ckpts = _rs_ckpts("skip")
+    check(result.final_step == RS_STEPS
+          and got == [("fault", 110, True), ("fault", 150, False),
+                      ("recovery", 150, "skip")]
+          and losses[-1] is not None and math.isfinite(losses[-1])
+          and launched["sgd_update_plain"] == RS_STEPS
+          and ckpts and all(_finite_ckpt(p) for p in ckpts.values()),
+          f"run safety skip: step {result.final_step}, records {got}, "
+          f"losses {losses}, launches {launched}, checkpoints "
+          f"{sorted(ckpts)}")
+    res["skip"] = {"records": got, "losses": losses, "ckpts": sorted(ckpts),
+                   "wall_s": wall}
+    for policy, last in (("halt", "numerics_halt"), ("rollback", "fault")):
+        trainer, err, wall, _ = _rs_fit(_rs_args(
+            policy, *chunked, *guard, "--on_nonfinite", policy),
+            expect=FloatingPointError)
+        trainer.close()
+        recs = [r for r in _rs_records(policy)
+                if r["kind"] in ("fault", "numerics_halt")]
+        ckpts = sorted(_rs_ckpts(policy))
+        check(recs and recs[-1]["kind"] == last and recs[-1]["step"] == 150
+              and ckpts == [50, 100],
+              f"run safety {policy}: records {recs}, checkpoints {ckpts}, "
+              f"error {err}")
+        res[policy] = {"error": str(err), "ckpts": ckpts}
+    trainer, result, wall, launched = _rs_fit(_rs_args(
+        "skip_momentum", "--momentum", "0.9", *guard, "--on_nonfinite",
+        "skip"))
+    trainer.close()
+    mom = result.state.opt["momentum"]
+    check(result.final_step == RS_STEPS
+          and launched == {"sgd_update_plain": 0,
+                           "sgd_update_momentum": RS_STEPS}
+          and [r["step"] for r in _rs_records("skip_momentum", "recovery")]
+          == [150]
+          and all(bool(torch.isfinite(t).all()) for t in mom.values())
+          and all(bool(torch.isfinite(p).all())
+                  for p in result.state.params.values()),
+          f"run safety eager skip under momentum: step "
+          f"{result.final_step}, launches {launched}")
+    res["skip_momentum"] = {"launches": launched, "wall_s": wall}
+    print(f"[run safety] nan@105, chunked: skip recovered at 150 and ran "
+          f"to {RS_STEPS} (checkpoints {res['skip']['ckpts']} all finite); "
+          f"halt and rollback raised at 150 with checkpoints "
+          f"{res['halt']['ckpts']}; eager skip under momentum restored "
+          f"K2's momenta (K2 {RS_STEPS}); on {card}", flush=True)
+    return res
+
+
+def rs_preempt(card) -> dict:
+    """Phase 32.3: ``--fault_spec sigterm@150``, eager and chunked, each
+    stopped, resumed to 300 and held to an uninterrupted 300-step run, bit
+    for bit under deterministic cuDNN."""
+    from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt_lib
+    res = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, k in (("eager", 1), ("chunked", RS_K)):
+            common = ["--steps_per_dispatch", str(k), "--total_steps", "300",
+                      "--eval_every", "1000"]
+            trainer, full, _, _ = _rs_fit(_rs_args(f"full_{name}", *common))
+            trainer.close()
+            cut_args = _rs_args(f"cut_{name}", *common)
+            trainer, cut, _, _ = _rs_fit(cut_args + ["--fault_spec",
+                                                     "sigterm@150"])
+            trainer.close()
+            stop = 150 + k
+            pre = _rs_records(f"cut_{name}", "preempt")
+            latest = ckpt_lib.latest_checkpoint(
+                os.path.join(WORK, f"logs_rs_cut_{name}"))
+            check(cut.preempted and cut.final_step == stop
+                  and [r["step"] for r in pre] == [stop]
+                  and latest.endswith(f"ckpt_{stop}.msgpack"),
+                  f"run safety sigterm {name}: preempted {cut.preempted} at "
+                  f"{cut.final_step} (want {stop}), preempt records {pre}, "
+                  f"latest {latest}")
+            trainer, resumed, _, launched = _rs_fit(cut_args)
+            trainer.close()
+            equal = all(torch.equal(p, resumed.state.params[n])
+                        for n, p in full.state.params.items())
+            check(resumed.final_step == 300 and equal
+                  and launched["sgd_update_plain"] == 300 - stop,
+                  f"run safety sigterm {name}: resumed to "
+                  f"{resumed.final_step}, launches {launched}, bit-equal "
+                  f"to the uninterrupted run: {equal}")
+            res[name] = {"stop": stop, "signum": pre[0]["signum"]}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    print(f"[run safety] SIGTERM at step 150 (os.kill, delivered on this "
+          f"machine): eager stopped at {res['eager']['stop']}, chunked at "
+          f"{res['chunked']['stop']}, each with its checkpoint and a "
+          f"preempt record; resumed to 300, bit-equal to the uninterrupted "
+          f"runs; on {card}", flush=True)
+    return res
+
+
+def rs_checkpoints(card) -> dict:
+    """Phase 32.4: async against sync checkpoints (bytes, and the eager
+    loop's ms/step across the saves), the wall-clock cadence, and a
+    corrupted checkpoint's fallback."""
+    from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from dml_cnn_cifar10_tpu_torch.utils import faults
+    res = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    files = {}
+    try:
+        for name in ("sync", "async", "async2", "sync2"):
+            trainer, result, wall, _ = _rs_fit(_rs_args(
+                name, "--async_checkpoint",
+                "true" if name.startswith("async") else "false"))
+            trainer.close()
+            d = os.path.join(WORK, f"logs_rs_{name}")
+            files[name] = {n: open(os.path.join(d, n), "rb").read()
+                           for n in sorted(os.listdir(d))}
+            done = _rs_records(name, "done")[-1]
+            res[name] = {"ms_per_step": 128 / done["images_per_sec"] * 1e3,
+                         "wall_s": wall}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    check(files["async"] == files["sync"] and files["async2"]
+          == files["sync2"] and any(n.endswith(".msgpack")
+                                    for n in files["sync"]),
+          f"run safety: async checkpoint files differ from sync: "
+          f"{sorted(files['async'])} / {sorted(files['sync'])}")
+    # The clock cadence, the step cadence past the run.
+    trainer, result, wall, _ = _rs_fit(_rs_args(
+        "clock", "--total_steps", "300", "--checkpoint_every", "100000",
+        "--eval_every", "1000", "--checkpoint_every_secs",
+        str(RS_EVERY_SECS), "--telemetry", "true"), keep=10_000)
+    trainer.close()
+    saves = sorted(_rs_ckpts("clock"))
+    spans = [r for r in _rs_records("clock", "span")
+             if r["name"] == "checkpoint"]
+    total = _rs_records("clock", "goodput")[-1]["total_s"]
+    longest = max(r["dur_s"] for r in spans)
+    expected = int(total // (RS_EVERY_SECS + longest + RS_ITER_BOUND_S)) - 1
+    clock_saves = len(saves) - 1          # the final save is not the clock's
+    check(clock_saves >= max(expected, 1) and saves[-1] == 300,
+          f"run safety clock: {clock_saves} wall-clock saves at {saves} in "
+          f"{total} s, expected at least {expected}")
+    res["clock"] = {"saves": saves, "expected_min": expected,
+                    "loop_s": total, "longest_save_s": longest}
+    # ckpt_corrupt, then a crash: the restore walks back past it.
+    trainer, err, _, _ = _rs_fit(_rs_args(
+        "corrupt", "--total_steps", "120", "--eval_every", "1000",
+        "--fault_spec", "ckpt_corrupt@110,data_stall@110"),
+        expect=faults.DataStallError)
+    trainer.close()
+    d = os.path.join(WORK, "logs_rs_corrupt")
+    ok, _ = ckpt_lib.verify_checkpoint(os.path.join(d, "ckpt_100.msgpack"))
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.train.loop import Trainer
+    trainer = Trainer(config_from_args(build_parser().parse_args(
+        _rs_args("corrupt"))))
+    restored = int(trainer.init_or_restore().step)
+    trainer.close()
+    check(not ok and restored == 50,
+          f"run safety ckpt_corrupt: ckpt_100 verifies {ok}, restore came "
+          f"back at step {restored}, want 50")
+    res["corrupt"] = {"restored": restored}
+    print(f"[run safety] async checkpoints byte-identical to sync (steps "
+          f"{sorted(k for k in files['sync'] if k.endswith('.msgpack'))}); "
+          f"eager loop across saves every 50 steps: sync "
+          f"{res['sync']['ms_per_step']:.4f} / {res['sync2']['ms_per_step']:.4f}"
+          f", async {res['async']['ms_per_step']:.4f} / "
+          f"{res['async2']['ms_per_step']:.4f} ms/step; every "
+          f"{RS_EVERY_SECS} s: {clock_saves} clock saves in "
+          f"{total:.2f} s (at least {expected}); ckpt_corrupt@110 then a "
+          f"crash: the restore fell back to step 50; on {card}", flush=True)
+    return res
+
+
+def _rank_fit(rank: int, job: dict) -> dict:
+    """``Trainer.fit`` on the CLI's config for each run of ``job["runs"]``
+    (a list of per-rank argvs) as this rank; returns each run's final
+    step, whether it was preempted, the steps this rank's checkpoint
+    manager saved at, whether the final parameters are finite, and the
+    K1/K2 launches over all runs. The chunk graphs go before each run's
+    process group."""
+    import torch.distributed as dist
+
+    from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+    from dml_cnn_cifar10_tpu_torch.train.loop import Trainer
+
+    saved, save = [], ckpt_lib.CheckpointManager.maybe_save
+
+    def spy(self, state, step, force=False, data_state=None):
+        did = save(self, state, step, force=force, data_state=data_state)
+        if did:
+            saved.append(step)
+        return did
+
+    ckpt_lib.CheckpointManager.maybe_save = spy
+    out = []
+    for argvs in job["runs"]:
+        saved.clear()
+        cfg = config_from_args(build_parser().parse_args(
+            argvs[rank] + ["--task_index", str(rank)]))
+        trainer = Trainer(cfg, task_index=rank)
+        try:
+            result = trainer.fit()
+        finally:
+            trainer.close()
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        out.append({"final_step": result.final_step,
+                    "preempted": result.preempted, "saved": list(saved),
+                    "finite": all(bool(torch.isfinite(p).all())
+                                  for p in result.state.params.values())})
+        print(f"[fit rank {rank}] {out[-1]}", flush=True)
+    return {"runs": out, "launches": dict(fused.LAUNCHES)}
+
+
+def rs_ranks(card, backend: str) -> dict:
+    """Phase 32.5 (and its ``--dist`` case over NCCL): the DP CNN on 2 rank
+    processes, ``RS_RANK_STEPS`` steps a run: only rank 1 is sent SIGTERM
+    (both ranks stop at the same step with one checkpoint), a wall-clock
+    cadence (both ranks save at the same steps), and ``skip`` (both
+    recover). Over gloo on this card each step runs eagerly; over NCCL the
+    chunks (K = 10) are CUDA graphs and the flag exchange runs between
+    their replays."""
+    k = 1 if backend == "gloo" else RS_K
+    label = f"run_safety_{backend}"
+    runs, names = [], ("sigterm", "clock", "skip")
+    for name, extra, rank1 in (
+            ("sigterm", [], ["--fault_spec", "sigterm@25"]),
+            ("clock", ["--checkpoint_every_secs", str(RS_RANK_EVERY_SECS)],
+             []),
+            ("skip", ["--check_numerics", "true", "--on_nonfinite", "skip",
+                      "--fault_spec", "nan@25"], [])):
+        base = cnn_args(WORK) + [
+            "--log_dir", os.path.join(WORK, f"logs_{label}_{name}"),
+            "--metrics_jsonl", os.path.join(WORK, f"{label}_{name}.jsonl"),
+            "--total_steps", str(RS_RANK_STEPS), "--output_every", "10",
+            "--eval_every", "1000", "--checkpoint_every", "1000",
+            "--steps_per_dispatch", str(k), "--preempt_sync_every", "10",
+            *extra] + _dist_args(2, backend)
+        runs.append([base, base + rank1])
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(label, {"kind": "fit", "runs": runs},
+                        timeout_s=420)
+    wall = time.perf_counter() - t0
+    by_run = {name: [r["runs"][i] for r in ranks]
+              for i, name in enumerate(names)}
+    # Rank 1 is signalled at the seam of step 25 (30 chunked); the next
+    # exchange, every 10 steps, stops both.
+    stop = 30 if k == 1 else 40
+    sig, clock, skip = by_run["sigterm"], by_run["clock"], by_run["skip"]
+    check([r["final_step"] for r in sig] == [stop, stop]
+          and all(r["preempted"] for r in sig)
+          and sig[0]["saved"] == sig[1]["saved"] == [stop],
+          f"{label}: SIGTERM to rank 1 only: {sig}, want both stopped at "
+          f"{stop} with one save")
+    check(clock[0]["saved"] == clock[1]["saved"]
+          and len(clock[0]["saved"]) >= 2,
+          f"{label}: clock saves by rank {[r['saved'] for r in clock]}")
+    check([r["final_step"] for r in skip] == [RS_RANK_STEPS] * 2
+          and all(r["finite"] for r in skip),
+          f"{label}: skip {skip}")
+    want = stop + 2 * RS_RANK_STEPS
+    for r, x in enumerate(ranks):
+        check(x["launches"]["sgd_update_plain"] == want,
+              f"{label}: rank {r} launched {x['launches']}, want K1 = "
+              f"{want}")
+    if backend == "nccl":
+        _dist_log_says(label, 2, "one CUDA graph replay each")
+    print(f"[run safety {backend}] 2 ranks, chunks of {k}: SIGTERM to rank "
+          f"1 at step 25 stopped both at {stop} with one checkpoint; clock "
+          f"saves at {clock[0]['saved']} on both; skip recovered on both; "
+          f"K1 {want} per rank; {wall:.1f} s wall; on {card}", flush=True)
+    return {"sigterm": sig, "clock": clock, "skip": skip, "wall_s": wall,
+            "launches": ranks[0]["launches"]}
+
+
+def run_safety_phase(card) -> dict:
+    """Phase 32 on this card (see the module docstring)."""
+    t0 = time.perf_counter()
+    res = {"card": card, "telemetry": rs_telemetry(card),
+           "tensorboard": rs_tensorboard(card),
+           "numerics": rs_numerics(card), "preempt": rs_preempt(card),
+           "checkpoints": rs_checkpoints(card),
+           "ranks_gloo": rs_ranks(card, "gloo")}
+    res["wall_s"] = time.perf_counter() - t0
+    with open(os.path.join(OUT, "slice12.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    print(f"[run safety] phase 32 took {res['wall_s']:.1f} s", flush=True)
+    return res
+
+
+def only_phase():
+    """The phase named by ``--phase N`` (a debugging run of that phase
+    alone after the build), or None."""
+    if "--phase" in sys.argv:
+        return sys.argv[sys.argv.index("--phase") + 1]
+    return None
+
+
+def phase_only_main(card, kind, count, run, name=None) -> int:
+    """``--phase N``: run one phase after the build, write its numbers to
+    ``OUT/<name>``, print the card and the result line."""
+    if os.path.isdir(WORK):
+        shutil.rmtree(WORK)
+    os.makedirs(OUT, exist_ok=True)
+    res = run()
+    if name is not None:
+        with open(os.path.join(OUT, name), "w") as f:
+            json.dump(res, f, indent=1)
+    shutil.rmtree(WORK)
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": kind, "count": count}}))
+    return 0
+
+
 def _fresh_model(cfg):
     from dml_cnn_cifar10_tpu_torch.models.registry import get_model
     return get_model(cfg.model.name)(cfg.model, cfg.data)
@@ -3375,14 +3998,22 @@ def dist_main() -> int:
     if os.path.isdir(WORK):
         shutil.rmtree(WORK)
     os.makedirs(OUT, exist_ok=True)
+    if only_phase() == "32":
+        return phase_only_main(card, kind, count,
+                               lambda: rs_ranks(card, "nccl"),
+                               "run_safety_nccl.json")
     worlds = (2, 4) if count >= 4 else (2,)
     # Phase 31 first: a capture that fails ends the run early.
     chunked = chunk_nccl_phase(card, worlds)
+    # Then phase 32's two ranks over NCCL: the flag exchange runs between
+    # graph replays.
+    safety_nccl = rs_ranks(card, "nccl")
     res = dist_phases("nccl", card, worlds=worlds)
     if count >= ULYSSES_SEQ:
         res["ulysses"] = ulysses_phases(
             "nccl", card, one_rank_jsonl=os.path.join(WORK, "ref2.jsonl"))
     res["chunked"] = chunked
+    res["run_safety_nccl"] = safety_nccl
     # Each chunked path beside its per-step run of this call.
     pairs = [(f"DP CNN, {w} ranks", chunked[f"dp{w}"]["loop_ms_per_step"],
               res[f"dp{w}"]["step_ms"]) for w in worlds]
@@ -3419,7 +4050,8 @@ def rank_main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = bool(job.get("deterministic"))
     run = {"cli": _rank_cli, "ring": _rank_ring, "ulysses": _rank_ulysses,
-           "profile": _rank_profile, "chunk": _rank_chunk}[job["kind"]]
+           "profile": _rank_profile, "chunk": _rank_chunk,
+           "fit": _rank_fit}[job["kind"]]
     res = run(rank, job)
     # A job that runs more than its main path keeps that path's counts.
     res.setdefault("launches", {**fa.LAUNCHES, **fused.LAUNCHES})
@@ -3464,6 +4096,9 @@ def main() -> int:
         print(f"[build] {name}.cu:\n{log.strip()}")
     print(f"[build] {len(logs)} source(s) in {build_s:.2f} s", flush=True)
     flash_build = ptxas_report(logs["flash_attention"])
+    if only_phase() == "32":
+        return phase_only_main(card, kind, count,
+                               lambda: run_safety_phase(card))
 
     # ---- 3. parity -------------------------------------------------------
     model = CNN(ModelConfig(logit_relu=False), DataConfig())
@@ -3899,6 +4534,9 @@ def main() -> int:
     with open(os.path.join(OUT, "slice11.json"), "w") as f:
         json.dump({"card": card, "dp_chunk_gloo": dp_chunk}, f, indent=1)
 
+    # ---- 32. run safety: telemetry, the numerics guard, preemption ------
+    safety = run_safety_phase(card)
+
     for path in (train_jsonl, resume_jsonl, mom_jsonl, vit_jsonl,
                  os.path.join(WORK, "vit_resume.jsonl"), long_jsonl):
         shutil.copy(path, OUT)
@@ -3957,6 +4595,23 @@ def main() -> int:
                 f"({n_params} params) as phase 4 times it; launches: rank "
                 f"0 of phase 30's 2-rank chunked DP run (gloo on one card, "
                 f"the eager chunk body), {DP_STEPS} steps",
+    })
+    kernels.append({
+        "name": "sgd_update_plain", "kernel": "K1", "path": "run_safety",
+        "route": "cuda",
+        "source": "dml_cnn_cifar10_tpu_torch/csrc/sgd_update.cu",
+        "cuda_kernel": t["cuda_kernel"],
+        "replaces": "dml_cnn_cifar10_tpu/ops/optimizer.py:83",
+        "launches": safety["telemetry"]["telemetry"]["launches"][
+            "sgd_update_plain"],
+        "max_abs_err": worst["sgd_update_plain"],
+        **{k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms", "library_device_ms")},
+        "library": "torch.optim.SGD(fused=True).step",
+        "work": f"one optimizer step over the CNN's {n_leaves} f32 leaves "
+                f"({n_params} params) as phase 4 times it; launches: phase "
+                f"32's chunked run with brightness, contrast, telemetry and "
+                f"health on, {RS_STEPS} steps in CUDA graph replays",
     })
     t = stats_time
     kernels.append({

@@ -17,18 +17,31 @@ orbax and sharded formats are not ported.
 
 In a multi-rank run the parameters are replicated, so one file holds the
 whole state: only the chief writes it, and every rank waits at a barrier
-until it is committed; every rank restores from the same file, and a
+until it is committed (until it is handed to the writer, under
+``async_save``); every rank restores from the same file, and a
 checkpoint written under sequence or data parallelism restores into a
 one-process run.
+
+:class:`CheckpointManager` (JAX ``ckpt/checkpoint.py:483-620``) saves on
+a step cadence and, with ``every_secs``, on a wall-clock one that the
+caller polls (:meth:`CheckpointManager.time_due`; several ranks must
+agree before acting on it). With ``async_save`` the copy of the state to
+host memory still happens at the call, before the next dispatch updates
+the parameters in place, while the msgpack encoding, the file, its sha256
+sidecar and the data-state sidecar are written on one writer thread that
+touches no device tensor; saves stay in order, and a writer error is
+raised at the next ``maybe_save``, ``flush`` or ``close``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import json
 import os
 import re
 import sys
+import time
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import msgpack
@@ -93,9 +106,12 @@ def state_to_tree(state: TrainState) -> Dict[str, Any]:
     opt = {}
     for key in sorted(state.opt):
         value = state.opt[key]
+        # np.array copies: on the CPU .numpy() would share the live
+        # tensor's memory, which the next step updates in place.
         opt[key] = convert.params_to_jax(
             value, convert.OPT_LAYOUTS.get(key, "port")) \
-            if isinstance(value, Mapping) else value.detach().to("cpu").numpy()
+            if isinstance(value, Mapping) \
+            else np.array(value.detach().to("cpu").numpy())
     return {"params": convert.params_to_jax(state.params), "opt": opt,
             "model_state": {}}
 
@@ -218,11 +234,18 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
                     keep: int = 3) -> str:
     """Atomically write ``ckpt_<step>.msgpack`` (tmp + rename), then its
     sidecar and the ``checkpoint`` index; prune to the ``keep`` newest."""
+    return write_tree(ckpt_dir, state_to_tree(state), step, keep)
+
+
+def write_tree(ckpt_dir: str, tree: Mapping[str, Any], step: int,
+               keep: int = 3) -> str:
+    """:func:`save_checkpoint` of a state already copied to host memory
+    (:func:`state_to_tree`): numpy only, safe off the main thread."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = _ckpt_path(ckpt_dir, step)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        f.write(to_bytes(state_to_tree(state)))
+        f.write(to_bytes(tree))
     os.replace(tmp, path)
     write_checksum(path)
     with open(os.path.join(ckpt_dir, "checkpoint"), "w") as f:
@@ -302,15 +325,57 @@ class CheckpointManager:
     """Periodic saver (the CheckpointSaverHook role): saves every
     ``every_steps`` global steps, plus forced saves, never twice at the
     same step. Over a mesh only the chief writes; every rank returns from
-    a save after the file is committed."""
+    a save after the chief has written it (handed it to the writer under
+    ``async_save``).
+
+    ``every_secs`` adds a wall-clock cadence that the manager does not act
+    on by itself: :meth:`time_due` says when it has elapsed since the last
+    save on this process's clock, and the caller forces the save (over
+    several ranks after they agree). ``async_save`` moves the encoding and
+    the file writes to one writer thread (see the module docstring)."""
 
     def __init__(self, ckpt_dir: str, every_steps: int, keep: int = 3,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, async_save: bool = False,
+                 every_secs: Optional[float] = None):
         self.ckpt_dir = ckpt_dir
         self.every_steps = max(1, every_steps)
         self.keep = keep
         self.mesh = mesh
         self._last_saved_step: Optional[int] = None
+        self.every_secs = every_secs
+        self._last_time = time.monotonic()
+        self.async_save = async_save
+        self._pool = None
+        self._pending = None
+        if async_save:
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="ckpt-writer")
+
+    @property
+    def chief(self) -> bool:
+        return self.mesh is None or self.mesh.chief
+
+    def time_due(self) -> bool:
+        """True when the wall-clock cadence has elapsed since the last
+        save (this process's clock)."""
+        return bool(self.every_secs
+                    and time.monotonic() - self._last_time
+                    >= self.every_secs)
+
+    def flush(self) -> None:
+        """Wait for the write in flight; raise its error if it failed."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            pending.result()
+
+    def close(self) -> None:
+        """Drain the writer and stop its thread (idempotent)."""
+        try:
+            self.flush()
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown(wait=True)
+                self._pool = None
 
     def due(self, step: int, force: bool = False) -> bool:
         if not force and step % self.every_steps != 0:
@@ -321,14 +386,30 @@ class CheckpointManager:
                    force: bool = False,
                    data_state: Optional[dict] = None) -> bool:
         """Save when due; ``data_state`` (the streams' consumed batch
-        counts) goes into its sidecar after the checkpoint is committed."""
+        counts) goes into its sidecar after the checkpoint is committed,
+        by the same writer."""
         if not self.due(step, force):
             return False
-        if self.mesh is None or self.mesh.chief:
-            save_checkpoint(self.ckpt_dir, state, step, keep=self.keep)
-            if data_state is not None:
-                save_data_state(self.ckpt_dir, step, data_state)
+        self._last_saved_step = step
+        if self.chief:
+            # The host copy, here and now: the next dispatch updates the
+            # state's tensors in place.
+            tree = state_to_tree(state)
+            if self.async_save:
+                self.flush()   # in order, and a failed write surfaces
+                self._pending = self._pool.submit(
+                    self._write, tree, step, data_state)
+            else:
+                self._write(tree, step, data_state)
         if self.mesh is not None:
             self.mesh.barrier()
-        self._last_saved_step = step
+        # After the slow part: a save longer than every_secs must not
+        # make the next one due at once.
+        self._last_time = time.monotonic()
         return True
+
+    def _write(self, tree, step: int, data_state: Optional[dict]) -> str:
+        path = write_tree(self.ckpt_dir, tree, step, keep=self.keep)
+        if data_state is not None:
+            save_data_state(self.ckpt_dir, step, data_state)
+        return path

@@ -23,7 +23,14 @@ schedule flags, and the rest of its optimizer surface
 ``--grad_accum``, ``--async_staleness``, ``--label_smoothing``).
 ``--peak_tflops`` adds ``mfu`` to the ``train`` records, and
 ``--profile_at_steps N:K`` writes ``devtime`` records of a torch.profiler
-window (``utils/devprof.py``). ``--steps_per_dispatch K`` runs K steps a dispatch, one
+window (``utils/devprof.py``). The run-safety flags are the JAX CLI's:
+``--check_numerics`` with ``--on_nonfinite halt|skip|rollback`` and
+``--recovery_retries``, ``--fault_spec`` (the step-seam kinds ``nan``,
+``sigterm``, ``ckpt_corrupt``, ``data_stall``), ``--checkpoint_every_secs``,
+``--async_checkpoint``, ``--preempt_sync_every`` (SIGTERM/SIGINT finish the
+dispatch, checkpoint and exit 0), ``--telemetry`` with
+``--trace_events_path``, ``--health_metrics`` and ``--tensorboard_dir``;
+``--random_brightness`` and ``--random_contrast`` augment. ``--steps_per_dispatch K`` runs K steps a dispatch, one
 CUDA graph replay on the card, with the dataset resident on the device and
 its shuffled rows drawn there (``--resident_data``,
 ``--device_index_stream``). Modes: ``train`` (default); ``eval`` (restore
@@ -142,6 +149,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_every", type=int, default=500,
                    help="eval cadence (reference EVAL_EVERY)")
     p.add_argument("--checkpoint_every", type=int, default=1000)
+    p.add_argument("--checkpoint_every_secs", type=float, default=None,
+                   help="wall-clock checkpoint cadence in addition to the "
+                        "step cadence (the reference's MTS saved every "
+                        "600 s by default)")
+    p.add_argument("--async_checkpoint", type="bool", default=False,
+                   help="serialize+write checkpoints on a background "
+                        "thread (training overlaps the disk IO; the "
+                        "device-to-host copy stays at the save)")
     p.add_argument("--learning_rate", type=float, default=0.1)
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
@@ -155,6 +170,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="SGD momentum (reference uses plain SGD)")
     p.add_argument("--weight_decay", type=float, default=0.0)
     p.add_argument("--label_smoothing", type=float, default=0.0)
+    p.add_argument("--random_brightness", type=float, default=0.0,
+                   help="augment: per-image brightness delta (pixel "
+                        "units; the TF tutorial used 63)")
+    p.add_argument("--random_contrast", type=float, default=0.0,
+                   help="augment: per-image contrast deviation (the TF "
+                        "tutorial's [0.2,1.8] is 0.8)")
     p.add_argument("--grad_clip_norm", type=float, default=None,
                    help="global-norm gradient clipping")
     p.add_argument("--grad_accum", type=int, default=1,
@@ -232,6 +253,50 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--peak_tflops", type=float, default=None,
                    help="per-chip peak TFLOP/s; enables the MFU metric "
                         "in the jsonl stream")
+    p.add_argument("--check_numerics", type="bool", default=False,
+                   help="halt at the next metrics boundary on non-finite "
+                        "loss without checkpointing the poisoned state "
+                        "(faithful parity runs NaN by design — keep off)")
+    p.add_argument("--on_nonfinite", type=str, default="halt",
+                   choices=["halt", "skip", "rollback"],
+                   help="what a --check_numerics detection does: halt "
+                        "raises without saving; skip discards the "
+                        "updates since the last finite boundary and "
+                        "keeps training; rollback logs the fault and "
+                        "raises for a supervisor (not ported). skip "
+                        "degrades to halt when the --recovery_retries "
+                        "budget is exhausted")
+    p.add_argument("--recovery_retries", type=int, default=3,
+                   help="recovery budget: max on_nonfinite=skip events "
+                        "per run; exhausted degrades to halt")
+    p.add_argument("--fault_spec", type=str, default=None,
+                   help="deterministic fault injection for recovery "
+                        "drills: comma-separated kind@step with kinds "
+                        "nan, ckpt_corrupt, sigterm, data_stall; each "
+                        "fires once at the first dispatch at/after its "
+                        "step (several faults may share a step)")
+    p.add_argument("--preempt_sync_every", type=int, default=10,
+                   help="steps between the ranks' preemption/clock-save "
+                        "agreement exchanges (one process reacts "
+                        "immediately)")
+    p.add_argument("--telemetry", type="bool", default=False,
+                   help="run-health telemetry: host-loop span tracing, "
+                        "goodput fractions, and device-memory snapshots "
+                        "emitted into the metrics JSONL at the existing "
+                        "boundaries (no extra device reads)")
+    p.add_argument("--trace_events_path", type=str, default=None,
+                   help="write the host-loop spans as a Chrome "
+                        "trace-event JSON file (Perfetto-loadable); "
+                        "needs --telemetry true")
+    p.add_argument("--health_metrics", type="bool", default=False,
+                   help="compute global grad-norm / param-norm / "
+                        "update-ratio scalars inside the train step; they "
+                        "ride the boundary's one device read into the "
+                        "train JSONL records")
+    p.add_argument("--tensorboard_dir", type=str, default=None,
+                   help="write TensorBoard event files (chief only; needs "
+                        "the tensorboardX package; the reference's MTS "
+                        "wrote summaries to --log_dir)")
     p.add_argument("--metrics_jsonl", type=str, default=None)
     p.add_argument("--profile_dir", type=str, default=None)
     p.add_argument("--profile_at_steps", type=str, default=None,
@@ -255,8 +320,19 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
         output_every=args.output_every,
         eval_every=args.eval_every,
         checkpoint_every=args.checkpoint_every,
+        checkpoint_every_secs=args.checkpoint_every_secs,
+        async_checkpoint=args.async_checkpoint,
         log_dir=args.log_dir,
         metrics_jsonl=args.metrics_jsonl,
+        telemetry=args.telemetry,
+        trace_events_path=args.trace_events_path,
+        health_metrics=args.health_metrics,
+        preempt_sync_every=args.preempt_sync_every,
+        check_numerics=args.check_numerics,
+        on_nonfinite=args.on_nonfinite,
+        recovery_retries=args.recovery_retries,
+        fault_spec=args.fault_spec,
+        tensorboard_dir=args.tensorboard_dir,
         seed=args.seed,
         device=args.device,
         peak_tflops=args.peak_tflops,
@@ -270,6 +346,8 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
         raise SystemExit(str(e))
     cfg.data.dataset = args.dataset
     cfg.data.data_dir = args.data_dir
+    cfg.data.random_brightness = args.random_brightness
+    cfg.data.random_contrast = args.random_contrast
     if args.image_size is not None:
         cfg.data.image_height = cfg.data.image_width = args.image_size
     if args.crop_size is not None:

@@ -38,6 +38,12 @@ class DataConfig:
     # augmentation the comment intended (fixed mode).
     random_crop: bool = False
     random_flip: bool = False
+    # Color jitter (the TF CIFAR-tutorial lineage the reference derives
+    # from used random_brightness(63) + random_contrast(0.2, 1.8)):
+    # brightness adds U[-b, b] in pixel units per image; contrast scales
+    # per-channel deviation-from-mean by U[1-c, 1+c]. 0 = off.
+    random_brightness: float = 0.0
+    random_contrast: float = 0.0
     # Pixel normalization. The reference feeds raw 0..255 floats
     # (cifar10cnn.py:66 — cast, no scaling); "scale" maps to [0,1];
     # "standardize" is tf.image.per_image_standardization.
@@ -60,8 +66,8 @@ class DataConfig:
 
     # Every randomized-augmentation field and its "off" value: the one
     # list ``augmented`` and ``without_augmentation`` both derive from.
-    # (The JAX package's brightness/contrast are not ported yet.)
-    _AUG_OFF = (("random_crop", False), ("random_flip", False))
+    _AUG_OFF = (("random_crop", False), ("random_flip", False),
+                ("random_brightness", 0.0), ("random_contrast", 0.0))
 
     @property
     def augmented(self) -> bool:
@@ -257,8 +263,52 @@ class TrainConfig:
     eval_full_test_set: bool = False
     log_dir: str = "/tmp/train_logs"      # checkpoint dir (cifar10cnn.py:269-272)
     checkpoint_every: int = 1000          # steps; MTS default was 600s wall-clock
+    # Wall-clock checkpoint cadence IN ADDITION to the step cadence (the
+    # MTS behavior, save_checkpoint_secs=600 at cifar10cnn.py:222). None
+    # disables the clock trigger. Several ranks agree on it at the
+    # preemption-sync exchange (train/loop.py).
+    checkpoint_every_secs: Optional[float] = None
     keep_checkpoints: int = 3
+    # Encode and write checkpoints on a background writer thread; the
+    # device->host copy stays synchronous at the save (K1/K2 update the
+    # parameters in place at the next dispatch).
+    async_checkpoint: bool = False
+    # Several ranks agree on the preemption flag (and a due wall-clock
+    # save) every this many steps, in one exchange over the process
+    # group: no rank may leave the step loop alone, or its peers hang in
+    # the next collective. One process reacts to the signal at once.
+    preempt_sync_every: int = 10
+    # Failure detection: at each metrics boundary a non-finite train loss
+    # triggers on_nonfinite, and no save may persist a non-finite state.
+    # Off by default: faithful runs NaN by the reference's design (LR 0.1
+    # on raw 0-255 pixels) and must keep running as the reference does.
+    check_numerics: bool = False
+    # "halt" raises without checkpointing the poisoned state; "skip"
+    # restores the copy of the state kept at the last finite boundary
+    # (every update since is discarded, the step counter moves on) and
+    # keeps training; "rollback" logs the fault and raises for a
+    # supervisor (not ported: ROADMAP.md Queue 1 item 5). skip degrades to
+    # halt once recovery_retries skips are spent.
+    on_nonfinite: str = "halt"            # halt | skip | rollback
+    recovery_retries: int = 3
+    # Deterministic fault injection (utils/faults.py): "kind@step,..."
+    # with kinds nan | ckpt_corrupt | sigterm | data_stall, each fired
+    # once at the first dispatch seam at/after its step. None disables.
+    fault_spec: Optional[str] = None
     metrics_jsonl: Optional[str] = None   # structured metrics sink
+    # Run-health telemetry (utils/telemetry.py): host-loop spans, goodput
+    # fractions and device-memory snapshots in the metrics JSONL at the
+    # existing boundaries, no extra device read. Off: the spans reduce to
+    # a shared no-op.
+    telemetry: bool = False
+    # Chrome trace-event file of the host-loop spans (needs telemetry);
+    # ranks other than 0 write <path>.task<N>.
+    trace_events_path: Optional[str] = None
+    # Grad norm, param norm and update ratio computed inside the step
+    # (parallel/step.py), read with the boundary's loss in its one read.
+    health_metrics: bool = False
+    # TensorBoard event files (the chief only; needs tensorboardX).
+    tensorboard_dir: Optional[str] = None
     seed: int = 0
     # Where the port runs: "cuda" (the default; raises when no card is
     # present) or "cpu", which the caller must ask for.

@@ -100,6 +100,12 @@ class ShuffleBatchIterator:
             images = rec.center_crop(images, cfg.crop_height, cfg.crop_width)
         if self.train and cfg.random_flip:
             images = rec.random_flip(images, self.rng)
+        if self.train and cfg.random_brightness:
+            images = rec.random_brightness(images, cfg.random_brightness,
+                                           self.rng)
+        if self.train and cfg.random_contrast:
+            images = rec.random_contrast(images, cfg.random_contrast,
+                                         self.rng)
         return np.ascontiguousarray(rec.normalize(images, cfg.normalize))
 
     def __iter__(self) -> Iterator[Batch]:
@@ -119,8 +125,11 @@ class ShuffleBatchIterator:
 
     # The augmentations skip_batches replays. A new field in
     # DataConfig._AUG_OFF needs its draw mirrored below (and a case in
-    # tests/test_torch_resume.py); skip_batches raises until it has one.
-    _SKIP_MIRRORED_AUGS = frozenset({"random_crop", "random_flip"})
+    # tests/test_torch_resume.py or tests/test_torch_augment.py);
+    # skip_batches raises until it has one.
+    _SKIP_MIRRORED_AUGS = frozenset({"random_crop", "random_flip",
+                                     "random_brightness",
+                                     "random_contrast"})
 
     def skip_batches(self, n: int, aug: bool = False) -> None:
         """Fast-forward the stream by ``n`` batches without building them:
@@ -156,6 +165,12 @@ class ShuffleBatchIterator:
                     0, cfg.image_width - cfg.crop_width + 1, size=b)
             if cfg.random_flip:
                 self.rng.random(b)
+            if cfg.random_brightness:
+                self.rng.uniform(-cfg.random_brightness,
+                                 cfg.random_brightness, b)
+            if cfg.random_contrast:
+                self.rng.uniform(1.0 - cfg.random_contrast,
+                                 1.0 + cfg.random_contrast, b)
 
     def next_index_chunk(self, k: int) -> np.ndarray:
         """``[k, B]`` int64 shuffled indices into ``self.images`` /

@@ -74,6 +74,26 @@ def random_crop(images: np.ndarray, out_h: int, out_w: int,
     return np.ascontiguousarray(out.transpose(0, 2, 3, 1))
 
 
+def random_brightness(images: np.ndarray, max_delta: float,
+                      rng: np.random.Generator) -> np.ndarray:
+    """Per-image additive brightness U[-max_delta, max_delta] (pixel
+    units; ``tf.image.random_brightness`` semantics)."""
+    deltas = rng.uniform(-max_delta, max_delta,
+                         images.shape[0]).astype(np.float32)
+    return images + deltas[:, None, None, None]
+
+
+def random_contrast(images: np.ndarray, max_dev: float,
+                    rng: np.random.Generator) -> np.ndarray:
+    """Per-image contrast: scale deviation from the per-channel mean by
+    U[1-max_dev, 1+max_dev] (``tf.image.random_contrast`` semantics —
+    the mean is over H,W per channel)."""
+    f = rng.uniform(1.0 - max_dev, 1.0 + max_dev,
+                    images.shape[0]).astype(np.float32)
+    mean = images.mean(axis=(1, 2), keepdims=True)
+    return (images - mean) * f[:, None, None, None] + mean
+
+
 def random_flip(images: np.ndarray, rng: np.random.Generator) -> np.ndarray:
     """Per-image horizontal flip with p=0.5."""
     flip = rng.random(images.shape[0]) < 0.5

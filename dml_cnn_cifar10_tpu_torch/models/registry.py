@@ -21,9 +21,12 @@ MODELS = {"cnn": CNN, "vit_tiny": ViT}
 
 # The JAX package's other models and where the port's queue takes them.
 _QUEUED = {
-    "resnet18": "ROADMAP.md Queue 1, item 12 (models/resnet.py)",
-    "resnet50": "ROADMAP.md Queue 1, item 12 (models/resnet.py)",
-    "vit_moe": "ROADMAP.md Queue 1, item 13 (ops/moe.py + models/vit.py)",
+    "resnet18": "ROADMAP.md Queue 1, the rest of the config ladder "
+                "(models/resnet.py)",
+    "resnet50": "ROADMAP.md Queue 1, the rest of the config ladder "
+                "(models/resnet.py)",
+    "vit_moe": "ROADMAP.md Queue 1, the rest of the config ladder "
+               "(ops/moe.py + models/vit.py)",
 }
 
 

@@ -14,18 +14,27 @@ is torch's, correctly rounded, where XLA's sums the squared deviations in
 another order: the two differ in the last bits (``tests/
 test_torch_preprocess.py`` states the tolerance).
 
-Augmentations (``random_crop``, ``random_flip``; the JAX package's
-brightness and contrast are not in the port's config yet) select exact
-pixels by index: a crop is a window of its source and a flip its mirror,
-as in the JAX function's one-hot products. Their draws cannot be the JAX
-package's threefry bits; they are a counter-based hash (the port's
-``device_stream._mix``) of (data seed, the image's global step, its index
-in its batch), so they are deterministic, the same on the CPU and the
-card, and need no host seed inside a captured graph. A ``[K, B, ...]``
-chunk decoded at ``step`` draws batch ``k`` at ``step + k``: the chunk
-decodes exactly as its K batches would one step at a time. A data rank
-that decodes its own columns of a global batch passes their first index
-(``col0``), so each image draws as it would in the whole batch.
+Augmentations (``random_crop``, ``random_flip``, ``random_brightness``,
+``random_contrast``, in the JAX function's order: crop, flip, brightness,
+contrast, then normalize). A crop and a flip select exact pixels by
+index: a crop is a window of its source and a flip its mirror, as in the
+JAX function's one-hot products. Brightness adds a per-image delta and
+contrast scales each channel's deviation from its mean by a per-image
+factor (:func:`brightness`, :func:`contrast`, the JAX function's math
+given the same per-image values; the channel mean is a float32 sum whose
+order differs from XLA's, so contrast agrees to the last bits, as
+``standardize`` does: ``tests/test_torch_augment.py`` states the
+tolerance). Their draws cannot be the JAX package's threefry bits; they
+are a counter-based hash (the port's ``device_stream._mix``) of (data
+seed, the image's global step, its index in its batch, one salt a draw),
+so they are deterministic, the same on the CPU and the card, and need no
+host seed inside a captured graph; a brightness or contrast value takes
+the hash's top 24 bits as a float32 in [0, 1) mapped onto its range. A
+``[K, B, ...]`` chunk decoded at ``step`` draws batch ``k`` at ``step +
+k``: the chunk decodes exactly as its K batches would one step at a time.
+A data rank that decodes its own columns of a global batch passes their
+first index (``col0``), so each image draws as it would in the whole
+batch.
 """
 
 from __future__ import annotations
@@ -41,8 +50,11 @@ from dml_cnn_cifar10_tpu_torch.config import DataConfig
 from dml_cnn_cifar10_tpu_torch.data.device_stream import (_C0, _C1, _M32,
                                                           _mix, _mul32)
 
-# Salts of the three draws an image takes.
-_TOP, _LEFT, _FLIP = 0, 1, 2
+# Salts of the draws an image takes (at most _SALTS of them).
+_TOP, _LEFT, _FLIP, _BRIGHT, _CONTRAST = 0, 1, 2, 3, 4
+_SALTS = 8
+# 2^-24: a float32 in [0, 1) from the top 24 bits of a draw, exactly.
+_U24 = 1.0 / (1 << 24)
 
 
 def device_preprocess(images_u8: torch.Tensor, cfg: DataConfig,
@@ -57,8 +69,8 @@ def device_preprocess(images_u8: torch.Tensor, cfg: DataConfig,
     batch draws as image ``col0 + i`` of the global batch."""
     if cfg.augmented and step is None:
         raise ValueError(
-            "random crop/flip on the device draw from the global step; "
-            "pass step= or use the host pipeline")
+            "random crop/flip/brightness/contrast on the device draw from "
+            "the global step; pass step= or use the host pipeline")
     x = images_u8
     if cfg.random_crop:
         x = _random_crop(x, cfg, step, col0, flip=cfg.random_flip)
@@ -66,7 +78,31 @@ def device_preprocess(images_u8: torch.Tensor, cfg: DataConfig,
         x = _center_crop(x, cfg)
         if cfg.random_flip:
             x = _random_flip(x, cfg, step, col0)
-    return _normalize(x.to(torch.float32), cfg)
+    x = x.to(torch.float32)
+    lead = x.shape[:-3]
+    if cfg.random_brightness:
+        b = float(cfg.random_brightness)
+        u = _uniform(cfg, step, col0, lead, _BRIGHT, x.device)
+        x = brightness(x, u * (2.0 * b) - b)
+    if cfg.random_contrast:
+        c = float(cfg.random_contrast)
+        u = _uniform(cfg, step, col0, lead, _CONTRAST, x.device)
+        x = contrast(x, u * (2.0 * c) + (1.0 - c))
+    return _normalize(x, cfg)
+
+
+def brightness(x: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., B, H, W, C] float32 plus one delta an image
+    (``deltas`` [..., B]): JAX ``_random_brightness`` given its deltas."""
+    return x + deltas[..., None, None, None]
+
+
+def contrast(x: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
+    """Each image's per-channel deviation from its mean over H, W scaled
+    by its factor (``factors`` [..., B]): JAX ``_random_contrast`` given
+    its factors."""
+    mean = x.mean(dim=(-3, -2), keepdim=True)
+    return (x - mean) * factors[..., None, None, None] + mean
 
 
 def _draws(cfg: DataConfig, step, col0: int, lead, salt: int,
@@ -80,7 +116,15 @@ def _draws(cfg: DataConfig, step, col0: int, lead, salt: int,
         step = step.to(device=device, dtype=torch.int64)
     steps = (step + r // b) & _M32
     key = _mix(((cfg.seed & _M32) * _C0 & _M32) ^ _mul32(steps, _C1))
-    return _mix(key ^ _mix((r % b + col0) * 4 + salt))
+    return _mix(key ^ _mix((r % b + col0) * _SALTS + salt))
+
+
+def _uniform(cfg: DataConfig, step, col0: int, lead, salt: int,
+             device: torch.device) -> torch.Tensor:
+    """One float32 in [0, 1) per image of leading shape ``lead``: the top
+    24 bits of its draw."""
+    bits = _draws(cfg, step, col0, lead, salt, device) >> 8
+    return (bits.to(torch.float32) * _U24).reshape(lead)
 
 
 def _center_crop(x: torch.Tensor, cfg: DataConfig) -> torch.Tensor:

@@ -149,14 +149,33 @@ def _data_mean(values, mesh: Optional[Mesh]) -> torch.Tensor:
     return v
 
 
+def _norms(tensors) -> torch.Tensor:
+    """Each tensor's L2 norm, accumulated in float32 (JAX
+    ``parallel/step.py:_global_norm`` casts to f32 first), in one
+    multi-tensor launch; stacked."""
+    return torch.stack(torch._foreach_norm(tensors, 2,
+                                           dtype=torch.float32))
+
+
 def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
-                    mesh: Optional[Mesh] = None
+                    mesh: Optional[Mesh] = None,
+                    health_metrics: bool = False
                     ) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
                                   Tuple[TrainState, dict]]:
     """``(state, images, labels) -> (state, {"loss", "accuracy"})``; the
     state is updated in place and returned. Over a mesh, ``images`` are
     this data rank's slice of the global batch and the metrics are the
-    global batch's."""
+    global batch's.
+
+    ``health_metrics`` adds JAX ``_health_stats``' three scalars to the
+    metrics, device tensors like the loss: ``health_grad_norm`` (the
+    global norm of the gradients the update takes: after accumulation and
+    the sum over the ranks, before clipping, which the update does),
+    ``health_param_norm`` (of the parameters before the update) and
+    ``health_update_ratio`` (``‖Δθ‖ / (‖θ‖ + 1e-12)``). The update works
+    in place, so the step first copies the parameters into buffers of
+    its own (inside a captured chunk, the graph's), in one multi-tensor
+    launch; the norms take about a dozen small kernels a step."""
     f32_parity()
     world = 1 if mesh is None else mesh.world
     accum = max(1, optim_cfg.grad_accum)
@@ -209,6 +228,12 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
                     _sum_grads(grads, mesh)
         with torch.no_grad():
             loss_m, acc = _data_mean([loss, acc], mesh)
+            if health_metrics:
+                before = torch._foreach_mul(
+                    [state.params[n].detach() for n in names], 1.0)
+                norms = _norms(list(grads) + list(before))
+                grad_norm = torch.linalg.vector_norm(norms[:len(names)])
+                param_norm = torch.linalg.vector_norm(norms[len(names):])
         with torch.profiler.record_function("optimizer"), torch.no_grad():
             optim_lib.sgd_update(dict(zip(names, grads)), state.opt,
                                  state.params, optim_cfg)
@@ -218,7 +243,17 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
                 for n in names:
                     state.opt["stale"][n].index_copy_(
                         0, slot, state.params[n].detach()[None])
-        return state, {"loss": loss_m, "accuracy": acc}
+        metrics = {"loss": loss_m, "accuracy": acc}
+        if health_metrics:
+            with torch.no_grad():
+                delta = torch._foreach_sub(
+                    [state.params[n].detach() for n in names], before)
+                metrics.update(
+                    health_grad_norm=grad_norm,
+                    health_param_norm=param_norm,
+                    health_update_ratio=torch.linalg.vector_norm(
+                        _norms(delta)) / (param_norm + 1e-12))
+        return state, metrics
 
     return step
 
@@ -281,7 +316,8 @@ def chunk_is_graphed(mesh: Optional[Mesh]) -> bool:
 
 
 def _chunk_body(model: nn.Module, optim_cfg: OptimConfig,
-                data_cfg: Optional[DataConfig], mesh: Optional[Mesh] = None):
+                data_cfg: Optional[DataConfig], mesh: Optional[Mesh] = None,
+                health_metrics: bool = False):
     """``(state, images [K, b, ...], labels [K, b]) -> (state, metrics of
     the LAST step)``: the K-step math shared by every ``make_train_chunk*``,
     over ``mesh`` on this data rank's ``b`` columns of the global batch.
@@ -290,8 +326,9 @@ def _chunk_body(model: nn.Module, optim_cfg: OptimConfig,
     over the whole chunk at once (``[K, b]`` rows draw their augmentation
     at ``state.step + k`` and at their column of the global batch), or one
     batch a step past ``_DECODE_IN_LOOP_BYTES``; either way each batch
-    decodes exactly as it would alone."""
-    one_step = make_train_step(model, optim_cfg, mesh)
+    decodes exactly as it would alone. With ``health_metrics`` the last
+    step's health scalars come with its loss (:func:`make_train_step`)."""
+    one_step = make_train_step(model, optim_cfg, mesh, health_metrics)
 
     def run(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         decode_in_loop = False
@@ -514,7 +551,8 @@ def _dispatch(eager: Callable, graphed: Optional[_GraphedChunk],
 
 def make_train_chunk(model: nn.Module, optim_cfg: OptimConfig,
                      data_cfg: Optional[DataConfig] = None,
-                     mesh: Optional[Mesh] = None
+                     mesh: Optional[Mesh] = None,
+                     health_metrics: bool = False
                      ) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
                                    Tuple[TrainState, dict]]:
     """K training steps a call: ``(state, images [K, b, ...], labels
@@ -525,7 +563,7 @@ def make_train_chunk(model: nn.Module, optim_cfg: OptimConfig,
     the card the K steps are one CUDA graph replay (but see
     :func:`chunk_is_graphed`); the inputs are copied into its static
     buffers, so they must keep the shapes of the first call."""
-    body = _chunk_body(model, optim_cfg, data_cfg, mesh)
+    body = _chunk_body(model, optim_cfg, data_cfg, mesh, health_metrics)
     return _dispatch(body, _GraphedChunk(body, mesh=mesh), mesh)
 
 
@@ -537,6 +575,7 @@ def make_train_chunk_resident(
     data_cfg: Optional[DataConfig] = None,
     index_stream: Optional[Tuple[int, int, int]] = None,
     mesh: Optional[Mesh] = None,
+    health_metrics: bool = False,
 ) -> Callable:
     """Chunked training against a device-resident split: ``(state, idx
     [K, b]) -> (state, metrics of the LAST step)``. ``dataset_images``
@@ -565,7 +604,7 @@ def make_train_chunk_resident(
         raise ValueError(
             "make_train_chunk_resident requires data_cfg (the gathered "
             "dataset rows are raw uint8 and must be decoded on device)")
-    body = _chunk_body(model, optim_cfg, data_cfg, mesh)
+    body = _chunk_body(model, optim_cfg, data_cfg, mesh, health_metrics)
 
     if index_stream is None:
         def chunk_idx(state: TrainState, idx: torch.Tensor):

@@ -71,12 +71,50 @@ opens no earlier than the second dispatch (the first captures the graph,
 whose profiled warm-up tells the window which replayed kernels are the
 update's).
 
-Left out: the supervisor, peers, fault injection and the autopilot.
+Run safety (JAX ``train/loop.py:582-1215``):
+
+- ``check_numerics`` reads the loss the boundary already read; a
+  non-finite one triggers ``on_nonfinite``: ``halt`` logs
+  ``numerics_halt`` and raises ``FloatingPointError``; ``rollback`` logs a
+  ``fault`` and raises it for a supervisor (not ported); ``skip`` logs
+  ``fault`` and ``recovery``, copies the state kept at the last finite
+  boundary back INTO the state's tensors (a chunk's CUDA graph is bound to
+  their addresses, and K1/K2 update them in place: holding a reference is
+  not a snapshot) and sets the step counter in place to the detection
+  step, so the data, which the device index stream draws from the step,
+  moves forward as in JAX; past ``recovery_retries`` skips it halts. A
+  due save under ``check_numerics`` reads the last dispatch's loss first
+  (the only extra device read, and only then) and never writes a
+  non-finite state.
+- ``fault_spec`` fires its step-seam faults (``utils/faults.py``) before
+  the dispatch.
+- ``PreemptionGuard``: one process stops after the dispatch that follows a
+  SIGTERM/SIGINT; several ranks exchange ``[preempt, time_due]`` once
+  every ``max(1, preempt_sync_every // k)`` dispatches, in one all-reduce
+  over the mesh, eagerly between dispatches (never inside a graph), and
+  stop, or take a wall-clock save, together. The stop saves a checkpoint
+  (with its data-state sidecar, so the resume is exact), logs ``preempt``
+  and returns ``preempted``. A trainer off the main thread cannot catch
+  signals: it says so on stderr, and refuses a ``sigterm`` fault.
+- ``checkpoint_every_secs`` saves on the clock too; ``async_checkpoint``
+  writes on the manager's writer thread (``ckpt/checkpoint.py``), closed
+  in ``finally``.
+- ``telemetry``: spans (``data_wait``, ``compile_first_dispatch`` then
+  ``dispatch``, ``boundary_drain``, ``eval``, ``checkpoint``,
+  ``preempt_allgather``; ``utils/telemetry.py``), flushed as ``span``,
+  ``goodput`` and ``hbm`` records at each metrics boundary and once at the
+  end (``final``), and the Chrome trace written at exit, a failed run's
+  too. ``health_metrics``: the step's three health scalars join the
+  boundary's one device read. ``tensorboard_dir``: the logger's event
+  files.
+
+Left out: the supervisor, peers, the cluster faults and the autopilot.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import sys
 import time
 from typing import Optional
@@ -94,7 +132,10 @@ from dml_cnn_cifar10_tpu_torch.parallel import multihost
 from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
 from dml_cnn_cifar10_tpu_torch.train import optim as optim_lib
 from dml_cnn_cifar10_tpu_torch.utils import devprof, profiling
+from dml_cnn_cifar10_tpu_torch.utils import faults as faults_lib
+from dml_cnn_cifar10_tpu_torch.utils import telemetry as telemetry_lib
 from dml_cnn_cifar10_tpu_torch.utils.logging import MetricsLogger
+from dml_cnn_cifar10_tpu_torch.utils.preemption import PreemptionGuard
 from dml_cnn_cifar10_tpu_torch.utils.platform import (default_backend,
                                                       rank_device)
 
@@ -104,12 +145,23 @@ class TrainResult:
     final_step: int
     images_per_sec: float
     state: step_lib.TrainState
+    preempted: bool = False
 
 
 class Trainer:
     def __init__(self, cfg: TrainConfig, task_index: int = 0):
         self.cfg = cfg
         self.task_index = task_index
+        if cfg.on_nonfinite not in ("halt", "skip", "rollback"):
+            raise ValueError(
+                f"on_nonfinite={cfg.on_nonfinite!r} must be one of "
+                f"halt | skip | rollback")
+        if cfg.trace_events_path and not cfg.telemetry:
+            raise ValueError("trace_events_path needs telemetry=True (the "
+                             "spans it writes are the tracer's)")
+        # Deterministic fault injection (utils/faults.py); a bad spec
+        # fails here, before any set-up.
+        self.faults = faults_lib.FaultInjector.from_spec(cfg.fault_spec)
         par = cfg.parallel
         k = self.steps_per_dispatch = max(1, cfg.steps_per_dispatch)
         self.device = rank_device(cfg.device, par.process_id,
@@ -145,9 +197,11 @@ class Trainer:
                 download.ensure_dataset(cfg.data)
             m.barrier()
         self.model = get_model(cfg.model.name)(cfg.model, cfg.data, mesh=m)
-        self.logger = MetricsLogger(cfg.metrics_jsonl if m.chief else None,
-                                    task_index=task_index)
-        self.train_step = step_lib.make_train_step(self.model, cfg.optim, m)
+        self.logger = MetricsLogger(
+            cfg.metrics_jsonl if m.chief else None, task_index=task_index,
+            tensorboard_dir=cfg.tensorboard_dir if m.chief else None)
+        self.train_step = step_lib.make_train_step(
+            self.model, cfg.optim, m, health_metrics=cfg.health_metrics)
         self.eval_step = step_lib.make_eval_step(self.model, m)
         if k > 1:
             # The steps to run are checked in fit(), against the resume
@@ -159,13 +213,16 @@ class Trainer:
                         f"of steps_per_dispatch={k} so every observable "
                         f"boundary lands on a dispatch edge")
             self.train_chunk = step_lib.make_train_chunk(
-                self.model, cfg.optim, data_cfg=cfg.data, mesh=m)
+                self.model, cfg.optim, data_cfg=cfg.data, mesh=m,
+                health_metrics=cfg.health_metrics)
         # Resident-eval functions, set up by fit() on the resident path.
         self._resident_full_eval = None
         self._resident_test_eval = None
         #: The last fit's step or chunk function (its graph's replay
-        #: count, its index stream's table: for inspection).
+        #: count, its index stream's table: for inspection), and its span
+        #: tracer.
         self.train_fn = None
+        self.tracer = None
 
     def init_or_restore(self) -> step_lib.TrainState:
         """Fresh state from ``cfg.seed``, overwritten by the newest
@@ -274,7 +331,8 @@ class Trainer:
                 self.model, cfg.optim, ds_images, ds_labels,
                 data_cfg=cfg.data,
                 index_stream=((cfg.data.seed, cfg.batch_size, k)
-                              if dev_stream else None), mesh=self.mesh)
+                              if dev_stream else None), mesh=self.mesh,
+                health_metrics=cfg.health_metrics)
             acc_eval = step_lib.make_batch_eval_resident(
                 self.model, ds_images, ds_labels, cfg.data, mesh=self.mesh)
             if cfg.eval_full_test_set:
@@ -328,12 +386,78 @@ class Trainer:
 
         ckpt_mgr = ckpt_lib.CheckpointManager(
             cfg.log_dir, cfg.checkpoint_every, keep=cfg.keep_checkpoints,
-            mesh=self.mesh)
+            mesh=self.mesh, async_save=cfg.async_checkpoint,
+            every_secs=cfg.checkpoint_every_secs)
 
         def data_state(step):
             return {"train": base["train"] + step - start_step,
                     "acc": base["acc"] + consumed["acc"],
                     "test": base["test"] + consumed["test"]}
+
+        # on_nonfinite="skip": a copy of every state tensor, refreshed at
+        # each finite metrics boundary; a detection copies it back into
+        # the state's own tensors.
+        tensors = step_lib._state_tensors(state)
+        snapshot = ([t.detach().clone() for t in tensors]
+                    if cfg.check_numerics and cfg.on_nonfinite == "skip"
+                    else None)
+        skips = 0
+        last_metrics = None
+
+        def numerics_halt(loss, step):
+            self.logger.log("numerics_halt", step=step)
+            raise FloatingPointError(
+                f"non-finite train loss ({loss}) at step {step}; halting "
+                f"without checkpointing the poisoned state "
+                f"(check_numerics=True)")
+
+        def nonfinite(loss, step):
+            """The on_nonfinite policy for a non-finite loss at ``step``
+            (the same verdict on every rank: the loss is the data
+            mean)."""
+            nonlocal skips
+            if cfg.on_nonfinite == "rollback":
+                self.logger.log("fault", step=step, fault="nonfinite",
+                                injected=False)
+                raise FloatingPointError(
+                    f"non-finite train loss ({loss}) at step {step}; "
+                    f"raising for supervisor rollback "
+                    f"(on_nonfinite=rollback)")
+            if snapshot is None or skips >= cfg.recovery_retries:
+                numerics_halt(loss, step)
+            skips += 1
+            self.logger.log("fault", step=step, fault="nonfinite",
+                            injected=False)
+            self.logger.log("recovery", step=step, fault="nonfinite",
+                            action="skip", attempt=skips)
+            print(f"[recover] non-finite loss at step {step}: discarding "
+                  f"updates since the last finite boundary (skip "
+                  f"{skips}/{cfg.recovery_retries})")
+            with torch.no_grad():
+                for t, saved in zip(tensors, snapshot):
+                    t.copy_(saved)
+                # The updates are gone but the steps happened: the data
+                # stream, the cadences and the checkpoint names key on it.
+                state.step.fill_(step)
+
+        def guarded_save(step, force=False):
+            """``ckpt_mgr.maybe_save``; under ``check_numerics`` the last
+            dispatch's loss is read first (only when a save is due), and
+            a non-finite state is never written: halt and rollback raise,
+            skip restores the snapshot and skips this save."""
+            nonlocal last_metrics
+            if not ckpt_mgr.due(step, force):
+                return False
+            boundary_check()
+            if cfg.check_numerics and last_metrics is not None:
+                loss = float(last_metrics["loss"])
+                if not math.isfinite(loss):
+                    nonfinite(loss, step)
+                    last_metrics = None
+                    return False
+            with tracer.span("checkpoint", cat="checkpoint"):
+                return ckpt_mgr.maybe_save(state, step, force=force,
+                                           data_state=data_state(step))
 
         metrics = None
         # Throughput windows run between drained boundaries and skip the
@@ -354,6 +478,15 @@ class Trainer:
                   "TFLOP/s or MFU in this run", file=sys.stderr)
             flops, flops_label = None, "count_failed"
         run_t0 = None
+        # Host-loop spans (utils/telemetry.py); disabled, each span is a
+        # shared no-op.
+        tracer = self.tracer = telemetry_lib.SpanTracer(
+            enabled=cfg.telemetry)
+        # Dispatches between the ranks' preemption exchanges: about
+        # preempt_sync_every steps whatever the chunk size.
+        sync_stride = max(1, cfg.preempt_sync_every // k)
+        n_dispatch = 0
+        stop = False
 
         print("Starting Training")  # parity: cifar10cnn.py:225
         i = 0  # local step, like the reference's `i` (cifar10cnn.py:224)
@@ -361,17 +494,45 @@ class Trainer:
         try:
             # A profile window owns the profiler when armed; else
             # profile_dir alone captures the whole loop.
-            with profiling.profile_trace(
+            with PreemptionGuard() as preempt, profiling.profile_trace(
                     cfg.profile_dir if devwin is None else None):
-                while global_step < total_steps:
+                if not preempt.installed:
+                    if self.faults is not None and any(
+                            e.kind == "sigterm" for e in self.faults.events):
+                        raise RuntimeError(
+                            "--fault_spec sigterm needs the trainer on the "
+                            "main thread: only there can it catch SIGTERM")
+                    print("[preempt] the trainer runs off the main thread, "
+                          "where Python installs no signal handler: "
+                          "SIGTERM/SIGINT end the process without a "
+                          "checkpoint", file=sys.stderr)
+                tracer.start()
+                while global_step < total_steps and not stop:
                     if devwin is not None and (k == 1 or run_t0 is not None):
                         devwin.maybe_start(global_step)
-                    state, metrics = step_fn(state, *next(prefetch))
+                    if self.faults is not None:
+                        if any(e.kind == "ckpt_corrupt"
+                               and e.step <= global_step
+                               for e in self.faults.pending()):
+                            ckpt_mgr.flush()   # corrupt a written file
+                        state = self.faults.step_hook(
+                            global_step, state, cfg.log_dir, self.logger,
+                            chief=self.mesh.chief)
+                    first = run_t0 is None
+                    with tracer.span("data_wait", cat="data"):
+                        inputs = next(prefetch)
+                    # The first dispatch sets up (CUDA context, cuDNN
+                    # plans, a chunk's graph capture): goodput's compile.
+                    with tracer.span(
+                            "compile_first_dispatch" if first
+                            else "dispatch", cat="compile" if first
+                            else None):
+                        state, metrics = step_fn(state, *inputs)
+                    last_metrics = metrics
                     global_step += k
-                    if run_t0 is None:
-                        # First dispatch done enqueueing: one-time set-up (CUDA
-                        # context, cuDNN plans, the graph's capture) is behind
-                        # us.
+                    if first:
+                        # First dispatch done enqueueing: one-time set-up
+                        # is behind us.
                         run_t0 = time.perf_counter()
                         meter.mark(global_step)
                         dev_est.mark(global_step)
@@ -386,17 +547,26 @@ class Trainer:
                             acc_t = self.eval_step(
                                 state, *self._placed(next(acc_it)))["accuracy"]
                         consumed["acc"] += 1
-                        # The boundary's one device read; the clock reads
-                        # around it feed the device step-time estimate.
+                        # The boundary's one device read (the health
+                        # scalars ride it); the clock reads around it feed
+                        # the device step-time estimate.
+                        health_keys = sorted(
+                            key for key in metrics
+                            if key.startswith("health_"))
                         t_drain0 = time.perf_counter()
-                        loss, acc = torch.stack([metrics["loss"],
-                                                 acc_t]).tolist()
+                        with tracer.span("boundary_drain"):
+                            fetched = torch.stack(
+                                [metrics["loss"], acc_t]
+                                + [metrics[key] for key in health_keys]
+                            ).tolist()
                         t_drain1 = time.perf_counter()
+                        loss, acc = fetched[0], fetched[1]
                         boundary_check()
                         device_step_ms, drain_wait_ms = dev_est.boundary(
                             global_step, t_drain0, t_drain1)
                         rate = meter.rate(global_step)
-                        perf = {}
+                        perf = {key: round(v, 5) for key, v in
+                                zip(health_keys, fetched[2:])}
                         if flops and rate > 0:
                             tf = flops * (rate / cfg.batch_size) / 1e12
                             perf["tflops_per_sec_per_chip"] = round(tf, 3)
@@ -417,43 +587,98 @@ class Trainer:
                             optimizer_ms=(devwin.optimizer_step_ms
                                           if devwin is not None else None),
                             **perf)
+                        telemetry_lib.flush_boundary(
+                            tracer, self.logger, global_step,
+                            device=self.device)
+                        if cfg.check_numerics:
+                            if not math.isfinite(loss):
+                                nonfinite(loss, global_step)
+                                last_metrics = None
+                            elif snapshot is not None:
+                                with torch.no_grad():
+                                    for saved, t in zip(snapshot, tensors):
+                                        saved.copy_(t)
                         drained = True
                     if (i + k) % cfg.eval_every == 0:
                         boundary_check()
-                        ta = self.evaluate(state, test_it)
+                        with tracer.span("eval", cat="eval"):
+                            ta = self.evaluate(state, test_it)
                         if not cfg.eval_full_test_set:
                             consumed["test"] += 1
                         self.logger.eval_print(ta)
                         self.logger.log("eval", step=global_step,
                                         test_accuracy=ta)
                         drained = True
-                    if ckpt_mgr.due(global_step):
-                        boundary_check()
-                    if ckpt_mgr.maybe_save(state, global_step,
-                                           data_state=data_state(global_step)):
+                    if guarded_save(global_step):
                         drained = True
+                    i += k
+                    n_dispatch += 1
+                    # Preemption: one process reacts at once; several
+                    # ranks agree first (a rank that left alone would hang
+                    # its peers in the next collective), in one exchange
+                    # that also carries the clock-save trigger.
+                    if self.mesh.world == 1:
+                        stop = preempt.requested
+                        if ckpt_mgr.time_due() and guarded_save(
+                                global_step, force=True):
+                            drained = True
+                    elif n_dispatch % sync_stride == 0:
+                        with tracer.span("preempt_allgather", cat="sync"):
+                            flags = torch.tensor(
+                                [int(preempt.requested),
+                                 int(ckpt_mgr.time_due())],
+                                dtype=torch.int32, device=self.device)
+                            self.mesh.all_reduce_(flags, "world")
+                            stop_any, save_any = flags.tolist()
+                        stop = stop_any > 0
+                        if save_any > 0 and guarded_save(global_step,
+                                                         force=True):
+                            drained = True
                     if drained:
                         # The next window starts after this boundary's work.
                         meter.mark(global_step)
                         dev_est.mark(global_step)
                     if devwin is not None:
                         devwin.maybe_stop(global_step, drained=drained)
-                    i += k
-            avg_rate = 0.0
-            if run_t0 is not None:
-                float(metrics["loss"])  # waits for the last step
-                avg_rate = ((global_step - start_step) * cfg.batch_size
-                            / max(time.perf_counter() - run_t0, 1e-9))
-            boundary_check()
-            ckpt_mgr.maybe_save(state, global_step, force=True,
-                                data_state=data_state(global_step))
-            self.logger.log("done", step=global_step, images_per_sec=avg_rate)
+
+                # The final save, at the end or on a preemption stop (the
+                # dispatch in flight finished, so it loses no work),
+                # inside the guard so a second signal cannot cut the
+                # write short.
+                avg_rate = 0.0
+                if run_t0 is not None:
+                    float(metrics["loss"])  # waits for the last step
+                    avg_rate = ((global_step - start_step) * cfg.batch_size
+                                / max(time.perf_counter() - run_t0, 1e-9))
+                guarded_save(global_step, force=True)
+                if stop:
+                    print(f"[preempt] signal {preempt.signum}: checkpointed "
+                          f"at step {global_step}, exiting cleanly")
+                    self.logger.log("preempt", step=global_step,
+                                    signum=preempt.signum)
+                self.logger.log("done", step=global_step,
+                                images_per_sec=avg_rate)
+                telemetry_lib.flush_boundary(tracer, self.logger,
+                                             global_step, final=True,
+                                             device=self.device)
         finally:
-            if devwin is not None:
-                devwin.close(global_step)
-            prefetch.close()
-            self.logger.flush()
-        return TrainResult(global_step, avg_rate, state)
+            try:
+                # A failed background write surfaces here, beside any
+                # error already on its way out.
+                ckpt_mgr.close()
+            finally:
+                if devwin is not None:
+                    devwin.close(global_step)
+                prefetch.close()
+                # A failed or preempted run leaves its host-loop timeline
+                # too.
+                if tracer.enabled and cfg.trace_events_path:
+                    path = cfg.trace_events_path
+                    if self.task_index:
+                        path += f".task{self.task_index}"
+                    tracer.export_chrome_trace(path, pid=self.task_index)
+                self.logger.flush()
+        return TrainResult(global_step, avg_rate, state, preempted=stop)
 
     def close(self) -> None:
         """Close the metrics stream and free the chunk graphs (over NCCL

@@ -372,3 +372,89 @@ def cli_runs(rank, world, runs):
     from dml_cnn_cifar10_tpu_torch.cli.main import main
     dist.destroy_process_group()
     return [main(list(argv) + ["--task_index", str(rank)]) for argv in runs]
+
+
+def health_ranks(rank, world, params, images, labels, raw, raw_labels):
+    """One eager train step with ``health_metrics`` on this data rank's
+    rows of the global batch ``(images, labels)``, then one host-fed chunk
+    of the global raw uint8 ``[K, B, H, W, C]`` chunk (this rank's
+    columns, decoded with scale normalization and crop/flip), from
+    ``params`` (JAX-layout numpy tree); returns each one's health
+    scalars."""
+    from dml_cnn_cifar10_tpu_torch.config import (DataConfig, ModelConfig,
+                                                  OptimConfig,
+                                                  ParallelConfig)
+    from dml_cnn_cifar10_tpu_torch.models.cnn import CNN
+    from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+
+    mesh = mesh_lib.build_mesh(ParallelConfig())
+    ocfg = OptimConfig(learning_rate=0.01)
+    out = []
+    for chunked in (False, True):
+        net = CNN(ModelConfig(logit_relu=False), DataConfig(), mesh=mesh)
+        state = _port_state(net, ocfg, params)
+        if chunked:
+            fn = step_lib.make_train_chunk(
+                net, ocfg, data_cfg=DataConfig(normalize="scale",
+                                               random_crop=True,
+                                               random_flip=True),
+                mesh=mesh, health_metrics=True)
+            b = raw.shape[1] // world
+            cols = slice(rank * b, (rank + 1) * b)
+            _, m = fn(state, torch.from_numpy(raw[:, cols]),
+                      torch.from_numpy(raw_labels[:, cols].astype(np.int64)))
+        else:
+            fn = step_lib.make_train_step(net, ocfg, mesh,
+                                          health_metrics=True)
+            b = images.shape[0] // world
+            rows = slice(rank * b, (rank + 1) * b)
+            _, m = fn(state, torch.from_numpy(images[rows]),
+                      torch.from_numpy(labels[rows].astype(np.int64)))
+        out.append({k: float(v) for k, v in m.items()
+                    if k.startswith("health_")})
+    return out
+
+
+def fit_ranks(rank, world, runs):
+    """``Trainer.fit`` on the CLI's config of ``argvs[rank]`` for each
+    ``argvs`` of ``runs``, in order, as this rank (each run on its own
+    rendezvous, from its --worker_hosts); returns, for each run, the final
+    step, whether it was preempted, the steps this rank's checkpoint
+    manager saved at (rank 0 writes the files) and whether the final
+    parameters are finite."""
+    import torch.distributed as dist
+
+    from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.train.loop import Trainer
+
+    dist.destroy_process_group()
+    saved = []
+    save = ckpt_lib.CheckpointManager.maybe_save
+
+    def spy(self, state, step, force=False, data_state=None):
+        did = save(self, state, step, force=force, data_state=data_state)
+        if did:
+            saved.append(step)
+        return did
+
+    ckpt_lib.CheckpointManager.maybe_save = spy
+    out = []
+    for argvs in runs:
+        saved.clear()
+        cfg = config_from_args(build_parser().parse_args(
+            list(argvs[rank]) + ["--task_index", str(rank)]))
+        trainer = Trainer(cfg, task_index=rank)
+        try:
+            result = trainer.fit()
+        finally:
+            trainer.close()
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        out.append({"final_step": result.final_step,
+                    "preempted": result.preempted, "saved": list(saved),
+                    "finite": all(bool(torch.isfinite(p).all())
+                                  for p in result.state.params.values())})
+    return out
