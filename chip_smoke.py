@@ -267,18 +267,43 @@ momentum):
             clock saves at the same steps on both, ``skip`` recovers on
             both. Numbers in ``OUT/slice12.json``.
 
-``--dist`` runs the build, phase 31, phase 32's two ranks over NCCL
-(chunks of 10 as CUDA graphs; the ranks' flag exchange runs between
-replays), then phases 18-21 over NCCL on two or more cards, with 4
+Then sharded state (``parallel/zero.py``), the CNN main path at full
+width:
+33. sharded  K1 on rank 0's zero1 shard buffers at 2 ranks (one launch
+            over the split leaves' contiguous views and the whole leaf)
+            bit-equal to its plain version on the same shards, timed
+            beside it, ``torch.optim.SGD(fused=True)`` and its bound; then
+            2 rank processes over gloo on this card, cuDNN deterministic,
+            plain SGD, 50 eager steps each: replicated, zero1 and fsdp (K1
+            once a step per rank; zero1 within 1e-6 of replicated, fsdp
+            within 2e-5 relative + 2e-6, the CPU pins; fsdp's params
+            halved on each rank), zero1 with ``--ckpt_format sharded`` to
+            25 and a resume under ``--fsdp`` to 50 bit-equal to the
+            straight zero1 run, its ``shard_io`` stream strict. Under
+            ``--dist`` over NCCL instead: K2 on fsdp shards; the CNN with
+            momentum 0.9, 100 steps, replicated / zero1 / fsdp eager on 2
+            and 4 ranks (losses within 1e-3 relative, at 2 ranks the
+            state within the pins; moments and fsdp's params sharded),
+            then zero1 and fsdp chunked at K = 10 (each chunk one CUDA
+            graph with its reduce-scatter and all-gather; K2 once a step
+            per rank; one graphed chunk bit-equal to its eager body on
+            every rank); ViT-Ti AdamW on 2 ranks, 20 steps each mode.
+            Numbers in ``OUT/slice13.json`` (``slice13_nccl.json``).
+
+``--dist`` runs the build, phase 31, phase 33 over NCCL, phase 32's two
+ranks over NCCL (chunks of 10 as CUDA graphs; the ranks' flag exchange
+runs between replays), then phases 18-21 over NCCL on two or more cards, with 4
 ranks beside 2 given four cards: SP data 2 x seq 2 against its 2 data
 ranks without the ring, and the DP CNN on 4 ranks; given three or more
 cards, phases 26-27 (and phase 31's Ulysses run) over NCCL on 3 of them.
-``--phase 32`` (alone or with ``--dist``) runs the build and that phase
-only, a debugging run.
+``--phase 32`` or ``--phase 33`` (alone or with ``--dist``) runs the build
+and that phase only, a debugging run.
 
-The lines before the last are ``{"kernels": [...]}`` (K1 three times:
-its main path row, phase 30's with ``"path": "dp_chunk"`` and phase 32's
-with ``"path": "run_safety"``; K3 three times:
+The lines before the last are ``{"kernels": [...]}`` (K1 five times:
+its main path row, phase 30's with ``"path": "dp_chunk"``, phase 32's
+with ``"path": "run_safety"`` and phase 33's with ``"path": "zero1"`` and
+``"fsdp"``, on shard buffers; ``--dist`` prints K2's two such rows; K3
+three times:
 its training row, its serving row with ``"path": "serve"`` and its Ulysses
 row; K4, K6 and K7 twice, with a ``"path": "ulysses"`` row) and the card's
 name and power limit; the last line is
@@ -290,8 +315,9 @@ passing run); the run's metrics JSONL files, the profiles, ``chunk.json``
 (phases 16-21;
 ``dist_nccl.json`` under ``--dist``, with phase 31 and phase 32's NCCL
 ranks), ``slice10.json`` (phases 26-29), ``slice11.json`` (phase 30),
-``slice12.json`` (phase 32, with its telemetry stream and Chrome trace)
-and the ranks' logs are written to the output directory ``OUT``.
+``slice12.json`` (phase 32, with its telemetry stream and Chrome trace),
+``slice13.json`` (phase 33) and the ranks' logs are written to the
+output directory ``OUT``.
 """
 
 from __future__ import annotations
@@ -528,14 +554,19 @@ CHUNK_LOSS_TOL, CHUNK_PARAM_TOL = 1e-6, 1e-5
 
 
 def _state_copies(cfg, state, n, mesh=None):
-    """``n`` (model, state) pairs of ``cfg``'s model (over ``mesh``)
-    holding ``state``'s values, on its device."""
+    """``n`` (model, state) pairs of ``cfg``'s model (over ``mesh``, in
+    ``state``'s layout: its shards under zero1 or fsdp) holding
+    ``state``'s values, on its device."""
     from dml_cnn_cifar10_tpu_torch.models.registry import get_model
     from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import zero
     out = []
     for _ in range(n):
         model = get_model(cfg.model.name)(cfg.model, cfg.data, mesh=mesh)
-        st = step_lib.init_train_state(model, cfg.optim, state.step.device)
+        layout = None if state.layout is None else zero.build_layout(
+            model, cfg.model.name, cfg.optim, cfg.parallel, mesh)
+        st = step_lib.init_train_state(model, cfg.optim, state.step.device,
+                                       layout=layout)
         with torch.no_grad():
             for a, b in zip(step_lib._state_tensors(st),
                             step_lib._state_tensors(state)):
@@ -1667,6 +1698,13 @@ def spawn_ranks(label: str, job: dict, world: int = 2,
 def rank_log(label: str, rank: int = 0):
     with open(os.path.join(OUT, "ranks", f"{label}.rank{rank}.log")) as f:
         return f.read().splitlines()
+
+
+def _whole_params(state) -> dict:
+    """``state``'s parameters whole: gathered over the data ranks (every
+    rank calls it) where its layout keeps shards."""
+    from dml_cnn_cifar10_tpu_torch.parallel import zero
+    return zero.whole(state, "params", state.params)
 
 
 def _params_digest(params) -> str:
@@ -3108,7 +3146,7 @@ def _rank_chunk(rank: int, job: dict) -> dict:
     stage("fit")
     fn, k = trainer.train_fn, trainer.steps_per_dispatch
     res = {"launches": {**fa.LAUNCHES, **fused.LAUNCHES},
-           "digest": _params_digest(result.state.params),
+           "digest": _params_digest(_whole_params(result.state)),
            "replays": fn.graph.replays,
            "warmup_launches": fn.graph.warmup_launches,
            "misses": int(fn.rows.misses), "device": str(trainer.device)}
@@ -3944,6 +3982,511 @@ def run_safety_phase(card) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 33. sharded state: ZeRO-1 and FSDP over the data ranks (parallel/zero.py)
+# ---------------------------------------------------------------------------
+
+# Phase 33's eager runs (gloo, 2 ranks on this card): steps a run, and the
+# sharded checkpoint's half; --dist's NCCL runs: eager steps a run, and the
+# ViT-Ti's.
+SHARD_STEPS, SHARD_HALF = 50, 25
+SHARD_NCCL_STEPS, SHARD_VIT_STEPS, SHARD_PARITY_STEPS = 100, 20, 1
+# zero1 and fsdp against replicated DP: the CPU pins (tests/test_torch_
+# zero1.py: 1e-6 absolute; test_torch_fsdp.py: 2e-5 relative + 2e-6).
+SHARD_ZERO1_TOL, SHARD_FSDP_RTOL, SHARD_FSDP_ATOL = 1e-6, 2e-5, 2e-6
+
+
+def _tree_leaves(tree, prefix=""):
+    out = []
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, dict):
+            out += _tree_leaves(value, f"{prefix}{key}/")
+        else:
+            out.append((f"{prefix}{key}", value))
+    return out
+
+
+def _tree_gaps(a, b) -> dict:
+    """Largest absolute gap between two state trees, and the largest
+    excess over the fsdp pin (|a - b| - atol - rtol |b|), over every leaf
+    of the params and the optimizer state but the step."""
+    import numpy as np
+    la, lb = dict(_tree_leaves(a)), dict(_tree_leaves(b))
+    check(sorted(la) == sorted(lb), f"state trees differ: {sorted(la)} vs "
+          f"{sorted(lb)}")
+    gap = excess = 0.0
+    for path, x in la.items():
+        if path == "opt/step":
+            continue
+        d = np.abs(np.asarray(x, np.float64) - np.asarray(lb[path],
+                                                          np.float64))
+        gap = max(gap, float(d.max(initial=0.0)))
+        excess = max(excess, float((d - SHARD_FSDP_ATOL - SHARD_FSDP_RTOL
+                                    * np.abs(lb[path])).max(initial=-1.0)))
+    return {"gap": gap, "fsdp_pin_excess": excess}
+
+
+def _rank_shard(rank: int, job: dict) -> dict:
+    """``Trainer.fit`` for each run of ``job["runs"]`` (``name``, ``argv``
+    and ``compare``, names of earlier runs) as this rank: its K1/K2
+    launches, the trainer's images/s, this rank's bytes of parameters and
+    of optimizer state (the live tensors: its shards under zero1/fsdp),
+    and the gaps of its whole state (gathered while the process group
+    lives) to each compared run's, under ``gaps``."""
+    import torch.distributed as dist
+
+    from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+    from dml_cnn_cifar10_tpu_torch.train.loop import Trainer
+
+    def nbytes(values):
+        return sum(t.numel() * t.element_size() for t in values)
+
+    trees, out = {}, {}
+    for run in job["runs"]:
+        cfg = config_from_args(build_parser().parse_args(
+            run["argv"] + ["--task_index", str(rank)]))
+        fused.reset_launches()
+        trainer = Trainer(cfg, task_index=rank)
+        try:
+            result = trainer.fit()
+            trees[run["name"]] = ckpt_lib.state_to_tree(result.state)
+            st = result.state
+            res = {"final_step": result.final_step,
+                   "images_per_sec": result.images_per_sec,
+                   "launches": dict(fused.LAUNCHES),
+                   "param_bytes": nbytes(st.params.values()),
+                   "opt_bytes": nbytes(t for k, v in st.opt.items()
+                                       if isinstance(v, dict)
+                                       for t in v.values()),
+                   "layout": None if st.layout is None else st.layout.mode}
+        finally:
+            trainer.close()
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        for other in run.get("compare", ()):
+            res.setdefault("gaps", {})[other] = _tree_gaps(
+                trees[run["name"]], trees[other])
+        out[run["name"]] = res
+        print(f"[shard rank {rank}] {run['name']}: {res}", flush=True)
+    return {"runs": out}
+
+
+def shard_kernel_rows(dev, card, bytes_per_s, ops_per_s, world=2,
+                      cases=(("sgd_update_plain", 0.0, 0.0, "zero1"),
+                             ("sgd_update_momentum", 0.9, 5e-4, "fsdp"))
+                      ) -> dict:
+    """K1 (and K2) on one rank's shard buffers at ``world`` data ranks, the
+    layout the step hands them (``parallel/zero.py``: every split leaf a
+    contiguous view of one flat buffer, the leaves kept whole beside them;
+    zero1's and fsdp's shards are the same at the CNN's leaves): one launch
+    against the plain version on the same shards, bit for bit; then timed
+    (CUDA events) beside the plain version, ``torch.optim.SGD(fused=True)``
+    over the same shard tensors (a yardstick), and the bound of the bytes
+    and operations of the shard update."""
+    from dml_cnn_cifar10_tpu_torch.config import (DataConfig, ModelConfig,
+                                                  OptimConfig,
+                                                  ParallelConfig)
+    from dml_cnn_cifar10_tpu_torch.models.cnn import CNN
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+    from dml_cnn_cifar10_tpu_torch.parallel import zero
+    from dml_cnn_cifar10_tpu_torch.parallel.mesh import Mesh
+
+    model = CNN(ModelConfig(logit_relu=False), DataConfig())
+    gen = torch.Generator(device=dev).manual_seed(33)
+    lr = torch.tensor(0.02, device=dev)
+    rows = {}
+    for name, mu, wd, mode in cases:
+        lay = zero.build_layout(
+            model, "cnn", OptimConfig(optimizer_sharding=(
+                "zero1" if mode == "zero1" else "none")),
+            ParallelConfig(fsdp=mode == "fsdp"), Mesh(world=world,
+                                                      data=world))
+
+        def shards():
+            full = {n: torch.randn(p.shape, device=dev, generator=gen)
+                    for n, p in model.named_parameters()}
+            return lay.pack(full)[1]
+
+        params, grads = shards(), shards()
+        mom = shards() if mu else None
+        want = {k: fused.fused_sgd_update_plain(
+            params[k], grads[k], mom[k] if mom else None, lr, mu, wd)
+            for k in params}
+        before = dict(fused.LAUNCHES)
+        fused.fused_sgd_update(params, grads, mom, lr, mu, wd)
+        torch.cuda.synchronize()
+        launched = {k: fused.LAUNCHES[k] - before[k] for k in before
+                    if fused.LAUNCHES[k] != before[k]}
+        check(launched == {name: 1}, f"{name} on {mode} shards launched "
+              f"{launched}, want one launch")
+        err = 0.0
+        for k, (want_p, want_m) in want.items():
+            err = max(err, (params[k] - want_p).abs().max().item())
+            if mom:
+                err = max(err, (mom[k] - want_m).abs().max().item())
+        check(err == 0.0, f"{name} on {mode} shards: max |kernel - plain| "
+              f"{err}, want 0 (bit-equal)")
+
+        def kernel_step():
+            fused.fused_sgd_update(params, grads, mom, lr, mu, wd)
+
+        def plain_step():
+            for k in params:
+                fused.fused_sgd_update_plain(
+                    params[k], grads[k], mom[k] if mom else None, lr, mu, wd)
+
+        lib_params = [torch.nn.Parameter(t.clone()) for t in params.values()]
+        for lp, g in zip(lib_params, grads.values()):
+            lp.grad = g.clone()
+        lib = torch.optim.SGD(lib_params, lr=0.02, momentum=mu,
+                              weight_decay=wd, fused=True)
+        n = sum(t.numel() for t in params.values())
+        per_bytes, per_ops = (20, 4) if mu else (12, 2)
+        if wd:
+            per_ops += 2
+        by_bytes = (per_bytes * n + 4) / bytes_per_s * 1e3
+        by_ops = per_ops * n / ops_per_s * 1e3
+        rows[name] = dict(
+            ms=cuda_ms(kernel_step), plain_ms=cuda_ms(plain_step),
+            library_ms=cuda_ms(lib.step), bound_ms=max(by_bytes, by_ops),
+            bound_by="bytes" if by_bytes >= by_ops else "operations",
+            max_abs_err=err, elements=n, leaves=len(params), world=world,
+            mode=mode, mu=mu, wd=wd,
+            split=len(lay.split), whole=len(lay.leaves) - len(lay.split))
+        r = rows[name]
+        print(f"[shard kernels] {name} (mu={mu}, wd={wd}) on rank 0's "
+              f"{mode} shards at {world} ranks ({n} of 1068298 elements, "
+              f"{r['split']} split leaves + {r['whole']} whole, one "
+              f"launch): bit-equal to the plain version; kernel "
+              f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
+              f"torch.optim.SGD(fused=True) {r['library_ms']:.5f} ms, "
+              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}) on {card}",
+              flush=True)
+    return rows
+
+
+def _shard_args(name, steps, *extra, ckpt_every=1000, vit=False,
+                backend="gloo", world=2, k=1):
+    """One eager (or ``k``-step chunked) run of phase 33's recipe: the CNN
+    main path (or the ViT-Ti's with AdamW), its own log dir, stream and
+    rendezvous."""
+    base = cnn_args(WORK) if not vit else [
+        "--model", "vit_tiny", "--dataset", "synthetic", "--data_dir",
+        os.path.join(WORK, "data_vit"), "--image_size", "72",
+        "--crop_size", "64", "--synthetic_train_records", "10000",
+        "--fidelity", "fixed", "--batch_size", "128", "--optimizer",
+        "adamw", "--learning_rate", "3e-4"]
+    return base + [
+        "--log_dir", os.path.join(WORK, f"logs_shard_{name}"),
+        "--metrics_jsonl", os.path.join(WORK, f"shard_{name}.jsonl"),
+        "--total_steps", str(steps), "--output_every", str(max(k, 10)),
+        "--eval_every", "1000", "--checkpoint_every", str(ckpt_every),
+        "--steps_per_dispatch", str(k), *extra] + _dist_args(world, backend)
+
+
+def _shard_io_secs(name) -> dict:
+    """The ``shard_io`` records of a run's stream: seconds and bytes by
+    op, summed over its files, and the files."""
+    recs = [r for r in records(os.path.join(WORK, f"shard_{name}.jsonl"))
+            if r["kind"] == "shard_io"]
+    out = {}
+    for r in recs:
+        o = out.setdefault(r["op"], {"secs": 0.0, "bytes": 0, "files": 0})
+        o["secs"] += r["secs"]
+        o["bytes"] += r["bytes"]
+        o["files"] += 1
+    return out
+
+
+def shard_phase(card, dev, bytes_per_s, ops_per_s) -> dict:
+    """Phase 33 on this card: K1 on the shard buffers (``shard_kernel_rows``),
+    then the CNN with plain SGD on 2 rank processes over gloo on this card
+    (cuDNN deterministic), ``SHARD_STEPS`` eager steps each: replicated,
+    zero1 and fsdp (K1 once a step per rank; zero1 within the CPU pin of
+    replicated, fsdp within its pin; the moments, and under fsdp the
+    params, halved on each rank), then zero1 with ``--ckpt_format
+    sharded`` to ``SHARD_HALF`` and a resume under fsdp to ``SHARD_STEPS``:
+    the same state as the straight zero1 run's, bit for bit, and its
+    ``shard_io`` records strict under the schema."""
+    t0 = time.perf_counter()
+    kernels = shard_kernel_rows(dev, card, bytes_per_s, ops_per_s,
+                                cases=(("sgd_update_plain", 0.0, 0.0,
+                                        "zero1"),))
+    runs = [
+        {"name": "none", "argv": _shard_args("none", SHARD_STEPS)},
+        {"name": "zero1", "compare": ["none"], "argv": _shard_args(
+            "zero1", SHARD_STEPS, "--optimizer_sharding", "zero1")},
+        {"name": "fsdp", "compare": ["none"], "argv": _shard_args(
+            "fsdp", SHARD_STEPS, "--fsdp", "true")},
+        {"name": "sharded_half", "argv": _shard_args(
+            "ckpt", SHARD_HALF, "--optimizer_sharding", "zero1",
+            "--ckpt_format", "sharded", ckpt_every=SHARD_HALF)},
+        {"name": "sharded_resume", "compare": ["zero1"], "argv": _shard_args(
+            "ckpt", SHARD_STEPS, "--fsdp", "true", "--ckpt_format",
+            "sharded", ckpt_every=SHARD_HALF)},
+    ]
+    ranks = spawn_ranks("shard_gloo", {"kind": "shard", "deterministic": True,
+                                       "runs": runs}, timeout_s=420)
+    res = {"card": card, "kernels": kernels, "ranks": [r["runs"]
+                                                       for r in ranks]}
+    for r, x in enumerate(res["ranks"]):
+        for name, run in x.items():
+            want = SHARD_STEPS - (SHARD_HALF if name == "sharded_resume"
+                                  else 0)
+            if name == "sharded_half":
+                want = SHARD_HALF
+            check(run["launches"]["sgd_update_plain"] == want
+                  and run["launches"]["sgd_update_momentum"] == 0,
+                  f"phase 33 rank {r} {name}: launched {run['launches']}, "
+                  f"want K1 = {want}")
+        z, f = x["zero1"]["gaps"]["none"], x["fsdp"]["gaps"]["none"]
+        check(z["gap"] <= SHARD_ZERO1_TOL,
+              f"rank {r}: zero1 vs replicated gap {z['gap']} > "
+              f"{SHARD_ZERO1_TOL}")
+        check(f["fsdp_pin_excess"] <= 0,
+              f"rank {r}: fsdp vs replicated outside the pin by "
+              f"{f['fsdp_pin_excess']}")
+        resumed = x["sharded_resume"]["gaps"]["zero1"]["gap"]
+        check(resumed == 0.0,
+              f"rank {r}: sharded save at {SHARD_HALF} + fsdp resume to "
+              f"{SHARD_STEPS} is {resumed} from the straight zero1 run, "
+              f"want bit-equal")
+        none = x["none"]
+        check(x["zero1"]["opt_bytes"] == x["fsdp"]["opt_bytes"] == 0
+              and x["zero1"]["param_bytes"] == none["param_bytes"]
+              and x["fsdp"]["param_bytes"] < none["param_bytes"] / 1.5,
+              f"rank {r}: bytes {[(n, v['param_bytes'], v['opt_bytes'])
+                                  for n, v in x.items()]}")
+    io = _shard_io_secs("ckpt")
+    check(set(io) == {"save", "restore"}, f"shard_io records {io}")
+    lint = subprocess.run([sys.executable, os.path.join(
+        ROOT, "tools", "check_jsonl_schema.py"), "--strict",
+        os.path.join(WORK, "shard_ckpt.jsonl")], capture_output=True,
+        text=True)
+    check(lint.returncode == 0, f"phase 33 stream not strict: "
+          f"{lint.stdout[-2000:]}{lint.stderr[-2000:]}")
+    res["shard_io"] = io
+    res["wall_s"] = time.perf_counter() - t0
+    x = res["ranks"][0]
+    print(f"[shard] phase 33: 2 ranks over gloo on one card, the CNN with "
+          f"plain SGD, {SHARD_STEPS} steps: zero1 "
+          f"{x['zero1']['gaps']['none']['gap']} and fsdp "
+          f"{x['fsdp']['gaps']['none']['gap']} from replicated (params and "
+          f"state, "
+          f"rank 0); K1 once a step per rank; params bytes a rank "
+          f"{x['none']['param_bytes']} replicated, "
+          f"{x['fsdp']['param_bytes']} fsdp; sharded save at {SHARD_HALF} "
+          f"(save {io['save']['secs']:.4f} s over {io['save']['files']} "
+          f"files, restore {io['restore']['secs']:.4f} s) + fsdp resume "
+          f"bit-equal to straight zero1; {res['wall_s']:.1f} s on {card}",
+          flush=True)
+    with open(os.path.join(OUT, "slice13.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
+
+
+def shard_nccl_phase(card, dev, worlds, bytes_per_s, ops_per_s) -> dict:
+    """Phase 33 under ``--dist``, a card a rank over NCCL: K2 on the shard
+    buffers; for each of ``worlds``, the CNN with momentum 0.9 eager,
+    ``SHARD_NCCL_STEPS`` steps each replicated, zero1 and fsdp (timed;
+    finite losses; at 2 ranks, where every sum has two terms and so one
+    order, the state within the CPU pins and every logged loss within
+    ``DP_CHUNK_LOSS_RTOL``; fsdp bit-equal to zero1 at every world), and
+    ``SHARD_PARITY_STEPS`` steps each held to the CPU pins at every world,
+    then zero1 and fsdp chunked (K = 10, one
+    CUDA graph a chunk with its reduce-scatter and all-gather captured;
+    K2 once a step per rank, one graphed chunk bit-equal to its eager body
+    on every rank, equal digests); then ViT-Ti with AdamW on 2 ranks,
+    ``SHARD_VIT_STEPS`` eager steps each replicated, zero1 and fsdp. Each
+    run's ms/step (the trainer's own rate) and per-rank bytes."""
+    t0 = time.perf_counter()
+    res = {"card": card, "kernels": shard_kernel_rows(
+        dev, card, bytes_per_s, ops_per_s,
+        cases=(("sgd_update_momentum", 0.9, 5e-4, "fsdp"),))}
+    mom = ["--momentum", "0.9"]
+    for world in worlds:
+        tag = f"nccl{world}"
+        # The timed runs, then one step each for parity with replicated:
+        # over 4 ranks the reduce-scatter sums in another order than the
+        # all-reduce, and a last-bit difference that flips a max-pool tie
+        # moves a weight by lr x O(gradient) (4 steps: 3.9e-4), which SGD
+        # carries far (PERF.md §6). zero1 and fsdp share the reduce-scatter
+        # and the update: they must agree bit for bit after 100 steps.
+        runs = []
+        for short, steps in (("", SHARD_NCCL_STEPS),
+                             ("_short", SHARD_PARITY_STEPS)):
+            for name, extra in (("none", []),
+                                ("zero1", ["--optimizer_sharding", "zero1"]),
+                                ("fsdp", ["--fsdp", "true"])):
+                compare = [] if name == "none" else ["none" + short]
+                if name == "fsdp":
+                    compare.append("zero1" + short)
+                runs.append({"name": name + short, "compare": compare,
+                             "argv": _shard_args(
+                                 f"{tag}_{name}{short}", steps, *mom,
+                                 *extra, backend="nccl", world=world)})
+        ranks = [r["runs"] for r in spawn_ranks(
+            f"shard_{tag}", {"kind": "shard", "deterministic": True,
+                             "runs": runs}, world=world, timeout_s=300)]
+        logs = {n: train_log(os.path.join(WORK, f"shard_{tag}_{n}.jsonl"))
+                for n in ("none", "zero1", "fsdp")}
+        loss_gaps = {}
+        for name in ("zero1", "fsdp"):
+            loss_gaps[name] = [abs(a[1] - b[1]) / abs(b[1])
+                               for a, b in zip(logs[name], logs["none"])]
+            check(len(loss_gaps[name]) == SHARD_NCCL_STEPS // 10
+                  and all(math.isfinite(x[1]) for x in logs[name]),
+                  f"{tag} {name}: logged losses {logs[name]}")
+            if world == 2:
+                check(max(loss_gaps[name]) <= DP_CHUNK_LOSS_RTOL,
+                      f"{tag} {name}: logged losses {logs[name]} against "
+                      f"replicated {logs['none']}")
+        for r, x in enumerate(ranks):
+            for name, run in x.items():
+                want = SHARD_PARITY_STEPS if name.endswith("_short") \
+                    else SHARD_NCCL_STEPS
+                check(run["launches"]["sgd_update_momentum"] == want,
+                      f"{tag} rank {r} {name} launched {run['launches']}")
+            for short in (("", "_short") if world == 2 else ("_short",)):
+                z = x["zero1" + short]["gaps"]["none" + short]
+                f = x["fsdp" + short]["gaps"]["none" + short]
+                check(z["gap"] <= SHARD_ZERO1_TOL
+                      and f["fsdp_pin_excess"] <= 0,
+                      f"{tag}{short} rank {r}: zero1 gap {z['gap']}, fsdp "
+                      f"excess {f['fsdp_pin_excess']}")
+            check(x["fsdp"]["gaps"]["zero1"]["gap"] == 0.0,
+                  f"{tag} rank {r}: fsdp {x['fsdp']['gaps']['zero1']} from "
+                  f"zero1 after {SHARD_NCCL_STEPS} steps, want bit-equal")
+            check(x["zero1"]["opt_bytes"] < x["none"]["opt_bytes"] / 1.5
+                  and x["fsdp"]["param_bytes"]
+                  < x["none"]["param_bytes"] / 1.5,
+                  f"{tag} rank {r}: bytes not sharded {x}")
+        eager = {n: {"ms_per_step": 128 / ranks[0][n]["images_per_sec"]
+                     * 1e3, **{k: ranks[0][n][k] for k in (
+                         "param_bytes", "opt_bytes", "gaps")
+                         if k in ranks[0][n]}}
+                 for n in ("none", "zero1", "fsdp")}
+        parity = {n: ranks[0][n + "_short"]["gaps"]["none_short"]
+                  for n in ("zero1", "fsdp")}
+        chunked = {}
+        for name, extra in (("zero1", ["--optimizer_sharding", "zero1"]),
+                            ("fsdp", ["--fsdp", "true"])):
+            label = f"shard_{tag}_{name}_chunk"
+            cr = spawn_ranks(label, {"kind": "chunk", "reps": 20, "argv":
+                                     _shard_args(f"{tag}_{name}_chunk",
+                                                 SHARD_NCCL_STEPS, *mom,
+                                                 *extra, backend="nccl",
+                                                 world=world, k=CHUNK_K)},
+                             world=world, timeout_s=300)
+            want = {"sgd_update_plain": 0,
+                    "sgd_update_momentum": SHARD_NCCL_STEPS,
+                    **dict.fromkeys(("flash_fwd", "flash_fwd_lse",
+                                     "flash_fwd_stats", "flash_bwd_dq",
+                                     "flash_bwd_dkv"), 0)}
+            _check_chunk_ranks(label, cr, want, SHARD_NCCL_STEPS // CHUNK_K,
+                               {"sgd_update_momentum": CHUNK_K})
+            for r, x in enumerate(cr):
+                c = x["graph_vs_eager"]
+                check(c["loss_gap"] == 0.0 and c["param_gap"] == 0.0,
+                      f"{label} rank {r}: graph vs eager {c}, want "
+                      f"bit-equal")
+            _dist_log_says(label, world, "one CUDA graph replay each")
+            log = train_log(os.path.join(WORK,
+                                         f"shard_{tag}_{name}_chunk.jsonl"))
+            chunked[name] = {"loop_ms_per_step": 128 / log[-1][2] * 1e3,
+                             "replay_ms_per_step": cr[0]["replay_ms_per_step"],
+                             "busy_share": cr[0].get("busy_share"),
+                             "launches": cr[0]["launches"],
+                             "graph_vs_eager": [x["graph_vs_eager"]
+                                                for x in cr]}
+        res[tag] = {"eager": eager, "parity": parity, "loss_gaps": loss_gaps,
+                    "chunked": chunked, "ranks": ranks}
+        loop_ms, replay_ms = ({n: round(v[key], 4) for n, v in chunked.items()}
+                              for key in ("loop_ms_per_step",
+                                          "replay_ms_per_step"))
+        nbytes = {n: (v["param_bytes"], v["opt_bytes"])
+                  for n, v in eager.items()}
+        print(f"[shard {tag}] the CNN with momentum on {world} NCCL ranks, "
+              f"{SHARD_NCCL_STEPS} steps: eager ms/step "
+              f"{ {n: round(v['ms_per_step'], 4) for n, v in eager.items()} }"
+              f"; chunked (K = {CHUNK_K}, one graph a chunk) loop ms/step "
+              f"{loop_ms}, replay {replay_ms}; rank 0 bytes (params, "
+              f"optimizer state) {nbytes}"
+              f"; after {SHARD_PARITY_STEPS} steps from replicated "
+              f"{parity}, after {SHARD_NCCL_STEPS} "
+              f"{ {n: eager[n]['gaps'] for n in ('zero1', 'fsdp')} } "
+              f"(largest logged-loss gap "
+              f"{ {n: max(g) for n, g in loss_gaps.items()} }); graphs "
+              f"bit-equal to their eager bodies on every rank; on {card}",
+              flush=True)
+    runs = [{"name": "none", "argv": _shard_args(
+                "vit_none", SHARD_VIT_STEPS, vit=True, backend="nccl")},
+            {"name": "zero1", "compare": ["none"], "argv": _shard_args(
+                "vit_zero1", SHARD_VIT_STEPS, "--optimizer_sharding",
+                "zero1", vit=True, backend="nccl")},
+            {"name": "fsdp", "compare": ["none"], "argv": _shard_args(
+                "vit_fsdp", SHARD_VIT_STEPS, "--fsdp", "true", vit=True,
+                backend="nccl")}]
+    vit = [r["runs"] for r in spawn_ranks(
+        "shard_vit_nccl2", {"kind": "shard", "deterministic": True,
+                            "runs": runs}, timeout_s=300)]
+    logs = {n: train_log(os.path.join(WORK, f"shard_vit_{n}.jsonl"))
+            for n in ("none", "zero1", "fsdp")}
+    for name in ("zero1", "fsdp"):
+        gaps = [abs(a[1] - b[1]) / abs(b[1])
+                for a, b in zip(logs[name], logs["none"])]
+        check(len(gaps) == SHARD_VIT_STEPS // 10
+              and max(gaps) <= DP_CHUNK_LOSS_RTOL,
+              f"ViT-Ti {name}: losses {logs[name]} vs {logs['none']}")
+    for r, x in enumerate(vit):
+        check(x["zero1"]["opt_bytes"] < x["none"]["opt_bytes"] / 1.5
+              and x["fsdp"]["param_bytes"] < x["none"]["param_bytes"] / 1.5
+              and x["fsdp"]["opt_bytes"] < x["none"]["opt_bytes"] / 1.5,
+              f"ViT-Ti rank {r}: bytes not sharded {x}")
+    res["vit_nccl2"] = {n: {"ms_per_step": 128 / v["images_per_sec"] * 1e3,
+                            **{k: v[k] for k in ("param_bytes", "opt_bytes",
+                                                 "gaps") if k in v}}
+                        for n, v in vit[0].items()}
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"[shard vit] ViT-Ti AdamW on 2 NCCL ranks, {SHARD_VIT_STEPS} "
+          f"steps: {res['vit_nccl2']}; phase 33 (NCCL) took "
+          f"{res['wall_s']:.1f} s on {card}", flush=True)
+    with open(os.path.join(OUT, "slice13_nccl.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
+
+
+def shard_kernel_entries(rows, launches, paths) -> list:
+    """The ``kernels`` line's rows for K1/K2 on shards: ``rows`` from
+    ``shard_kernel_rows``, ``launches`` by path from the main path's runs
+    (rank 0)."""
+    out = []
+    for name, r in rows.items():
+        kid, line = ("K1", 83) if name == "sgd_update_plain" else ("K2", 70)
+        for path in paths:
+            out.append({
+                "name": name, "kernel": kid, "path": path, "route": "cuda",
+                "source": "dml_cnn_cifar10_tpu_torch/csrc/sgd_update.cu",
+                "cuda_kernel": "sgd_multi_kernel<true>" if r["mu"]
+                else "sgd_multi_kernel<false>",
+                "replaces": f"dml_cnn_cifar10_tpu/ops/optimizer.py:{line}",
+                "launches": launches[path],
+                "max_abs_err": r["max_abs_err"],
+                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+                "library": "torch.optim.SGD(fused=True).step",
+                "work": f"one update of rank 0's shards at {r['world']} "
+                        f"data ranks ({r['elements']} f32 elements: "
+                        f"{r['split']} split leaves, {r['whole']} whole), "
+                        f"mu={r['mu']}, wd={r['wd']}; launches: rank 0 of "
+                        f"the {path} run"})
+    return out
+
+
 def only_phase():
     """The phase named by ``--phase N`` (a debugging run of that phase
     alone after the build), or None."""
@@ -3990,6 +4533,11 @@ def dist_main() -> int:
 
     card, kind = card_line(), torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
+    bytes_per_s, ops_per_s = next(
+        (v for k, v in PEAKS.items() if k in kind), PEAKS["H100"])
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {card}; {count} cards; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
     if _build.BUILD_DIR.exists():
@@ -3998,13 +4546,18 @@ def dist_main() -> int:
     if os.path.isdir(WORK):
         shutil.rmtree(WORK)
     os.makedirs(OUT, exist_ok=True)
+    worlds = (2, 4) if count >= 4 else (2,)
     if only_phase() == "32":
         return phase_only_main(card, kind, count,
                                lambda: rs_ranks(card, "nccl"),
                                "run_safety_nccl.json")
-    worlds = (2, 4) if count >= 4 else (2,)
+    if only_phase() == "33":
+        return phase_only_main(card, kind, count, lambda: shard_nccl_phase(
+            card, dev, worlds, bytes_per_s, ops_per_s))
     # Phase 31 first: a capture that fails ends the run early.
     chunked = chunk_nccl_phase(card, worlds)
+    # Phase 33 over NCCL: zero1 and fsdp eager and graphed, and ViT-Ti.
+    sharded = shard_nccl_phase(card, dev, worlds, bytes_per_s, ops_per_s)
     # Then phase 32's two ranks over NCCL: the flag exchange runs between
     # graph replays.
     safety_nccl = rs_ranks(card, "nccl")
@@ -4014,6 +4567,7 @@ def dist_main() -> int:
             "nccl", card, one_rank_jsonl=os.path.join(WORK, "ref2.jsonl"))
     res["chunked"] = chunked
     res["run_safety_nccl"] = safety_nccl
+    res["sharded"] = {k: v for k, v in sharded.items() if k != "kernels"}
     # Each chunked path beside its per-step run of this call.
     pairs = [(f"DP CNN, {w} ranks", chunked[f"dp{w}"]["loop_ms_per_step"],
               res[f"dp{w}"]["step_ms"]) for w in worlds]
@@ -4030,6 +4584,11 @@ def dist_main() -> int:
     with open(os.path.join(OUT, "dist_nccl.json"), "w") as f:
         json.dump(res, f, indent=1)
     shutil.rmtree(WORK)
+    tag = f"nccl{worlds[0]}"
+    print(json.dumps({"kernels": shard_kernel_entries(
+        sharded["kernels"], {path: sharded[tag]["chunked"][path]["launches"][
+            "sgd_update_momentum"] for path in ("zero1", "fsdp")},
+        ("zero1", "fsdp"))}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))
@@ -4051,7 +4610,7 @@ def rank_main(argv) -> int:
     torch.backends.cudnn.deterministic = bool(job.get("deterministic"))
     run = {"cli": _rank_cli, "ring": _rank_ring, "ulysses": _rank_ulysses,
            "profile": _rank_profile, "chunk": _rank_chunk,
-           "fit": _rank_fit}[job["kind"]]
+           "fit": _rank_fit, "shard": _rank_shard}[job["kind"]]
     res = run(rank, job)
     # A job that runs more than its main path keeps that path's counts.
     res.setdefault("launches", {**fa.LAUNCHES, **fused.LAUNCHES})
@@ -4099,6 +4658,9 @@ def main() -> int:
     if only_phase() == "32":
         return phase_only_main(card, kind, count,
                                lambda: run_safety_phase(card))
+    if only_phase() == "33":
+        return phase_only_main(card, kind, count, lambda: shard_phase(
+            card, dev, bytes_per_s, ops_per_s))
 
     # ---- 3. parity -------------------------------------------------------
     model = CNN(ModelConfig(logit_relu=False), DataConfig())
@@ -4537,6 +5099,9 @@ def main() -> int:
     # ---- 32. run safety: telemetry, the numerics guard, preemption ------
     safety = run_safety_phase(card)
 
+    # ---- 33. sharded state: zero1 and fsdp on 2 ranks over gloo ---------
+    shard = shard_phase(card, dev, bytes_per_s, ops_per_s)
+
     for path in (train_jsonl, resume_jsonl, mom_jsonl, vit_jsonl,
                  os.path.join(WORK, "vit_resume.jsonl"), long_jsonl):
         shutil.copy(path, OUT)
@@ -4613,6 +5178,10 @@ def main() -> int:
                 f"32's chunked run with brightness, contrast, telemetry and "
                 f"health on, {RS_STEPS} steps in CUDA graph replays",
     })
+    kernels += shard_kernel_entries(
+        shard["kernels"], {path: shard["ranks"][0][path]["launches"][
+            "sgd_update_plain"] for path in ("zero1", "fsdp")},
+        ("zero1", "fsdp"))
     t = stats_time
     kernels.append({
         "name": "flash_fwd_stats", "kernel": "K5", "route": "cuda",

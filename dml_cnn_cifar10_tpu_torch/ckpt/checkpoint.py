@@ -13,14 +13,19 @@ package's ``TrainState`` pytree (``{"params", "opt", "model_state"}``,
 params in the JAX layouts via ``convert.py``, dict keys sorted as JAX's
 tree flattening leaves them), so a checkpoint of either package restores
 into the other, and the bytes are identical for equal values. The
-orbax and sharded formats are not ported.
+``sharded`` format (``ckpt_<step>.sharded/``, ``ckpt/sharded.py``) is
+ported too: every rank writes its own shards, the chief commits the
+manifest; the orbax format is not (it needs ``orbax.checkpoint``, which
+imports JAX). Restore detects the format, newest first, and loads either
+into any layout (``parallel/zero.py``: none, zero1, fsdp).
 
-In a multi-rank run the parameters are replicated, so one file holds the
-whole state: only the chief writes it, and every rank waits at a barrier
-until it is committed (until it is handed to the writer, under
-``async_save``); every rank restores from the same file, and a
-checkpoint written under sequence or data parallelism restores into a
-one-process run.
+In a multi-rank run the msgpack file holds the whole state: only the
+chief writes it, and every rank waits at a barrier until it is committed
+(until it is handed to the writer, under ``async_save``). Under a sharded
+layout the copy to host memory is a gather over the data ranks, which
+every rank enters (:func:`state_to_tree`). Every rank restores from the
+same files, and a checkpoint written under sequence or data parallelism
+restores into a one-process run.
 
 :class:`CheckpointManager` (JAX ``ckpt/checkpoint.py:483-620``) saves on
 a step cadence and, with ``every_secs``, on a wall-clock one that the
@@ -40,19 +45,23 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import sys
 import time
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import msgpack
 import numpy as np
 import torch
 
 from dml_cnn_cifar10_tpu_torch import convert
+from dml_cnn_cifar10_tpu_torch.ckpt import sharded as sharded_lib
+from dml_cnn_cifar10_tpu_torch.parallel import zero
 from dml_cnn_cifar10_tpu_torch.parallel.mesh import Mesh
 from dml_cnn_cifar10_tpu_torch.parallel.step import TrainState
 
-_CKPT_RE = re.compile(r"ckpt_(\d+)\.msgpack$")
+_CKPT_RE = re.compile(r"ckpt_(\d+)\.(msgpack|sharded)$")
+FORMATS = ("msgpack", "sharded")
 
 # flax.serialization's msgpack extension codes.
 _EXT_NDARRAY = 1
@@ -60,8 +69,8 @@ _EXT_NPSCALAR = 3
 _MAX_ARRAY_BYTES = 2 ** 30  # flax splits larger arrays into chunks
 
 
-def _ckpt_path(ckpt_dir: str, step: int) -> str:
-    return os.path.join(ckpt_dir, f"ckpt_{step}.msgpack")
+def _ckpt_path(ckpt_dir: str, step: int, fmt: str = "msgpack") -> str:
+    return os.path.join(ckpt_dir, f"ckpt_{step}.{fmt}")
 
 
 # --------------------------------------------------------------------------
@@ -102,18 +111,21 @@ def from_bytes(data: bytes) -> Dict[str, Any]:
 
 def state_to_tree(state: TrainState) -> Dict[str, Any]:
     """The JAX package's ``TrainState`` pytree of ``state`` (numpy, JAX
-    layouts), field order params/opt/model_state, dict keys sorted."""
+    layouts), field order params/opt/model_state, dict keys sorted. Under
+    a sharded layout every data rank must call it (it gathers)."""
     opt = {}
     for key in sorted(state.opt):
         value = state.opt[key]
         # np.array copies: on the CPU .numpy() would share the live
         # tensor's memory, which the next step updates in place.
         opt[key] = convert.params_to_jax(
-            value, convert.OPT_LAYOUTS.get(key, "port")) \
+            zero.whole(state, key, value),
+            convert.OPT_LAYOUTS.get(key, "port")) \
             if isinstance(value, Mapping) \
             else np.array(value.detach().to("cpu").numpy())
-    return {"params": convert.params_to_jax(state.params), "opt": opt,
-            "model_state": {}}
+    return {"params": convert.params_to_jax(
+        zero.whole(state, "params", state.params)), "opt": opt,
+        "model_state": {}}
 
 
 def _same_keys(want: Mapping, have: Mapping, where: str) -> None:
@@ -122,41 +134,52 @@ def _same_keys(want: Mapping, have: Mapping, where: str) -> None:
                          f"{sorted(have)}, the run expects {sorted(want)}")
 
 
-def _checked(target: Mapping[str, torch.Tensor], tree: Mapping, where: str
-             ) -> Dict[str, torch.Tensor]:
-    """Checkpoint tree (JAX layout) → ``{name: tensor}`` checked against
-    the target's names, shapes and dtypes."""
+def _checked(state: TrainState, target: Mapping[str, torch.Tensor],
+             tree: Mapping, where: str) -> Dict[str, torch.Tensor]:
+    """Checkpoint tree (JAX layout) → ``{name: tensor}`` (whole leaves)
+    checked against the target's names, whole shapes and dtypes."""
     flat = convert.params_from_jax(tree,
                                    layout=convert.OPT_LAYOUTS.get(where,
                                                                   "port"))
     _same_keys(target, flat, where)
+    layout = state.layout if state.layout is not None \
+        and where in state.layout.keys else None
     for name, t in target.items():
         v = flat[name]
-        if v.shape != t.shape or v.dtype != t.dtype:
+        shape = tuple(t.shape) if layout is None \
+            else layout.leaves[name].shape
+        if tuple(v.shape) != shape or v.dtype != t.dtype:
             raise ValueError(
                 f"{where}.{name}: checkpoint has {tuple(v.shape)} {v.dtype}, "
-                f"the run expects {tuple(t.shape)} {t.dtype}")
+                f"the run expects {shape} {t.dtype}")
     return flat
 
 
 @torch.no_grad()
 def load_tree_into(state: TrainState, tree: Mapping[str, Any]) -> TrainState:
-    """Copy a checkpoint tree into ``state``'s tensors, in place. Every
-    key, shape and dtype is checked before any tensor is written."""
+    """Copy a checkpoint tree (whole leaves) into ``state``'s tensors, in
+    place: into this rank's shards where the state's layout keeps them.
+    Every key, shape and dtype is checked before any tensor is written."""
     _same_keys({"params": 0, "opt": 0, "model_state": 0}, tree, "state")
     _same_keys(state.opt, tree["opt"], "opt")
-    copies = [(state.params, _checked(state.params, tree["params"],
-                                      "params"))]
+    copies = [("params", state.params,
+               _checked(state, state.params, tree["params"], "params"))]
     for key, value in state.opt.items():
         if isinstance(value, Mapping):
-            copies.append((value, _checked(value, tree["opt"][key], key)))
+            copies.append((key, value,
+                           _checked(state, value, tree["opt"][key], key)))
     step = np.asarray(tree["opt"]["step"])
     if step.shape != () or step.dtype != np.int32:
         raise ValueError(f"opt.step: expected an int32 scalar, got "
                          f"{step.shape} {step.dtype}")
-    for dst, src in copies:
+    layout = state.layout
+    for key, dst, src in copies:
         for name, t in dst.items():
-            t.copy_(src[name])
+            v = src[name]
+            if layout is not None and key in layout.keys \
+                    and layout.is_split(name):
+                v = layout.shard_of(v, name)
+            t.copy_(v)
     state.opt["step"].fill_(int(step))
     return state
 
@@ -169,45 +192,71 @@ def checksum_path(path: str) -> str:
     return path + ".sha256"
 
 
-def _digest(path: str) -> Tuple[str, int]:
-    """(hex sha256, bytes) over the file's name and bytes — the JAX
-    package's digest of a one-file checkpoint."""
+def _checkpoint_files(path: str) -> List[str]:
+    """Relative paths of the files a checkpoint comprises, sorted (one for
+    a msgpack file, every file under a ``.sharded`` directory)."""
+    if not os.path.isdir(path):
+        return [os.path.basename(path)]
+    out = []
+    for root, dirs, files in os.walk(path):
+        dirs.sort()
+        for name in files:
+            out.append(os.path.relpath(os.path.join(root, name), path))
+    return sorted(out)
+
+
+def _digest_files(path: str, rel_files) -> Tuple[str, int]:
+    """(hex sha256, bytes) over ``rel_files`` of ``path``, each file's
+    relative name mixed in (the JAX package's digest)."""
+    base = path if os.path.isdir(path) else os.path.dirname(path)
     h = hashlib.sha256()
-    h.update(os.path.basename(path).encode())
     total = 0
-    with open(path, "rb") as f:
-        while True:
-            chunk = f.read(1 << 20)
-            if not chunk:
-                break
-            h.update(chunk)
-            total += len(chunk)
+    for rel in rel_files:
+        h.update(rel.encode())
+        with open(os.path.join(base, rel), "rb") as f:
+            while True:
+                chunk = f.read(1 << 20)
+                if not chunk:
+                    break
+                h.update(chunk)
+                total += len(chunk)
     return h.hexdigest(), total
 
 
 def write_checksum(path: str) -> str:
-    digest, nbytes = _digest(path)
+    files = _checkpoint_files(path)
+    digest, nbytes = _digest_files(path, files)
     sc = checksum_path(path)
     tmp = sc + ".tmp"
     with open(tmp, "w") as f:
         json.dump({"algo": "sha256", "digest": digest, "bytes": nbytes,
-                   "files": [os.path.basename(path)]}, f)
+                   "files": files}, f)
     os.replace(tmp, sc)
     return sc
 
 
 def verify_checkpoint(path: str) -> Tuple[bool, str]:
     """(ok, reason). A missing sidecar passes (the decode still guards
-    the bytes); a present one must match."""
+    the bytes); a present one must match: every file it lists present,
+    with the committed digest."""
     sc = checksum_path(path)
     if not os.path.isfile(sc):
         return True, "no checksum sidecar (pre-integrity checkpoint)"
     try:
         with open(sc) as f:
             want = json.load(f)
-        digest, nbytes = _digest(path)
     except (OSError, ValueError) as e:
-        return False, f"unreadable checkpoint or sidecar: {e!r}"
+        return False, f"unreadable checksum sidecar: {e!r}"
+    base = path if os.path.isdir(path) else os.path.dirname(path)
+    rel_files = want.get("files") or [os.path.basename(path)]
+    missing = [r for r in rel_files
+               if not os.path.isfile(os.path.join(base, r))]
+    if missing:
+        return False, f"missing checkpoint files {missing}"
+    try:
+        digest, nbytes = _digest_files(path, rel_files)
+    except OSError as e:
+        return False, f"unreadable checkpoint file: {e!r}"
     if digest != want.get("digest"):
         return False, (f"checksum mismatch (have {nbytes} bytes, sidecar "
                        f"recorded {want.get('bytes')})")
@@ -218,22 +267,50 @@ def verify_checkpoint(path: str) -> Tuple[bool, str]:
 # save / restore
 # --------------------------------------------------------------------------
 
-def _checkpoints(ckpt_dir: str):
+def _checkpoints(ckpt_dir: str) -> List[Tuple[int, str]]:
+    """``[(step, format)]`` of every committed checkpoint, oldest first; a
+    ``.sharded`` directory counts once its manifest (the commit point)
+    exists."""
     if not os.path.isdir(ckpt_dir):
         return []
-    return sorted(int(m.group(1)) for m in map(_CKPT_RE.match,
-                                               os.listdir(ckpt_dir)) if m)
+    out = []
+    for name in os.listdir(ckpt_dir):
+        m = _CKPT_RE.match(name)
+        if not m:
+            continue
+        if m.group(2) == "sharded" and not os.path.isfile(
+                os.path.join(ckpt_dir, name, sharded_lib.MANIFEST)):
+            continue  # an uncommitted partial save
+        out.append((int(m.group(1)), m.group(2)))
+    return sorted(out)
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
-    steps = _checkpoints(ckpt_dir)
-    return _ckpt_path(ckpt_dir, steps[-1]) if steps else None
+    cks = _checkpoints(ckpt_dir)
+    return _ckpt_path(ckpt_dir, *cks[-1]) if cks else None
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
-                    keep: int = 3) -> str:
-    """Atomically write ``ckpt_<step>.msgpack`` (tmp + rename), then its
-    sidecar and the ``checkpoint`` index; prune to the ``keep`` newest."""
+                    keep: int = 3, fmt: str = "msgpack", mesh=None,
+                    shard_io_threads: Optional[int] = None,
+                    on_event=None) -> str:
+    """Write the checkpoint of ``step`` in ``fmt``. ``msgpack``: atomically
+    ``ckpt_<step>.msgpack`` (tmp + rename), then its sidecar and the
+    ``checkpoint`` index; prune to the ``keep`` newest. ``sharded``: every
+    rank of ``mesh`` calls it and writes its own shards
+    (``ckpt/sharded.py``)."""
+    if fmt == "sharded":
+        path = _ckpt_path(ckpt_dir, step, "sharded")
+        sharded_lib.save_sharded(path, state, mesh, shard_io_threads,
+                                 on_event)
+        if mesh is None or mesh.chief:
+            _finalize(ckpt_dir, path, keep)
+        if mesh is not None:
+            mesh.barrier()     # committed before any rank reads it
+        return path
+    if fmt != "msgpack":
+        raise ValueError(f"unknown checkpoint format {fmt!r}; have "
+                         f"{FORMATS}")
     return write_tree(ckpt_dir, state_to_tree(state), step, keep)
 
 
@@ -247,13 +324,23 @@ def write_tree(ckpt_dir: str, tree: Mapping[str, Any], step: int,
     with open(tmp, "wb") as f:
         f.write(to_bytes(tree))
     os.replace(tmp, path)
+    _finalize(ckpt_dir, path, keep)
+    return path
+
+
+def _finalize(ckpt_dir: str, path: str, keep: int) -> None:
+    """Commit ``path``'s sidecar, point the ``checkpoint`` index at it,
+    prune to the ``keep`` newest (their sidecars ride along)."""
     write_checksum(path)
     with open(os.path.join(ckpt_dir, "checkpoint"), "w") as f:
         f.write(os.path.basename(path) + "\n")
-    for old_step in _checkpoints(ckpt_dir)[:-keep]:
-        old = _ckpt_path(ckpt_dir, old_step)
+    for old_step, old_fmt in _checkpoints(ckpt_dir)[:-keep]:
+        old = _ckpt_path(ckpt_dir, old_step, old_fmt)
         try:
-            os.remove(old)
+            if os.path.isdir(old):
+                shutil.rmtree(old)
+            else:
+                os.remove(old)
             for sidecar in (checksum_path(old),
                             _data_state_path(ckpt_dir, old_step)):
                 if os.path.isfile(sidecar):
@@ -261,7 +348,6 @@ def write_tree(ckpt_dir: str, tree: Mapping[str, Any], step: int,
         except OSError as e:
             print(f"[ckpt] retention prune of {old} failed: {e!r} — old "
                   "checkpoints are accumulating", file=sys.stderr)
-    return path
 
 
 def _data_state_path(ckpt_dir: str, step: int) -> str:
@@ -290,23 +376,37 @@ def load_data_state(ckpt_dir: str, step: int) -> Optional[dict]:
         return json.load(f)
 
 
-def restore_checkpoint(ckpt_dir: str, target: TrainState) -> TrainState:
-    """Restore the newest VERIFIABLE checkpoint into ``target`` (in
-    place), or return ``target`` unchanged when there is none. A
-    candidate that fails its sidecar or its decode is skipped with a
-    warning and the next older one is tried; when nothing restores, the
-    newest candidate's error is raised."""
+def _restore_one(path: str, target: TrainState,
+                 shard_io_threads: Optional[int], on_event) -> TrainState:
+    if path.endswith(".sharded"):
+        tree = sharded_lib.restore_sharded(
+            path, [p for p, *_ in sharded_lib.state_leaves(target)],
+            shard_io_threads, on_event)
+    else:
+        with open(path, "rb") as f:
+            tree = from_bytes(f.read())
+    return load_tree_into(target, tree)
+
+
+def restore_checkpoint(ckpt_dir: str, target: TrainState,
+                       shard_io_threads: Optional[int] = None,
+                       on_event=None) -> TrainState:
+    """Restore the newest VERIFIABLE checkpoint, of either format, into
+    ``target`` (in place, onto its layout), or return ``target`` unchanged
+    when there is none. A candidate that fails its sidecar or its decode
+    is skipped with a warning and the next older one is tried; when
+    nothing restores, the newest candidate's error is raised.
+    ``shard_io_threads`` and ``on_event`` (its ``shard_io`` records) are
+    the sharded codec's."""
     candidates = _checkpoints(ckpt_dir)[::-1]
     first_error: Optional[ValueError] = None
-    for step in candidates:
-        path = _ckpt_path(ckpt_dir, step)
+    for step, fmt in candidates:
+        path = _ckpt_path(ckpt_dir, step, fmt)
         ok, reason = verify_checkpoint(path)
         if ok:
             try:
-                with open(path, "rb") as f:
-                    tree = from_bytes(f.read())
-                return load_tree_into(target, tree)
-            except (ValueError, msgpack.UnpackException) as e:
+                return _restore_one(path, target, shard_io_threads, on_event)
+            except (ValueError, OSError, msgpack.UnpackException) as e:
                 reason = (f"either it was written with a different config "
                           f"or the file is corrupted: {e}")
                 first_error = first_error or ValueError(
@@ -324,9 +424,15 @@ def restore_checkpoint(ckpt_dir: str, target: TrainState) -> TrainState:
 class CheckpointManager:
     """Periodic saver (the CheckpointSaverHook role): saves every
     ``every_steps`` global steps, plus forced saves, never twice at the
-    same step. Over a mesh only the chief writes; every rank returns from
-    a save after the chief has written it (handed it to the writer under
-    ``async_save``).
+    same step. Over a mesh only the chief writes a msgpack file; every
+    rank returns from a save after the chief has written it (handed it to
+    the writer under ``async_save``). Under a sharded layout every rank
+    first enters the gather that copies the whole state to the host.
+    ``fmt="sharded"`` has every rank write its own shards
+    (``ckpt/sharded.py``), ``shard_io_threads`` files at once, each
+    reported to ``on_event``; over several ranks such a save stays on the
+    main thread (its pre-manifest barrier is a collective), in one process
+    it goes to the writer under ``async_save`` like a msgpack one.
 
     ``every_secs`` adds a wall-clock cadence that the manager does not act
     on by itself: :meth:`time_due` says when it has elapsed since the last
@@ -336,11 +442,18 @@ class CheckpointManager:
 
     def __init__(self, ckpt_dir: str, every_steps: int, keep: int = 3,
                  mesh: Optional[Mesh] = None, async_save: bool = False,
-                 every_secs: Optional[float] = None):
+                 every_secs: Optional[float] = None, fmt: str = "msgpack",
+                 shard_io_threads: Optional[int] = None, on_event=None):
+        if fmt not in FORMATS:
+            raise ValueError(f"unknown checkpoint format {fmt!r}; have "
+                             f"{FORMATS}")
         self.ckpt_dir = ckpt_dir
         self.every_steps = max(1, every_steps)
         self.keep = keep
         self.mesh = mesh
+        self.fmt = fmt
+        self.shard_io_threads = shard_io_threads
+        self.on_event = on_event
         self._last_saved_step: Optional[int] = None
         self.every_secs = every_secs
         self._last_time = time.monotonic()
@@ -391,18 +504,35 @@ class CheckpointManager:
         if not self.due(step, force):
             return False
         self._last_saved_step = step
-        if self.chief:
-            # The host copy, here and now: the next dispatch updates the
-            # state's tensors in place.
-            tree = state_to_tree(state)
-            if self.async_save:
-                self.flush()   # in order, and a failed write surfaces
+        several = self.mesh is not None and self.mesh.world > 1
+        if self.fmt == "sharded":
+            # Every rank's own shards, copied to the host here and now.
+            rank = 0 if self.mesh is None else self.mesh.rank
+            payload = sharded_lib.collect_local_shards(state, rank)
+            meta = sharded_lib.leaves_meta(state)
+            if self.async_save and not several:
+                self.flush()
                 self._pending = self._pool.submit(
-                    self._write, tree, step, data_state)
+                    self._write_sharded, payload, meta, step, data_state)
             else:
-                self._write(tree, step, data_state)
-        if self.mesh is not None:
-            self.mesh.barrier()
+                self._write_sharded(payload, meta, step, data_state)
+                if several:
+                    self.mesh.barrier()   # the chief has committed it
+        else:
+            # The host copy, here and now: the next dispatch updates the
+            # state's tensors in place. A sharded layout gathers: every
+            # rank takes part, the chief writes.
+            gather = state.layout is not None
+            tree = state_to_tree(state) if self.chief or gather else None
+            if self.chief:
+                if self.async_save:
+                    self.flush()   # in order, and a failed write surfaces
+                    self._pending = self._pool.submit(
+                        self._write, tree, step, data_state)
+                else:
+                    self._write(tree, step, data_state)
+            if self.mesh is not None:
+                self.mesh.barrier()
         # After the slow part: a save longer than every_secs must not
         # make the next one due at once.
         self._last_time = time.monotonic()
@@ -412,4 +542,17 @@ class CheckpointManager:
         path = write_tree(self.ckpt_dir, tree, step, keep=self.keep)
         if data_state is not None:
             save_data_state(self.ckpt_dir, step, data_state)
+        return path
+
+    def _write_sharded(self, payload, meta, step: int,
+                       data_state: Optional[dict]) -> str:
+        path = _ckpt_path(self.ckpt_dir, step, "sharded")
+        sharded_lib.finish_sharded_save(
+            path, payload, meta,
+            self.mesh if self.mesh is not None and self.mesh.world > 1
+            else None, self.shard_io_threads, self.on_event)
+        if self.chief:
+            _finalize(self.ckpt_dir, path, self.keep)
+            if data_state is not None:
+                save_data_state(self.ckpt_dir, step, data_state)
         return path

@@ -30,9 +30,13 @@ window (``utils/devprof.py``). The run-safety flags are the JAX CLI's:
 ``--async_checkpoint``, ``--preempt_sync_every`` (SIGTERM/SIGINT finish the
 dispatch, checkpoint and exit 0), ``--telemetry`` with
 ``--trace_events_path``, ``--health_metrics`` and ``--tensorboard_dir``;
-``--random_brightness`` and ``--random_contrast`` augment. ``--steps_per_dispatch K`` runs K steps a dispatch, one
-CUDA graph replay on the card, with the dataset resident on the device and
-its shuffled rows drawn there (``--resident_data``,
+``--random_brightness`` and ``--random_contrast`` augment. Sharded state
+over the data ranks: ``--optimizer_sharding zero1``, ``--fsdp``,
+``--partition_rules``, ``--partition_rules_strict``, ``--partition_report``,
+and ``--ckpt_format sharded`` with ``--shard_io_threads`` (``orbax``
+exits: it is not portable). ``--steps_per_dispatch K`` runs K steps a
+dispatch, one CUDA graph replay on the card, with the dataset resident on
+the device and its shuffled rows drawn there (``--resident_data``,
 ``--device_index_stream``). Modes: ``train`` (default); ``eval`` (restore
 the latest checkpoint and sweep the full test split); ``export`` (restore
 it and write a self-contained ``torch.export`` serving artifact,
@@ -232,6 +236,52 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fused single-pass SGD update (ops/optimizer.py: "
                         "the hand-written CUDA kernel on the card); false "
                         "keeps the per-transform chain")
+    p.add_argument("--fsdp", type="bool", default=False,
+                   help="ZeRO/FSDP: shard params + optimizer moments over "
+                        "the data axis (state memory 1/N; grads become "
+                        "reduce-scatter)")
+    p.add_argument("--optimizer_sharding", type=str, default="none",
+                   choices=["none", "zero1"],
+                   help="cross-replica weight-update sharding: zero1 "
+                        "allocates the optimizer moments sharded 1/N over "
+                        "the data axis from init on, reduce-scatters "
+                        "grads, updates each replica's shard (K1/K2 on "
+                        "the shards), and all-gathers the new params for "
+                        "the next forward — same math as replicated "
+                        "(pinned <=1e-6), checkpoints interchange across "
+                        "modes. Excludes --fsdp and --async_staleness")
+    p.add_argument("--partition_rules", type=str, default=None,
+                   help="override the model's partition-rule table "
+                        "(parallel/shardings.py engine): ordered "
+                        "';'-separated 'regex=spec' rules matched against "
+                        "/-joined param paths; spec is comma-separated "
+                        "per-dim axis names, right-aligned ('-' = "
+                        "unsharded dim, '^' prefix = left-aligned, empty "
+                        "= replicated)")
+    p.add_argument("--partition_rules_strict", type="bool", default=False,
+                   help="error at build time on any param leaf no "
+                        "partition rule matches (instead of silently "
+                        "replicating it)")
+    p.add_argument("--partition_report", type="bool", default=False,
+                   help="print the which-rule-matched-which-param "
+                        "report (path, shape, rule, spec) at Trainer "
+                        "build")
+    p.add_argument("--ckpt_format", type=str, default="msgpack",
+                   choices=["msgpack", "orbax", "sharded"],
+                   help="checkpoint codec: single-file flax msgpack, or "
+                        "per-process sharded files (no full-state gather, "
+                        "each process writes only its own shards; restore "
+                        "auto-detects and re-shards onto any layout). "
+                        "orbax is not ported (it needs orbax.checkpoint, "
+                        "which imports JAX)")
+    p.add_argument("--shard_io_threads", type=int, default=4,
+                   help="bounded thread pool for the sharded codec's "
+                        "concurrent per-shard file IO: saves split the "
+                        "local payload across up to this many part "
+                        "files written in parallel, restores "
+                        "read+verify+unpack shard files in parallel "
+                        "(per-shard sha256 sidecars; shard_io JSONL "
+                        "telemetry). 1 = fully serial, same bytes")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
                    help="train steps per device dispatch (one CUDA graph "
                         "replay of K steps on the card; output/eval/"
@@ -322,6 +372,7 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
         checkpoint_every=args.checkpoint_every,
         checkpoint_every_secs=args.checkpoint_every_secs,
         async_checkpoint=args.async_checkpoint,
+        shard_io_threads=args.shard_io_threads,
         log_dir=args.log_dir,
         metrics_jsonl=args.metrics_jsonl,
         telemetry=args.telemetry,
@@ -384,6 +435,30 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
     cfg.model.sp_mode = args.sp_mode
     cfg.parallel.seq_axis = args.seq_axis
     cfg.parallel.dist_backend = args.dist_backend
+    if args.ckpt_format == "orbax":
+        raise SystemExit(
+            "--ckpt_format orbax is not portable to the PyTorch port: it "
+            "needs orbax.checkpoint, which imports JAX; use msgpack or "
+            "sharded (both interchange with the JAX package)")
+    cfg.ckpt_format = args.ckpt_format
+    cfg.parallel.fsdp = args.fsdp
+    cfg.optim.optimizer_sharding = args.optimizer_sharding
+    cfg.parallel.partition_rules = args.partition_rules
+    cfg.parallel.partition_rules_strict = args.partition_rules_strict
+    cfg.parallel.partition_report = args.partition_report
+    if args.optimizer_sharding == "zero1":
+        # A silently ignored sharding mode would mislabel every run that
+        # rides it.
+        if args.fsdp:
+            raise SystemExit(
+                "--optimizer_sharding zero1 does not compose with "
+                "--fsdp (ZeRO-3 already shards the optimizer moments)")
+        if args.async_staleness >= 2:
+            raise SystemExit(
+                "--optimizer_sharding zero1 does not compose with "
+                "--async_staleness: the snapshot ring serves the forward "
+                "pass and must stay whole, but zero1 shards the update "
+                "state it is refreshed from")
     hosts = args.worker_hosts.split(",") if args.worker_hosts else []
     if hosts:
         multihost.parallel_from_hosts(hosts, args.task_index, cfg.parallel)

@@ -176,6 +176,12 @@ class OptimConfig:
     # Gradient accumulation: each batch is split into this many
     # microbatches, their gradients averaged, and ONE update applied.
     grad_accum: int = 1
+    # Cross-replica weight-update sharding (parallel/zero.py): "zero1"
+    # allocates the optimizer moments (and the EMA) 1/N per data rank,
+    # reduce-scatters the gradients, updates each rank's shard and
+    # all-gathers the new parameters. "none" | "zero1"; excludes
+    # ParallelConfig.fsdp and async_staleness >= 2.
+    optimizer_sharding: str = "none"
 
 
 @dataclasses.dataclass
@@ -210,6 +216,16 @@ class ParallelConfig:
     # the CPU or for several ranks sharing one card (NCCL refuses two
     # ranks on one device). None = nccl on cuda, gloo on cpu.
     dist_backend: Optional[str] = None
+    # ZeRO-3 / FSDP (parallel/zero.py): parameters AND optimizer moments
+    # stored 1/N per data rank, gathered before the forward; gradients
+    # reduce-scattered.
+    fsdp: bool = False
+    # Override of the model's partition-rule table (parallel/shardings.py
+    # grammar), strict matching (an unmatched leaf raises), and the
+    # which-rule-matched-which-param report printed at Trainer build.
+    partition_rules: Optional[str] = None
+    partition_rules_strict: bool = False
+    partition_report: bool = False
 
 
 @dataclasses.dataclass
@@ -273,6 +289,12 @@ class TrainConfig:
     # device->host copy stays synchronous at the save (K1/K2 update the
     # parameters in place at the next dispatch).
     async_checkpoint: bool = False
+    # Checkpoint codec: "msgpack" (one file, the chief writes the whole
+    # state) or "sharded" (ckpt/sharded.py: every rank writes its own
+    # shards, no gather; restore detects either).
+    ckpt_format: str = "msgpack"
+    # Thread pool of the sharded codec's per-shard file IO.
+    shard_io_threads: int = 4
     # Several ranks agree on the preemption flag (and a due wall-clock
     # save) every this many steps, in one exchange over the process
     # group: no rank may leave the step loop alone, or its peers hang in

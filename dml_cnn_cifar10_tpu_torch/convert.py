@@ -55,6 +55,13 @@ def jax_shape(name: str, shape) -> tuple:
     return shape if perm is None else tuple(shape[a] for a in perm)
 
 
+def port_dim(name: str, jax_dim: int) -> int:
+    """The dim of the port's leaf ``name`` that is dim ``jax_dim`` of its
+    JAX layout."""
+    perm = _perm(name, 0, 0)
+    return jax_dim if perm is None else perm.index(jax_dim)
+
+
 def jax_view(name: str, t: torch.Tensor) -> torch.Tensor:
     """The port's leaf ``name`` seen in the JAX layout (a view: writes go
     through to ``t``)."""
@@ -84,6 +91,20 @@ def params_from_jax(tree: Mapping[str, Any], prefix: str = "",
     return out
 
 
+def to_jax_array(name: str, t: torch.Tensor, layout: str = "port"
+                 ) -> np.ndarray:
+    """The port's leaf ``name`` (see :func:`params_from_jax` for
+    ``layout``) as a C-ordered numpy array in the JAX layout."""
+    a = t.detach().to("cpu").numpy()
+    perm = None if layout == "jax" else _perm(
+        name, int(layout == "stacked"), 1)
+    if perm is not None:
+        a = a.transpose(perm)
+    # np.array, not np.ascontiguousarray: that one makes a 0-d leaf
+    # (Adafactor's placeholders) 1-d.
+    return np.array(a, order="C")
+
+
 def params_to_jax(state: Mapping[str, torch.Tensor],
                   layout: str = "port") -> Dict[str, Any]:
     """Flat ``{dotted name: tensor}`` (port layout; see
@@ -96,12 +117,5 @@ def params_to_jax(state: Mapping[str, torch.Tensor],
         *parents, leaf = name.split(".")
         for p in parents:
             node = node.setdefault(p, {})
-        a = state[name].detach().to("cpu").numpy()
-        perm = None if layout == "jax" else _perm(
-            name, int(layout == "stacked"), 1)
-        if perm is not None:
-            a = a.transpose(perm)
-        # np.array, not np.ascontiguousarray: that one makes a 0-d leaf
-        # (Adafactor's placeholders) 1-d.
-        node[leaf] = np.array(a, order="C")
+        node[leaf] = to_jax_array(name, state[name], layout)
     return tree

@@ -20,8 +20,10 @@ the card and its plain version on the CPU. Loading an artifact therefore
 needs this package imported (it registers the operator).
 
 :func:`restore_serving_params` restores the newest checkpoint of a run's
-``log_dir`` into a fresh model and picks the weights that serve: the
-parameter EMA when the optimizer keeps one, as ``--mode eval`` scores.
+``log_dir`` (either format: a ``.sharded`` one is assembled whole from
+its shard files, whatever layout wrote it) into a fresh model and picks
+the weights that serve: the parameter EMA when the optimizer keeps one,
+as ``--mode eval`` scores.
 """
 
 from __future__ import annotations

@@ -21,7 +21,12 @@ one of those names or ``"world"``.
 On the ``gloo`` backend a CUDA tensor goes through host memory explicitly
 (gloo's send/recv and all-to-all take no CUDA tensors); that is how
 several ranks share one card, which NCCL refuses. On ``nccl`` the
-collectives run on the cards.
+collectives run on the cards. The ZeRO layouts (``parallel/zero.py``)
+add :meth:`Mesh.reduce_scatter_` and :meth:`Mesh.all_gather_` over
+``data``: ``reduce_scatter_tensor`` and ``all_gather_into_tensor`` on
+NCCL, names torch has had since 2.0; gloo does the same through host
+memory with an all-reduce and an ``all_gather`` of a tensor list, which
+every torch version's gloo takes.
 """
 
 from __future__ import annotations
@@ -75,6 +80,45 @@ class Mesh:
         else:
             dist.all_reduce(t, group=group)
         return t
+
+    def _group_rank(self, over: str) -> int:
+        return {"world": self.rank, "data": self.data_rank,
+                "seq": self.seq_rank}[over]
+
+    def reduce_scatter_(self, out: torch.Tensor, t: torch.Tensor,
+                        over: str) -> torch.Tensor:
+        """``out`` (``[S]``) = this rank's row of ``t`` (``[n * S]``, rank
+        major) summed over the ``over`` group; returns ``out``. On NCCL one
+        ``reduce_scatter_tensor`` (capturable in a CUDA graph); on gloo an
+        all-reduce of ``t`` on the host, of which the rank keeps its row."""
+        n = self.size(over)
+        if n == 1:
+            return out.copy_(t)
+        group = None if over == "world" else self.groups[over]
+        if self.backend == "gloo":
+            host = t.detach().cpu() if t.is_cuda else t.detach().clone()
+            dist.all_reduce(host, group=group)
+            return out.copy_(host.view(n, -1)[self._group_rank(over)])
+        dist.reduce_scatter_tensor(out, t, group=group)
+        return out
+
+    def all_gather_(self, out: torch.Tensor, t: torch.Tensor,
+                    over: str) -> torch.Tensor:
+        """``out`` (``[n * S]``) = the group's ``t`` (``[S]``) concatenated
+        in rank order; returns ``out``. On NCCL one
+        ``all_gather_into_tensor`` (capturable in a CUDA graph); on gloo
+        through host memory."""
+        n = self.size(over)
+        if n == 1:
+            return out.copy_(t)
+        group = None if over == "world" else self.groups[over]
+        if self.backend == "gloo":
+            src = t.detach().cpu().contiguous()
+            host = torch.empty((n,) + tuple(src.shape), dtype=src.dtype)
+            dist.all_gather(list(host.unbind(0)), src, group=group)
+            return out.copy_(host.view(-1))
+        dist.all_gather_into_tensor(out, t, group=group)
+        return out
 
     def all_to_all(self, t: torch.Tensor, over: str, split_axis: int,
                    concat_axis: int) -> torch.Tensor:

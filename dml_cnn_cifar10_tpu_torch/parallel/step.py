@@ -23,7 +23,13 @@ loss from the same pooled features, and the pool's all-reduce sums the
 gradient back over the seq ranks, so every leaf (token-side and post-pool
 alike) arrives ``seq`` times over before the ``1/world`` share. The loss
 and accuracy metrics are averaged over the data group; the eval step sums
-``correct`` over it.
+``correct`` over it. A state sharded over the data ranks
+(``--optimizer_sharding zero1``, ``--fsdp``: ``parallel/zero.py``; the
+state carries its layout) has its gradients reduce-scattered into each
+rank's shards instead, which the update kernels take as they are; the
+parameters are all-gathered after the update (zero1) or before the
+forward (fsdp), explicitly, where the JAX package leaves GSPMD to insert
+the same collectives (its ``_zero1_update``, ``_fsdp_gather_wrap``).
 
 Within a step (JAX ``parallel/step.py:311-414``): ``grad_accum`` A > 1
 splits the batch into A microbatches, sums their gradients in order,
@@ -86,6 +92,7 @@ from dml_cnn_cifar10_tpu_torch.config import DataConfig, OptimConfig
 from dml_cnn_cifar10_tpu_torch.data import device_stream
 from dml_cnn_cifar10_tpu_torch.ops import flash_attention, optimizer
 from dml_cnn_cifar10_tpu_torch.ops.preprocess import device_preprocess
+from dml_cnn_cifar10_tpu_torch.parallel import zero
 from dml_cnn_cifar10_tpu_torch.parallel.mesh import Mesh
 from dml_cnn_cifar10_tpu_torch.train import loss as loss_lib
 from dml_cnn_cifar10_tpu_torch.train import metrics as metrics_lib
@@ -98,11 +105,17 @@ class TrainState:
 
     ``params`` maps the model's parameter names to tensors on the device,
     in the port's layouts; ``opt`` is :func:`optim.sgd_init`'s dict.
+    Under a sharded ``layout`` (``parallel/zero.py``) the entries of
+    ``layout.keys`` hold this rank's shards for every leaf the layout
+    splits, views of one flat buffer an entry; fsdp's parameter buffer is
+    ``flat["params"]``, which the step all-gathers.
     """
 
     params: Dict[str, torch.Tensor]
     opt: Dict[str, Any]
     model_state: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    layout: Optional[Any] = None
+    flat: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     @property
     def step(self) -> torch.Tensor:
@@ -119,17 +132,42 @@ def f32_parity() -> None:
 
 def init_train_state(model: nn.Module, optim_cfg: OptimConfig,
                      device: torch.device,
-                     generator: Optional[torch.Generator] = None
-                     ) -> TrainState:
+                     generator: Optional[torch.Generator] = None,
+                     layout=None) -> TrainState:
     """Initialize ``model``'s parameters from ``generator`` (on the CPU,
     so a seed gives the same weights on every device), move the model to
     ``device`` and build the optimizer state there. The state's params
-    are the module's own ``nn.Parameter`` objects."""
+    are the module's own ``nn.Parameter`` objects.
+
+    Under a ``layout`` the sharded entries are allocated as this rank's
+    shards from the start; under fsdp the module keeps no whole copy of
+    a split leaf (its parameter is emptied: the step hands the forward
+    the gathered tensors) and ``params`` holds the shards."""
+    if layout is not None and layout.fsdp:
+        for name, p in model.named_parameters():
+            if tuple(p.shape) != layout.leaves[name].shape:
+                p.data = torch.empty(layout.leaves[name].shape,
+                                     dtype=p.dtype)
     model.reset_parameters(generator)
+    if layout is None:
+        model.to(device)
+        params = dict(model.named_parameters())
+        return TrainState(params=params,
+                          opt=optim_lib.sgd_init(params, optim_cfg, device))
+    full = {n: p.detach() for n, p in model.named_parameters()}
+    opt = optim_lib.sgd_init(full, optim_cfg, device, layout=layout)
+    flat: Dict[str, torch.Tensor] = {}
+    if layout.fsdp:
+        flat["params"], shards = layout.pack(full, device)
+        for name, p in model.named_parameters():
+            if layout.is_split(name):
+                p.data = torch.empty(0, dtype=p.dtype)
     model.to(device)
     params = dict(model.named_parameters())
-    return TrainState(params=params,
-                      opt=optim_lib.sgd_init(params, optim_cfg, device))
+    if layout.fsdp:
+        params = {n: shards[n] if layout.is_split(n) else p
+                  for n, p in params.items()}
+    return TrainState(params=params, opt=opt, layout=layout, flat=flat)
 
 
 def _sum_grads(grads, mesh: Mesh):
@@ -157,6 +195,24 @@ def _norms(tensors) -> torch.Tensor:
                                            dtype=torch.float32))
 
 
+def _global_norm(names, tensors, layout) -> torch.Tensor:
+    """The L2 norm over every leaf: of the tensors themselves, or under a
+    ``layout`` of the whole leaves their shards are slices of."""
+    if layout is None:
+        return torch.linalg.vector_norm(_norms(tensors))
+    return torch.sqrt(torch.sum(layout.sq_sums(names, tensors)))
+
+
+def _gathered_params(state: TrainState) -> Dict[str, torch.Tensor]:
+    """fsdp's parameters for the forward: every split leaf all-gathered
+    whole from the ranks' shards (new tensors, leaves of the autograd
+    graph), the whole leaves as they are."""
+    layout = state.layout
+    full = layout.gather(state.flat["params"])
+    return {n: (full[n] if n in full else p).requires_grad_()
+            for n, p in state.params.items()}
+
+
 def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
                     mesh: Optional[Mesh] = None,
                     health_metrics: bool = False
@@ -175,7 +231,17 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
     ``health_update_ratio`` (``‖Δθ‖ / (‖θ‖ + 1e-12)``). The update works
     in place, so the step first copies the parameters into buffers of
     its own (inside a captured chunk, the graph's), in one multi-tensor
-    launch; the norms take about a dozen small kernels a step."""
+    launch; the norms take about a dozen small kernels a step.
+
+    A state with a ``layout`` (``parallel/zero.py``, over ``mesh``'s data
+    ranks) has its update sharded: zero1 reduce-scatters the gradients,
+    copies this rank's slices of the parameters into a flat buffer,
+    updates it (K1/K2, one launch) with the moment shards, and all-gathers
+    the new parameters back into the whole ones; fsdp all-gathers the
+    parameters before the forward, reduce-scatters the gradients and
+    updates the stored shards. Leaves the layout keeps whole are
+    all-reduced and updated whole. The health norms sum the shards'
+    partial squares over the data ranks."""
     f32_parity()
     world = 1 if mesh is None else mesh.world
     accum = max(1, optim_cfg.grad_accum)
@@ -196,10 +262,13 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         names = list(state.params)
+        layout = state.layout
         if staleness >= 2:
             slot = (state.opt["step"] % staleness).long().reshape(1)
             fwd = {n: torch.index_select(state.opt["stale"][n], 0, slot)[0]
                    .requires_grad_() for n in names}
+        elif layout is not None and layout.fsdp:
+            fwd = _gathered_params(state)
         else:
             fwd = state.params
         with torch.profiler.record_function("fwd_bwd"), \
@@ -223,20 +292,32 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
                         loss, acc = loss + l, acc + a
                 grads = [g / accum for g in grads]
                 loss, acc = loss / accum, acc / accum
-            if world > 1:
-                with torch.no_grad():
+            with torch.no_grad():
+                if layout is not None:
+                    grads = layout.reduce_scatter(dict(zip(names, grads)))
+                elif world > 1:
                     _sum_grads(grads, mesh)
+        if layout is None:
+            grads = dict(zip(names, grads))
         with torch.no_grad():
+            # The tensors the update takes: this rank's shards (zero1:
+            # copied from the whole parameters) and the whole leaves.
+            update = state.params
+            if layout is not None and not layout.fsdp:
+                shards, update = layout.pack(state.params)
             loss_m, acc = _data_mean([loss, acc], mesh)
             if health_metrics:
                 before = torch._foreach_mul(
-                    [state.params[n].detach() for n in names], 1.0)
-                norms = _norms(list(grads) + list(before))
-                grad_norm = torch.linalg.vector_norm(norms[:len(names)])
-                param_norm = torch.linalg.vector_norm(norms[len(names):])
+                    [update[n].detach() for n in names], 1.0)
+                grad_norm = _global_norm(names, [grads[n] for n in names],
+                                         layout)
+                param_norm = _global_norm(names, before, layout)
         with torch.profiler.record_function("optimizer"), torch.no_grad():
-            optim_lib.sgd_update(dict(zip(names, grads)), state.opt,
-                                 state.params, optim_cfg)
+            optim_lib.sgd_update(grads, state.opt, update, optim_cfg,
+                                 layout=layout)
+            if layout is not None and not layout.fsdp:
+                layout.gather(shards, into={n: state.params[n].detach()
+                                            for n in names})
             if staleness >= 2:
                 # The slot just consumed receives the updated params (the
                 # worker pushes its apply and fetches again).
@@ -247,15 +328,24 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
         if health_metrics:
             with torch.no_grad():
                 delta = torch._foreach_sub(
-                    [state.params[n].detach() for n in names], before)
+                    [update[n].detach() for n in names], before)
                 metrics.update(
                     health_grad_norm=grad_norm,
                     health_param_norm=param_norm,
-                    health_update_ratio=torch.linalg.vector_norm(
-                        _norms(delta)) / (param_norm + 1e-12))
+                    health_update_ratio=_global_norm(names, delta, layout)
+                    / (param_norm + 1e-12))
         return state, metrics
 
     return step
+
+
+def eval_params(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The weights eval scores with: the parameter EMA when the optimizer
+    keeps one, else the parameters; whole, gathered over the data ranks
+    (a collective) where the state's layout keeps them as shards."""
+    if "ema" in state.opt:
+        return zero.whole(state, "ema", state.opt["ema"])
+    return zero.whole(state, "params", state.params)
 
 
 def make_eval_step(model: nn.Module, mesh: Optional[Mesh] = None
@@ -265,12 +355,15 @@ def make_eval_step(model: nn.Module, mesh: Optional[Mesh] = None
     accuracy for faithful eval (``cifar10cnn.py:237-241``) and the
     summable correct count for the full-test-set sweep, both over the
     data group's batches. Uses the parameter EMA when the optimizer keeps
-    one."""
+    one (:func:`eval_params`; the call may pass those weights already
+    gathered as ``params``)."""
     f32_parity()
 
     @torch.no_grad()
-    def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
-        params = state.opt.get("ema", state.params)
+    def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
+             params: Optional[Dict[str, torch.Tensor]] = None):
+        if params is None:
+            params = eval_params(state)
         logits = functional_call(model, params, (images,))
         acc, = _data_mean([metrics_lib.batch_accuracy(logits, labels)],
                           mesh)
@@ -696,9 +789,10 @@ def make_eval_resident(model: nn.Module, images_u8: np.ndarray,
 
     def fn(state: TrainState) -> torch.Tensor:
         count = torch.zeros((), dtype=torch.int64, device=device)
+        params = eval_params(state)    # gathered once a sweep
         for i in range(m):
             count += eval_step(state, device_preprocess(ims[i], eval_cfg),
-                               lbs[i])["correct"]
+                               lbs[i], params)["correct"]
         if shards > 1:
             mesh.all_reduce_(count, "data")
         return count

@@ -108,6 +108,17 @@ Run safety (JAX ``train/loop.py:582-1215``):
   boundary's one device read. ``tensorboard_dir``: the logger's event
   files.
 
+Sharded state (JAX ``train/loop.py:143-188``): ``--optimizer_sharding
+zero1`` or ``--fsdp`` builds one layout (``parallel/zero.py``) from the
+model's rule table (``--partition_rules``, ``--partition_rules_strict``);
+the state is allocated as each rank's shards, and the step, the chunks
+(eager or graphed) and the evals read the layout from the state.
+``--partition_report`` prints the which-rule-matched-which-param table on
+the chief. ``--ckpt_format sharded`` writes ``ckpt_<step>.sharded/``
+(every rank its own shards, ``--shard_io_threads`` files at once) and its
+``shard_io`` records join the metrics stream; restore reads either
+format into any layout.
+
 Left out: the supervisor, peers, the cluster faults and the autopilot.
 """
 
@@ -130,6 +141,7 @@ from dml_cnn_cifar10_tpu_torch.models.registry import get_model
 from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
 from dml_cnn_cifar10_tpu_torch.parallel import multihost
 from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+from dml_cnn_cifar10_tpu_torch.parallel import zero
 from dml_cnn_cifar10_tpu_torch.train import optim as optim_lib
 from dml_cnn_cifar10_tpu_torch.utils import devprof, profiling
 from dml_cnn_cifar10_tpu_torch.utils import faults as faults_lib
@@ -197,6 +209,19 @@ class Trainer:
                 download.ensure_dataset(cfg.data)
             m.barrier()
         self.model = get_model(cfg.model.name)(cfg.model, cfg.data, mesh=m)
+        # The state layout, built once (parallel/zero.py): None keeps every
+        # leaf whole on every rank.
+        self.layout = zero.build_layout(self.model, cfg.model.name,
+                                        cfg.optim, par, m)
+        if par.partition_report and m.chief:
+            print("[shardings] partition report (params):")
+            print(zero.partition_report(self.model, cfg.model.name, par))
+        if self.layout is not None:
+            lay = self.layout
+            print(f"[shardings] {lay.mode} over {lay.n} data ranks: "
+                  f"{len(lay.split)} of {len(lay.leaves)} leaves split, "
+                  f"{lay.size} elements a rank in each sharded entry "
+                  f"({', '.join(k for k in lay.keys)})", flush=True)
         self.logger = MetricsLogger(
             cfg.metrics_jsonl if m.chief else None, task_index=task_index,
             tensorboard_dir=cfg.tensorboard_dir if m.chief else None)
@@ -229,8 +254,15 @@ class Trainer:
         verifiable checkpoint in ``log_dir`` when there is one."""
         gen = torch.Generator().manual_seed(self.cfg.seed)
         state = step_lib.init_train_state(self.model, self.cfg.optim,
-                                          self.device, gen)
-        return ckpt_lib.restore_checkpoint(self.cfg.log_dir, state)
+                                          self.device, gen, self.layout)
+        return ckpt_lib.restore_checkpoint(
+            self.cfg.log_dir, state, self.cfg.shard_io_threads,
+            self._shard_io)
+
+    def _shard_io(self, kind: str, **fields) -> None:
+        """The sharded codec's per-shard records, into the metrics
+        stream."""
+        self.logger.log(kind, **fields)
 
     def _placed(self, batch: pipe.Batch):
         return pipe.to_device(batch, self.device)
@@ -387,7 +419,8 @@ class Trainer:
         ckpt_mgr = ckpt_lib.CheckpointManager(
             cfg.log_dir, cfg.checkpoint_every, keep=cfg.keep_checkpoints,
             mesh=self.mesh, async_save=cfg.async_checkpoint,
-            every_secs=cfg.checkpoint_every_secs)
+            every_secs=cfg.checkpoint_every_secs, fmt=cfg.ckpt_format,
+            shard_io_threads=cfg.shard_io_threads, on_event=self._shard_io)
 
         def data_state(step):
             return {"train": base["train"] + step - start_step,

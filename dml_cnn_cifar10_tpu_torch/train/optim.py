@@ -21,6 +21,15 @@ f32 **device** tensor computed from ``step`` on the card, so the update
 never waits for the host. Updates are IN PLACE: the parameters keep
 their identity (and their ``nn.Module``), and nothing is reallocated.
 
+Under a sharded layout (``parallel/zero.py``: ``--optimizer_sharding
+zero1`` or ``--fsdp``) :func:`sgd_init` allocates ``momentum``, ``mu``,
+``nu`` and ``ema`` as this rank's shards from the start (one flat buffer
+an entry), and :func:`sgd_update` takes the
+rank's shards of the parameters and gradients: the elementwise update is
+the same expression on fewer elements (K1/K2 in one launch, as without
+sharding), and every norm it needs (the clipping norm, LARS's and LAMB's
+per-leaf norms) sums the shards' partial squares over the data ranks.
+
 The update runs fused by default (``ops/optimizer.py``: weight decay +
 momentum + LR in ONE pass per leaf — the hand-written CUDA kernels on the
 card); ``fused_optimizer=False`` keeps the per-transform chain, the same
@@ -84,18 +93,22 @@ FAMILIES = ("sgd", "adamw", "lars", "lamb", "adafactor")
 
 
 def sgd_init(params: Mapping[str, torch.Tensor], cfg: OptimConfig,
-             device: torch.device | None = None) -> OptState:
-    """Optimizer state for ``params`` (``{name: tensor}``) of the
-    configured family (the JAX package's name, which dispatches on
-    ``cfg.optimizer``)."""
+             device: torch.device | None = None, layout=None) -> OptState:
+    """Optimizer state for ``params`` (``{name: tensor}``, whole leaves)
+    of the configured family (the JAX package's name, which dispatches on
+    ``cfg.optimizer``). With a ``layout`` (``parallel/zero.py``) the
+    moments and the EMA are this rank's shards: views of one flat buffer
+    an entry, and the leaves the layout keeps whole."""
     if cfg.optimizer not in FAMILIES:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     if device is None:
         device = next(iter(params.values())).device
 
     def zeros():
-        return {k: torch.zeros_like(p, device=device)
-                for k, p in params.items()}
+        if layout is None:
+            return {k: torch.zeros_like(p, device=device)
+                    for k, p in params.items()}
+        return layout.zeros(device)
 
     def f32(shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
@@ -145,7 +158,10 @@ def sgd_init(params: Mapping[str, torch.Tensor], cfg: OptimConfig,
             raise ValueError(
                 f"ema_decay must be in [0, 1) (got {cfg.ema_decay}); 1.0 "
                 "would freeze the EMA at random init forever")
-        state["ema"] = {k: p.detach().clone() for k, p in params.items()}
+        if layout is None:
+            state["ema"] = {k: p.detach().clone() for k, p in params.items()}
+        else:
+            state["ema"] = layout.pack(params, device, copy=True)[1]
     return state
 
 
@@ -157,38 +173,50 @@ def ema_decay_at(cfg: OptimConfig, t: torch.Tensor) -> torch.Tensor:
                          (1.0 + t) / (10.0 + t))
 
 
-def clipped(grads: Mapping[str, torch.Tensor], cfg: OptimConfig
-            ) -> Mapping[str, torch.Tensor]:
+def clipped(grads: Mapping[str, torch.Tensor], cfg: OptimConfig,
+            layout=None) -> Mapping[str, torch.Tensor]:
     """Scale every gradient by ``min(1, clip / (global norm + 1e-12))``
-    (JAX ``_clipped``); the norm is a device tensor, never read here."""
+    (JAX ``_clipped``); the norm is a device tensor, never read here.
+    Under a ``layout`` the gradients are shards and the norm is summed
+    over the data ranks."""
     if cfg.grad_clip_norm is None:
         return grads
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in grads.values()))
+    if layout is None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in grads.values()))
+    else:
+        gnorm = torch.sqrt(torch.sum(layout.sq_sums(list(grads),
+                                                     list(grads.values()))))
     scale = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-12), max=1.0)
     return {k: g * scale.to(g.dtype) for k, g in grads.items()}
 
 
 @torch.no_grad()
 def sgd_update(grads: Mapping[str, torch.Tensor], state: OptState,
-               params: Mapping[str, torch.Tensor], cfg: OptimConfig
-               ) -> Tuple[Mapping[str, torch.Tensor], OptState]:
+               params: Mapping[str, torch.Tensor], cfg: OptimConfig,
+               layout=None) -> Tuple[Mapping[str, torch.Tensor], OptState]:
     """One optimizer step, in place; returns ``(params, state)``.
 
     The step counter increments on apply, mirroring ``minimize(...,
     global_step=global_step)`` (``cifar10cnn.py:163``). SGD and LARS
     couple weight decay into the gradient (classic L2); AdamW, LAMB and
-    Adafactor decay decoupled, applied directly to the weights.
+    Adafactor decay decoupled, applied directly to the weights. Under a
+    ``layout`` ``grads``, ``params`` and the state's entries are this
+    rank's shards (whole tensors for the leaves that stay whole).
     """
     lr = learning_rate(cfg, state["step"])
-    grads = clipped(grads, cfg)
+    grads = clipped(grads, cfg, layout)
     momentum = state.get("momentum") if cfg.momentum else None
     if cfg.optimizer in ("adamw", "lamb"):
-        _adam_update(grads, state, params, cfg, lr)
+        _adam_update(grads, state, params, cfg, lr, layout)
     elif cfg.optimizer == "adafactor":
+        if layout is not None:
+            raise NotImplementedError(
+                "adafactor under a sharded layout is not ported; see "
+                "ROADMAP.md Queue 1, the open sharding items")
         _adafactor_update(grads, state, params, cfg, lr)
     elif cfg.optimizer == "lars":
-        _lars_update(grads, state, params, cfg, lr)
+        _lars_update(grads, state, params, cfg, lr, layout)
     elif cfg.fused_optimizer:
         fused_lib.fused_sgd_update(params, grads, momentum, lr,
                                    cfg.momentum, cfg.weight_decay)
@@ -210,50 +238,71 @@ def sgd_update(grads: Mapping[str, torch.Tensor], state: OptState,
     return params, state
 
 
-def _trust_ratio(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """``||p|| / ||u||`` with optax's guards: 1 when either norm is 0."""
-    pn = torch.linalg.vector_norm(p)
-    un = torch.linalg.vector_norm(u)
+def _trust_ratio(pn: torch.Tensor, un: torch.Tensor) -> torch.Tensor:
+    """``||p|| / ||u||`` from the two norms, with optax's guards: 1 when
+    either norm is 0."""
     one = torch.ones_like(pn)
     return torch.where(pn > 0, torch.where(un > 0, pn / un, one), one)
 
 
+def _leaf_norms(layout, names, tensors):
+    """Each leaf's L2 norm: of the tensor itself without a ``layout``, of
+    the whole leaf (partial squares summed over the data ranks, one
+    all-reduce) under one."""
+    if layout is None:
+        return [torch.linalg.vector_norm(t) for t in tensors]
+    return list(torch.sqrt(layout.sq_sums(names, tensors)).unbind(0))
+
+
 def _adam_update(grads: Mapping[str, torch.Tensor], state: OptState,
                  params: Mapping[str, torch.Tensor], cfg: OptimConfig,
-                 lr: torch.Tensor) -> None:
+                 lr: torch.Tensor, layout=None) -> None:
     """AdamW (and LAMB) in place, the JAX package's expression
     (``optim.py:201-223``): ``r = (mu/bc1) / (sqrt(nu/bc2) + eps) +
     wd·p``, ``p -= lr·r``; LAMB scales the step by the leaf's trust ratio
-    ``||p|| / ||r||``."""
+    ``||p|| / ||r||``, its norms taken once every ``r`` is known."""
     b1, b2 = cfg.adam_b1, cfg.adam_b2
     # A Python scalar base keeps the step on the device: no host copy.
     t = (state["step"] + 1).to(torch.float32)
     bc1 = 1.0 - torch.pow(b1, t)
     bc2 = 1.0 - torch.pow(b2, t)
+    steps = {}
     for name, p in params.items():
         g = grads[name]
         mu, nu = state["mu"][name], state["nu"][name]
         mu.copy_(b1 * mu + (1 - b1) * g)
         nu.copy_(b2 * nu + (1 - b2) * torch.square(g))
-        r = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.adam_eps) \
+        steps[name] = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.adam_eps) \
             + cfg.weight_decay * p
-        scale = lr * _trust_ratio(p, r) if cfg.optimizer == "lamb" else lr
+    names = list(steps)
+    if cfg.optimizer == "lamb":
+        pn = _leaf_norms(layout, names, [params[n] for n in names])
+        rn = _leaf_norms(layout, names, [steps[n] for n in names])
+    for i, name in enumerate(names):
+        p, r = params[name], steps[name]
+        scale = lr * _trust_ratio(pn[i], rn[i]) \
+            if cfg.optimizer == "lamb" else lr
         p.copy_(p - (scale * r).to(p.dtype))
 
 
 def _lars_update(grads: Mapping[str, torch.Tensor], state: OptState,
                  params: Mapping[str, torch.Tensor], cfg: OptimConfig,
-                 lr: torch.Tensor) -> None:
+                 lr: torch.Tensor, layout=None) -> None:
     """LARS in place (JAX ``optim.py:300-330``): the decayed gradient
     ``g + wd·p`` of every leaf of 2 or more dims is scaled by the local LR
     ``trust·||p|| / (||g + wd·p|| + eps)`` (1 when either norm is 0),
     then heavy-ball momentum (``cfg.momentum``, 0.9 when 0)."""
     beta = cfg.momentum or 0.9
+    decayed = {name: grads[name] + cfg.weight_decay * p
+               for name, p in params.items()}
+    wide = [name for name, p in params.items() if p.dim() > 1]
+    pns = _leaf_norms(layout, wide, [params[n] for n in wide])
+    gns = _leaf_norms(layout, wide, [decayed[n] for n in wide])
+    norms = dict(zip(wide, zip(pns, gns)))
     for name, p in params.items():
-        g = grads[name] + cfg.weight_decay * p
-        if p.dim() > 1:
-            pn = torch.linalg.vector_norm(p)
-            gn = torch.linalg.vector_norm(g)
+        g = decayed[name]
+        if name in norms:
+            pn, gn = norms[name]
             one = torch.ones_like(pn)
             local = torch.where(
                 pn > 0, torch.where(gn > 0, cfg.lars_trust_coef * pn

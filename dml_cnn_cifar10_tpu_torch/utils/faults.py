@@ -117,15 +117,20 @@ def poison_state(state):
 
 
 def corrupt_latest_checkpoint(log_dir: str) -> Optional[str]:
-    """Truncate the newest checkpoint file to half its size. Returns its
+    """Truncate the newest checkpoint file (of a ``.sharded`` directory,
+    its first shard file) to half its size. Returns the checkpoint's
     path, or None when there is no checkpoint yet."""
     from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt_lib
 
     path = ckpt_lib.latest_checkpoint(log_dir)
     if path is None:
         return None
-    size = os.path.getsize(path)
-    with open(path, "r+b") as f:
+    target = path
+    if os.path.isdir(path):
+        target = os.path.join(path, sorted(
+            n for n in os.listdir(path) if n.endswith(".msgpack"))[0])
+    size = os.path.getsize(target)
+    with open(target, "r+b") as f:
         f.truncate(size // 2)
     return path
 

@@ -458,3 +458,175 @@ def fit_ranks(rank, world, runs):
                     "finite": all(bool(torch.isfinite(p).all())
                                   for p in result.state.params.values())})
     return out
+
+
+# ---------------------------------------------------------------------------
+# Sharded state (ZeRO-1 / FSDP over the data ranks).
+# ---------------------------------------------------------------------------
+
+
+def sharded_state(rank, world, run, mesh):
+    """``(net, optim cfg, state)`` of ``run`` (a dict: ``mode`` none |
+    zero1 | fsdp, ``model``/``data``/``optim`` config kwargs, ``params``
+    a JAX-layout numpy tree) over ``mesh``: the layout built as the
+    Trainer builds it, the params (and the EMA, when kept) set to
+    ``params`` on this rank's shards."""
+    from dml_cnn_cifar10_tpu_torch import convert
+    from dml_cnn_cifar10_tpu_torch.config import (DataConfig, ModelConfig,
+                                                  OptimConfig,
+                                                  ParallelConfig)
+    from dml_cnn_cifar10_tpu_torch.models.registry import get_model
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import zero
+
+    mode = run["mode"]
+    mcfg = ModelConfig(**run["model"])
+    net = get_model(mcfg.name)(mcfg, DataConfig(**run.get("data", {})),
+                               mesh=mesh)
+    ocfg = OptimConfig(**run["optim"], optimizer_sharding=(
+        "zero1" if mode == "zero1" else "none"))
+    layout = zero.build_layout(net, mcfg.name, ocfg,
+                               ParallelConfig(fsdp=mode == "fsdp"), mesh)
+    state = step_lib.init_train_state(net, ocfg, torch.device("cpu"),
+                                      torch.Generator().manual_seed(0),
+                                      layout)
+    entries = [("params", state.params)] + (
+        [("ema", state.opt["ema"])] if "ema" in state.opt else [])
+    with torch.no_grad():
+        for key, dst in entries:
+            for name, value in convert.params_from_jax(
+                    run["params"]).items():
+                if layout is not None and key in layout.keys \
+                        and layout.is_split(name):
+                    value = layout.shard_of(value, name)
+                dst[name].copy_(value)
+    return net, ocfg, state
+
+
+def _entry_bytes(values) -> int:
+    return sum(t.numel() * t.element_size() for t in values.values())
+
+
+def sharded_runs(rank, world, runs):
+    """Each run of ``runs`` (see :func:`sharded_state`; ``batches`` the
+    GLOBAL ``(images, labels)`` of each step, this rank takes its data
+    rank's rows; ``chunk`` runs them as one chunk instead; ``eval`` a
+    global batch scored after training): returns per run the per-step
+    metrics, the whole state tree (``state_to_tree``: gathered), this
+    rank's bytes of params and of the moments, and the eval accuracy.
+    Then the mesh's reduce-scatter and all-gather on a known input."""
+    from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from dml_cnn_cifar10_tpu_torch.config import ParallelConfig
+    from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+
+    mesh = mesh_lib.build_mesh(ParallelConfig())
+    out = {}
+    for name, run in runs.items():
+        net, ocfg, state = sharded_state(rank, world, run, mesh)
+        b = run["batches"][0][0].shape[0] // mesh.data
+        rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+        ims = [torch.from_numpy(i[rows]) for i, _ in run["batches"]]
+        lbs = [torch.from_numpy(l[rows].astype(np.int64))
+               for _, l in run["batches"]]
+        metrics = []
+        if run.get("chunk"):
+            chunk = step_lib.make_train_chunk(net, ocfg, mesh=mesh)
+            _, m = chunk(state, torch.stack(ims), torch.stack(lbs))
+            metrics.append({k: float(v) for k, v in m.items()})
+        else:
+            train = step_lib.make_train_step(net, ocfg, mesh,
+                                             health_metrics=True)
+            for im, lb in zip(ims, lbs):
+                _, m = train(state, im, lb)
+                metrics.append({k: float(v) for k, v in m.items()})
+        res = {"metrics": metrics, "tree": ckpt_lib.state_to_tree(state),
+               "param_bytes": _entry_bytes(state.params),
+               "moment_bytes": sum(_entry_bytes(state.opt[k]) for k in
+                                   ("momentum", "mu", "nu")
+                                   if k in state.opt)}
+        if "eval" in run:
+            images, labels = run["eval"]
+            res["eval"] = float(step_lib.make_eval_step(net, mesh)(
+                state, torch.from_numpy(images[rows]),
+                torch.from_numpy(labels[rows].astype(np.int64)))["accuracy"])
+        out[name] = res
+    send = torch.arange(world * 3, dtype=torch.float32) * (rank + 1)
+    got = torch.empty(3)
+    mesh.reduce_scatter_(got, send, "data")
+    gathered = torch.empty(world * 3)
+    mesh.all_gather_(gathered, got, "data")
+    out["collectives"] = (got.numpy(), gathered.numpy())
+    return out
+
+
+def sharded_ckpt(rank, world, run, work, jax_dirs):
+    """Checkpoints of a sharded state over 2 ranks: ``run`` (see
+    :func:`sharded_state`, mode zero1) trains its ``batches``, then saves
+    ``work/<fmt>`` in both codecs at step 1 (sharded with 2 shard-IO
+    threads); each is restored into every layout (none, zero1, fsdp) and
+    the whole trees returned; each of ``jax_dirs`` (JAX-written
+    checkpoints) is restored into an fsdp state; then a corrupt newer
+    shard falls back to the older checkpoint."""
+    import os
+
+    from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from dml_cnn_cifar10_tpu_torch.config import ParallelConfig
+    from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+
+    mesh = mesh_lib.build_mesh(ParallelConfig())
+    net, ocfg, state = sharded_state(rank, world, run, mesh)
+    b = run["batches"][0][0].shape[0] // mesh.data
+    rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+    train = step_lib.make_train_step(net, ocfg, mesh)
+    for images, labels in run["batches"]:
+        train(state, torch.from_numpy(images[rows]),
+              torch.from_numpy(labels[rows].astype(np.int64)))
+    events = []
+
+    def on_event(kind, **fields):
+        events.append((kind, fields["op"], fields["shard"]))
+
+    saved = {"tree": ckpt_lib.state_to_tree(state)}
+    for fmt in ("msgpack", "sharded"):
+        ckpt_lib.CheckpointManager(
+            os.path.join(work, fmt), 1, mesh=mesh, fmt=fmt,
+            shard_io_threads=2, on_event=on_event).maybe_save(state, 1)
+    saved["events"] = list(events)
+    restored = {}
+    for fmt in ("msgpack", "sharded"):
+        for mode in ("none", "zero1", "fsdp"):
+            _, _, fresh = sharded_state(rank, world, dict(run, mode=mode),
+                                        mesh)
+            ckpt_lib.restore_checkpoint(os.path.join(work, fmt), fresh,
+                                        on_event=on_event)
+            restored[f"{fmt}->{mode}"] = ckpt_lib.state_to_tree(fresh)
+    for label, path in jax_dirs.items():
+        _, _, fresh = sharded_state(rank, world, dict(run, mode="fsdp"),
+                                    mesh)
+        ckpt_lib.restore_checkpoint(path, fresh)
+        restored[label] = ckpt_lib.state_to_tree(fresh)
+    # A newer checkpoint whose shard is corrupt: the walk falls back.
+    d = os.path.join(work, "fallback")
+    for step in (1, 2):
+        state.opt["step"].fill_(step)
+        ckpt_lib.save_checkpoint(d, state, step, fmt="sharded", mesh=mesh)
+    if rank == 0:
+        top = os.path.join(d, "ckpt_2.sharded")
+        shard = os.path.join(top, sorted(
+            n for n in os.listdir(top)
+            if n.startswith("shard_1_") and n.endswith(".msgpack"))[0])
+        with open(shard, "r+b") as f:
+            f.seek(os.path.getsize(shard) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+    mesh.barrier()
+    _, _, fresh = sharded_state(rank, world, dict(run, mode="zero1"), mesh)
+    fresh.opt["step"].fill_(7)
+    ckpt_lib.restore_checkpoint(d, fresh)
+    saved["fallback_step"] = int(fresh.step)
+    saved["restored"] = restored
+    saved["events_all"] = list(events)
+    return saved
