@@ -290,23 +290,55 @@ width:
             every rank); ViT-Ti AdamW on 2 ranks, 20 steps each mode.
             Numbers in ``OUT/slice13.json`` (``slice13_nccl.json``).
 
-``--dist`` runs the build, phase 31, phase 33 over NCCL, phase 32's two
-ranks over NCCL (chunks of 10 as CUDA graphs; the ranks' flag exchange
-runs between replays), then phases 18-21 over NCCL on two or more cards, with 4
-ranks beside 2 given four cards: SP data 2 x seq 2 against its 2 data
-ranks without the ring, and the DP CNN on 4 ranks; given three or more
-cards, phases 26-27 (and phase 31's Ulysses run) over NCCL on 3 of them.
-``--phase 32`` or ``--phase 33`` (alone or with ``--dist``) runs the build
-and that phase only, a debugging run.
+Then tensor parallelism (``parallel/tp.py``, ``--model_axis``):
+34. tensor parallel  K1 and K2 on the leaves model rank 0 of 2 updates
+            (the Megatron slices at half width beside the replicated
+            leaves) and on phase 33's shard buffers, bit-equal, timed by
+            events and device time beside fused SGD; K3/K4/K6/K7 at a
+            model rank's [32, 257, 1, 64] and [128, 257, 1, 64] f32 (one
+            head of ViT-Ti's 3, views of its fused qkv) against their
+            plain versions at the f32 pins, timed beside SDPA; then one
+            spawn of 4 rank processes over gloo on this card, cuDNN
+            deterministic: the CNN at model 2 (2 ranks) and data 2 x
+            model 2 (4 ranks), batch 128, 50 steps each beside the
+            replicated run at the same data ranks (one process; 2 DP
+            ranks), and ViT-Ti at model 3 (3 ranks), batch 32, f32, 10
+            steps beside one process. One SGD step of each within the CPU
+            pins of its replicated step; every logged loss of the first
+            10 steps within 1e-3 relative (the last printed); replicated
+            leaves bit-equal over the ranks; K1 once a step (CNN) or
+            K4/K6/K7 12 a step (ViT); a ``.sharded`` save at 25 of the
+            4-rank CNN resumed to 50 bit-equal to the straight run.
+            Under ``--dist`` over NCCL: the CNN at data 2 x model 2 on 4
+            cards beside DP on 4 and on 2 (the same data ranks: its
+            logged losses of the first 10 steps within 1e-3 relative),
+            100 steps eager and chunked at K = 10 (one CUDA graph a
+            chunk with its model-group all-reduces, one graphed chunk
+            bit-equal to its eager body on every rank, replays timed and
+            traced: busy share, NCCL ms), and ViT-Ti at
+            model 3 on 3 cards, batch 128, 20 steps eager (beside one
+            card) and chunked at K = 5. Numbers in ``OUT/slice14.json``
+            (``slice14_nccl.json``).
 
-The lines before the last are ``{"kernels": [...]}`` (K1 five times:
+``--dist`` runs the build, phase 31, phases 33 and 34 over NCCL, phase
+32's two ranks over NCCL (chunks of 10 as CUDA graphs; the ranks' flag
+exchange runs between replays), then phases 18-21 over NCCL on two or more
+cards, with 4 ranks beside 2 given four cards: SP data 2 x seq 2 against
+its 2 data ranks without the ring, and the DP CNN on 4 ranks; given three
+or more cards, phases 26-27 (and phase 31's Ulysses run) over NCCL on 3 of
+them.
+``--phase 32``, ``--phase 33`` or ``--phase 34`` (alone or with
+``--dist``) runs the build and that phase only, a debugging run.
+
+The lines before the last are ``{"kernels": [...]}`` (K1 six times:
 its main path row, phase 30's with ``"path": "dp_chunk"``, phase 32's
-with ``"path": "run_safety"`` and phase 33's with ``"path": "zero1"`` and
-``"fsdp"``, on shard buffers; ``--dist`` prints K2's two such rows; K3
-three times:
-its training row, its serving row with ``"path": "serve"`` and its Ulysses
-row; K4, K6 and K7 twice, with a ``"path": "ulysses"`` row) and the card's
-name and power limit; the last line is
+with ``"path": "run_safety"``, phase 33's with ``"path": "zero1"`` and
+``"fsdp"``, on shard buffers, and phase 34's with ``"path": "tp"``, on a
+model rank's leaves; ``--dist`` prints K2's two shard rows; K3 four
+times: its training row, its serving row with ``"path": "serve"``, its
+Ulysses row and its ``"path": "tp"`` row; K4, K6 and K7 three times,
+with ``"path": "ulysses"`` and ``"tp"`` rows) and the card's name and
+power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Scratch data and checkpoints go to ``.chip_smoke_work/`` (removed after a
 passing run); the run's metrics JSONL files, the profiles, ``chunk.json``
@@ -316,8 +348,8 @@ passing run); the run's metrics JSONL files, the profiles, ``chunk.json``
 ``dist_nccl.json`` under ``--dist``, with phase 31 and phase 32's NCCL
 ranks), ``slice10.json`` (phases 26-29), ``slice11.json`` (phase 30),
 ``slice12.json`` (phase 32, with its telemetry stream and Chrome trace),
-``slice13.json`` (phase 33) and the ranks' logs are written to the
-output directory ``OUT``.
+``slice13.json`` (phase 33), ``slice14.json`` (phase 34) and the ranks'
+logs are written to the output directory ``OUT``.
 """
 
 from __future__ import annotations
@@ -1038,16 +1070,17 @@ def _segment_ids(b, s, gen, dev):
 FLASH_CASE_DIFFS = {}
 
 
-def flash_parity(dev) -> dict:
+def flash_parity(dev, cases=None) -> dict:
     """Hold K3, K4, K6 and K7 against their plain versions on the card, in
-    the working dtype, case by case; dead rows must be exactly 0. Returns
-    the worst max abs difference per kernel and dtype."""
+    the working dtype, case by case (``FLASH_CASES`` by default); dead
+    rows must be exactly 0. Returns the worst max abs difference per
+    kernel and dtype."""
     from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = {(k, dt): 0.0 for k in FLASH_KERNELS
              for dt in ("float32", "bfloat16")}
-    for name, (b, sq, skv, h, d), dtype, mask in FLASH_CASES:
+    for name, (b, sq, skv, h, d), dtype, mask in cases or FLASH_CASES:
         kw = {k: v for k, v in mask.items() if k not in ("strided",
                                                          "segments")}
         if mask.get("strided"):
@@ -1180,8 +1213,9 @@ def sdpa_backward(q, k, v, do):
     return fn, backend
 
 
-def flash_timing(dev, card, bytes_per_s, f32_ops) -> dict:
-    """Each flash kernel at the main path's and the long shape: CUDA-event
+def flash_timing(dev, card, bytes_per_s, f32_ops, shapes=None) -> dict:
+    """Each flash kernel at the main path's and the long shape (or at
+    ``shapes``, ``FLASH_TIMING``'s form): CUDA-event
     ms (launch included), the profiler's device ms, the plain version's
     ms, ``F.scaled_dot_product_attention``'s forward (for K3/K4) and its
     autograd backward (for K6+K7 together) as a yardstick the port never
@@ -1198,7 +1232,7 @@ def flash_timing(dev, card, bytes_per_s, f32_ops) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(2)
     res = {}
-    for label, (b, s, h, d), dtype in FLASH_TIMING:
+    for label, (b, s, h, d), dtype in shapes or FLASH_TIMING:
         q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=gen)
                        .to(dtype) for _ in range(4))
         with torch.no_grad():
@@ -1701,10 +1735,12 @@ def rank_log(label: str, rank: int = 0):
 
 
 def _whole_params(state) -> dict:
-    """``state``'s parameters whole: gathered over the data ranks (every
-    rank calls it) where its layout keeps shards."""
-    from dml_cnn_cifar10_tpu_torch.parallel import zero
-    return zero.whole(state, "params", state.params)
+    """``state``'s parameters whole: gathered over the data ranks where
+    its layout keeps shards and over the model ranks where it holds model
+    slices (a collective: every rank calls it)."""
+    from dml_cnn_cifar10_tpu_torch.parallel import tp, zero
+    return tp.whole(state, "params", zero.whole(state, "params",
+                                                state.params))
 
 
 def _params_digest(params) -> str:
@@ -4075,44 +4111,24 @@ def _rank_shard(rank: int, job: dict) -> dict:
     return {"runs": out}
 
 
-def shard_kernel_rows(dev, card, bytes_per_s, ops_per_s, world=2,
-                      cases=(("sgd_update_plain", 0.0, 0.0, "zero1"),
-                             ("sgd_update_momentum", 0.9, 5e-4, "fsdp"))
-                      ) -> dict:
-    """K1 (and K2) on one rank's shard buffers at ``world`` data ranks, the
-    layout the step hands them (``parallel/zero.py``: every split leaf a
-    contiguous view of one flat buffer, the leaves kept whole beside them;
-    zero1's and fsdp's shards are the same at the CNN's leaves): one launch
-    against the plain version on the same shards, bit for bit; then timed
-    (CUDA events) beside the plain version, ``torch.optim.SGD(fused=True)``
-    over the same shard tensors (a yardstick), and the bound of the bytes
-    and operations of the shard update."""
-    from dml_cnn_cifar10_tpu_torch.config import (DataConfig, ModelConfig,
-                                                  OptimConfig,
-                                                  ParallelConfig)
-    from dml_cnn_cifar10_tpu_torch.models.cnn import CNN
+def update_kernel_rows(dev, card, bytes_per_s, ops_per_s, cases, what,
+                       total=1_068_298) -> dict:
+    """K1 and K2 on the leaves a rank's update takes: ``cases`` is
+    ``[(kernel name, mu, wd, tag, make)]``, ``make()`` a fresh
+    ``{name: tensor}`` of the leaves (random values). One launch against
+    the plain version on the same leaves, bit for bit; then timed by CUDA
+    events and by the kernel's device time beside the plain version,
+    ``torch.optim.SGD(fused=True)`` over the same tensors (a yardstick; by
+    events and by the device time of its kernels), and the bound of the
+    bytes and operations of the update. ``what(tag)`` names the leaves in
+    the printed line."""
     from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
-    from dml_cnn_cifar10_tpu_torch.parallel import zero
-    from dml_cnn_cifar10_tpu_torch.parallel.mesh import Mesh
 
-    model = CNN(ModelConfig(logit_relu=False), DataConfig())
-    gen = torch.Generator(device=dev).manual_seed(33)
     lr = torch.tensor(0.02, device=dev)
     rows = {}
-    for name, mu, wd, mode in cases:
-        lay = zero.build_layout(
-            model, "cnn", OptimConfig(optimizer_sharding=(
-                "zero1" if mode == "zero1" else "none")),
-            ParallelConfig(fsdp=mode == "fsdp"), Mesh(world=world,
-                                                      data=world))
-
-        def shards():
-            full = {n: torch.randn(p.shape, device=dev, generator=gen)
-                    for n, p in model.named_parameters()}
-            return lay.pack(full)[1]
-
-        params, grads = shards(), shards()
-        mom = shards() if mu else None
+    for name, mu, wd, tag, make in cases:
+        params, grads = make(), make()
+        mom = make() if mu else None
         want = {k: fused.fused_sgd_update_plain(
             params[k], grads[k], mom[k] if mom else None, lr, mu, wd)
             for k in params}
@@ -4121,14 +4137,14 @@ def shard_kernel_rows(dev, card, bytes_per_s, ops_per_s, world=2,
         torch.cuda.synchronize()
         launched = {k: fused.LAUNCHES[k] - before[k] for k in before
                     if fused.LAUNCHES[k] != before[k]}
-        check(launched == {name: 1}, f"{name} on {mode} shards launched "
+        check(launched == {name: 1}, f"{name} on {what(tag)} launched "
               f"{launched}, want one launch")
         err = 0.0
         for k, (want_p, want_m) in want.items():
             err = max(err, (params[k] - want_p).abs().max().item())
             if mom:
                 err = max(err, (mom[k] - want_m).abs().max().item())
-        check(err == 0.0, f"{name} on {mode} shards: max |kernel - plain| "
+        check(err == 0.0, f"{name} on {what(tag)}: max |kernel - plain| "
               f"{err}, want 0 (bit-equal)")
 
         def kernel_step():
@@ -4153,19 +4169,65 @@ def shard_kernel_rows(dev, card, bytes_per_s, ops_per_s, world=2,
         rows[name] = dict(
             ms=cuda_ms(kernel_step), plain_ms=cuda_ms(plain_step),
             library_ms=cuda_ms(lib.step), bound_ms=max(by_bytes, by_ops),
+            device_ms=device_ms(kernel_step, "sgd_multi_kernel"),
+            library_device_ms=sum(kernel_ms(lib.step).values()),
             bound_by="bytes" if by_bytes >= by_ops else "operations",
-            max_abs_err=err, elements=n, leaves=len(params), world=world,
-            mode=mode, mu=mu, wd=wd,
-            split=len(lay.split), whole=len(lay.leaves) - len(lay.split))
+            max_abs_err=err, elements=n, leaves=len(params), mu=mu, wd=wd,
+            tag=tag)
         r = rows[name]
-        print(f"[shard kernels] {name} (mu={mu}, wd={wd}) on rank 0's "
-              f"{mode} shards at {world} ranks ({n} of 1068298 elements, "
-              f"{r['split']} split leaves + {r['whole']} whole, one "
-              f"launch): bit-equal to the plain version; kernel "
-              f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
-              f"torch.optim.SGD(fused=True) {r['library_ms']:.5f} ms, "
-              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}) on {card}",
+        print(f"[update kernels] {name} (mu={mu}, wd={wd}) on "
+              f"{what(tag)} ({n} of {total} elements, {len(params)} "
+              f"tensors, one launch): bit-equal to the plain version; "
+              f"kernel {r['ms']:.5f} ms (device {r['device_ms']} ms), "
+              f"plain {r['plain_ms']:.5f} ms, torch.optim.SGD(fused=True) "
+              f"{r['library_ms']:.5f} ms (device "
+              f"{r['library_device_ms']:.5f} ms), bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}) on {card}",
               flush=True)
+    return rows
+
+
+def shard_kernel_rows(dev, card, bytes_per_s, ops_per_s, world=2,
+                      cases=(("sgd_update_plain", 0.0, 0.0, "zero1"),
+                             ("sgd_update_momentum", 0.9, 5e-4, "fsdp"))
+                      ) -> dict:
+    """K1 (and K2) on one rank's shard buffers at ``world`` data ranks, the
+    layout the step hands them (``parallel/zero.py``: every split leaf a
+    contiguous view of one flat buffer, the leaves kept whole beside them;
+    zero1's and fsdp's shards are the same at the CNN's leaves), as
+    ``update_kernel_rows`` holds and times them."""
+    from dml_cnn_cifar10_tpu_torch.config import (DataConfig, ModelConfig,
+                                                  OptimConfig,
+                                                  ParallelConfig)
+    from dml_cnn_cifar10_tpu_torch.models.cnn import CNN
+    from dml_cnn_cifar10_tpu_torch.parallel import zero
+    from dml_cnn_cifar10_tpu_torch.parallel.mesh import Mesh
+
+    model = CNN(ModelConfig(logit_relu=False), DataConfig())
+    gen = torch.Generator(device=dev).manual_seed(33)
+    layouts = {}
+
+    def maker(mode):
+        lay = layouts[mode] = zero.build_layout(
+            model, "cnn", OptimConfig(optimizer_sharding=(
+                "zero1" if mode == "zero1" else "none")),
+            ParallelConfig(fsdp=mode == "fsdp"), Mesh(world=world,
+                                                      data=world))
+
+        def make():
+            full = {n: torch.randn(p.shape, device=dev, generator=gen)
+                    for n, p in model.named_parameters()}
+            return lay.pack(full)[1]
+        return make
+
+    rows = update_kernel_rows(
+        dev, card, bytes_per_s, ops_per_s,
+        [(name, mu, wd, mode, maker(mode)) for name, mu, wd, mode in cases],
+        lambda mode: f"rank 0's {mode} shards at {world} ranks")
+    for r in rows.values():
+        lay = layouts[r["tag"]]
+        r.update(world=world, mode=r["tag"], split=len(lay.split),
+                 whole=len(lay.leaves) - len(lay.split))
     return rows
 
 
@@ -4476,8 +4538,9 @@ def shard_kernel_entries(rows, launches, paths) -> list:
                 "replaces": f"dml_cnn_cifar10_tpu/ops/optimizer.py:{line}",
                 "launches": launches[path],
                 "max_abs_err": r["max_abs_err"],
-                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")},
+                **{k: r[k] for k in ("ms", "device_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "library_device_ms")},
                 "library": "torch.optim.SGD(fused=True).step",
                 "work": f"one update of rank 0's shards at {r['world']} "
                         f"data ranks ({r['elements']} f32 elements: "
@@ -4485,6 +4548,592 @@ def shard_kernel_entries(rows, launches, paths) -> list:
                         f"mu={r['mu']}, wd={r['wd']}; launches: rank 0 of "
                         f"the {path} run"})
     return out
+
+
+# ---------------------------------------------------------------------------
+# 34. tensor parallelism over --model_axis (parallel/tp.py)
+# ---------------------------------------------------------------------------
+
+# Phase 34's eager runs over gloo on this card: the CNN's steps and its
+# sharded checkpoint's half, the ViT-Ti's steps; under --dist over NCCL:
+# the CNN's steps (eager and chunked at CHUNK_K), the ViT-Ti's (chunked
+# at TP_VIT_K).
+TP_STEPS, TP_HALF, TP_VIT_STEPS = 50, 25, 10
+TP_NCCL_STEPS, TP_NCCL_VIT_STEPS, TP_VIT_K = 100, 20, 5
+# Every logged loss of the first TP_EARLY_STEPS within DP_CHUNK_LOSS_RTOL
+# of the replicated run's (later ones are printed: summation order, then
+# max-pool ties, part two layouts over long runs, PERF.md §6); one step
+# within the CPU pins of tests/test_torch_tp.py (losses 1e-5 relative +
+# 1e-6, the state SHARD_FSDP_RTOL/ATOL).
+TP_EARLY_STEPS = 10
+TP_LOSS_RTOL, TP_LOSS_ATOL = 1e-5, 1e-6
+# K3/K4/K6/K7 at a model rank's shape: ViT-Ti's 3 heads over 3 model
+# ranks, one head of 64 a rank, views of its fused qkv; batch 32 (the
+# gloo run) and 128 (the main path's batch, the NCCL run).
+TP_FLASH_CASES = [
+    ("tp rank b32", (32, 257, 257, 1, 64), torch.float32, {"strided": True}),
+    ("tp rank b128", (128, 257, 257, 1, 64), torch.float32,
+     {"strided": True}),
+]
+TP_FLASH_TIMING = [("tp32", (32, 257, 1, 64), torch.float32),
+                   ("tp128", (128, 257, 1, 64), torch.float32)]
+# The CNN's leaves a model rank of 2 holds: full1/full2 at half width.
+TP_CNN_ELEMENTS = 1_068_298 - (2304 * 384 + 384 + 384 * 192) // 2
+
+
+def tp_kernel_rows(dev, card, bytes_per_s, ops_per_s) -> dict:
+    """K1 (plain SGD) and K2 (mu 0.9, wd 5e-4) on the leaves model rank 0
+    of 2 updates (``update_kernel_rows``): its own tensors, the Megatron
+    slices at half width and the replicated leaves whole."""
+    from dml_cnn_cifar10_tpu_torch.config import DataConfig, ModelConfig
+    from dml_cnn_cifar10_tpu_torch.models.cnn import CNN
+    from dml_cnn_cifar10_tpu_torch.parallel.mesh import Mesh
+
+    model = CNN(ModelConfig(logit_relu=False), DataConfig(),
+                mesh=Mesh(world=2, model=2))
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    check(sum(math.prod(v) for v in shapes.values()) == TP_CNN_ELEMENTS,
+          f"a model rank's CNN leaves {shapes}")
+    gen = torch.Generator(device=dev).manual_seed(34)
+
+    def make():
+        return {n: torch.randn(v, device=dev, generator=gen)
+                for n, v in shapes.items()}
+
+    return update_kernel_rows(
+        dev, card, bytes_per_s, ops_per_s,
+        [("sgd_update_plain", 0.0, 0.0, "tp", make),
+         ("sgd_update_momentum", 0.9, 5e-4, "tp", make)],
+        lambda tag: "model rank 0's leaves at model_axis 2")
+
+
+def _tp_args(name, steps, world, model_axis, *extra, vit=False,
+             backend="gloo", batch=128, k=1, every=1, ckpt_every=1000):
+    """One run of phase 34's recipe: the CNN main path (or ViT-Ti's, f32,
+    AdamW) at ``--model_axis`` over ``world`` ranks (one process, without
+    ``--worker_hosts``, at world 1), its own log dir and stream; every
+    ``every`` steps logged."""
+    base = cnn_args(WORK) if not vit else [
+        "--model", "vit_tiny", "--dataset", "synthetic", "--data_dir",
+        os.path.join(WORK, "data_vit"), "--image_size", "72",
+        "--crop_size", "64", "--synthetic_train_records", "10000",
+        "--fidelity", "fixed", "--optimizer", "adamw", "--learning_rate",
+        "3e-4", "--peak_tflops", F32_PEAK_TFLOPS]
+    base = [a for a in base]
+    if "--batch_size" in base:
+        i = base.index("--batch_size")
+        del base[i:i + 2]
+    out = base + [
+        "--batch_size", str(batch), "--model_axis", str(model_axis),
+        "--log_dir", os.path.join(WORK, f"logs_tp_{name}"),
+        "--metrics_jsonl", os.path.join(WORK, f"tp_{name}.jsonl"),
+        "--total_steps", str(steps), "--output_every", str(max(k, every)),
+        "--eval_every", "1000", "--checkpoint_every", str(ckpt_every),
+        "--steps_per_dispatch", str(k), *extra]
+    return out + (_dist_args(world, backend) if world > 1 else [])
+
+
+def _tp_step1(trainer, batch: int) -> dict:
+    """One plain-SGD step (lr 0.01) of ``trainer``'s model built over its
+    mesh (this rank's rows of a seeded global batch, on the card), from
+    the seed's init, against the replicated model's step in this process
+    on the whole batch from the same init: the loss gap and the state
+    gaps (``_tree_gaps``: the CPU pins). SGD: AdamW's first step is lr *
+    sign(g) wherever |g| >> eps, so where a gradient is 0 in exact
+    arithmetic (the ViT's key slice of qkv's bias) rounding picks the
+    sign (tests/test_torch_tp.py:_adam_noise). Both models are new: the
+    trainer's own stays on the host until its fit initialises it."""
+    from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from dml_cnn_cifar10_tpu_torch.config import OptimConfig
+    from dml_cnn_cifar10_tpu_torch.models.registry import get_model
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+
+    cfg, dev, mesh = trainer.cfg, trainer.device, trainer.mesh
+    sgd = OptimConfig(learning_rate=0.01)
+    gen = torch.Generator().manual_seed(34)
+    d = cfg.data
+    images = torch.rand((batch, d.crop_height, d.crop_width,
+                         d.num_channels), generator=gen)
+    labels = torch.randint(0, 10, (batch,), generator=gen)
+    b = batch // mesh.data
+    rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+    trees, losses = [], []
+    for over in (mesh, None):
+        model = get_model(cfg.model.name)(cfg.model, cfg.data, mesh=over)
+        state = step_lib.init_train_state(
+            model, sgd, dev, torch.Generator().manual_seed(cfg.seed))
+        ims, lbs = (images, labels) if over is None else (images[rows],
+                                                          labels[rows])
+        _, m = step_lib.make_train_step(model, sgd, over)(
+            state, ims.to(dev), lbs.to(dev))
+        losses.append(float(m["loss"]))
+        trees.append(ckpt_lib.state_to_tree(state))
+    return {"loss": losses[0], "rep_loss": losses[1],
+            "loss_excess": abs(losses[0] - losses[1]) - TP_LOSS_ATOL
+            - TP_LOSS_RTOL * abs(losses[1]), **_tree_gaps(*trees)}
+
+
+def _split_digests(state) -> dict:
+    """Digests of this rank's replicated leaves and of its model slices."""
+    split = state.split
+    whole = {n: t for n, t in state.params.items()
+             if split is None or not split.is_split(n)}
+    sliced = {n: t for n, t in state.params.items() if n not in whole}
+    return {"replicated": _params_digest(whole),
+            "sliced": _params_digest(sliced) if sliced else None}
+
+
+def _rank_tp(rank: int, job: dict) -> dict:
+    """Phase 34's rank job: ``Trainer.fit`` for each run of
+    ``job["runs"]`` (``name``, ``argv``, ``world``: the run's ranks are
+    the first ``world``; ``compare``: earlier runs' names; ``step1``: a
+    global batch, for ``_tp_step1`` on the trainer before its fit) this
+    rank takes part in: its launches, the trainer's images/s, bytes of
+    parameters, the digests of its replicated leaves and model slices
+    (``_split_digests``), the gaps of its whole state (gathered while the
+    process group lives) to each compared run's, and the run's wall
+    seconds, split into the trainer's set-up, the step-1 check and the
+    fit."""
+    import torch.distributed as dist
+
+    from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+    from dml_cnn_cifar10_tpu_torch.train.loop import Trainer
+
+    if job.get("warm"):
+        # A rank process's first fit carries about 10 s of one-time
+        # set-up (the runs' split_s): every rank pays it here, all at
+        # once, not one wave of fresh ranks after another on the path.
+        trainer = Trainer(config_from_args(build_parser().parse_args(
+            _tp_args(f"warm{rank}", 2, 1, 1))))
+        try:
+            trainer.fit()
+        finally:
+            trainer.close()
+    trees, runs = {}, {}
+    for run in job["runs"]:
+        if rank >= run.get("world", 1 << 30):
+            continue
+        t0 = time.perf_counter()
+        cfg = config_from_args(build_parser().parse_args(
+            run["argv"] + ["--task_index", str(rank)]))
+        trainer = Trainer(cfg, task_index=rank)
+        marks = [time.perf_counter()]
+        step1 = None
+        try:
+            if "step1" in run:
+                step1 = _tp_step1(trainer, run["step1"])
+                print(f"[tp rank {rank}] step 1 against replicated: "
+                      f"{step1}", flush=True)
+            marks.append(time.perf_counter())
+            fused.reset_launches()
+            fa.reset_launches()
+            result = trainer.fit()
+            marks.append(time.perf_counter())
+            trees[run["name"]] = ckpt_lib.state_to_tree(result.state)
+            st = result.state
+            res = {"final_step": result.final_step,
+                   "images_per_sec": result.images_per_sec,
+                   "launches": {**fa.LAUNCHES, **fused.LAUNCHES},
+                   "param_bytes": sum(t.numel() * t.element_size()
+                                      for t in st.params.values()),
+                   "step1": step1, "wall_s": time.perf_counter() - t0,
+                   # The trainer's set-up (its rendezvous included), the
+                   # step-1 check, the fit.
+                   "split_s": [b - a for a, b in zip([t0] + marks[:-1],
+                                                     marks)],
+                   **_split_digests(st)}
+        finally:
+            trainer.close()
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        for other in run.get("compare", ()):
+            if other in trees:
+                res.setdefault("gaps", {})[other] = _tree_gaps(
+                    trees[run["name"]], trees[other])
+        runs[run["name"]] = res
+        print(f"[tp rank {rank}] {run['name']}: {res}", flush=True)
+    return {"runs": runs}
+
+
+def _tp_loss_gaps(tp_name, rep_name) -> list:
+    """``(step, relative gap)`` of every logged loss of two runs."""
+    a = train_log(os.path.join(WORK, f"tp_{tp_name}.jsonl"))
+    b = train_log(os.path.join(WORK, f"tp_{rep_name}.jsonl"))
+    check(len(a) == len(b) and all(x[0] == y[0] for x, y in zip(a, b)),
+          f"tp {tp_name} vs {rep_name}: logged steps {[x[0] for x in a]} "
+          f"vs {[y[0] for y in b]}")
+    check(all(math.isfinite(x[1]) for x in a), f"tp {tp_name}: losses {a}")
+    return [(x[0], abs(x[1] - y[1]) / abs(y[1])) for x, y in zip(a, b)]
+
+
+def _check_tp_job(label, ranks, world, model_axis, tp_runs) -> None:
+    """The step-1 pins, and for each run of ``tp_runs`` the replicated
+    leaves bit-equal over every rank (no ZeRO layout: every rank holds
+    them) and the model slices different between model ranks."""
+    for r, x in enumerate(ranks):
+        s1 = x["runs"][tp_runs[0]]["step1"]
+        check(s1["loss_excess"] <= 0 and s1["fsdp_pin_excess"] <= 0,
+              f"{label} rank {r}: step 1 against replicated {s1}, outside "
+              f"the CPU pins")
+    for name in tp_runs:
+        digests = [x["runs"][name] for x in ranks]
+        check(len({d["replicated"] for d in digests}) == 1,
+              f"{label} {name}: replicated leaves differ between ranks")
+        check(len({d["sliced"] for d in digests}) == model_axis,
+              f"{label} {name}: {len({d['sliced'] for d in digests})} "
+              f"distinct model slices over {world} ranks, want "
+              f"{model_axis}")
+
+
+def tp_phase(card, dev, bytes_per_s, ops_per_s) -> dict:
+    """Phase 34 on this card: K1/K2 on a model rank's leaves
+    (``tp_kernel_rows``) and on phase 33's shard buffers (their device
+    times), K3/K4/K6/K7 at a model rank's [b, 257, 1, 64] f32 against
+    their plain versions and timed; then over gloo on this card, cuDNN
+    deterministic, in one spawn of 4 rank processes (each group on its
+    first ranks, after a 2-step warm-up fit on each): the CNN at model 2
+    (2 ranks) and at data 2 x model 2 (4 ranks), batch 128,
+    ``TP_STEPS`` eager steps each beside the
+    replicated run (one process; 2 data ranks), and ViT-Ti at model 3 (3
+    ranks), batch 32, f32, ``TP_VIT_STEPS`` steps beside one process: one
+    step within the CPU pins, every logged loss of the first
+    ``TP_EARLY_STEPS`` within ``DP_CHUNK_LOSS_RTOL`` (the last printed),
+    replicated leaves bit-equal over the ranks, K1 (CNN) or K4/K6/K7
+    (ViT) at the counts of the run; the 4-rank CNN saved ``.sharded`` at
+    ``TP_HALF`` and resumed to ``TP_STEPS`` bit-equal to the straight
+    run."""
+    t0 = time.perf_counter()
+    res = {"card": card,
+           "kernels": tp_kernel_rows(dev, card, bytes_per_s, ops_per_s),
+           "shard_kernels": shard_kernel_rows(dev, card, bytes_per_s,
+                                              ops_per_s)}
+    res["flash_worst"] = {f"{k}/{d}": v for (k, d), v in flash_parity(
+        dev, TP_FLASH_CASES).items() if d == "float32"}
+    res["flash_timing"] = {f"{k}/{l}": v for (k, l), v in flash_timing(
+        dev, card, bytes_per_s, ops_per_s, TP_FLASH_TIMING).items()}
+    res["kernels_s"] = time.perf_counter() - t0
+    groups = {
+        "cnn_m2": (2, 2, False, [
+            {"name": "cnn_m2_rep", "world": 1,
+             "argv": _tp_args("cnn_m2_rep", TP_STEPS, 1, 1)},
+            {"name": "cnn_m2", "world": 2, "compare": ["cnn_m2_rep"],
+             "step1": 128, "argv": _tp_args("cnn_m2", TP_STEPS, 2, 2)}]),
+        "cnn_d2m2": (4, 2, False, [
+            {"name": "cnn_d2m2_rep", "world": 2,
+             "argv": _tp_args("cnn_d2m2_rep", TP_STEPS, 2, 1)},
+            {"name": "cnn_d2m2", "world": 4, "compare": ["cnn_d2m2_rep"],
+             "step1": 128, "argv": _tp_args("cnn_d2m2", TP_STEPS, 4, 2)},
+            {"name": "cnn_d2m2_half", "world": 4, "argv": _tp_args(
+                "ckpt", TP_HALF, 4, 2, "--ckpt_format", "sharded",
+                ckpt_every=TP_HALF)},
+            {"name": "cnn_d2m2_resume", "world": 4, "compare": ["cnn_d2m2"],
+             "argv": _tp_args("ckpt", TP_STEPS, 4, 2, "--ckpt_format",
+                              "sharded", ckpt_every=TP_HALF)}]),
+        "vit_m3": (3, 3, True, [
+            {"name": "vit_m3_rep", "world": 1, "argv": _tp_args(
+                "vit_m3_rep", TP_VIT_STEPS, 1, 1, vit=True, batch=32)},
+            {"name": "vit_m3", "world": 3, "compare": ["vit_m3_rep"],
+             "step1": 32, "argv": _tp_args("vit_m3", TP_VIT_STEPS, 3, 3,
+                                           vit=True, batch=32)}]),
+    }
+    # One spawn of 4 rank processes runs every group, each on its first
+    # `world` ranks (the others go on to the next run), after a warm-up
+    # fit on every rank; the datasets are made here, once.
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.data import download
+    for vit in (False, True):
+        download.ensure_dataset(config_from_args(build_parser().parse_args(
+            _tp_args("data", 1, 1, 1, vit=vit))).data)
+    t1 = time.perf_counter()
+    ranks = spawn_ranks("tp_gloo", {
+        "kind": "tp", "deterministic": True, "warm": True,
+        "runs": [run for *_, runs in groups.values() for run in runs]},
+        world=4, timeout_s=600)
+    res["ranks_s"] = time.perf_counter() - t1
+    for label, (world, m, vit, runs) in groups.items():
+        batch = 32 if vit else 128
+        tp_runs = [r["name"] for r in runs
+                   if not r["name"].endswith("_rep")]
+        _check_tp_job(label, ranks[:world], world, m, tp_runs)
+        name = tp_runs[0]
+        gaps = _tp_loss_gaps(name, name + "_rep")
+        early = [g for step, g in gaps if step <= TP_EARLY_STEPS]
+        check(len(early) == min(TP_EARLY_STEPS, len(gaps))
+              and max(early) <= DP_CHUNK_LOSS_RTOL,
+              f"{label}: logged losses against replicated {gaps}")
+        steps = TP_VIT_STEPS if vit else TP_STEPS
+        for r, x in enumerate(ranks[:world]):
+            for run in runs:
+                if r >= run["world"]:
+                    continue
+                got = x["runs"][run["name"]]
+                n = got["final_step"] - (
+                    TP_HALF if run["name"].endswith("_resume") else 0)
+                la = got["launches"]
+                if vit:
+                    ok = all(la[kn] == n * 12 for kn in (
+                        "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")) \
+                        and la["flash_fwd_stats"] == 0 \
+                        and la["sgd_update_plain"] == 0
+                else:
+                    ok = la["sgd_update_plain"] == n and not any(
+                        la[kn] for kn in la if kn != "sgd_update_plain")
+                check(ok, f"{label} rank {r} {run['name']}: launched {la}")
+        if label == "cnn_d2m2":
+            for r, x in enumerate(ranks):
+                gap = x["runs"]["cnn_d2m2_resume"]["gaps"]["cnn_d2m2"]
+                check(gap["gap"] == 0.0, f"{label} rank {r}: sharded save "
+                      f"at {TP_HALF} + resume to {TP_STEPS} is {gap} from "
+                      f"the straight run, want bit-equal")
+        x0 = {run["name"]: ranks[0]["runs"][run["name"]] for run in runs}
+        res[label] = {
+            "world": world, "model_axis": m,
+            "step1": [x["runs"][name]["step1"] for x in ranks[:world]],
+            "wall_s": {n: v["wall_s"] for n, v in x0.items()},
+            "split_s": {n: [[round(t, 2) for t in x["runs"][n]["split_s"]]
+                            for x in ranks[:world] if n in x["runs"]]
+                        for n in x0},
+            "loss_gaps": gaps, "last_gap": gaps[-1],
+            "ms_per_step": {n: batch / v["images_per_sec"] * 1e3
+                            if v["images_per_sec"] else None
+                            for n, v in x0.items()},
+            "state_gap": x0[name]["gaps"][name + "_rep"],
+            "param_bytes": {n: v["param_bytes"] for n, v in x0.items()},
+            "launches": x0[name]["launches"]}
+        print(f"[tp {label}] {world} ranks over gloo on one card, "
+              f"model_axis {m}, batch {batch}, {steps} steps: step 1 "
+              f"within the CPU pins on every rank (state gap "
+              f"{max(s1['gap'] for s1 in res[label]['step1']):.3g}); "
+              f"logged losses of the first {TP_EARLY_STEPS} steps within "
+              f"{max(early):.3g} of replicated, at step {gaps[-1][0]} "
+              f"{gaps[-1][1]:.3g} (state {x0[name]['gaps']}); replicated "
+              f"leaves bit-equal over the ranks; ms/step "
+              f"{res[label]['ms_per_step']}; rank 0 param bytes "
+              f"{res[label]['param_bytes']}; wall s {res[label]['wall_s']} "
+              f"(set-up, step 1, fit, each rank: {res[label]['split_s']}) "
+              f"on {card}", flush=True)
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"[tp] phase 34 took {res['wall_s']:.1f} s on {card}",
+          flush=True)
+    with open(os.path.join(OUT, "slice14.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
+
+
+def tp_nccl_phase(card, count) -> dict:
+    """Phase 34 under ``--dist``, a card a rank over NCCL: the CNN at data
+    2 x model 2 on 4 ranks, batch 128, ``TP_NCCL_STEPS`` eager steps
+    beside replicated DP on the same 4 ranks and on 2 of them (the same
+    data ranks: every logged loss of the first ``TP_EARLY_STEPS`` within
+    ``DP_CHUNK_LOSS_RTOL`` of it), then chunked at ``CHUNK_K``
+    (``_rank_chunk``: each chunk one CUDA graph with its
+    model-group all-reduces captured, one graphed chunk bit-equal to its
+    eager body on every rank, replays timed and traced: device busy share
+    and NCCL ms); then ViT-Ti at model 3 on 3 ranks, batch 128, f32,
+    ``TP_NCCL_VIT_STEPS`` steps eager and chunked at ``TP_VIT_K`` the
+    same way, beside one process on one card (128 does not split over 3
+    data ranks). Needs 4 cards for the CNN, 3 for the ViT."""
+    t0 = time.perf_counter()
+    res = {"card": card}
+    if count >= 4:
+        runs = [{"name": "dp4", "world": 4, "argv": _tp_args(
+                    "nccl_dp4", TP_NCCL_STEPS, 4, 1, backend="nccl",
+                    every=10)},
+                {"name": "d2m2", "world": 4, "argv": _tp_args(
+                    "nccl_d2m2", TP_NCCL_STEPS, 4, 2, backend="nccl",
+                    every=10)},
+                {"name": "dp2", "world": 2, "argv": _tp_args(
+                    "nccl_dp2", TP_NCCL_STEPS, 2, 1, backend="nccl",
+                    every=10)}]
+        ranks = spawn_ranks("tp_nccl_cnn", {"kind": "tp",
+                                            "deterministic": True,
+                                            "runs": runs},
+                            world=4, timeout_s=300)
+        for r, x in enumerate(ranks):
+            for name, run in x["runs"].items():
+                check(run["launches"]["sgd_update_plain"] == TP_NCCL_STEPS,
+                      f"tp nccl {name} rank {r}: launched {run['launches']}")
+        check(len({x["runs"]["d2m2"]["replicated"] for x in ranks}) == 1,
+              "tp nccl d2m2: replicated leaves differ between ranks")
+        # Every logged loss of the first TP_EARLY_STEPS within
+        # DP_CHUNK_LOSS_RTOL of DP at the same 2 data ranks, which read
+        # the same records (dp4 shards them 4 ways: other batches), as
+        # over gloo.
+        gaps = _tp_loss_gaps("nccl_d2m2", "nccl_dp2")
+        early = [g for step, g in gaps if step <= TP_EARLY_STEPS]
+        check(early and max(early) <= DP_CHUNK_LOSS_RTOL,
+              f"tp nccl d2m2: logged losses against dp2 {gaps}")
+        label = "tp_nccl_cnn_chunk"
+        cr = spawn_ranks(label, {"kind": "chunk", "reps": 20, "argv":
+                                 _tp_args("nccl_d2m2_chunk", TP_NCCL_STEPS,
+                                          4, 2, backend="nccl", k=CHUNK_K)},
+                         world=4, timeout_s=300)
+        want = {"sgd_update_plain": TP_NCCL_STEPS,
+                "sgd_update_momentum": 0,
+                **dict.fromkeys(("flash_fwd", "flash_fwd_lse",
+                                 "flash_fwd_stats", "flash_bwd_dq",
+                                 "flash_bwd_dkv"), 0)}
+        _check_chunk_ranks(label, cr, want, TP_NCCL_STEPS // CHUNK_K,
+                           {"sgd_update_plain": CHUNK_K})
+        for r, x in enumerate(cr):
+            c = x["graph_vs_eager"]
+            check(c["loss_gap"] == 0.0 and c["param_gap"] == 0.0,
+                  f"{label} rank {r}: graph vs eager {c}, want bit-equal")
+        _dist_log_says(label, 4, "one CUDA graph replay each")
+        log = train_log(os.path.join(WORK, "tp_nccl_d2m2_chunk.jsonl"))
+        res["cnn"] = {
+            "eager_ms_per_step": {n: 128 / v["images_per_sec"] * 1e3
+                                  for n, v in ranks[0]["runs"].items()},
+            "loss_gaps": gaps,
+            "chunk_loop_ms_per_step": 128 / log[-1][2] * 1e3,
+            "replay_ms_per_step": cr[0]["replay_ms_per_step"],
+            "busy_share": cr[0].get("busy_share"),
+            "nccl_ms_per_step": cr[0].get("comm_ms"),
+            "timeline": {k: cr[0].get(k) for k in cr[0]
+                         if k.endswith("_ms")},
+            "graph_vs_eager": [x["graph_vs_eager"] for x in cr]}
+        c = res["cnn"]
+        print(f"[tp nccl cnn] data 2 x model 2 on 4 NCCL ranks, batch 128, "
+              f"{TP_NCCL_STEPS} steps: eager ms/step "
+              f"{ {n: round(v, 4)
+                   for n, v in c['eager_ms_per_step'].items()} }"
+              f" (dp4 = replicated DP on the same 4 cards, 32 images a "
+              f"rank; dp2 on 2 of them, the same data ranks as d2m2); "
+              f"logged losses against dp2 within "
+              f"{max(early):.3g} to step {TP_EARLY_STEPS}, at step "
+              f"{gaps[-1][0]} {gaps[-1][1]:.3g}; chunked (K = {CHUNK_K}, "
+              f"one graph a chunk) loop "
+              f"{c['chunk_loop_ms_per_step']:.4f}, replay "
+              f"{c['replay_ms_per_step']:.4f} ms/step, device busy "
+              f"{c['busy_share']}, timeline {c['timeline']}; graphs "
+              f"bit-equal to eager on every rank; on {card}", flush=True)
+    if count >= 3:
+        args = dict(vit=True, backend="nccl", every=5)
+        _, trainer, one = run_trainer(_tp_args(
+            "nccl_vit_one", TP_NCCL_VIT_STEPS, 1, 1, vit=True, every=5))
+        trainer.close()
+        ranks = spawn_ranks("tp_nccl_vit", {
+            "kind": "tp", "deterministic": True, "runs": [
+                {"name": "m3", "world": 3, "argv": _tp_args(
+                    "nccl_vit_m3", TP_NCCL_VIT_STEPS, 3, 3, **args)}]},
+            world=3, timeout_s=300)
+        for r, x in enumerate(ranks):
+            la = x["runs"]["m3"]["launches"]
+            check(all(la[kn] == TP_NCCL_VIT_STEPS * 12 for kn in (
+                "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")),
+                f"tp nccl vit rank {r}: launched {la}")
+        gaps = _tp_loss_gaps("nccl_vit_m3", "nccl_vit_one")
+        check(max(g for step, g in gaps if step <= TP_EARLY_STEPS)
+              <= DP_CHUNK_LOSS_RTOL,
+              f"tp nccl vit: logged losses against one card {gaps}")
+        label = "tp_nccl_vit_chunk"
+        cr = spawn_ranks(label, {"kind": "chunk", "reps": 4, "argv":
+                                 _tp_args("nccl_vit_m3_chunk",
+                                          TP_NCCL_VIT_STEPS, 3, 3,
+                                          k=TP_VIT_K, **args)},
+                         world=3, timeout_s=420)
+        for r, x in enumerate(cr):
+            c = x["graph_vs_eager"]
+            check(c["launches_graph"] == c["launches_eager"]
+                  and c["loss_gap"] == 0.0 and c["param_gap"] == 0.0,
+                  f"{label} rank {r}: graph vs eager {c}, want bit-equal")
+            check(x["replays"] == TP_NCCL_VIT_STEPS // TP_VIT_K
+                  and x["misses"] == 0 and x["launches"]["flash_bwd_dq"]
+                  == TP_NCCL_VIT_STEPS * 12,
+                  f"{label} rank {r}: {x['replays']} replays, "
+                  f"{x['misses']} misses, launched {x['launches']}")
+        check(len({x["digest"] for x in cr}) == 1,
+              f"{label}: ranks ended with different parameters")
+        _dist_log_says(label, 3, "one CUDA graph replay each")
+        log = train_log(os.path.join(WORK, "tp_nccl_vit_m3_chunk.jsonl"))
+        res["vit"] = {
+            "eager_ms_per_step": {
+                "one card": 128 / one.images_per_sec * 1e3,
+                "m3": 128 / ranks[0]["runs"]["m3"]["images_per_sec"] * 1e3},
+            "loss_gaps": gaps,
+            "chunk_loop_ms_per_step": 128 / log[-1][2] * 1e3,
+            "replay_ms_per_step": cr[0]["replay_ms_per_step"],
+            "busy_share": cr[0].get("busy_share"),
+            "timeline": {k: cr[0].get(k) for k in cr[0]
+                         if k.endswith("_ms")},
+            "kernels": cr[0].get("kernels"),
+            "graph_vs_eager": [x["graph_vs_eager"] for x in cr]}
+        v = res["vit"]
+        print(f"[tp nccl vit] ViT-Ti at model 3 on 3 NCCL ranks, batch 128 "
+              f"f32, {TP_NCCL_VIT_STEPS} steps: eager ms/step "
+              f"{ {n: round(x, 4)
+                   for n, x in v['eager_ms_per_step'].items()} }"
+              f"; largest logged loss gap to one card "
+              f"{max(g for _, g in gaps):.3g}; chunked (K = {TP_VIT_K}) loop "
+              f"{v['chunk_loop_ms_per_step']:.4f}, replay "
+              f"{v['replay_ms_per_step']:.4f} ms/step, device busy "
+              f"{v['busy_share']}, timeline {v['timeline']}; graphs "
+              f"bit-equal to eager on every rank; on {card}", flush=True)
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"[tp nccl] phase 34 (NCCL) took {res['wall_s']:.1f} s on {card}",
+          flush=True)
+    with open(os.path.join(OUT, "slice14_nccl.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
+
+
+def tp_kernel_entries(tp) -> list:
+    """The ``kernels`` line's rows of phase 34: K1 on a model rank's
+    leaves (launches: rank 0 of the 2-rank CNN run), and K3/K4/K6/K7 at
+    [32, 257, 1, 64] f32 (launches: rank 0 of the 3-rank ViT-Ti run; the
+    [128, 257, 1, 64] timing beside)."""
+    r = tp["kernels"]["sgd_update_plain"]
+    out = [{
+        "name": "sgd_update_plain", "kernel": "K1", "path": "tp",
+        "route": "cuda",
+        "source": "dml_cnn_cifar10_tpu_torch/csrc/sgd_update.cu",
+        "cuda_kernel": "sgd_multi_kernel<false>",
+        "replaces": "dml_cnn_cifar10_tpu/ops/optimizer.py:83",
+        "launches": tp["cnn_m2"]["launches"]["sgd_update_plain"],
+        "max_abs_err": r["max_abs_err"],
+        **{k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms", "library_device_ms")},
+        "library": "torch.optim.SGD(fused=True).step",
+        "work": f"one update of model rank 0's {r['leaves']} leaves at "
+                f"model_axis 2 ({r['elements']} f32 elements: full1/full2 "
+                f"at half width); launches: rank 0 of phase 34's 2-rank "
+                f"CNN run, {TP_STEPS} steps"}]
+    for name, kid, line, needle in (
+            ("flash_fwd", "K3", 345, "flash_out_kernel"),
+            ("flash_fwd_lse", "K4", 360, "flash_lse_kernel"),
+            ("flash_bwd_dq", "K6", 688, "flash_dq_kernel"),
+            ("flash_bwd_dkv", "K7", 736, "flash_dkv_kernel")):
+        t = tp["flash_timing"][f"{name}/tp32"]
+        t128 = tp["flash_timing"][f"{name}/tp128"]
+        out.append({
+            "name": name, "kernel": kid, "path": "tp", "route": "cuda",
+            "source": "dml_cnn_cifar10_tpu_torch/csrc/flash_attention.cu",
+            "cuda_kernel": needle,
+            "replaces": f"dml_cnn_cifar10_tpu/ops/flash_attention.py:{line}",
+            "launches": tp["vit_m3"]["launches"][name],
+            "max_abs_err": tp["flash_worst"][f"{name}/float32"],
+            **{k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "bound_tc_ms", "flops",
+                                 "library_ms", "library_device_ms",
+                                 "library")},
+            "work": f"one launch at a model rank's shape {t['shape']} f32 "
+                    f"(ViT-Ti's 3 heads over 3 model ranks, views of its "
+                    f"fused qkv); launches: rank 0 of phase 34's 3-rank "
+                    f"ViT-Ti run, {TP_VIT_STEPS} steps (K3: its "
+                    f"forward-only batches); max_abs_err over b = 32 and "
+                    f"128",
+            "b128": {k: t128[k] for k in ("shape", "ms", "device_ms",
+                                          "plain_ms", "library_ms",
+                                          "library_device_ms", "bound_ms",
+                                          "bound_by", "bound_tc_ms")}})
+    return out
+
+
 
 
 def only_phase():
@@ -4554,10 +5203,15 @@ def dist_main() -> int:
     if only_phase() == "33":
         return phase_only_main(card, kind, count, lambda: shard_nccl_phase(
             card, dev, worlds, bytes_per_s, ops_per_s))
+    if only_phase() == "34":
+        return phase_only_main(card, kind, count,
+                               lambda: tp_nccl_phase(card, count))
     # Phase 31 first: a capture that fails ends the run early.
     chunked = chunk_nccl_phase(card, worlds)
     # Phase 33 over NCCL: zero1 and fsdp eager and graphed, and ViT-Ti.
     sharded = shard_nccl_phase(card, dev, worlds, bytes_per_s, ops_per_s)
+    # Phase 34 over NCCL: tensor parallelism eager and graphed.
+    tensor_parallel = tp_nccl_phase(card, count)
     # Then phase 32's two ranks over NCCL: the flag exchange runs between
     # graph replays.
     safety_nccl = rs_ranks(card, "nccl")
@@ -4568,6 +5222,7 @@ def dist_main() -> int:
     res["chunked"] = chunked
     res["run_safety_nccl"] = safety_nccl
     res["sharded"] = {k: v for k, v in sharded.items() if k != "kernels"}
+    res["tensor_parallel"] = tensor_parallel
     # Each chunked path beside its per-step run of this call.
     pairs = [(f"DP CNN, {w} ranks", chunked[f"dp{w}"]["loop_ms_per_step"],
               res[f"dp{w}"]["step_ms"]) for w in worlds]
@@ -4610,7 +5265,8 @@ def rank_main(argv) -> int:
     torch.backends.cudnn.deterministic = bool(job.get("deterministic"))
     run = {"cli": _rank_cli, "ring": _rank_ring, "ulysses": _rank_ulysses,
            "profile": _rank_profile, "chunk": _rank_chunk,
-           "fit": _rank_fit, "shard": _rank_shard}[job["kind"]]
+           "fit": _rank_fit, "shard": _rank_shard,
+           "tp": _rank_tp}[job["kind"]]
     res = run(rank, job)
     # A job that runs more than its main path keeps that path's counts.
     res.setdefault("launches", {**fa.LAUNCHES, **fused.LAUNCHES})
@@ -4660,6 +5316,9 @@ def main() -> int:
                                lambda: run_safety_phase(card))
     if only_phase() == "33":
         return phase_only_main(card, kind, count, lambda: shard_phase(
+            card, dev, bytes_per_s, ops_per_s))
+    if only_phase() == "34":
+        return phase_only_main(card, kind, count, lambda: tp_phase(
             card, dev, bytes_per_s, ops_per_s))
 
     # ---- 3. parity -------------------------------------------------------
@@ -5102,6 +5761,9 @@ def main() -> int:
     # ---- 33. sharded state: zero1 and fsdp on 2 ranks over gloo ---------
     shard = shard_phase(card, dev, bytes_per_s, ops_per_s)
 
+    # ---- 34. tensor parallelism over --model_axis, gloo on this card ----
+    tp = tp_phase(card, dev, bytes_per_s, ops_per_s)
+
     for path in (train_jsonl, resume_jsonl, mom_jsonl, vit_jsonl,
                  os.path.join(WORK, "vit_resume.jsonl"), long_jsonl):
         shutil.copy(path, OUT)
@@ -5182,6 +5844,7 @@ def main() -> int:
         shard["kernels"], {path: shard["ranks"][0][path]["launches"][
             "sgd_update_plain"] for path in ("zero1", "fsdp")},
         ("zero1", "fsdp"))
+    kernels += tp_kernel_entries(tp)
     t = stats_time
     kernels.append({
         "name": "flash_fwd_stats", "kernel": "K5", "route": "cuda",

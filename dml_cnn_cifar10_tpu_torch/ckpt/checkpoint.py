@@ -21,11 +21,14 @@ into any layout (``parallel/zero.py``: none, zero1, fsdp).
 
 In a multi-rank run the msgpack file holds the whole state: only the
 chief writes it, and every rank waits at a barrier until it is committed
-(until it is handed to the writer, under ``async_save``). Under a sharded
-layout the copy to host memory is a gather over the data ranks, which
-every rank enters (:func:`state_to_tree`). Every rank restores from the
-same files, and a checkpoint written under sequence or data parallelism
-restores into a one-process run.
+(until it is handed to the writer, under ``async_save``). Under a
+sharded layout the copy to host memory is a gather over the data ranks,
+and under tensor parallelism over the model ranks too (each sliced leaf
+all-gathered whole, so the bytes are a replicated run's at the same
+values), which every rank enters (:func:`state_to_tree`); a restore cuts
+each whole leaf back to the rank's slice and shard. Every rank restores
+from the same files, and a checkpoint written under sequence or data
+parallelism restores into a one-process run.
 
 :class:`CheckpointManager` (JAX ``ckpt/checkpoint.py:483-620``) saves on
 a step cadence and, with ``every_secs``, on a wall-clock one that the
@@ -56,7 +59,7 @@ import torch
 
 from dml_cnn_cifar10_tpu_torch import convert
 from dml_cnn_cifar10_tpu_torch.ckpt import sharded as sharded_lib
-from dml_cnn_cifar10_tpu_torch.parallel import zero
+from dml_cnn_cifar10_tpu_torch.parallel import tp, zero
 from dml_cnn_cifar10_tpu_torch.parallel.mesh import Mesh
 from dml_cnn_cifar10_tpu_torch.parallel.step import TrainState
 
@@ -112,20 +115,22 @@ def from_bytes(data: bytes) -> Dict[str, Any]:
 def state_to_tree(state: TrainState) -> Dict[str, Any]:
     """The JAX package's ``TrainState`` pytree of ``state`` (numpy, JAX
     layouts), field order params/opt/model_state, dict keys sorted. Under
-    a sharded layout every data rank must call it (it gathers)."""
+    a sharded layout or tensor parallelism every rank must call it (it
+    gathers)."""
+    def full(key, values):
+        return tp.whole(state, key, zero.whole(state, key, values))
+
     opt = {}
     for key in sorted(state.opt):
         value = state.opt[key]
         # np.array copies: on the CPU .numpy() would share the live
         # tensor's memory, which the next step updates in place.
         opt[key] = convert.params_to_jax(
-            zero.whole(state, key, value),
-            convert.OPT_LAYOUTS.get(key, "port")) \
+            full(key, value), convert.OPT_LAYOUTS.get(key, "port")) \
             if isinstance(value, Mapping) \
             else np.array(value.detach().to("cpu").numpy())
-    return {"params": convert.params_to_jax(
-        zero.whole(state, "params", state.params)), "opt": opt,
-        "model_state": {}}
+    return {"params": convert.params_to_jax(full("params", state.params)),
+            "opt": opt, "model_state": {}}
 
 
 def _same_keys(want: Mapping, have: Mapping, where: str) -> None:
@@ -148,6 +153,7 @@ def _checked(state: TrainState, target: Mapping[str, torch.Tensor],
         v = flat[name]
         shape = tuple(t.shape) if layout is None \
             else layout.leaves[name].shape
+        shape = tp.whole_shape(state, where, name, shape)
         if tuple(v.shape) != shape or v.dtype != t.dtype:
             raise ValueError(
                 f"{where}.{name}: checkpoint has {tuple(v.shape)} {v.dtype}, "
@@ -158,8 +164,9 @@ def _checked(state: TrainState, target: Mapping[str, torch.Tensor],
 @torch.no_grad()
 def load_tree_into(state: TrainState, tree: Mapping[str, Any]) -> TrainState:
     """Copy a checkpoint tree (whole leaves) into ``state``'s tensors, in
-    place: into this rank's shards where the state's layout keeps them.
-    Every key, shape and dtype is checked before any tensor is written."""
+    place: into this rank's model slices and shards where the state keeps
+    them. Every key, shape and dtype is checked before any tensor is
+    written."""
     _same_keys({"params": 0, "opt": 0, "model_state": 0}, tree, "state")
     _same_keys(state.opt, tree["opt"], "opt")
     copies = [("params", state.params,
@@ -174,6 +181,7 @@ def load_tree_into(state: TrainState, tree: Mapping[str, Any]) -> TrainState:
                          f"{step.shape} {step.dtype}")
     layout = state.layout
     for key, dst, src in copies:
+        src = tp.local(state, key, src)
         for name, t in dst.items():
             v = src[name]
             if layout is not None and key in layout.keys \
@@ -520,9 +528,9 @@ class CheckpointManager:
                     self.mesh.barrier()   # the chief has committed it
         else:
             # The host copy, here and now: the next dispatch updates the
-            # state's tensors in place. A sharded layout gathers: every
-            # rank takes part, the chief writes.
-            gather = state.layout is not None
+            # state's tensors in place. A sharded layout or a model split
+            # gathers: every rank takes part, the chief writes.
+            gather = state.layout is not None or state.split is not None
             tree = state_to_tree(state) if self.chief or gather else None
             if self.chief:
                 if self.async_save:

@@ -5,8 +5,13 @@ Port of ``dml_cnn_cifar10_tpu/ckpt/sharded.py``; its files, in
 
 - **Save**: every rank collects the leaves it owns
   (:func:`collect_local_shards`): its shards of what the state's layout
-  (``parallel/zero.py``) splits, and, on rank 0 alone, every leaf kept
-  whole (replicated). The payload is split
+  (``parallel/zero.py``) splits and its model slices of what tensor
+  parallelism splits (``parallel/tp.py``), each with its index range in
+  the whole leaf (both dims under tensor parallelism with fsdp). A piece
+  that several ranks hold is written by one of them, the one whose rank
+  is 0 on every axis the leaf is not split over (the JAX package's
+  ``replica_id == 0``): rank 0 alone writes a leaf kept whole on every
+  rank. The payload is split
   over up to ``shard_io_threads`` part files written concurrently
   (``shard_<rank>.msgpack``, or ``shard_<rank>_<j>.msgpack``), each an
   atomic write followed by its ``.sha256`` sidecar, then the rank's
@@ -19,7 +24,8 @@ Port of ``dml_cnn_cifar10_tpu/ckpt/sharded.py``; its files, in
   falls back), assembles every leaf whole on the host (a coverage mask
   catches holes and overlaps), and returns the state tree that
   ``checkpoint.load_tree_into`` re-shards onto the target's layout, which
-  may differ from the writer's (any world size, zero1, fsdp or none).
+  may differ from the writer's (any world size, zero1, fsdp or none, any
+  model_axis).
 
 Payloads are msgpack in flax's layout through the port's codec
 (``checkpoint.to_bytes``): ``{leaf path: [{"data": array, "index":
@@ -42,6 +48,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 
 from dml_cnn_cifar10_tpu_torch import convert
+from dml_cnn_cifar10_tpu_torch.parallel import tp
 
 MANIFEST = "MANIFEST.json"
 
@@ -111,12 +118,22 @@ def _split_leaf(state, entry: str, name: Optional[str]):
     return layout.leaves[name]
 
 
+def _model_slice(state, entry: str, name: Optional[str]):
+    """``(slice, leading axes)`` when ``entry``'s leaf ``name`` holds this
+    model rank's slice, else None."""
+    split = getattr(state, "split", None)
+    if split is None or name is None or not split.is_split(name):
+        return None
+    return split.slices[name], tp.lead_axes(entry)
+
+
 def _jax_meta(state, entry: str, name: Optional[str], t) -> Tuple[list, str]:
     """The JAX-layout global shape and dtype name of one leaf."""
     if name is None:
         return list(t.shape), str(t.dtype).replace("torch.", "")
     leaf = _split_leaf(state, entry, name)
     shape = leaf.shape if leaf is not None else tuple(t.shape)
+    shape = tp.whole_shape(state, entry, name, shape)
     kind = convert.OPT_LAYOUTS.get(entry, "port")
     if kind == "port":
         shape = convert.jax_shape(name, shape)
@@ -126,26 +143,37 @@ def _jax_meta(state, entry: str, name: Optional[str], t) -> Tuple[list, str]:
 
 
 def collect_local_shards(state, rank: int) -> Dict[str, list]:
-    """Device→host copy of what this rank owns: its shards of the split
-    leaves, and on rank 0 every leaf kept whole. Runs at the save point
-    (the next step updates the tensors in place); the writes may run on
-    another thread."""
+    """Device→host copy of what this rank writes: its data shards and
+    model slices of the split leaves, each piece by one of the ranks that
+    hold it (rank 0 on every axis it is not split over; rank 0 alone for
+    a leaf kept whole). Runs at the save point (the next step updates the
+    tensors in place); the writes may run on another thread."""
+    owner = state.split if getattr(state, "split", None) is not None \
+        else state.layout
+    mesh = None if owner is None else owner.mesh
     payload: Dict[str, list] = {}
     for path, entry, name, t in state_leaves(state):
         leaf = _split_leaf(state, entry, name)
+        part = _model_slice(state, entry, name)
+        if mesh is None:
+            writes = leaf is not None or rank == 0
+        else:
+            writes = ((leaf is not None or mesh.data_rank == 0)
+                      and (part is not None or mesh.model_rank == 0)
+                      and mesh.seq_rank == 0)
+        if not writes:
+            continue
+        shape, _ = _jax_meta(state, entry, name, t)
+        index = [[0, d] for d in shape]
         if leaf is not None:
-            shape, _ = _jax_meta(state, entry, name, t)
-            index = [[0, d] for d in shape]
             index[leaf.jax_dim] = [state.layout.rank * leaf.s,
                                    (state.layout.rank + 1) * leaf.s]
-            data = convert.to_jax_array(name, t)
-        elif rank == 0:
-            data = convert.to_jax_array(
-                name, t, convert.OPT_LAYOUTS.get(entry, "port")) \
-                if name is not None else np.array(t.detach().cpu().numpy())
-            index = [[0, d] for d in data.shape]
-        else:
-            continue
+        if part is not None:
+            sl, lead = part
+            index[sl.jax_dim + lead] = [sl.start, sl.start + sl.length]
+        data = convert.to_jax_array(
+            name, t, convert.OPT_LAYOUTS.get(entry, "port")) \
+            if name is not None else np.array(t.detach().cpu().numpy())
         payload[path] = [{"data": data, "index": index}]
     return payload
 

@@ -7,13 +7,15 @@ live on the device; there is no parameter server), ``--ps_hosts`` is
 accepted and ignored, and ``--worker_hosts h:p0,h:p1 --task_index i``
 starts rank ``i`` of a ``torch.distributed`` world with one process per
 worker and its rendezvous at the first one (``parallel/multihost.py``).
-The world is ``data x --seq_axis`` ranks: data parallelism for every
-model, and sequence parallelism for the ViT when ``--seq_axis`` > 1
-(``--sp_mode ring`` or ``ulysses``; ``--pool`` then defaults to
-``mean``). ``--dist_backend`` names the
-backend: ``nccl`` (the default on cuda) needs a card per rank; ``gloo``
-(the default on cpu) also lets several ranks share one card, through
-host memory.
+The world is ``data x --model_axis x --seq_axis`` ranks: data
+parallelism for every model, tensor parallelism of the Megatron-paired
+layers (the CNN's ``full1``/``full2``, the ViT's ``qkv``/``proj`` and
+``mlp1``/``mlp2``) when ``--model_axis`` > 1, and sequence parallelism
+for the ViT when ``--seq_axis`` > 1 (``--sp_mode ring`` or ``ulysses``;
+``--pool`` then defaults to ``mean``; not with ``--model_axis`` > 1).
+``--dist_backend`` names the backend: ``nccl`` (the default on cuda)
+needs a card per rank; ``gloo`` (the default on cpu) also lets several
+ranks share one card, through host memory.
 
 Models: ``--model cnn`` (the reference, default) and ``--model vit_tiny``
 (ViT-Ti, attention through the hand-written flash kernels from 128 tokens
@@ -209,9 +211,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ViT head pooling; defaults to cls, or mean when "
                         "seq_axis > 1 (sequence sharding excludes a lone "
                         "cls token)")
+    p.add_argument("--model_axis", type=int, default=1,
+                   help="tensor-parallel mesh degree")
     p.add_argument("--seq_axis", type=int, default=1,
                    help="sequence-parallel degree: the world is "
-                        "data x seq_axis ranks")
+                        "data x model_axis x seq_axis ranks")
     p.add_argument("--sp_mode", type=str, default="ring",
                    choices=["ring", "ulysses"],
                    help="sequence-parallel attention strategy: ring (K/V "
@@ -433,6 +437,7 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
     elif args.seq_axis > 1:
         cfg.model.pool = "mean"
     cfg.model.sp_mode = args.sp_mode
+    cfg.parallel.model_axis = args.model_axis
     cfg.parallel.seq_axis = args.seq_axis
     cfg.parallel.dist_backend = args.dist_backend
     if args.ckpt_format == "orbax":
@@ -501,6 +506,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
 
     cfg = config_from_args(args)
+    if args.mode in ("export", "serve") and args.model_axis > 1:
+        raise NotImplementedError(
+            f"--mode {args.mode} serves one process's whole model from a "
+            f"checkpoint (which holds every leaf whole): run it without "
+            f"--model_axis; serving a tensor-parallel model is ROADMAP.md "
+            f"Queue 1, the tensor-parallel items")
     if args.mode == "export":
         return _export(cfg, args.export_path)
     if args.mode == "serve":

@@ -190,12 +190,15 @@ class ParallelConfig:
     (``cifar10cnn.py:184-196``), as the JAX package's ``ParallelConfig``
     does, trimmed to what the port's ``torch.distributed`` layer reads.
 
-    The world is ``data x seq`` ranks, one process each (one GPU each on
-    NCCL): the batch is split over ``data``, the ViT's tokens over
-    ``seq`` (ring attention), and the gradients are summed over the
-    world — the all-reduce that stands in for the JAX package's ``psum``.
+    The world is ``data x model x seq`` ranks, one process each (one GPU
+    each on NCCL): the batch is split over ``data``, the Megatron-paired
+    layers' weights over ``model`` (tensor parallelism), the ViT's tokens
+    over ``seq`` (ring attention), and the gradients are summed over the
+    ranks that hold the same weights — the all-reduce that stands in for
+    the JAX package's ``psum``.
     """
 
+    model_axis: int = 1                   # tensor-parallel degree
     seq_axis: int = 1                     # sequence/context-parallel degree
     # Bootstrap (replaces ClusterSpec/Server, cifar10cnn.py:188-189): the
     # first --worker_hosts entry is the rendezvous address, as task 0 is

@@ -13,6 +13,10 @@ holds in another layout; every other leaf passes through unchanged.
 the key order of ``module.named_parameters()`` is irrelevant: callers
 look up by name) and ``params_to_jax(state) -> tree`` (numpy). Both are
 exact: a round trip reproduces every bit.
+
+Under tensor parallelism a rank holds a slice of some leaves
+(``parallel/tp.py``): :func:`model_local` cuts whole tensors to a rank's
+slices (the gather back is ``ModelSplit.whole``, a collective).
 """
 
 from __future__ import annotations
@@ -119,3 +123,19 @@ def params_to_jax(state: Mapping[str, torch.Tensor],
             node = node.setdefault(p, {})
         node[leaf] = to_jax_array(name, state[name], layout)
     return tree
+
+
+def model_local(values: Mapping[str, Any], slices: Mapping[str, Any],
+                lead: int = 0) -> Dict[str, Any]:
+    """``values`` (whole tensors or arrays, port layout, ``lead`` leading
+    axes) with every leaf of ``slices`` (name -> ``shardings.ModelSlice``)
+    cut to its slice: views, or numpy views."""
+    out = dict(values)
+    for name, sl in slices.items():
+        if name in values:
+            v = values[name]
+            idx = [slice(None)] * (sl.dim + lead) + [
+                slice(sl.start, sl.start + sl.length)]
+            out[name] = v[tuple(idx)]
+    return out
+

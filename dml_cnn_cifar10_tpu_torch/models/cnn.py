@@ -18,6 +18,15 @@ kernels ``[out, in]``. ``convert.py`` maps them to and from the JAX
 layouts. The input is NHWC like the JAX model's; activations run NCHW and
 are permuted back to NHWC before the flatten, because ``full1``'s rows
 are in the JAX model's NHWC flatten order (``cnn.py:74``).
+
+Tensor parallelism (a mesh with ``model`` > 1, ``parallel/tp.py``):
+``full1`` is column-parallel (each model rank holds ``384/M`` of its
+output features: a ``[384/M, 2304]`` kernel and its bias slice; its input
+passes ``copy_to_model``), ``full2`` row-parallel (a ``[192, 384/M]``
+kernel whose partial product is summed by ``reduce_from_model``, then the
+replicated bias is added once); the convs and ``full3`` stay replicated.
+The whole model is initialised from the generator and each rank keeps its
+slices.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ from torch import nn
 
 from dml_cnn_cifar10_tpu_torch.config import DataConfig, ModelConfig
 from dml_cnn_cifar10_tpu_torch.ops import layers as L
+from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+from dml_cnn_cifar10_tpu_torch.parallel import tp
 
 
 class _Layer(nn.Module):
@@ -53,17 +64,23 @@ class CNN(nn.Module):
         self.full1 = _Layer((384, h * w * 64), 384)
         self.full2 = _Layer((192, 384), 192)
         self.full3 = _Layer((cfg.num_classes, 192), cfg.num_classes)
+        # The model ranks' mesh and this rank's slices, or None.
+        self.tp_mesh = mesh if mesh is not None and mesh.model > 1 else None
+        self.split = None if self.tp_mesh is None else tp.megatron_split(
+            self, "cnn", self.tp_mesh)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None
                          ) -> None:
         """Truncated normal σ=init_stddev weights (``:97-98``), constant
-        bias_init biases (``:100-101``)."""
-        for layer in (self.conv1, self.conv2, self.full1, self.full2,
-                      self.full3):
-            L.truncated_normal_(layer.kernel, self.cfg.init_stddev,
-                                generator=generator)
-            layer.bias.fill_(self.cfg.bias_init)
+        bias_init biases (``:100-101``); under tensor parallelism the
+        whole leaves, of which this rank keeps its slices."""
+        targets = tp.init_targets(self, self.split)
+        for layer in ("conv1", "conv2", "full1", "full2", "full3"):
+            L.truncated_normal_(targets[f"{layer}.kernel"],
+                                self.cfg.init_stddev, generator=generator)
+            targets[f"{layer}.bias"].fill_(self.cfg.bias_init)
+        tp.keep_slices(self, self.split, targets)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """NHWC images → logits [B, num_classes] (float32)."""
@@ -76,8 +93,15 @@ class CNN(nn.Module):
         x = F.relu(L.conv2d_nchw(x, self.conv2.kernel, self.conv2.bias))
         x = L.max_pool_nchw(x)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
-        x = F.relu(F.linear(x, self.full1.kernel, self.full1.bias))
-        x = F.relu(F.linear(x, self.full2.kernel, self.full2.bias))
+        if self.tp_mesh is None:
+            x = F.relu(F.linear(x, self.full1.kernel, self.full1.bias))
+            x = F.relu(F.linear(x, self.full2.kernel, self.full2.bias))
+        else:
+            x = mesh_lib.copy_to_model(x, self.tp_mesh)
+            x = F.relu(F.linear(x, self.full1.kernel, self.full1.bias))
+            x = mesh_lib.reduce_from_model(F.linear(x, self.full2.kernel),
+                                           self.tp_mesh)
+            x = F.relu(x + self.full2.bias)
         logits = F.linear(x, self.full3.kernel, self.full3.bias)
         if self.cfg.logit_relu:  # faithful: reference ReLUs its logits (:145)
             logits = F.relu(logits)

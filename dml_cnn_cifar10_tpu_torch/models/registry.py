@@ -2,10 +2,11 @@
 
 A model class takes ``(model_cfg, data_cfg, mesh=None)`` and builds an
 ``nn.Module`` with uninitialized parameters (the ViT splits its tokens
-over the mesh's seq ranks); its ``reset_parameters(generator)``
-initializes them. The reference CNN and the dense ViT are ported. The
-JAX package's other models raise ``NotImplementedError`` naming the
-ROADMAP queue item that ports them.
+over the mesh's seq ranks; both models hold this rank's slices of their
+Megatron pairs when the mesh has model ranks, ``parallel/tp.py``); its
+``reset_parameters(generator)`` initializes them. The reference CNN and
+the dense ViT are ported. The JAX package's other models raise
+``NotImplementedError`` naming the ROADMAP queue item that ports them.
 """
 
 from __future__ import annotations

@@ -37,6 +37,16 @@ tokens-to-heads all-to-all around full-sequence attention,
 mean pool sums the token slices with a differentiable all-reduce. That
 needs ``pool="mean"`` (a cls token breaks even seq sharding) and a token
 count the seq ranks divide.
+
+Tensor parallelism (a mesh with ``model`` > 1, ``parallel/tp.py``): in
+every block ``qkv`` and ``mlp1`` are column-parallel (their inputs pass
+``copy_to_model``), ``proj`` and ``mlp2`` row-parallel (their partial
+products pass ``reduce_from_model``, then the replicated bias is added
+once). The qkv columns are heads-major, so a model rank's contiguous
+``1/M`` of them is ``vit_heads / M`` whole heads, which its attention
+runs on (``vit_heads % M`` must be 0), and ``proj`` takes their
+``dim / M`` outputs. Under ``remat`` the recompute replays the forward's
+all-reduces. Tensor parallelism with sequence parallelism is not ported.
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ from dml_cnn_cifar10_tpu_torch.ops import attention as attn
 from dml_cnn_cifar10_tpu_torch.ops import layers as L
 from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
 from dml_cnn_cifar10_tpu_torch.parallel import ring_attention as ring
+from dml_cnn_cifar10_tpu_torch.parallel import tp
 from dml_cnn_cifar10_tpu_torch.parallel import ulysses
 
 MLP_RATIO = 4
@@ -85,6 +96,13 @@ class ViT(nn.Module):
         # The ring runs when the mesh has seq ranks; a mesh without (data
         # parallelism alone) leaves the forward as it is.
         self.mesh = mesh if mesh is not None and mesh.seq > 1 else None
+        # The model ranks' mesh (tensor parallelism), or None.
+        self.tp_mesh = mesh if mesh is not None and mesh.model > 1 else None
+        if self.tp_mesh is not None and self.mesh is not None:
+            raise NotImplementedError(
+                f"tensor parallelism (model_axis={mesh.model}) with "
+                f"sequence parallelism (seq_axis={mesh.seq}) is not "
+                f"ported; see {tp.ROADMAP}")
         dim, depth, p = cfg.vit_dim, cfg.vit_depth, cfg.patch_size
         ph, pw = data.crop_height // p, data.crop_width // p
         if ph * p != data.crop_height or pw * p != data.crop_width:
@@ -97,6 +115,9 @@ class ViT(nn.Module):
         if dim % cfg.vit_heads:
             raise ValueError(f"vit_dim {dim} is not divisible by vit_heads "
                              f"{cfg.vit_heads}")
+        model = 1 if self.tp_mesh is None else self.tp_mesh.model
+        tp.check_heads(cfg.vit_heads, model)
+        self.local_heads = cfg.vit_heads // model
         self.seq = ph * pw + (1 if cfg.pool == "cls" else 0)
         if self.mesh is not None:
             if cfg.sp_mode not in SP_MODES:
@@ -131,17 +152,22 @@ class ViT(nn.Module):
                             bias=(cfg.num_classes,))
         if cfg.pool == "cls":
             self.cls = nn.Parameter(torch.zeros((1, 1, dim), dtype=dt))
+        self.split = None if self.tp_mesh is None else tp.megatron_split(
+            self, "vit_tiny", self.tp_mesh)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None
                          ) -> None:
         """He-normal patch/qkv/proj/mlp kernels (each block's slice on its
         own fan-in), ``0.02·N(0,1)`` pos, ``0.01·N(0,1)`` head kernel,
-        LayerNorm scales 1, zeros for cls and every bias."""
+        LayerNorm scales 1, zeros for cls and every bias; under tensor
+        parallelism the whole leaves, of which this rank keeps its
+        slices."""
+        targets = tp.init_targets(self, self.split)
         L.he_normal_(self.patch.kernel, generator)
         self.pos.normal_(0.0, 0.02, generator=generator)
         for mod, leaf in _BLOCK_LEAVES:
-            t = getattr(getattr(self.blocks, mod), leaf)
+            t = targets[f"blocks.{mod}.{leaf}"]
             if leaf == "kernel":
                 for block in t:
                     L.he_normal_(block, generator)
@@ -153,11 +179,14 @@ class ViT(nn.Module):
         self.ln_f.scale.fill_(1.0)
         if self.cfg.pool == "cls":
             self.cls.zero_()
+        tp.keep_slices(self, self.split, targets)
 
     def _block(self, x: torch.Tensor, p) -> torch.Tensor:
         cfg = self.cfg
         b, s, dim = x.shape
         h = F.layer_norm(x, (dim,), p["ln1.scale"], p["ln1.bias"], LN_EPS)
+        if self.tp_mesh is not None:
+            return self._block_tp(x, h, p)
         qkv = L.dense(h, p["qkv.kernel"], p["qkv.bias"])
         qkv = qkv.reshape(b, s, cfg.vit_heads, 3, dim // cfg.vit_heads)
         q, k, v = qkv.unbind(3)                       # heads-major
@@ -180,6 +209,28 @@ class ViT(nn.Module):
         h = F.gelu(L.dense(h, p["mlp1.kernel"], p["mlp1.bias"]),
                    approximate="tanh")
         return x + L.dense(h, p["mlp2.kernel"], p["mlp2.bias"])
+
+    def _block_tp(self, x: torch.Tensor, h: torch.Tensor, p) -> torch.Tensor:
+        """The block on this model rank's heads and MLP columns (``h`` is
+        ``ln1(x)``): the column-parallel layers see ``copy_to_model`` of
+        their input, the row-parallel ones' partial products are summed
+        over the model ranks before their bias."""
+        cfg, mesh = self.cfg, self.tp_mesh
+        b, s, dim = x.shape
+        hd = dim // cfg.vit_heads
+        qkv = L.dense(mesh_lib.copy_to_model(h, mesh), p["qkv.kernel"],
+                      p["qkv.bias"])
+        q, k, v = qkv.reshape(b, s, self.local_heads, 3, hd).unbind(3)
+        o = attn.dispatch_attention(q, k, v, causal=cfg.attn_causal,
+                                    window=cfg.attn_window)
+        o = L.dense(o.reshape(b, s, self.local_heads * hd), p["proj.kernel"],
+                    None)
+        x = x + (mesh_lib.reduce_from_model(o, mesh) + p["proj.bias"])
+        h = F.layer_norm(x, (dim,), p["ln2.scale"], p["ln2.bias"], LN_EPS)
+        h = F.gelu(L.dense(mesh_lib.copy_to_model(h, mesh), p["mlp1.kernel"],
+                           p["mlp1.bias"]), approximate="tanh")
+        h = L.dense(h, p["mlp2.kernel"], None)
+        return x + (mesh_lib.reduce_from_model(h, mesh) + p["mlp2.bias"])
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """NHWC images → logits [B, num_classes] (float32)."""

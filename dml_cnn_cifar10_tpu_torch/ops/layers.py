@@ -23,7 +23,7 @@ Parity notes (``cifar10cnn.py``):
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -101,10 +101,13 @@ def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2
     return y.permute(0, 2, 3, 1)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def dense(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor]) -> torch.Tensor:
     """``x @ w + b`` with ``w`` in the JAX package's ``[in, out]`` layout,
-    over any leading dims of ``x``."""
-    y = torch.addmm(b, x.reshape(-1, x.shape[-1]), w)
+    over any leading dims of ``x``; ``b`` None adds no bias (a
+    row-parallel layer's partial product)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    y = torch.mm(x2, w) if b is None else torch.addmm(b, x2, w)
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 

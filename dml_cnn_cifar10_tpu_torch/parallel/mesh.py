@@ -2,21 +2,31 @@
 
 Port of ``dml_cnn_cifar10_tpu/parallel/mesh.py`` onto ``torch.distributed``.
 The JAX mesh is ``(data, model, seq, pipe)`` devices in one SPMD program;
-the port's is ``data x seq`` processes, one per GPU, in the same rank
-order: ``reshape(data, model, seq, pipe)`` puts ``seq`` fastest, so
-``rank = data_rank * seq + seq_rank``.
+the port's is ``data x model x seq`` processes, one per GPU, in the same
+rank order: ``reshape(data, model, seq, pipe)`` puts ``seq`` fastest, so
+``rank = (data_rank * model + model_rank) * seq + seq_rank``.
 
 - ``data``: the batch is split over the data ranks, and the gradients are
-  summed over the world (the all-reduce that stands in for ``psum``).
+  summed over the ``replica`` group (the all-reduce that stands in for
+  ``psum``): every rank that holds the same model slice, which is the
+  world when ``model`` is 1.
+- ``model``: tensor parallelism. The Megatron-paired layers of a model
+  hold a 1/M slice of their weights on each model rank of a data row;
+  :func:`copy_to_model` and :func:`reduce_from_model` are the pair's two
+  collectives.
 - ``seq``: a ViT's tokens are split over the seq ranks of one data row,
   whose K/V shards walk the ring (``parallel/ring_attention.py``) or are
   re-partitioned from tokens to heads by an all-to-all
   (``parallel/ulysses.py``).
 
-Every rank holds one process group per data row (its ring, ``"seq"``) and
-per seq column (its metric average, ``"data"``) — ``new_group`` is called
+Every rank holds one process group per ``(data, model)`` row (its ring,
+``"seq"``), per ``(model, seq)`` column (its metric average and its ZeRO
+shards, ``"data"``), and, when ``model`` > 1, per ``(data, seq)`` pair
+(``"model"``) and per model rank (``"replica"``) — ``new_group`` is called
 by every rank for every group, in one order. The collectives here take
-one of those names or ``"world"``.
+one of those names or ``"world"``. A collective on a ``meta`` tensor (a
+step traced for its FLOPs, ``utils/profiling.py``) returns it unchanged
+and calls nothing.
 
 On the ``gloo`` backend a CUDA tensor goes through host memory explicitly
 (gloo's send/recv and all-to-all take no CUDA tensors); that is how
@@ -39,12 +49,12 @@ import torch.distributed as dist
 
 from dml_cnn_cifar10_tpu_torch.config import ParallelConfig
 
-GROUPS = ("world", "data", "seq")
+GROUPS = ("world", "data", "model", "seq", "replica")
 
 
 @dataclasses.dataclass
 class Mesh:
-    """This process's place in the ``data x seq`` world."""
+    """This process's place in the ``data x model x seq`` world."""
 
     world: int = 1
     rank: int = 0
@@ -53,26 +63,37 @@ class Mesh:
     data_rank: int = 0
     seq_rank: int = 0
     backend: Optional[str] = None
-    # "data" / "seq" -> this rank's process group (None in a 1-rank world)
+    # group name -> this rank's process group (None: the whole world)
     groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    model: int = 1
+    model_rank: int = 0
 
     @property
     def chief(self) -> bool:
         return self.rank == 0
 
+    @property
+    def replicas(self) -> int:
+        """Ranks holding the same model slice: the gradient sum's size."""
+        return self.world // self.model
+
     def size(self, over: str) -> int:
-        return {"world": self.world, "data": self.data, "seq": self.seq}[over]
+        return {"world": self.world, "data": self.data, "seq": self.seq,
+                "model": self.model, "replica": self.replicas}[over]
+
+    def _group(self, over: str):
+        if over not in GROUPS:
+            raise ValueError(f"unknown group {over!r}; have {GROUPS}")
+        return None if over == "world" else self.groups[over]
 
     def _staged(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.is_cuda
 
     def all_reduce_(self, t: torch.Tensor, over: str) -> torch.Tensor:
         """Sum ``t`` in place over the ``over`` group; returns ``t``."""
-        if over not in GROUPS:
-            raise ValueError(f"unknown group {over!r}; have {GROUPS}")
-        if self.size(over) == 1:
+        if self.size(over) == 1 or t.is_meta:
             return t
-        group = None if over == "world" else self.groups[over]
+        group = self._group(over)
         if self._staged(t):
             host = t.cpu()
             dist.all_reduce(host, group=group)
@@ -81,9 +102,24 @@ class Mesh:
             dist.all_reduce(t, group=group)
         return t
 
+    def broadcast_(self, t: torch.Tensor, over: str) -> torch.Tensor:
+        """Overwrite ``t`` in place with the ``over`` group's rank-0 copy;
+        returns ``t``."""
+        if self.size(over) == 1 or t.is_meta:
+            return t
+        group = self._group(over)
+        src = 0 if group is None else dist.get_global_rank(group, 0)
+        if self._staged(t):
+            host = t.cpu()
+            dist.broadcast(host, src, group=group)
+            t.copy_(host)
+        else:
+            dist.broadcast(t, src, group=group)
+        return t
+
     def _group_rank(self, over: str) -> int:
         return {"world": self.rank, "data": self.data_rank,
-                "seq": self.seq_rank}[over]
+                "seq": self.seq_rank, "model": self.model_rank}[over]
 
     def reduce_scatter_(self, out: torch.Tensor, t: torch.Tensor,
                         over: str) -> torch.Tensor:
@@ -94,7 +130,7 @@ class Mesh:
         n = self.size(over)
         if n == 1:
             return out.copy_(t)
-        group = None if over == "world" else self.groups[over]
+        group = self._group(over)
         if self.backend == "gloo":
             host = t.detach().cpu() if t.is_cuda else t.detach().clone()
             dist.all_reduce(host, group=group)
@@ -111,7 +147,7 @@ class Mesh:
         n = self.size(over)
         if n == 1:
             return out.copy_(t)
-        group = None if over == "world" else self.groups[over]
+        group = self._group(over)
         if self.backend == "gloo":
             src = t.detach().cpu().contiguous()
             host = torch.empty((n,) + tuple(src.shape), dtype=src.dtype)
@@ -139,7 +175,7 @@ class Mesh:
         # sends slice j of dim 0 to rank j.
         shape[split_axis:split_axis + 1] = [n, shape[split_axis] // n]
         x = t.reshape(shape).movedim(split_axis, 0).contiguous()
-        group = None if over == "world" else self.groups[over]
+        group = self._group(over)
         if self._staged(x):
             host = x.cpu()
             recv = torch.empty_like(host)
@@ -161,7 +197,11 @@ class Mesh:
         n = self.size(over)
         if n == 1:
             return t
-        group = None if over == "world" else self.groups[over]
+        if t.is_meta:
+            shape = list(t.shape)
+            shape[dim] *= n
+            return t.new_empty(shape)
+        group = self._group(over)
         src = t.detach().cpu() if self._staged(t) else t.detach()
         src = src.contiguous()
         parts = [torch.empty_like(src) for _ in range(n)]
@@ -185,7 +225,7 @@ class RingHop:
     tensors (fresh buffers on the senders' device)."""
 
     def __init__(self, mesh: Mesh, tensors: Sequence[torch.Tensor]):
-        base = mesh.data_rank * mesh.seq
+        base = (mesh.data_rank * mesh.model + mesh.model_rank) * mesh.seq
         nxt = base + (mesh.seq_rank + 1) % mesh.seq
         prev = base + (mesh.seq_rank - 1) % mesh.seq
         self._devices = [t.device for t in tensors]
@@ -232,6 +272,52 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh, over: str) -> torch.Tensor:
     return _AllReduceSum.apply(t, mesh, over)
 
 
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's ``f``: identity forward; the gradient summed over the
+    model ranks backward (each rank's column slice contributes a part of
+    the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh: Mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_reduce_(grad.contiguous().clone(),
+                                    "model"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's ``g``: the partial products summed over the model ranks
+    forward; identity backward (every rank's part feeds the same sum)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh: Mesh):
+        return mesh.all_reduce_(t.contiguous().clone(), "model")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The input of a column-parallel layer: identity forward, gradient
+    summed over ``"model"`` backward."""
+    if mesh is None or mesh.model == 1:
+        return t
+    return _CopyToModel.apply(t, mesh)
+
+
+def reduce_from_model(t: torch.Tensor, mesh: Optional[Mesh]
+                      ) -> torch.Tensor:
+    """The output of a row-parallel layer: summed over ``"model"``
+    forward, identity backward."""
+    if mesh is None or mesh.model == 1:
+        return t
+    return _ReduceFromModel.apply(t, mesh)
+
+
 class _AllToAll(torch.autograd.Function):
     """All-to-all forward; the reverse all-to-all (concat and split axes
     swapped) backward, its transpose."""
@@ -260,7 +346,7 @@ def all_to_all(t: torch.Tensor, mesh: Mesh, over: str, split_axis: int,
 def build_mesh(cfg: Optional[ParallelConfig] = None) -> Mesh:
     """This process's :class:`Mesh` in the initialized process group (a
     one-rank mesh when there is none). Raises when the world does not
-    split into ``seq_axis``-wide rows."""
+    factor as ``data x model_axis x seq_axis``."""
     cfg = cfg or ParallelConfig()
     if dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
@@ -268,20 +354,44 @@ def build_mesh(cfg: Optional[ParallelConfig] = None) -> Mesh:
     else:
         world, rank, backend = 1, 0, None
     seq = max(1, cfg.seq_axis)
-    if world % seq:
+    model = max(1, cfg.model_axis)
+    if world % (model * seq):
         raise ValueError(f"a world of {world} rank(s) does not split into "
-                         f"seq_axis={seq} rows")
-    data = world // seq
+                         f"seq_axis={seq} rows of model_axis={model} "
+                         f"(data x model x seq)")
+    data = world // (model * seq)
     mesh = Mesh(world=world, rank=rank, data=data, seq=seq,
-                data_rank=rank // seq, seq_rank=rank % seq, backend=backend)
+                data_rank=rank // (model * seq),
+                seq_rank=rank % seq, backend=backend, model=model,
+                model_rank=rank // seq % model)
+
+    def at(d, m, s):
+        return (d * model + m) * seq + s
+
     if world > 1:
+        mine = (mesh.data_rank, mesh.model_rank, mesh.seq_rank)
         for d in range(data):
-            g = dist.new_group([d * seq + s for s in range(seq)])
-            if d == mesh.data_rank:
-                mesh.groups["seq"] = g
-        for s in range(seq):
-            g = dist.new_group([d * seq + s for d in range(data)])
-            if s == mesh.seq_rank:
-                mesh.groups["data"] = g
+            for m in range(model):
+                g = dist.new_group([at(d, m, s) for s in range(seq)])
+                if (d, m) == mine[:2]:
+                    mesh.groups["seq"] = g
+        for m in range(model):
+            for s in range(seq):
+                g = dist.new_group([at(d, m, s) for d in range(data)])
+                if (m, s) == mine[1:]:
+                    mesh.groups["data"] = g
+        if model > 1:
+            for d in range(data):
+                for s in range(seq):
+                    g = dist.new_group([at(d, m, s) for m in range(model)])
+                    if (d, s) == mine[::2]:
+                        mesh.groups["model"] = g
+            for m in range(model):
+                g = dist.new_group([at(d, m, s) for d in range(data)
+                                    for s in range(seq)])
+                if m == mesh.model_rank:
+                    mesh.groups["replica"] = g
+        else:
+            mesh.groups["replica"] = None
         mesh.barrier()
     return mesh

@@ -19,19 +19,24 @@ through ``convert.LAYOUTS`` into the port's layout.
 :func:`_add_fsdp` adds the ``data`` axis to the largest still-unsharded
 dim that ``|data|`` divides (ties go to the earlier dim): the ZeRO layout
 of ``--fsdp`` (parameters and moments) and of ``--optimizer_sharding
-zero1`` (moments and the EMA only, :data:`ZERO1_KEYS`). The port has no
-``model`` or ``pipe`` axis and shards no parameter over ``seq``: a rule
-that names one of them is legal while that axis has size 1 (it then
-shards nothing, as in the JAX package at ``model_axis=1``, but still
-claims its dim for :func:`_add_fsdp`); anything else raises
-``NotImplementedError`` (:func:`check_axes`).
+zero1`` (moments and the EMA only, :data:`ZERO1_KEYS`). ``model`` is the
+tensor-parallel axis (``--model_axis``): the port's models run the
+Megatron pairs of the default tables as column- and row-parallel layers,
+so above size 1 a table must place ``model`` exactly where the default
+one does (:func:`check_axes`); :func:`model_slice` gives the slice a model
+rank holds. The port has no ``pipe`` axis and shards no parameter over
+``seq``: a rule that names one of them is legal while that axis has size
+1 (it then shards nothing, as in the JAX package at ``model_axis=1``, but
+still claims its dim for :func:`_add_fsdp`); anything else raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (Any, Dict, List, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 
 class PartitionSpec(tuple):
@@ -367,30 +372,95 @@ def specs_name_axis(tree: Any, axis: str) -> bool:
     return any(specs_name_axis(v, axis) for v in values)
 
 
-#: The port's mesh axes: ``data`` and ``seq`` ranks; ``model`` and
-#: ``pipe`` always have size 1 here.
+#: The port's mesh axes: ``data``, ``model`` and ``seq`` ranks; ``pipe``
+#: always has size 1 here.
 MESH_AXES = ("data", "model", "seq", "pipe")
 
+#: Where the tensor-parallel combinations still to port are listed.
+TP_ROADMAP = "ROADMAP.md Queue 1, the tensor-parallel items"
 
-def check_axes(specs: Any, sizes: Mapping[str, int]) -> None:
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def model_dims(spec: PartitionSpec) -> Tuple[int, ...]:
+    """The dims of a spec that name ``model``."""
+    return tuple(i for i, e in enumerate(spec) if "model" in _axes(e))
+
+
+def check_axes(specs: Any, sizes: Mapping[str, int],
+               megatron: Any = None) -> None:
     """Raise ``NotImplementedError`` unless every axis the base specs (the
     rule table's, before the ZeRO layout adds ``data``) name is one the
-    port can honour: ``model``, ``seq`` or ``pipe`` at size 1, which shard
-    nothing. Sharding a parameter over a rule's ``data``, or over an axis
-    larger than 1, is not ported."""
+    port can honour: ``seq`` or ``pipe`` at size 1, which shard nothing,
+    and ``model``: at size 1 anywhere, above it exactly on the leaves and
+    dims where ``megatron`` (the model's default table's specs for the
+    same leaves) places it, alone on its dim. Sharding a parameter over a
+    rule's ``data``, or over another axis larger than 1, is not ported."""
+    model = sizes.get("model", 1)
+    want = dict(_flat_specs(megatron)) if megatron is not None else {}
     for path, spec in _flat_specs(specs):
         for entry in spec:
-            for axis in (entry if isinstance(entry, tuple) else (entry,)):
-                if axis is None:
-                    continue
+            for axis in _axes(entry):
                 if axis not in MESH_AXES:
                     raise NotImplementedError(
                         f"partition rule spec for {path!r} names axis "
                         f"{axis!r}; the mesh has {MESH_AXES}")
+                if axis == "model" and model > 1:
+                    if entry != "model":
+                        raise NotImplementedError(
+                            f"partition rule spec {spec} for {path!r} "
+                            f"splits one dim over {entry}: tensor "
+                            f"parallelism shards a dim over 'model' alone; "
+                            f"see {TP_ROADMAP}")
+                    continue
                 if axis == "data" or sizes.get(axis, 1) > 1:
                     raise NotImplementedError(
                         f"partition rule spec {spec} for {path!r} shards "
                         f"over {axis!r} (size {sizes.get(axis, 1)}): only "
-                        f"the ZeRO layout's data axis is ported; tensor "
-                        f"parallelism is ROADMAP.md Queue 1, the next "
-                        f"sharding item")
+                        f"the ZeRO layout's data axis and the Megatron "
+                        f"pairs' model axis are ported; see ROADMAP.md "
+                        f"Queue 1, the open sharding items")
+        if model > 1 and model_dims(spec) != model_dims(
+                want.get(path, P())):
+            raise NotImplementedError(
+                f"partition rule spec {spec} for {path!r} places 'model' "
+                f"where the model's Megatron table places "
+                f"{want.get(path, P())}: the port's layers run the "
+                f"default column/row-parallel pairs only; other 'model' "
+                f"placements are {TP_ROADMAP}")
+
+
+class ModelSlice(NamedTuple):
+    """The slice of a leaf one model rank holds: ``length`` entries of the
+    port-layout dim ``dim`` (the JAX-layout dim ``jax_dim``) from
+    ``start``."""
+
+    dim: int
+    jax_dim: int
+    start: int
+    length: int
+
+
+def model_slice(name: str, spec: PartitionSpec, jax_shape: Sequence[int],
+                model: int, model_rank: int) -> Optional[ModelSlice]:
+    """The slice of the leaf ``name`` (JAX-layout shape ``jax_shape``)
+    that model rank ``model_rank`` of ``model`` holds under ``spec`` (JAX
+    right-aligned, as :func:`param_pspecs` gives it): a contiguous
+    ``1/model`` of the dim that names ``model``, in rank order (JAX's
+    ``addressable_shards``), or None when the leaf is not split."""
+    from dml_cnn_cifar10_tpu_torch import convert
+
+    dims = model_dims(spec)
+    if model <= 1 or not dims:
+        return None
+    jd = dims[0]
+    size = jax_shape[jd]
+    if size % model:
+        raise ValueError(f"leaf {name!r} dim {jd} of size {size} does not "
+                         f"split over model_axis={model}")
+    n = size // model
+    return ModelSlice(convert.port_dim(name, jd), jd, model_rank * n, n)

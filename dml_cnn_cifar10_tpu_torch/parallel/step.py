@@ -16,20 +16,29 @@ output-only forward (K3); under sequence parallelism the ring runs K5
 forward and K6/K7 backward instead.
 
 Over a mesh (``parallel/mesh.py``) each rank computes the loss of its own
-batch slice, scaled by ``1/world``, and the gradients are summed over the
-world in one flat all-reduce — the JAX package's ``psum``. That is the
-mean over the global batch: every seq rank of a data row computes the same
-loss from the same pooled features, and the pool's all-reduce sums the
-gradient back over the seq ranks, so every leaf (token-side and post-pool
-alike) arrives ``seq`` times over before the ``1/world`` share. The loss
-and accuracy metrics are averaged over the data group; the eval step sums
+batch slice, scaled by ``1/replicas``, and the gradients are summed over
+the ``replica`` group (the world, without model ranks) in one flat
+all-reduce — the JAX package's ``psum``. That is the mean over the global
+batch: every seq rank of a data row computes the same loss from the same
+pooled features, and the pool's all-reduce sums the gradient back over the
+seq ranks, so every leaf (token-side and post-pool alike) arrives ``seq``
+times over before the ``1/replicas`` share. Under tensor parallelism
+(``parallel/tp.py``; the state carries the model's ``split``) the model
+ranks of a data row compute the same loss; each holds the whole gradient
+of its own slices and of the replicated leaves (the Megatron operators sum
+the activations' gradients over the model ranks), so the sum over the
+ranks that hold the same slices is the data-parallel sum; the replicated
+leaves' gradients are model rank 0's on every model rank first (one
+broadcast), which keeps their copies bit-equal under nondeterministic
+kernels; norms sum a split leaf's squares over ``model``. The loss and
+accuracy metrics are averaged over the data group; the eval step sums
 ``correct`` over it. A state sharded over the data ranks
 (``--optimizer_sharding zero1``, ``--fsdp``: ``parallel/zero.py``; the
 state carries its layout) has its gradients reduce-scattered into each
 rank's shards instead, which the update kernels take as they are; the
-parameters are all-gathered after the update (zero1) or before the
-forward (fsdp), explicitly, where the JAX package leaves GSPMD to insert
-the same collectives (its ``_zero1_update``, ``_fsdp_gather_wrap``).
+parameters are all-gathered after the update (zero1) or before the forward
+(fsdp), explicitly, where the JAX package leaves GSPMD to insert the same
+collectives (its ``_zero1_update``, ``_fsdp_gather_wrap``).
 
 Within a step (JAX ``parallel/step.py:311-414``): ``grad_accum`` A > 1
 splits the batch into A microbatches, sums their gradients in order,
@@ -92,7 +101,7 @@ from dml_cnn_cifar10_tpu_torch.config import DataConfig, OptimConfig
 from dml_cnn_cifar10_tpu_torch.data import device_stream
 from dml_cnn_cifar10_tpu_torch.ops import flash_attention, optimizer
 from dml_cnn_cifar10_tpu_torch.ops.preprocess import device_preprocess
-from dml_cnn_cifar10_tpu_torch.parallel import zero
+from dml_cnn_cifar10_tpu_torch.parallel import tp, zero
 from dml_cnn_cifar10_tpu_torch.parallel.mesh import Mesh
 from dml_cnn_cifar10_tpu_torch.train import loss as loss_lib
 from dml_cnn_cifar10_tpu_torch.train import metrics as metrics_lib
@@ -116,6 +125,9 @@ class TrainState:
     model_state: Dict[str, Any] = dataclasses.field(default_factory=dict)
     layout: Optional[Any] = None
     flat: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    #: The model's ``tp.ModelSplit`` under tensor parallelism: which
+    #: leaves hold this model rank's slice.
+    split: Optional[Any] = None
 
     @property
     def step(self) -> torch.Tensor:
@@ -142,7 +154,15 @@ def init_train_state(model: nn.Module, optim_cfg: OptimConfig,
     Under a ``layout`` the sharded entries are allocated as this rank's
     shards from the start; under fsdp the module keeps no whole copy of
     a split leaf (its parameter is emptied: the step hands the forward
-    the gathered tensors) and ``params`` holds the shards."""
+    the gathered tensors) and ``params`` holds the shards. A model built
+    on model ranks holds its slices already (its ``split``), which the
+    state carries."""
+    split = getattr(model, "split", None)
+    if split is not None and optim_cfg.optimizer == "adafactor":
+        raise NotImplementedError(
+            f"adafactor under tensor parallelism is not ported: its "
+            f"factored statistics are computed over the whole leaf; see "
+            f"{tp.ROADMAP}")
     if layout is not None and layout.fsdp:
         for name, p in model.named_parameters():
             if tuple(p.shape) != layout.leaves[name].shape:
@@ -153,7 +173,8 @@ def init_train_state(model: nn.Module, optim_cfg: OptimConfig,
         model.to(device)
         params = dict(model.named_parameters())
         return TrainState(params=params,
-                          opt=optim_lib.sgd_init(params, optim_cfg, device))
+                          opt=optim_lib.sgd_init(params, optim_cfg, device),
+                          split=split)
     full = {n: p.detach() for n, p in model.named_parameters()}
     opt = optim_lib.sgd_init(full, optim_cfg, device, layout=layout)
     flat: Dict[str, torch.Tensor] = {}
@@ -167,16 +188,32 @@ def init_train_state(model: nn.Module, optim_cfg: OptimConfig,
     if layout.fsdp:
         params = {n: shards[n] if layout.is_split(n) else p
                   for n, p in params.items()}
-    return TrainState(params=params, opt=opt, layout=layout, flat=flat)
+    return TrainState(params=params, opt=opt, layout=layout, flat=flat,
+                      split=split)
 
 
 def _sum_grads(grads, mesh: Mesh):
-    """Sum the gradients over the world in place, in one all-reduce of
-    their concatenation."""
+    """Sum the gradients over the ranks that hold the same weights (the
+    world without model ranks) in place, in one all-reduce of their
+    concatenation."""
     flat = torch.cat([g.reshape(-1) for g in grads])
-    mesh.all_reduce_(flat, "world")
+    mesh.all_reduce_(flat, "replica")
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view_as(g))
+
+
+def _same_replicated(grads, names, split) -> None:
+    """Give every model rank model rank 0's gradients of the replicated
+    leaves, in one broadcast of their concatenation. With deterministic
+    kernels they are equal already; cuDNN's nondeterministic backward
+    (atomics) would otherwise let the model ranks' copies of those
+    leaves drift apart step by step, and the Megatron layers take their
+    input as the same on every model rank."""
+    idx = [i for i, n in enumerate(names) if not split.is_split(n)]
+    flat = torch.cat([grads[i].reshape(-1) for i in idx])
+    split.mesh.broadcast_(flat, "model")
+    for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+        grads[i].copy_(part.view_as(grads[i]))
 
 
 def _data_mean(values, mesh: Optional[Mesh]) -> torch.Tensor:
@@ -195,12 +232,13 @@ def _norms(tensors) -> torch.Tensor:
                                            dtype=torch.float32))
 
 
-def _global_norm(names, tensors, layout) -> torch.Tensor:
+def _global_norm(names, tensors, layout, split=None) -> torch.Tensor:
     """The L2 norm over every leaf: of the tensors themselves, or under a
-    ``layout`` of the whole leaves their shards are slices of."""
-    if layout is None:
+    ``layout`` or a model ``split`` of the whole leaves their shards are
+    slices of."""
+    if layout is None and split is None:
         return torch.linalg.vector_norm(_norms(tensors))
-    return torch.sqrt(torch.sum(layout.sq_sums(names, tensors)))
+    return torch.sqrt(torch.sum(tp.sq_sums(names, tensors, layout, split)))
 
 
 def _gathered_params(state: TrainState) -> Dict[str, torch.Tensor]:
@@ -243,7 +281,7 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
     all-reduced and updated whole. The health norms sum the shards'
     partial squares over the data ranks."""
     f32_parity()
-    world = 1 if mesh is None else mesh.world
+    replicas = 1 if mesh is None else mesh.replicas
     accum = max(1, optim_cfg.grad_accum)
     staleness = max(0, optim_cfg.async_staleness)
 
@@ -255,14 +293,14 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
         # reaches its layer through a permute (the ViT's HWIO patch
         # embed) gets its gradient back as a permuted view.
         grads = [g.contiguous() for g in torch.autograd.grad(
-            loss / world if world > 1 else loss,
+            loss / replicas if replicas > 1 else loss,
             [params[n] for n in names])]
         return grads, loss.detach(), metrics_lib.batch_accuracy(logits,
                                                                 labels)
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         names = list(state.params)
-        layout = state.layout
+        layout, split = state.layout, state.split
         if staleness >= 2:
             slot = (state.opt["step"] % staleness).long().reshape(1)
             fwd = {n: torch.index_select(state.opt["stale"][n], 0, slot)[0]
@@ -293,9 +331,11 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
                 grads = [g / accum for g in grads]
                 loss, acc = loss / accum, acc / accum
             with torch.no_grad():
+                if split is not None:
+                    _same_replicated(grads, names, split)
                 if layout is not None:
                     grads = layout.reduce_scatter(dict(zip(names, grads)))
-                elif world > 1:
+                elif replicas > 1:
                     _sum_grads(grads, mesh)
         if layout is None:
             grads = dict(zip(names, grads))
@@ -310,11 +350,11 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
                 before = torch._foreach_mul(
                     [update[n].detach() for n in names], 1.0)
                 grad_norm = _global_norm(names, [grads[n] for n in names],
-                                         layout)
-                param_norm = _global_norm(names, before, layout)
+                                         layout, split)
+                param_norm = _global_norm(names, before, layout, split)
         with torch.profiler.record_function("optimizer"), torch.no_grad():
             optim_lib.sgd_update(grads, state.opt, update, optim_cfg,
-                                 layout=layout)
+                                 layout=layout, split=split)
             if layout is not None and not layout.fsdp:
                 layout.gather(shards, into={n: state.params[n].detach()
                                             for n in names})
@@ -332,7 +372,8 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
                 metrics.update(
                     health_grad_norm=grad_norm,
                     health_param_norm=param_norm,
-                    health_update_ratio=_global_norm(names, delta, layout)
+                    health_update_ratio=_global_norm(names, delta, layout,
+                                                     split)
                     / (param_norm + 1e-12))
         return state, metrics
 

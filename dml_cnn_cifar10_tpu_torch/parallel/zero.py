@@ -30,11 +30,18 @@ unpacked into whole leaves (one strided copy a leaf each way). One
 reduce-scatter and one all-reduce (the whole leaves) a step, and one
 all-gather (zero1 after the update, fsdp before the forward).
 
-Scope: the ``data`` axis of a ``data`` mesh. Sharding over ``seq`` (a
-``data x seq`` mesh sums the gradients over ``seq`` too), fsdp with
-``async_staleness`` (its forward reads a snapshot that would be sharded)
-and Adafactor (its factored statistics need the whole leaf) raise
-``NotImplementedError`` naming ROADMAP.md.
+Under tensor parallelism (``parallel/tp.py``) the layout works inside
+each model column: the model's parameters are already this model rank's
+slices, so the offsets and split dims come from those local shapes, the
+split dim is a free one (the rule's ``model`` dim is claimed), and the
+``data`` group is the data ranks that hold the same slices. The norms
+over shards (``tp.sq_sums``) sum over ``data`` and ``model``.
+
+Scope: the ``data`` axis of a ``data`` or ``data x model`` mesh. Sharding
+over ``seq`` (a ``data x seq`` mesh sums the gradients over ``seq`` too),
+fsdp with ``async_staleness`` (its forward reads a snapshot that would be
+sharded) and Adafactor (its factored statistics need the whole leaf)
+raise ``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -236,22 +243,6 @@ class Layout:
                       if copy else values[name]
                       for name, leaf in self.leaves.items()}
 
-    # -- norms over shards -----------------------------------------------
-
-    def sq_sums(self, names: Sequence[str],
-                tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Each tensor's sum of squares (f32) over the whole leaf: a split
-        leaf's partial sums are summed over the data ranks, in one
-        all-reduce for all of them (no host copy: capturable)."""
-        sq = [torch.sum(torch.square(t.float())) for t in tensors]
-        split = [i for i, n in enumerate(names) if self.is_split(n)]
-        if split:
-            part = torch.stack([sq[i] for i in split])
-            self.mesh.all_reduce_(part, "data")
-            for j, i in enumerate(split):
-                sq[i] = part[j]
-        return torch.stack(sq)
-
 
 def whole(state, key: str, values: Mapping[str, torch.Tensor]
           ) -> Mapping[str, torch.Tensor]:
@@ -280,7 +271,14 @@ def build_layout(model: torch.nn.Module, model_name: str,
               for name, p in named}
     base = shardings.param_pspecs(model_name, shapes, rules=rules,
                                   strict=par_cfg.partition_rules_strict)
-    shardings.check_axes(base, {"data": mesh.data, "seq": mesh.seq})
+    shardings.check_axes(
+        base, {"data": mesh.data, "seq": mesh.seq, "model": mesh.model},
+        megatron=shardings.param_pspecs(model_name, shapes))
+    if mesh.model > 1 and optim_cfg.optimizer == "adafactor":
+        raise NotImplementedError(
+            f"adafactor under tensor parallelism is not ported: its "
+            f"factored statistics are computed over the whole leaf; see "
+            f"{shardings.TP_ROADMAP}")
     if mode is None or mesh.data == 1:
         return None
     if mesh.seq > 1:
@@ -322,10 +320,13 @@ def build_layout(model: torch.nn.Module, model_name: str,
 def partition_report(model: torch.nn.Module, model_name: str,
                      par_cfg: ParallelConfig) -> str:
     """The JAX package's ``--partition_report`` text for the model's
-    parameters (JAX paths and shapes)."""
+    parameters (JAX paths and whole shapes, also where this rank holds a
+    model slice)."""
     rules = shardings.parse_partition_rules(par_cfg.partition_rules)
     table = rules if rules is not None else shardings.rule_for(model_name)
-    shapes = {name.replace(".", "/"): convert.jax_shape(name, p.shape)
-              for name, p in model.named_parameters()}
+    split = getattr(model, "split", None)
+    shapes = {name.replace(".", "/"): convert.jax_shape(
+        name, p.shape if split is None else split.whole_shape(name, p.shape))
+        for name, p in model.named_parameters()}
     return shardings.format_partition_report(
         shardings.explain_partition_rules(table, shapes))

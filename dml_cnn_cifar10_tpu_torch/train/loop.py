@@ -19,12 +19,14 @@ The host reads the device only at those boundaries: the loss and the
 fresh-batch accuracy (one copy), the eval count, and the checkpoint.
 
 Several processes (``ParallelConfig.num_processes`` > 1) form one
-``data x seq`` mesh (``parallel/mesh.py``), one card each, a rank's card
-being its index among the ranks of its own host in ``--worker_hosts``
-(``utils/platform.py:rank_device``): each data rank trains on its
-``batch_size // data`` slice of the global batch, read from its own
-``[data_rank::data]`` shard of the records; the seq ranks of one data
-row read the same slice and split its tokens. The chief generates the
+``data x model x seq`` mesh (``parallel/mesh.py``), one card each, a
+rank's card being its index among the ranks of its own host in
+``--worker_hosts`` (``utils/platform.py:rank_device``): each data rank
+trains on its ``batch_size // data`` slice of the global batch, read from
+its own ``[data_rank::data]`` shard of the records; the model ranks and
+the seq ranks of one data row read the same slice, the model ranks to
+split the Megatron layers' weights (``--model_axis``, ``parallel/
+tp.py``), the seq ranks to split its tokens. The chief generates the
 synthetic data and writes the checkpoints; every rank prints its own
 console lines, and only the chief writes the metrics JSONL. ``images/s``
 counts the global batch.
@@ -201,7 +203,8 @@ class Trainer:
                            "cannot hold")
                 chunks = f"; chunks of {k} steps: {how}"
             print(f"[dist] rank {m.rank}/{m.world} (data {m.data_rank}/"
-                  f"{m.data}, seq {m.seq_rank}/{m.seq}) on {self.device}, "
+                  f"{m.data}, model {m.model_rank}/{m.model}, seq "
+                  f"{m.seq_rank}/{m.seq}) on {self.device}, "
                   f"backend {m.backend}, {self.local_batch} images a step"
                   f"{chunks}", flush=True)
             # One writer for the shared synthetic files; the others wait.
@@ -216,6 +219,11 @@ class Trainer:
         if par.partition_report and m.chief:
             print("[shardings] partition report (params):")
             print(zero.partition_report(self.model, cfg.model.name, par))
+        split = getattr(self.model, "split", None)
+        if split is not None:
+            print(f"[shardings] model_axis={m.model}: model rank "
+                  f"{m.model_rank} holds {len(split.slices)} leaves' "
+                  f"slices ({', '.join(split.slices)})", flush=True)
         if self.layout is not None:
             lay = self.layout
             print(f"[shardings] {lay.mode} over {lay.n} data ranks: "
@@ -505,7 +513,8 @@ class Trainer:
         # once (utils/profiling.py); none when the count fails.
         try:
             flops, flops_label = profiling.step_flops(
-                cfg, data=self.mesh.data, seq=self.mesh.seq)
+                cfg, data=self.mesh.data, seq=self.mesh.seq,
+                model=self.mesh.model)
         except Exception as e:      # telemetry must not stop a run
             print(f"[profiling] step FLOP count failed: {e!r}; no "
                   "TFLOP/s or MFU in this run", file=sys.stderr)

@@ -29,6 +29,10 @@ rank's shards of the parameters and gradients: the elementwise update is
 the same expression on fewer elements (K1/K2 in one launch, as without
 sharding), and every norm it needs (the clipping norm, LARS's and LAMB's
 per-leaf norms) sums the shards' partial squares over the data ranks.
+Under tensor parallelism (``parallel/tp.py``) the parameters are this
+model rank's slices of the Megatron leaves and the replicated others, and
+those norms sum a sliced leaf's squares over the model ranks too (a
+replicated leaf counts once); Adafactor is not ported there.
 
 The update runs fused by default (``ops/optimizer.py``: weight decay +
 momentum + LR in ONE pass per leaf — the hand-written CUDA kernels on the
@@ -49,6 +53,7 @@ import torch
 from dml_cnn_cifar10_tpu_torch import convert
 from dml_cnn_cifar10_tpu_torch.config import OptimConfig
 from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused_lib
+from dml_cnn_cifar10_tpu_torch.parallel import tp
 
 OptState = Dict[str, Any]
 
@@ -174,19 +179,19 @@ def ema_decay_at(cfg: OptimConfig, t: torch.Tensor) -> torch.Tensor:
 
 
 def clipped(grads: Mapping[str, torch.Tensor], cfg: OptimConfig,
-            layout=None) -> Mapping[str, torch.Tensor]:
+            layout=None, split=None) -> Mapping[str, torch.Tensor]:
     """Scale every gradient by ``min(1, clip / (global norm + 1e-12))``
     (JAX ``_clipped``); the norm is a device tensor, never read here.
-    Under a ``layout`` the gradients are shards and the norm is summed
-    over the data ranks."""
+    Under a ``layout`` (or a model ``split``) the gradients are shards
+    and the norm is summed over the data (and model) ranks."""
     if cfg.grad_clip_norm is None:
         return grads
-    if layout is None:
+    if layout is None and split is None:
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                for g in grads.values()))
     else:
-        gnorm = torch.sqrt(torch.sum(layout.sq_sums(list(grads),
-                                                     list(grads.values()))))
+        gnorm = torch.sqrt(torch.sum(tp.sq_sums(
+            list(grads), list(grads.values()), layout, split)))
     scale = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-12), max=1.0)
     return {k: g * scale.to(g.dtype) for k, g in grads.items()}
 
@@ -194,7 +199,8 @@ def clipped(grads: Mapping[str, torch.Tensor], cfg: OptimConfig,
 @torch.no_grad()
 def sgd_update(grads: Mapping[str, torch.Tensor], state: OptState,
                params: Mapping[str, torch.Tensor], cfg: OptimConfig,
-               layout=None) -> Tuple[Mapping[str, torch.Tensor], OptState]:
+               layout=None, split=None
+               ) -> Tuple[Mapping[str, torch.Tensor], OptState]:
     """One optimizer step, in place; returns ``(params, state)``.
 
     The step counter increments on apply, mirroring ``minimize(...,
@@ -202,21 +208,23 @@ def sgd_update(grads: Mapping[str, torch.Tensor], state: OptState,
     couple weight decay into the gradient (classic L2); AdamW, LAMB and
     Adafactor decay decoupled, applied directly to the weights. Under a
     ``layout`` ``grads``, ``params`` and the state's entries are this
-    rank's shards (whole tensors for the leaves that stay whole).
+    rank's shards (whole tensors for the leaves that stay whole); under a
+    model ``split`` this model rank's slices.
     """
     lr = learning_rate(cfg, state["step"])
-    grads = clipped(grads, cfg, layout)
+    grads = clipped(grads, cfg, layout, split)
     momentum = state.get("momentum") if cfg.momentum else None
     if cfg.optimizer in ("adamw", "lamb"):
-        _adam_update(grads, state, params, cfg, lr, layout)
+        _adam_update(grads, state, params, cfg, lr, layout, split)
     elif cfg.optimizer == "adafactor":
-        if layout is not None:
+        if layout is not None or split is not None:
             raise NotImplementedError(
-                "adafactor under a sharded layout is not ported; see "
-                "ROADMAP.md Queue 1, the open sharding items")
+                "adafactor under a sharded layout or tensor parallelism "
+                "is not ported; see ROADMAP.md Queue 1, the open "
+                "sharding items")
         _adafactor_update(grads, state, params, cfg, lr)
     elif cfg.optimizer == "lars":
-        _lars_update(grads, state, params, cfg, lr, layout)
+        _lars_update(grads, state, params, cfg, lr, layout, split)
     elif cfg.fused_optimizer:
         fused_lib.fused_sgd_update(params, grads, momentum, lr,
                                    cfg.momentum, cfg.weight_decay)
@@ -245,18 +253,19 @@ def _trust_ratio(pn: torch.Tensor, un: torch.Tensor) -> torch.Tensor:
     return torch.where(pn > 0, torch.where(un > 0, pn / un, one), one)
 
 
-def _leaf_norms(layout, names, tensors):
-    """Each leaf's L2 norm: of the tensor itself without a ``layout``, of
-    the whole leaf (partial squares summed over the data ranks, one
-    all-reduce) under one."""
-    if layout is None:
+def _leaf_norms(layout, split, names, tensors):
+    """Each leaf's L2 norm: of the tensor itself without a ``layout`` or
+    a model ``split``, of the whole leaf (partial squares summed over the
+    data and the model ranks, one all-reduce each) under them."""
+    if layout is None and split is None:
         return [torch.linalg.vector_norm(t) for t in tensors]
-    return list(torch.sqrt(layout.sq_sums(names, tensors)).unbind(0))
+    return list(torch.sqrt(tp.sq_sums(names, tensors, layout,
+                                      split)).unbind(0))
 
 
 def _adam_update(grads: Mapping[str, torch.Tensor], state: OptState,
                  params: Mapping[str, torch.Tensor], cfg: OptimConfig,
-                 lr: torch.Tensor, layout=None) -> None:
+                 lr: torch.Tensor, layout=None, split=None) -> None:
     """AdamW (and LAMB) in place, the JAX package's expression
     (``optim.py:201-223``): ``r = (mu/bc1) / (sqrt(nu/bc2) + eps) +
     wd·p``, ``p -= lr·r``; LAMB scales the step by the leaf's trust ratio
@@ -276,8 +285,8 @@ def _adam_update(grads: Mapping[str, torch.Tensor], state: OptState,
             + cfg.weight_decay * p
     names = list(steps)
     if cfg.optimizer == "lamb":
-        pn = _leaf_norms(layout, names, [params[n] for n in names])
-        rn = _leaf_norms(layout, names, [steps[n] for n in names])
+        pn = _leaf_norms(layout, split, names, [params[n] for n in names])
+        rn = _leaf_norms(layout, split, names, [steps[n] for n in names])
     for i, name in enumerate(names):
         p, r = params[name], steps[name]
         scale = lr * _trust_ratio(pn[i], rn[i]) \
@@ -287,7 +296,7 @@ def _adam_update(grads: Mapping[str, torch.Tensor], state: OptState,
 
 def _lars_update(grads: Mapping[str, torch.Tensor], state: OptState,
                  params: Mapping[str, torch.Tensor], cfg: OptimConfig,
-                 lr: torch.Tensor, layout=None) -> None:
+                 lr: torch.Tensor, layout=None, split=None) -> None:
     """LARS in place (JAX ``optim.py:300-330``): the decayed gradient
     ``g + wd·p`` of every leaf of 2 or more dims is scaled by the local LR
     ``trust·||p|| / (||g + wd·p|| + eps)`` (1 when either norm is 0),
@@ -296,8 +305,8 @@ def _lars_update(grads: Mapping[str, torch.Tensor], state: OptState,
     decayed = {name: grads[name] + cfg.weight_decay * p
                for name, p in params.items()}
     wide = [name for name, p in params.items() if p.dim() > 1]
-    pns = _leaf_norms(layout, wide, [params[n] for n in wide])
-    gns = _leaf_norms(layout, wide, [decayed[n] for n in wide])
+    pns = _leaf_norms(layout, split, wide, [params[n] for n in wide])
+    gns = _leaf_norms(layout, split, wide, [decayed[n] for n in wide])
     norms = dict(zip(wide, zip(pns, gns)))
     for name, p in params.items():
         g = decayed[name]

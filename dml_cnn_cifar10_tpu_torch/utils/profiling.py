@@ -33,7 +33,13 @@ and the ``train`` records carry it once as ``flops_stack``:
   queries to every key);
 - ``seq_mean_share_x{n}``: the same division for the ring with a causal
   mask or a window, whose ranks skip different numbers of blocks: the
-  mean over the ranks, not each rank's own.
+  mean over the ranks, not each rank's own;
+- ``model_share_x{m}``: under tensor parallelism over ``m`` model ranks,
+  this rank's own step, counted exactly on a model built with the local
+  widths of model rank 0 (every rank's are equal): the Megatron layers'
+  ``1/m`` slices, the convolutions and the other replicated layers in
+  full, as XLA's per-device count does in the JAX package. The mesh's
+  collectives pass ``meta`` tensors through and call nothing.
 """
 
 from __future__ import annotations
@@ -129,10 +135,16 @@ def update_flops(optim_cfg, shapes: Mapping[str, Sequence[int]]) -> int:
     return (per + 2 + 2 * bool(o.weight_decay) + 2 * bool(o.momentum)) * n
 
 
-def _meta_model(cfg):
+def _meta_model(cfg, model_ranks: int = 1):
     from dml_cnn_cifar10_tpu_torch.models.registry import get_model
+    from dml_cnn_cifar10_tpu_torch.parallel.mesh import Mesh
+
+    # Model rank 0 of a mesh that holds no process group: the model takes
+    # its local widths, and its collectives see only meta tensors.
+    mesh = Mesh(world=model_ranks, model=model_ranks) \
+        if model_ranks > 1 else None
     with torch.device("meta"):
-        return get_model(cfg.model.name)(cfg.model, cfg.data)
+        return get_model(cfg.model.name)(cfg.model, cfg.data, mesh=mesh)
 
 
 def _image_flops(cfg, model) -> int:
@@ -157,17 +169,20 @@ def _image_flops(cfg, model) -> int:
     return int(counter.get_total_flops())
 
 
-def step_flops(cfg, data: int = 1, seq: int = 1) -> Tuple[float, str]:
+def step_flops(cfg, data: int = 1, seq: int = 1, model: int = 1
+               ) -> Tuple[float, str]:
     """``(FLOPs of one training step on one rank, label)`` for ``cfg`` (a
-    ``TrainConfig``) on a ``data x seq`` mesh: the forward and backward
-    of this rank's ``batch_size / data`` images (all ``grad_accum``
-    microbatches), its ``1/seq`` share under sequence parallelism, and
-    the whole update (:func:`update_flops`). The labels are the module
-    docstring's."""
-    model = _meta_model(cfg)
-    flops = _image_flops(cfg, model) * (cfg.batch_size // data)
+    ``TrainConfig``) on a ``data x model x seq`` mesh: the forward and
+    backward of this rank's ``batch_size / data`` images (all
+    ``grad_accum`` microbatches) at its local widths, its ``1/seq`` share
+    under sequence parallelism, and the update of its leaves
+    (:func:`update_flops`). The labels are the module docstring's."""
+    net = _meta_model(cfg, model)
+    flops = _image_flops(cfg, net) * (cfg.batch_size // data)
     update = update_flops(cfg.optim, {n: tuple(p.shape) for n, p
-                                      in model.named_parameters()})
+                                      in net.named_parameters()})
+    if model > 1:
+        return float(flops + update), f"model_share_x{model}"
     if seq <= 1:
         return float(flops + update), "exact"
     m = cfg.model

@@ -374,6 +374,52 @@ def cli_runs(rank, world, runs):
     return [main(list(argv) + ["--task_index", str(rank)]) for argv in runs]
 
 
+def cli_traced_runs(rank, world, runs):
+    """``cli.main.main`` once for each argv of ``runs``, in order, as this
+    rank, when the run's ``--worker_hosts`` names this rank (the others
+    go on to the next run). Per run: the exit code, the console output,
+    and for each train step the SHA-1 of the images this rank fed and the
+    step's loss; ``None`` for a run this rank is not in."""
+    import contextlib
+    import hashlib
+    import io
+
+    import torch.distributed as dist
+
+    from dml_cnn_cifar10_tpu_torch.cli.main import main
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+    dist.destroy_process_group()
+    make = step_lib.make_train_step
+    fed = []
+
+    def traced(*args, **kwargs):
+        fn = make(*args, **kwargs)
+
+        def step(state, images, labels):
+            state, m = fn(state, images, labels)
+            fed.append((hashlib.sha1(images.detach().cpu().numpy()
+                                     .tobytes()).hexdigest(),
+                        float(m["loss"])))
+            return state, m
+
+        return step
+
+    step_lib.make_train_step = traced
+    out = []
+    for argv in runs:
+        hosts = argv[argv.index("--worker_hosts") + 1].split(",")
+        if rank >= len(hosts):
+            out.append(None)
+            continue
+        fed.clear()
+        console = io.StringIO()
+        with contextlib.redirect_stdout(console):
+            rc = main(list(argv) + ["--task_index", str(rank)])
+        out.append({"rc": rc, "stdout": console.getvalue(),
+                    "fed": list(fed)})
+    return out
+
+
 def health_ranks(rank, world, params, images, labels, raw, raw_labels):
     """One eager train step with ``health_metrics`` on this data rank's
     rows of the global batch ``(images, labels)``, then one host-fed chunk
@@ -630,3 +676,129 @@ def sharded_ckpt(rank, world, run, work, jax_dirs):
     saved["restored"] = restored
     saved["events_all"] = list(events)
     return saved
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (Megatron column/row layers over the model ranks).
+# ---------------------------------------------------------------------------
+
+
+def tp_state(run, mesh):
+    """``(net, optim cfg, state)`` of ``run`` (a dict: ``mode`` none |
+    zero1 | fsdp, ``model``/``data``/``optim`` config kwargs, ``params`` a
+    JAX-layout numpy tree of the WHOLE parameters) over ``mesh``: the
+    layout built as the Trainer builds it, the whole params (and the EMA,
+    when kept) loaded through the checkpoint restore, which cuts each
+    rank's slices and shards."""
+    from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from dml_cnn_cifar10_tpu_torch.config import (DataConfig, ModelConfig,
+                                                  OptimConfig,
+                                                  ParallelConfig)
+    from dml_cnn_cifar10_tpu_torch.models.registry import get_model
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import zero
+
+    mode = run.get("mode", "none")
+    mcfg = ModelConfig(**run["model"])
+    net = get_model(mcfg.name)(mcfg, DataConfig(**run.get("data", {})),
+                               mesh=mesh)
+    ocfg = OptimConfig(**run["optim"], optimizer_sharding=(
+        "zero1" if mode == "zero1" else "none"))
+    layout = zero.build_layout(net, mcfg.name, ocfg, ParallelConfig(
+        model_axis=mesh.model, fsdp=mode == "fsdp"), mesh)
+    state = step_lib.init_train_state(net, ocfg, torch.device("cpu"),
+                                      torch.Generator().manual_seed(0),
+                                      layout)
+    tree = ckpt_lib.state_to_tree(state)
+    tree["params"] = run["params"]
+    if "ema" in tree["opt"]:
+        tree["opt"]["ema"] = run["params"]
+    ckpt_lib.load_tree_into(state, tree)
+    return net, ocfg, state
+
+
+def _tp_train(run, mesh, net, ocfg, state):
+    """The steps of ``run`` (``batches`` the GLOBAL ``(images, labels)``,
+    this rank takes its data rank's rows; ``chunk`` runs them as one
+    chunk), with the health scalars; returns the per-step metrics."""
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+
+    b = run["batches"][0][0].shape[0] // mesh.data
+    rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+    ims = [torch.from_numpy(i[rows]) for i, _ in run["batches"]]
+    lbs = [torch.from_numpy(l[rows].astype(np.int64))
+           for _, l in run["batches"]]
+    if run.get("chunk"):
+        chunk = step_lib.make_train_chunk(net, ocfg, mesh=mesh,
+                                          health_metrics=True)
+        _, m = chunk(state, torch.stack(ims), torch.stack(lbs))
+        return [{k: float(v) for k, v in m.items()}]
+    train = step_lib.make_train_step(net, ocfg, mesh, health_metrics=True)
+    out = []
+    for im, lb in zip(ims, lbs):
+        _, m = train(state, im, lb)
+        out.append({k: float(v) for k, v in m.items()})
+    return out
+
+
+def tp_runs(rank, world, model_axis, runs, ckpt=None):
+    """Each run of ``runs`` (see :func:`tp_state` and :func:`_tp_train`)
+    on a ``data x model`` mesh of ``model_axis`` model ranks: per run the
+    per-step metrics, the whole state tree (``state_to_tree``: gathered
+    over the data and the model ranks), this rank's local parameters and
+    their bytes, and the eval accuracy of ``eval`` (a global batch); the
+    mesh's broadcast over ``model`` of the rank's number. Then,
+    with ``ckpt`` (``work`` dir, ``run``, ``replicated`` a sharded
+    checkpoint dir of whole params), the checkpoint cases: the run
+    trained as TP+fsdp and as TP, each saved in msgpack and sharded; the
+    TP+fsdp sharded save and the replicated one restored into a TP
+    state, the TP+fsdp msgpack save into a TP+zero1 state."""
+    import os
+
+    from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from dml_cnn_cifar10_tpu_torch.config import ParallelConfig
+    from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+
+    mesh = mesh_lib.build_mesh(ParallelConfig(model_axis=model_axis))
+    out = {"coords": (mesh.data_rank, mesh.model_rank)}
+    for name, run in runs.items():
+        net, ocfg, state = tp_state(run, mesh)
+        res = {"metrics": _tp_train(run, mesh, net, ocfg, state),
+               "tree": ckpt_lib.state_to_tree(state),
+               "local": {k: v.detach().numpy().copy()
+                         for k, v in state.params.items()},
+               "param_bytes": _entry_bytes(state.params)}
+        if "eval" in run:
+            images, labels = run["eval"]
+            b = images.shape[0] // mesh.data
+            rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+            res["eval"] = float(step_lib.make_eval_step(net, mesh)(
+                state, torch.from_numpy(images[rows]),
+                torch.from_numpy(labels[rows].astype(np.int64)))["accuracy"])
+        out[name] = res
+    got = torch.full((3,), float(rank))
+    mesh.broadcast_(got, "model")
+    out["broadcast"] = got.numpy()
+    if ckpt is None:
+        return out
+    work, run = ckpt["work"], ckpt["run"]
+    saved = {}
+    for mode in ("fsdp", "none"):
+        net, ocfg, state = tp_state(dict(run, mode=mode), mesh)
+        _tp_train(run, mesh, net, ocfg, state)
+        saved[mode] = ckpt_lib.state_to_tree(state)
+        for fmt in ("msgpack", "sharded"):
+            ckpt_lib.CheckpointManager(
+                os.path.join(work, f"{fmt}_{mode}"), 1, mesh=mesh,
+                fmt=fmt).maybe_save(state, len(run["batches"]))
+    restored = {}
+    for label, path, mode in (
+            ("fsdp->tp", "sharded_fsdp", "none"),
+            ("replicated->tp", ckpt["replicated"], "none"),
+            ("msgpack fsdp->zero1", "msgpack_fsdp", "zero1")):
+        _, _, fresh = tp_state(dict(run, mode=mode), mesh)
+        ckpt_lib.restore_checkpoint(os.path.join(work, path), fresh)
+        restored[label] = ckpt_lib.state_to_tree(fresh)
+    out["ckpt"] = {"saved": saved, "restored": restored}
+    return out
