@@ -159,7 +159,7 @@ Then the serving path, on phase 6's CNN checkpoint (step 600) and phase
             b = 1 and 128.
 25. serve http  ``--mode serve`` (``main_serve`` with the CLI's config)
             in a thread, driven by the port's loadgen in a process of its
-            own: closed loops at 1, 32 and 128 clients, twice each, every
+            own: closed loops at 1, 32 and 128 clients, once each, every
             answer's class the direct forward's (near-ties left out and
             counted), no error but 503, and the served ViT-Ti path
             launched 12 K3 a replay and no other kernel; an open loop past
@@ -200,7 +200,8 @@ Then the slice of Ulysses, telemetry and the optimizer surface:
 29. optimizer  100 CNN steps each with ``--grad_clip_norm 1 --momentum
             0.9`` (K2 once a step), ``--grad_accum 2`` (K1 once a step),
             ``--async_staleness 2`` (K1 once a step) and ``--optimizer
-            lars|lamb|adafactor`` (no K1/K2): losses finite and falling.
+            lars|lamb|adafactor`` (no K1/K2), cuDNN deterministic:
+            losses finite and falling.
             ``--async_staleness 2 --steps_per_dispatch 10``, 100 steps,
             then one graphed chunk against the eager body from its state,
             bit for bit with cuDNN deterministic; eager 50 + 50 steps with
@@ -320,21 +321,59 @@ Then tensor parallelism (``parallel/tp.py``, ``--model_axis``):
             card) and chunked at K = 5. Numbers in ``OUT/slice14.json``
             (``slice14_nccl.json``).
 
-``--dist`` runs the build, phase 31, phases 33 and 34 over NCCL, phase
+Then the ResNet rungs (``models/resnet.py``):
+35. resnet  ResNet-18 by the README recipe's flags (batch 1024, 24 px
+            crop of 32, SGD momentum 0.9, weight decay 5e-4, cosine, lr
+            0.4) on 10,000 generated CIFAR-layout records: 20 steps eager
+            (K2 once a step), then 100 steps at ``--steps_per_dispatch
+            10`` (one CUDA graph a chunk, the BN buffers updated in place
+            inside it; K2 100 in 10 replays; the loss falls); one graphed
+            chunk against the same chunk body run eagerly from the same
+            state, cuDNN deterministic (phase 9b's gates on loss and
+            params, the running stats too), and
+            three replays timed and traced: ms/step, the device's busy
+            share and its time by kernel group (convs, reductions,
+            elementwise, the update, idle). ResNet-50 on imagenet_synth
+            (256 stored, 224 crop, 1000 classes), batch 128, lr 0.02, f32
+            and bf16: 10 steps eager and 20 chunked at K = 5 (K2 3 a
+            step: 161 leaves, 64 a launch; the chunked loss falls), an
+            eval on the running stats, the chunked runs' replays traced
+            like ResNet-18's; ``--mode export`` and the
+            artifact against the live weights (running stats included) at
+            b = 1 and 32 (1e-4 relative), a hot swap of params with their
+            ``model_state`` (one without is refused), ``--mode serve``
+            answering over HTTP and a 32-client closed loop; ``--remat``,
+            ``--resnet_norm nf`` and ``--resnet_s2d`` 3 steps each with
+            plain SGD (K1 3 a step), remat's peak memory below the f32
+            run's. K2 and K1 on ResNet-18's 62 and ResNet-50's 161 leaves
+            bit-equal to their plain version, timed beside fused SGD and
+            the bound. Then cross-replica BN on 2 rank processes over
+            gloo on this card (resident chunks at K = 2, global batch
+            128, 20 steps, cuDNN deterministic): every logged loss within
+            1e-3 relative of one rank at the global batch on the same
+            rows, zero1's whole state equal to replicated bit for bit, K1
+            once a step. Under ``--dist`` the same over NCCL on 2 cards,
+            each chunk one CUDA graph with the BN all-reduces captured,
+            and an eager run beside. Numbers in ``OUT/slice15.json``
+            (``slice15_nccl.json``).
+
+``--dist`` runs the build, phase 31, phases 33, 34 and 35 over NCCL, phase
 32's two ranks over NCCL (chunks of 10 as CUDA graphs; the ranks' flag
 exchange runs between replays), then phases 18-21 over NCCL on two or more
 cards, with 4 ranks beside 2 given four cards: SP data 2 x seq 2 against
 its 2 data ranks without the ring, and the DP CNN on 4 ranks; given three
 or more cards, phases 26-27 (and phase 31's Ulysses run) over NCCL on 3 of
 them.
-``--phase 32``, ``--phase 33`` or ``--phase 34`` (alone or with
-``--dist``) runs the build and that phase only, a debugging run.
+``--phase 32``, ``--phase 33``, ``--phase 34`` or ``--phase 35`` (alone
+or with ``--dist``) runs the build and that phase only, a debugging run.
 
 The lines before the last are ``{"kernels": [...]}`` (K1 six times:
 its main path row, phase 30's with ``"path": "dp_chunk"``, phase 32's
 with ``"path": "run_safety"``, phase 33's with ``"path": "zero1"`` and
-``"fsdp"``, on shard buffers, and phase 34's with ``"path": "tp"``, on a
-model rank's leaves; ``--dist`` prints K2's two shard rows; K3 four
+``"fsdp"``, on shard buffers, phase 34's with ``"path": "tp"``, on a
+model rank's leaves, and phase 35's on ResNet-18's and ResNet-50's
+leaves, ``"path": "resnet18"`` and ``"resnet50"``, as K2 twice more;
+``--dist`` prints K2's two shard rows; K3 four
 times: its training row, its serving row with ``"path": "serve"``, its
 Ulysses row and its ``"path": "tp"`` row; K4, K6 and K7 three times,
 with ``"path": "ulysses"`` and ``"tp"`` rows) and the card's name and
@@ -348,8 +387,9 @@ passing run); the run's metrics JSONL files, the profiles, ``chunk.json``
 ``dist_nccl.json`` under ``--dist``, with phase 31 and phase 32's NCCL
 ranks), ``slice10.json`` (phases 26-29), ``slice11.json`` (phase 30),
 ``slice12.json`` (phase 32, with its telemetry stream and Chrome trace),
-``slice13.json`` (phase 33), ``slice14.json`` (phase 34) and the ranks'
-logs are written to the output directory ``OUT``.
+``slice13.json`` (phase 33), ``slice14.json`` (phase 34),
+``slice15.json`` (phase 35) and the ranks' logs are written to the output
+directory ``OUT``.
 """
 
 from __future__ import annotations
@@ -656,6 +696,11 @@ def _graph_vs_eager(cfg, state, ds_images, ds_labels, deterministic,
              "loss_graph": losses[0], "loss_eager": losses[1],
              "loss_gap": abs(losses[0] - losses[1]),
              "param_gap": _gaps(s_g, s_e),
+             # The running stats (the ResNet's BN buffers, updated in
+             # place inside the graph); 0 for a model without them.
+             "mstate_gap": max([(x - y).abs().max().item() for x, y in zip(
+                 s_g.model_state.values(), s_e.model_state.values())]
+                 + [0.0]),
              "eager_eager_loss_gap": abs(losses[1] - losses[2]),
              "eager_eager_param_gap": _gaps(s_e, s_e2),
              "launches_graph": graph_launches,
@@ -1286,7 +1331,8 @@ def flash_timing(dev, card, bytes_per_s, f32_ops, shapes=None) -> dict:
                 bound_by="operations" if by_ops >= by_bytes else "bytes",
                 bound_tc_ms=max(tcf / BF16_PEAK * 1e3, by_bytes),
                 flops=flops, tc_flops=tcf, bytes=nbytes[kname],
-                library_factor=(dms / lib_dev if fwd and dms else None))
+                library_factor=(dms / lib_dev if fwd and dms and lib_dev
+                                else None))
             r = res[(kname, label)]
             print(f"[flash timing] {kname} {label} {[b, s, h, d]} "
                   f"{r['dtype']}: kernel {ms:.5f} ms (device {dms} ms), "
@@ -2148,6 +2194,9 @@ def dist_phases(backend: str, card: str, worlds=(2,),
 SERVE_BUCKETS = (1, 8, 32, 128)
 SERVE_CONCURRENCY = (1, 32, 128)
 SERVE_RUN_S = 2.0
+# Closed-loop runs at each concurrency: one, to keep the script inside its
+# time limit.
+SERVE_REPS = 1
 # Graph replay against the eager forward, and the artifact against the
 # live engine: the same kernels on the same inputs, held to 1e-5 of the
 # largest logit (a capture that read the wrong buffer or weights misses
@@ -2508,7 +2557,7 @@ def serve_phases(card, dev, cnn_cli, vit_cli, bytes_per_s, f32_ops) -> dict:
 
     # ---- 25. --mode serve over HTTP, driven by the port's loadgen --------
     # Each model's artifact behind the server (resolve_engine finds
-    # <log_dir>/model.pt2), closed loops twice each at 1, 32 and 128
+    # <log_dir>/model.pt2), closed loops once each at 1, 32 and 128
     # clients: every answer's class is the direct forward's, no error but
     # 503, and the served path launched K3 12 times a replay and nothing
     # else (counts set to 0 before the server starts, read after it
@@ -2523,7 +2572,7 @@ def serve_phases(card, dev, cnn_cli, vit_cli, bytes_per_s, f32_ops) -> dict:
                         "--serve_metrics_every_s", "1"])
         runs = {}
         for c in SERVE_CONCURRENCY:
-            for rep in range(2):
+            for rep in range(SERVE_REPS):
                 r = _loadgen(["--target", url, "--mode", "closed",
                               "--concurrency", str(c), "--duration_s",
                               str(SERVE_RUN_S), "--check_labels", npz],
@@ -3055,12 +3104,23 @@ def optim_phase(base, card) -> dict:
     for name, (flags, k1, k2) in OPT_RUNS.items():
         jsonl = os.path.join(WORK, f"opt_{name}.jsonl")
         fused.reset_launches()
-        run_cli(base + flags + ["--log_dir",
-                                os.path.join(WORK, f"logs_{name}"),
-                                "--total_steps", str(OPT_STEPS),
-                                "--output_every", "25", "--eval_every",
-                                "1000", "--checkpoint_every", "1000",
-                                "--metrics_jsonl", jsonl])
+        # cuDNN deterministic: with its default algorithms two runs on an
+        # H100 drew different losses (Adafactor's read [0.451, 0.463,
+        # 0.013, 0.002] in one and [0.287, 0.159, 0.015, 0.471] in the
+        # next), so whether the step-100 loss fell below step 25's changed
+        # from run to run; one algorithm gives every run the same
+        # trajectory.
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            run_cli(base + flags + ["--log_dir",
+                                    os.path.join(WORK, f"logs_{name}"),
+                                    "--total_steps", str(OPT_STEPS),
+                                    "--output_every", "25", "--eval_every",
+                                    "1000", "--checkpoint_every", "1000",
+                                    "--metrics_jsonl", jsonl])
+        finally:
+            torch.backends.cudnn.deterministic = saved
         losses = [l for _, l, _ in train_log(jsonl)]
         launched = (fused.LAUNCHES["sgd_update_plain"],
                     fused.LAUNCHES["sgd_update_momentum"])
@@ -4033,12 +4093,14 @@ SHARD_ZERO1_TOL, SHARD_FSDP_RTOL, SHARD_FSDP_ATOL = 1e-6, 2e-5, 2e-6
 
 
 def _tree_leaves(tree, prefix=""):
+    """``(path, leaf)`` of a state tree; a ResNet ``model_state``'s
+    ``None`` leaves are no leaves."""
     out = []
     for key in sorted(tree):
         value = tree[key]
         if isinstance(value, dict):
             out += _tree_leaves(value, f"{prefix}{key}/")
-        else:
+        elif value is not None:
             out.append((f"{prefix}{key}", value))
     return out
 
@@ -4112,7 +4174,7 @@ def _rank_shard(rank: int, job: dict) -> dict:
 
 
 def update_kernel_rows(dev, card, bytes_per_s, ops_per_s, cases, what,
-                       total=1_068_298) -> dict:
+                       total=1_068_298, launches=1) -> dict:
     """K1 and K2 on the leaves a rank's update takes: ``cases`` is
     ``[(kernel name, mu, wd, tag, make)]``, ``make()`` a fresh
     ``{name: tensor}`` of the leaves (random values). One launch against
@@ -4121,7 +4183,8 @@ def update_kernel_rows(dev, card, bytes_per_s, ops_per_s, cases, what,
     ``torch.optim.SGD(fused=True)`` over the same tensors (a yardstick; by
     events and by the device time of its kernels), and the bound of the
     bytes and operations of the update. ``what(tag)`` names the leaves in
-    the printed line."""
+    the printed line; ``launches`` is how many launches one update of
+    them takes (``MAX_LEAVES`` leaves a launch)."""
     from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
 
     lr = torch.tensor(0.02, device=dev)
@@ -4137,8 +4200,8 @@ def update_kernel_rows(dev, card, bytes_per_s, ops_per_s, cases, what,
         torch.cuda.synchronize()
         launched = {k: fused.LAUNCHES[k] - before[k] for k in before
                     if fused.LAUNCHES[k] != before[k]}
-        check(launched == {name: 1}, f"{name} on {what(tag)} launched "
-              f"{launched}, want one launch")
+        check(launched == {name: launches}, f"{name} on {what(tag)} "
+              f"launched {launched}, want {launches}")
         err = 0.0
         for k, (want_p, want_m) in want.items():
             err = max(err, (params[k] - want_p).abs().max().item())
@@ -4175,9 +4238,11 @@ def update_kernel_rows(dev, card, bytes_per_s, ops_per_s, cases, what,
             max_abs_err=err, elements=n, leaves=len(params), mu=mu, wd=wd,
             tag=tag)
         r = rows[name]
+        r["launches_per_update"] = launches
         print(f"[update kernels] {name} (mu={mu}, wd={wd}) on "
               f"{what(tag)} ({n} of {total} elements, {len(params)} "
-              f"tensors, one launch): bit-equal to the plain version; "
+              f"tensors, {launches} launch(es)): bit-equal to the plain "
+              f"version; "
               f"kernel {r['ms']:.5f} ms (device {r['device_ms']} ms), "
               f"plain {r['plain_ms']:.5f} ms, torch.optim.SGD(fused=True) "
               f"{r['library_ms']:.5f} ms (device "
@@ -5136,6 +5201,568 @@ def tp_kernel_entries(tp) -> list:
 
 
 
+# --------------------------------------------------------------------------
+# 35. the ResNet rungs (models/resnet.py): BatchNorm running stats through
+# every step path, cross-replica BN, cifar100-shaped and ImageNet-shaped
+# data, K1/K2 on the ResNet leaves
+# --------------------------------------------------------------------------
+
+R18_RECORDS = 10_000
+R18_BATCH = 1024
+R18_EAGER_STEPS = 20
+R18_CHUNK_STEPS, R18_K = 100, 10
+R50_BATCH = 128
+R50_RECORDS = 640
+R50_STEPS, R50_K, R50_CHUNK_STEPS = 10, 5, 20
+R50_VARIANT_STEPS = 3
+RN_DIST_STEPS, RN_DIST_K, RN_DIST_BATCH = 20, 2, 128
+RN_LOSS_RTOL = 1e-3
+R18_PARAMS, R50_PARAMS = 11_173_962, 25_557_032
+# Artifact against live weights on the card, relative to the largest
+# logit: two CUDA graphs of the same ops, whose cuDNN algorithms may
+# differ, through 50 layers.
+RN_SERVE_REL = 1e-4
+# Kernel-name groups of a ResNet step's device time (first match wins):
+# K1/K2, cuDNN's convolutions (many of them GEMM-named: implicit-GEMM and
+# 1x1 convs) with their layout transposes and the head's GEMM,
+# the reductions (BatchNorm's E[x] and E[x²] and their backward sums, the
+# global average pool, the loss), the max pool, and the elementwise rest
+# (BatchNorm's normalize and its backward, ReLUs, residual adds).
+RN_GROUPS = (("update (K1/K2)", re.compile(r"sgd_multi_kernel")),
+             ("convs + GEMMs (cuDNN, cuBLAS)", re.compile(
+                 r"convolve|dgrad|wgrad|fprop|winograd|cudnn|nchw|nhwc|"
+                 r"implicit|gemm|xmma|cutlass|cublas", re.I)),
+             ("reductions (BN stats)", re.compile(r"reduce", re.I)),
+             ("max pool", re.compile(r"max_pool", re.I)),
+             ("elementwise (BN normalize, ReLU, adds)", re.compile(r".")))
+
+
+def _r18_args(name, steps, *extra, k=1, batch=R18_BATCH, lr="0.4",
+              momentum="0.9"):
+    """The README recipe's flags on ResNet-18 (CIFAR geometry)."""
+    every = str(k if k > 1 else 10)
+    return ["--model", "resnet18", "--dataset", "synthetic",
+            "--data_dir", os.path.join(WORK, "r18_data"),
+            "--log_dir", os.path.join(WORK, f"logs_{name}"),
+            "--metrics_jsonl", os.path.join(WORK, f"{name}.jsonl"),
+            "--synthetic_train_records", str(R18_RECORDS),
+            "--fidelity", "fixed", "--batch_size", str(batch),
+            "--learning_rate", lr, "--momentum", momentum,
+            "--weight_decay", "5e-4", "--schedule", "cosine",
+            "--warmup_steps", "10", "--cosine_decay_steps",
+            str(R18_CHUNK_STEPS), "--use_native_loader", "false",
+            "--total_steps", str(steps), "--output_every", every,
+            "--eval_every", str(steps), "--checkpoint_every", str(steps),
+            "--steps_per_dispatch", str(k), "--peak_tflops",
+            F32_PEAK_TFLOPS, *extra]
+
+
+def _r50_args(name, steps, *extra, k=1, momentum="0.9", peak=None,
+              every=None):
+    """ResNet-50 on imagenet_synth (256 stored, 224 crop, 1000 classes)."""
+    every = str(every or (k if k > 1 else 5))
+    return ["--model", "resnet50", "--dataset", "imagenet_synth",
+            "--data_dir", os.path.join(WORK, "r50_data"),
+            "--log_dir", os.path.join(WORK, f"logs_{name}"),
+            "--metrics_jsonl", os.path.join(WORK, f"{name}.jsonl"),
+            "--synthetic_train_records", str(R50_RECORDS),
+            "--fidelity", "fixed", "--batch_size", str(R50_BATCH),
+            "--learning_rate", "0.02", "--momentum", momentum,
+            "--weight_decay", "5e-4", "--total_steps", str(steps),
+            "--output_every", every, "--eval_every", str(steps),
+            "--checkpoint_every", str(steps), "--steps_per_dispatch", str(k),
+            "--peak_tflops", peak or F32_PEAK_TFLOPS, *extra]
+
+
+def _train_losses(name) -> list:
+    return [loss for _, loss, _ in train_log(os.path.join(
+        WORK, f"{name}.jsonl"))]
+
+
+def _rate(name, batch, after=0):
+    """The run's mean images/s over its train records after step
+    ``after``, ms/step, TFLOP/s and MFU."""
+    recs = [r for r in records(os.path.join(WORK, f"{name}.jsonl"))
+            if r["kind"] == "train" and r["step"] > after
+            and r["images_per_sec"] > 0]
+    check(bool(recs), f"{name}: no train record with a rate")
+    rate = sum(r["images_per_sec"] for r in recs) / len(recs)
+    stack = next((r["flops_stack"] for r in records(os.path.join(
+        WORK, f"{name}.jsonl")) if "flops_stack" in r), None)
+    return {"images_per_sec": rate, "ms_per_step": batch / rate * 1e3,
+            "tflops_per_sec": recs[-1].get("tflops_per_sec_per_chip"),
+            "mfu": recs[-1].get("mfu"), "flops_stack": stack}
+
+
+def _free_card() -> None:
+    """Drop the last run's tensors and return the allocator's cache."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _eval_acc(lines) -> float:
+    acc = [float(m[1]) for m in (EVAL_LINE.match(l) for l in lines) if m]
+    check(bool(acc), "no eval line")
+    return acc[-1]
+
+
+def _resident_split(cfg, dev):
+    from dml_cnn_cifar10_tpu_torch.data import pipeline as pipe
+    it = pipe.input_pipeline(cfg.data, cfg.batch_size, train=True,
+                             seed=cfg.seed)
+    return (torch.from_numpy(it.images).to(dev),
+            torch.from_numpy(it.labels.astype("int64")).to(dev))
+
+
+def _replay_profile(fn, state, k, card, label, reps=3) -> dict:
+    """Where a graphed chunk's steps go: replays timed by CUDA events, and
+    one profiled replay's kernels grouped (``RN_GROUPS``), their union
+    (the device's busy time) and the idle rest, per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    replay_ms = cuda_ms(lambda: fn(state), reps=reps, warmup=1) / k
+    # torch.profiler has returned a session with no device event on the
+    # card (seen in phase 34): up to three sessions.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(state)
+            torch.cuda.synchronize()
+        spans, groups = [], {g: 0.0 for g, _ in RN_GROUPS}
+        for ev in prof.events():
+            if not is_device_work(ev):
+                continue
+            spans.append((ev.time_range.start, ev.time_range.end))
+            group = next(g for g, rx in RN_GROUPS if rx.search(ev.name))
+            groups[group] += (ev.time_range.end
+                              - ev.time_range.start) / 1e3 / k
+        if spans:
+            break
+    check(bool(spans), f"{label}: three replay profiles traced no kernel")
+    busy = _union_ms(spans) / k
+    out = {"replay_ms_per_step": replay_ms, "device_busy_ms_per_step": busy,
+           "device_busy_share": busy / replay_ms,
+           "idle_ms_per_step": max(replay_ms - busy, 0.0),
+           "groups_ms_per_step": groups}
+    print(f"[resnet] {label}: a graph replay {replay_ms:.4f} ms/step, "
+          f"device busy {busy:.4f} ms/step "
+          f"({100 * busy / replay_ms:.1f}%), idle "
+          f"{out['idle_ms_per_step']:.4f}; by group (ms/step): "
+          + ", ".join(f"{g} {v:.4f}" for g, v in groups.items())
+          + f" on {card}", flush=True)
+    return out
+
+
+def _chunk_gate(cfg, state, dev, k, label) -> tuple:
+    """One graphed chunk against the same chunk body run eagerly from the
+    same state (phase 9b's comparison, the running stats too), cuDNN
+    deterministic, gated at phase 9b's pins. Returns the gaps and the
+    graphed callable with its state."""
+    ds_images, ds_labels = _resident_split(cfg, dev)
+    c, fn, st = _graph_vs_eager(cfg, state, ds_images, ds_labels, True, k=k)
+    print(f"[resnet] {label} graph vs eager body (cuDNN deterministic): "
+          f"loss {c['loss_graph']!r} vs {c['loss_eager']!r} (gap "
+          f"{c['loss_gap']:.3g}), params gap {c['param_gap']:.3g}, running "
+          f"stats gap {c['mstate_gap']:.3g}, eager vs eager: loss gap "
+          f"{c['eager_eager_loss_gap']:.3g}", flush=True)
+    check(c["loss_gap"] <= CHUNK_LOSS_TOL * abs(c["loss_eager"])
+          and c["param_gap"] <= CHUNK_PARAM_TOL
+          and c["mstate_gap"] <= CHUNK_PARAM_TOL,
+          f"{label}: graphed chunk vs eager body, cuDNN deterministic: "
+          f"loss gap {c['loss_gap']}, params {c['param_gap']}, running "
+          f"stats {c['mstate_gap']}")
+    check(c["launches_graph"] == c["launches_eager"],
+          f"{label}: a replay launched {c['launches_graph']}, the eager "
+          f"body {c['launches_eager']}")
+    return c, fn, st
+
+
+def _meta_shapes(name, crop, classes):
+    from dml_cnn_cifar10_tpu_torch.config import DataConfig, ModelConfig
+    from dml_cnn_cifar10_tpu_torch.models.registry import get_model
+    with torch.device("meta"):
+        net = get_model(name)(ModelConfig(name=name, num_classes=classes),
+                              DataConfig(crop_height=crop, crop_width=crop))
+    return {n: tuple(p.shape) for n, p in net.named_parameters()}
+
+
+def resnet_kernel_rows(dev, card, bytes_per_s, ops_per_s) -> dict:
+    """K2 (and K1) on ResNet-18's 62 and ResNet-50's 161 f32 leaves (one
+    and three launches an update), as ``update_kernel_rows`` holds and
+    times them."""
+    gen = torch.Generator(device=dev).manual_seed(35)
+    rows = {}
+    for tag, name, crop, classes, total, launches in (
+            ("r18", "resnet18", 24, 10, R18_PARAMS, 1),
+            ("r50", "resnet50", 224, 1000, R50_PARAMS, 3)):
+        shapes = _meta_shapes(name, crop, classes)
+        check(sum(math.prod(s) for s in shapes.values()) == total,
+              f"{name}: parameter count")
+
+        def make(shapes=shapes):
+            return {n: torch.randn(s, device=dev, generator=gen)
+                    for n, s in shapes.items()}
+
+        got = update_kernel_rows(
+            dev, card, bytes_per_s, ops_per_s,
+            [("sgd_update_momentum", 0.9, 5e-4, tag, make),
+             ("sgd_update_plain", 0.0, 0.0, tag, make)],
+            lambda t, n=name, s=shapes: f"{n}'s {len(s)} leaves",
+            total=total, launches=launches)
+        for k, r in got.items():
+            rows[f"{k}/{tag}"] = r
+    return rows
+
+
+def resnet_dist_runs(card, backend, world=2) -> dict:
+    """Cross-replica BN over ``world`` data ranks (``backend``; gloo on
+    this card, NCCL a card each): ResNet-18, global batch
+    ``RN_DIST_BATCH``, plain SGD (K1), cuDNN deterministic. The resident
+    chunked path at K = ``RN_DIST_K``, where every rank gathers its
+    columns of the same global rows the one-rank run trains on (each
+    logged loss within 1e-3 relative of it), replicated and zero1 (whole
+    state gathered: zero1 equal to replicated bit for bit); under NCCL the
+    chunks are CUDA graphs with the BN all-reduces captured, and an eager
+    replicated run beside them."""
+    import torch.distributed as dist  # noqa: F401  (the rank jobs use it)
+
+    ref = f"rn_ref{world}"
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        run_cli(_r18_args(ref, RN_DIST_STEPS, k=RN_DIST_K,
+                          batch=RN_DIST_BATCH, lr="0.1", momentum="0"))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    want = _train_losses(ref)
+    runs = []
+    for mode in ("none", "zero1") + (("eager",) if backend == "nccl"
+                                     else ()):
+        name = f"rn_{backend}{world}_{mode}"
+        extra = ["--optimizer_sharding", "zero1"] if mode == "zero1" else []
+        k = 1 if mode == "eager" else RN_DIST_K
+        runs.append({"name": name, "compare": (
+            [f"rn_{backend}{world}_none"] if mode == "zero1" else []),
+            "argv": _r18_args(name, RN_DIST_STEPS, *extra, k=k,
+                              batch=RN_DIST_BATCH, lr="0.1", momentum="0")
+            + _dist_args(world, backend)})
+    label = f"resnet_{backend}{world}"
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(label, {"kind": "shard", "deterministic": True,
+                                "runs": runs}, world=world, timeout_s=600)
+    secs = time.perf_counter() - t0
+    out = {"ref_losses": want, "seconds": secs}
+    for run in runs:
+        name = run["name"]
+        got = _train_losses(name)
+        res = [r["runs"][name] for r in ranks]
+        launches = [r["launches"].get("sgd_update_plain", 0) for r in res]
+        check(all(n == RN_DIST_STEPS for n in launches),
+              f"{name}: K1 launches per rank {launches}, want "
+              f"{RN_DIST_STEPS} (one a step)")
+        check(all(math.isfinite(x) for x in got), f"{name}: losses {got}")
+        entry = {"losses": got, "launches": launches,
+                 "images_per_sec": res[0]["images_per_sec"]}
+        if not name.endswith("eager"):
+            gaps = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+            check(len(got) == len(want) == RN_DIST_STEPS // RN_DIST_K
+                  and max(gaps) <= RN_LOSS_RTOL,
+                  f"{name}: logged losses {got} against one rank's {want}")
+            entry["max_loss_rel_gap"] = max(gaps)
+        if run["compare"]:
+            gap = [r["gaps"][run["compare"][0]]["gap"] for r in res]
+            check(all(g == 0.0 for g in gap),
+                  f"{name}: whole state against replicated, gaps {gap}")
+            entry["state_gap_to_replicated"] = gap
+        out[name] = entry
+        print(f"[resnet dist] {name} on {world} ranks over {backend}: "
+              f"losses {['%.6f' % x for x in got]}"
+              + (f", max gap to one rank {entry['max_loss_rel_gap']:.3g}"
+                 if "max_loss_rel_gap" in entry else "")
+              + (f", whole state vs replicated {entry['state_gap_to_replicated']}"
+                 if "state_gap_to_replicated" in entry else "")
+              + f"; K1 {launches} on {card}", flush=True)
+    if backend == "nccl":
+        _dist_log_says(f"{label}", world, "one CUDA graph replay each")
+    return out
+
+
+def resnet_phase(card, dev, bytes_per_s, ops_per_s) -> dict:
+    """Phase 35 (see the module docstring)."""
+    import numpy as np
+
+    from dml_cnn_cifar10_tpu_torch import export as export_lib
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+    from dml_cnn_cifar10_tpu_torch.serve.engine import ServingEngine
+
+    t_phase = time.perf_counter()
+    res = {"card": card, "part_seconds": {}}
+
+    def mark(part):
+        res["part_seconds"][part] = time.perf_counter() - t_phase
+        print(f"[resnet] {part} done at {res['part_seconds'][part]:.1f} s "
+              f"into phase 35", flush=True)
+
+    # -- ResNet-18, the recipe's flags: eager, then chunked -------------
+    _, eager_k = _launched(lambda: run_cli(_r18_args(
+        "r18_eager", R18_EAGER_STEPS)))
+    check(eager_k == {"sgd_update_momentum": R18_EAGER_STEPS},
+          f"ResNet-18 eager: launches {eager_k}, want K2 once a step")
+    (lines, trainer, result), chunk_k = _launched(lambda: run_trainer(
+        _r18_args("r18_chunk", R18_CHUNK_STEPS, k=R18_K)))
+    replays = trainer.train_fn.graph.replays
+    check(chunk_k == {"sgd_update_momentum": R18_CHUNK_STEPS}
+          and replays == R18_CHUNK_STEPS // R18_K,
+          f"ResNet-18 chunked: launches {chunk_k} in {replays} replays")
+    losses = _train_losses("r18_chunk")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"ResNet-18 chunked losses {losses}: must fall")
+    cfg = trainer.cfg
+    gate, fn, st = _chunk_gate(cfg, result.state, dev, R18_K, "ResNet-18")
+    prof = _replay_profile(fn, st, R18_K, card, "ResNet-18 recipe step")
+    fn.graph.release()
+    trainer.close()
+    del trainer, result, fn, st
+    _free_card()
+    res["r18"] = {"eager": {**_rate("r18_eager", R18_BATCH),
+                            "losses": _train_losses("r18_eager"),
+                            "launches": eager_k},
+                  "chunked": {**_rate("r18_chunk", R18_BATCH, after=20),
+                              "losses": losses, "launches": chunk_k,
+                              "replays": replays,
+                              "test_accuracy": _eval_acc(lines)},
+                  "graph_vs_eager": gate, "replay_profile": prof}
+    r = res["r18"]
+    print(f"[resnet] ResNet-18 recipe (batch {R18_BATCH}, 24 px): eager "
+          f"{r['eager']['ms_per_step']:.3f} ms/step "
+          f"({r['eager']['images_per_sec']:.0f} img/s), chunked K={R18_K} "
+          f"{r['chunked']['ms_per_step']:.3f} ms/step "
+          f"({r['chunked']['images_per_sec']:.0f} img/s, "
+          f"{r['chunked']['tflops_per_sec']} TFLOP/s, MFU "
+          f"{r['chunked']['mfu']} of {F32_PEAK_TFLOPS} f32), device busy "
+          f"{100 * prof['device_busy_share']:.1f}%, losses {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f}, test accuracy "
+          f"{r['chunked']['test_accuracy']}%; K2 {chunk_k} on {card}",
+          flush=True)
+
+    mark("r18")
+    # -- ResNet-50 on imagenet_synth, f32 and bf16 ----------------------
+    for dtype, peak in (("float32", F32_PEAK_TFLOPS),
+                        ("bfloat16", BF16_PEAK_TFLOPS)):
+        tag = "f32" if dtype == "float32" else "bf16"
+        extra = ("--compute_dtype", dtype)
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        lines, k_eager = _launched(lambda: run_cli(_r50_args(
+            f"r50_{tag}", R50_STEPS, *extra, peak=peak)))
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(k_eager == {"sgd_update_momentum": 3 * R50_STEPS},
+              f"ResNet-50 {tag}: launches {k_eager}, want K2 3 a step")
+        (clines, trainer, result), k_chunk = _launched(lambda: run_trainer(
+            _r50_args(f"r50_{tag}_chunk", R50_CHUNK_STEPS, *extra, k=R50_K,
+                      peak=peak)))
+        check(k_chunk == {"sgd_update_momentum": 3 * R50_CHUNK_STEPS},
+              f"ResNet-50 {tag} chunked: launches {k_chunk}")
+        closses = _train_losses(f"r50_{tag}_chunk")
+        check(closses[-1] < closses[0], f"ResNet-50 {tag} chunked losses "
+              f"{closses}: must fall")
+        entry = {"eager": {**_rate(f"r50_{tag}", R50_BATCH),
+                           "losses": _train_losses(f"r50_{tag}"),
+                           "launches": k_eager,
+                           "test_accuracy": _eval_acc(lines),
+                           "peak_gib": peak_gb},
+                 "chunked": {**_rate(f"r50_{tag}_chunk", R50_BATCH),
+                             "losses": _train_losses(f"r50_{tag}_chunk"),
+                             "launches": k_chunk,
+                             "test_accuracy": _eval_acc(clines)}}
+        for run in ("eager", "chunked"):
+            check(all(math.isfinite(x) for x in entry[run]["losses"]),
+                  f"ResNet-50 {tag} {run}: losses {entry[run]['losses']}")
+        entry["replay_profile"] = _replay_profile(
+            trainer.train_fn, result.state, R50_K, card,
+            f"ResNet-50 step ({tag})")
+        trainer.close()
+        del trainer, result
+        _free_card()
+        res[f"r50_{tag}"] = entry
+        e, c = entry["eager"], entry["chunked"]
+        print(f"[resnet] ResNet-50 {tag} (batch {R50_BATCH}, 224 px): "
+              f"eager {e['ms_per_step']:.3f} ms/step "
+              f"({e['images_per_sec']:.0f} img/s, {e['tflops_per_sec']} "
+              f"TFLOP/s, MFU {e['mfu']} of {peak}), chunked K={R50_K} "
+              f"{c['ms_per_step']:.3f} ms/step ({c['images_per_sec']:.0f} "
+              f"img/s); losses {e['losses']}; eval on the running stats "
+              f"{e['test_accuracy']}%; peak {peak_gb:.2f} GiB; K2 "
+              f"{k_eager} on {card}", flush=True)
+
+    mark("r50")
+    # -- export and serve ResNet-50 (f32) with its running stats --------
+    base = _r50_args("r50_f32", R50_STEPS)
+    run_cli(base + ["--mode", "export"])
+    artifact = os.path.join(WORK, "logs_r50_f32", export_lib.ARTIFACT_NAME)
+    art = ServingEngine.from_artifact(artifact, dev)
+    cfg = config_from_args(build_parser().parse_args(base))
+    model, params, step = export_lib.restore_serving_params(cfg, dev)
+    check(any(n.endswith(".mean") for n in params),
+          "the served variables carry no running stats")
+    live = ServingEngine.from_params(model, cfg.data, params, dev,
+                                     version=str(step))
+    art.warmup([1, 32])
+    live.warmup([1, 32])
+    rng = np.random.default_rng(35)
+    images = rng.integers(0, 256, (32, 256, 256, 3), dtype=np.uint8)
+    serve = {"artifact_bytes": os.path.getsize(artifact)}
+    for b in (1, 32):
+        a, ms = art.forward_timed(images[:b])
+        want, _ = live.forward_timed(images[:b])
+        rel = _rel(a, want)
+        check(rel <= RN_SERVE_REL, f"ResNet-50 artifact vs live weights at "
+              f"b={b}: {rel}")
+        serve[f"b{b}"] = {"rel_gap": rel, "ms": ms}
+    # A hot swap of params and running stats: the chunked run's step 10.
+    ccfg = config_from_args(build_parser().parse_args(
+        _r50_args("r50_f32_chunk", R50_CHUNK_STEPS, k=R50_K)))
+    _, cand, cstep = export_lib.restore_serving_params(ccfg, dev)
+    cparams = {n: t for n, t in cand.items()
+               if not n.endswith((".mean", ".var"))}
+    cstate = {n: t for n, t in cand.items()
+              if n.endswith((".mean", ".var"))}
+    ok, why = live.try_swap(cparams, version="no_state")
+    check(not ok, "a swap without the running stats was accepted")
+    ok, why = live.try_swap(cparams, cstate, version=f"chunk{cstep}")
+    check(ok, f"swap with the running stats rejected: {why}")
+    ref = ServingEngine.from_params(_fresh_model(ccfg), ccfg.data, cand, dev)
+    got, _ = live.forward_timed(images)
+    want, _ = ref.forward_timed(images)
+    serve["swap_rel_gap"] = _rel(got, want)
+    check(serve["swap_rel_gap"] <= RN_SERVE_REL,
+          f"after the swap: {serve['swap_rel_gap']}")
+    t, stop, url, _, rc = _serve_thread(base + ["--serve_buckets", "1,32"])
+    import urllib.request
+    reply = json.loads(urllib.request.urlopen(urllib.request.Request(
+        f"{url}/predict", data=images[0].tobytes()), timeout=60).read())
+    a1, _ = art.forward_timed(images[:1])
+    check(reply["version"] == "artifact" and _rel(
+        np.asarray(reply["logits"]), a1[0]) <= RN_SERVE_REL,
+        "the served answer is not the artifact's")
+    lg = _loadgen(["--target", url, "--mode", "closed", "--concurrency",
+                   "32", "--duration_s", "2", "--image_size", "256"],
+                  "r50_c32")
+    _stop_serve(t, stop, rc, "ResNet-50 serve")
+    check(lg["errors"] == 0 and lg["completed"] > 0,
+          f"ResNet-50 serve at 32 clients: {lg['error_kinds']}")
+    serve["http_c32"] = {k: lg.get(k) for k in ("completed", "achieved_qps",
+                                                "latency_ms")}
+    res["r50_serve"] = serve
+    del art, live, ref, model, params, cand, cparams, cstate
+    print(f"[resnet] ResNet-50 --mode export ({serve['artifact_bytes']} "
+          f"bytes) and serve: artifact vs live weights (running stats) "
+          f"{serve['b1']['rel_gap']:.3g} at b=1, {serve['b32']['rel_gap']:.3g}"
+          f" at b=32; hot swap with model_state {serve['swap_rel_gap']:.3g};"
+          f" HTTP 32 clients {lg['completed']} answers, "
+          f"{lg['achieved_qps']} qps, p50 {lg['latency_ms']['p50']} ms, p99 "
+          f"{lg['latency_ms']['p99']} ms on {card}", flush=True)
+
+    mark("serve")
+    # -- ResNet-50 variants: nf, s2d, remat (plain SGD: K1) ---------------
+    variants = {}
+    for name, extra in (("remat", ("--remat", "true")),
+                        ("nf", ("--resnet_norm", "nf")),
+                        ("s2d", ("--resnet_s2d", "true"))):
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        _, k = _launched(lambda: run_cli(_r50_args(
+            f"r50_v_{name}", R50_VARIANT_STEPS, *extra, momentum="0",
+            every=1)))
+        losses = _train_losses(f"r50_v_{name}")
+        check(k == {"sgd_update_plain": 3 * R50_VARIANT_STEPS}
+              and all(math.isfinite(x) for x in losses),
+              f"ResNet-50 {name}: launches {k}, losses {losses}")
+        variants[name] = {"launches": k, "losses": losses,
+                          "peak_gib": torch.cuda.max_memory_allocated()
+                          / 2 ** 30,
+                          **_rate(f"r50_v_{name}", R50_BATCH)}
+    # Against the f32 eager run (the same step with momentum buffers).
+    plain_gib = res["r50_f32"]["eager"]["peak_gib"]
+    check(variants["remat"]["peak_gib"] < plain_gib,
+          f"remat did not lower the peak memory below {plain_gib} GiB")
+    res["r50_variants"] = variants
+    print(f"[resnet] ResNet-50 variants (3 steps, batch 128, f32, K1 3 a "
+          f"step; the plain f32 run's peak {plain_gib:.2f} GiB): "
+          + "; ".join(
+              f"{n} {v['ms_per_step']:.2f} ms/step, peak "
+              f"{v['peak_gib']:.2f} GiB" for n, v in variants.items())
+          + f" on {card}", flush=True)
+
+    mark("variants")
+    # -- K1/K2 on the ResNet leaves, bit-equal and timed ----------------
+    res["kernels"] = resnet_kernel_rows(dev, card, bytes_per_s, ops_per_s)
+    res["launches"] = {"r18_k2": chunk_k, "r50_k2": res["r50_f32"]["eager"][
+        "launches"], "r50_k1": variants["remat"]["launches"]}
+
+    mark("kernels")
+    # -- cross-replica BN on 2 gloo ranks on this card ------------------
+    res["dist_gloo"] = resnet_dist_runs(card, "gloo")
+    mark("dist_gloo")
+    res["seconds"] = time.perf_counter() - t_phase
+    with open(os.path.join(OUT, "slice15.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    print(f"[resnet] phase 35: {res['seconds']:.1f} s on {card}",
+          flush=True)
+    return res
+
+
+def resnet_nccl_phase(card, count) -> dict:
+    """Phase 35 under ``--dist``: cross-replica BN over NCCL on 2 cards,
+    chunked (one CUDA graph a chunk, the BN all-reduces captured) and
+    eager."""
+    res = {"card": card, "nccl2": resnet_dist_runs(card, "nccl")}
+    with open(os.path.join(OUT, "slice15_nccl.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
+
+
+def resnet_kernel_entries(rn) -> list:
+    """The ``kernels`` line's rows of phase 35: K2 and K1 on ResNet-18's
+    and ResNet-50's leaves."""
+    out = []
+    for key, kid, line, tag, launches, work in (
+            ("sgd_update_momentum/r18", "K2", 70, "resnet18",
+             rn["launches"]["r18_k2"],
+             f"ResNet-18's recipe, {R18_CHUNK_STEPS} chunked steps"),
+            ("sgd_update_momentum/r50", "K2", 70, "resnet50",
+             rn["launches"]["r50_k2"], f"ResNet-50 f32, {R50_STEPS} steps"),
+            ("sgd_update_plain/r18", "K1", 83, "resnet18",
+             {"sgd_update_plain": rn["dist_gloo"]["rn_gloo2_none"][
+                 "launches"][0]},
+             f"rank 0 of the 2-rank cross-replica run, {RN_DIST_STEPS} "
+             f"steps"),
+            ("sgd_update_plain/r50", "K1", 83, "resnet50",
+             rn["launches"]["r50_k1"],
+             f"ResNet-50 f32 --remat, plain SGD, {R50_VARIANT_STEPS} "
+             f"steps")):
+        r = rn["kernels"][key]
+        name = key.split("/")[0]
+        out.append({
+            "name": name, "kernel": kid, "path": tag, "route": "cuda",
+            "source": "dml_cnn_cifar10_tpu_torch/csrc/sgd_update.cu",
+            "cuda_kernel": f"sgd_multi_kernel<{str(kid == 'K2').lower()}>",
+            "replaces": f"dml_cnn_cifar10_tpu/ops/optimizer.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": r["max_abs_err"],
+            **{k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms",
+                                 "library_device_ms")},
+            "library": "torch.optim.SGD(fused=True).step",
+            "work": f"one update of {tag}'s {r['leaves']} f32 leaves "
+                    f"({r['elements']} params, "
+                    f"{r['launches_per_update']} launch(es)); launches: "
+                    f"{work}"})
+    return out
+
+
 def only_phase():
     """The phase named by ``--phase N`` (a debugging run of that phase
     alone after the build), or None."""
@@ -5206,12 +5833,17 @@ def dist_main() -> int:
     if only_phase() == "34":
         return phase_only_main(card, kind, count,
                                lambda: tp_nccl_phase(card, count))
+    if only_phase() == "35":
+        return phase_only_main(card, kind, count,
+                               lambda: resnet_nccl_phase(card, count))
     # Phase 31 first: a capture that fails ends the run early.
     chunked = chunk_nccl_phase(card, worlds)
     # Phase 33 over NCCL: zero1 and fsdp eager and graphed, and ViT-Ti.
     sharded = shard_nccl_phase(card, dev, worlds, bytes_per_s, ops_per_s)
     # Phase 34 over NCCL: tensor parallelism eager and graphed.
     tensor_parallel = tp_nccl_phase(card, count)
+    # Phase 35 over NCCL: cross-replica BN eager and graphed.
+    resnet_nccl = resnet_nccl_phase(card, count)
     # Then phase 32's two ranks over NCCL: the flag exchange runs between
     # graph replays.
     safety_nccl = rs_ranks(card, "nccl")
@@ -5223,6 +5855,7 @@ def dist_main() -> int:
     res["run_safety_nccl"] = safety_nccl
     res["sharded"] = {k: v for k, v in sharded.items() if k != "kernels"}
     res["tensor_parallel"] = tensor_parallel
+    res["resnet"] = resnet_nccl
     # Each chunked path beside its per-step run of this call.
     pairs = [(f"DP CNN, {w} ranks", chunked[f"dp{w}"]["loop_ms_per_step"],
               res[f"dp{w}"]["step_ms"]) for w in worlds]
@@ -5276,6 +5909,16 @@ def rank_main(argv) -> int:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
+
+    def stamp(phase):
+        line = (f"[chip_smoke] phase {phase} starts at "
+                f"{time.perf_counter() - t_main:.1f} s")
+        print(line, flush=True)
+        os.makedirs(OUT, exist_ok=True)
+        with open(os.path.join(OUT, "phase_starts.txt"), "a") as f:
+            f.write(line + "\n")
+
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5300,6 +5943,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    stamp("2")
     # ---- 2. build --------------------------------------------------------
     if _build.BUILD_DIR.exists():
         shutil.rmtree(_build.BUILD_DIR)
@@ -5320,7 +5964,11 @@ def main() -> int:
     if only_phase() == "34":
         return phase_only_main(card, kind, count, lambda: tp_phase(
             card, dev, bytes_per_s, ops_per_s))
+    if only_phase() == "35":
+        return phase_only_main(card, kind, count, lambda: resnet_phase(
+            card, dev, bytes_per_s, ops_per_s))
 
+    stamp("3")
     # ---- 3. parity -------------------------------------------------------
     model = CNN(ModelConfig(logit_relu=False), DataConfig())
     leaf_shapes = [tuple(p.shape) for p in model.parameters()]
@@ -5397,6 +6045,7 @@ def main() -> int:
             continue
         fail(f"fused_sgd_update accepted {what}")
 
+    stamp("4")
     # ---- 4. timing -------------------------------------------------------
     def cnn_leaves():
         return {f"l{i}": torch.randn(s, device=dev, generator=gen)
@@ -5452,6 +6101,7 @@ def main() -> int:
               f"{timing[name]['bound_ms']:.5f} ms "
               f"({timing[name]['bound_by']}) on {card}", flush=True)
 
+    stamp("5")
     # ---- 5. train: the main path ----------------------------------------
     if os.path.isdir(WORK):
         shutil.rmtree(WORK)
@@ -5490,6 +6140,7 @@ def main() -> int:
           f"step; evals and checkpoints included), {wall_s:.1f} s wall "
           f"with data generation, on {card}", flush=True)
 
+    stamp("6")
     # ---- 6. resume -------------------------------------------------------
     fused.reset_launches()
     resume_jsonl = os.path.join(WORK, "resume.jsonl")
@@ -5505,6 +6156,7 @@ def main() -> int:
     check(len(resumed_acc) == 1, f"resume evals {resumed_acc}")
     print(f"[resume] continued {STEPS} -> {RESUME_STEPS}", flush=True)
 
+    stamp("7")
     # ---- 7. eval mode ----------------------------------------------------
     lines = run_cli(base + ["--log_dir", log_dir, "--mode", "eval"])
     eval_acc = [m[1] for m in map(EVAL_LINE.match, lines) if m]
@@ -5515,6 +6167,7 @@ def main() -> int:
     print(f"[eval] restored step {RESUME_STEPS}: {eval_acc[0]}% (matches)",
           flush=True)
 
+    stamp("8")
     # ---- 8. momentum -----------------------------------------------------
     fused.reset_launches()
     mom_jsonl = os.path.join(WORK, "momentum.jsonl")
@@ -5533,23 +6186,28 @@ def main() -> int:
     print(f"[momentum] {MOMENTUM_STEPS} steps, K2 launches {momentum_k2}",
           flush=True)
 
+    stamp("9")
     # ---- 9. where a training step's time goes ---------------------------
     eager_profile = profile_step(
         base + ["--log_dir", os.path.join(WORK, "logs_profile")],
         records(train_jsonl), card)
 
+    stamp("9b")
     # ---- 9b. chunked: resident data, device index stream, CUDA graphs --
     chunk = chunk_phase(base, card, eager_profile)
 
+    stamp("10")
     # ---- 10. flash parity (K3, K4, K6, K7) -------------------------------
     from dml_cnn_cifar10_tpu_torch import convert
     from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt
     from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
     flash_worst = flash_parity(dev)
 
+    stamp("11")
     # ---- 11. flash timing ------------------------------------------------
     flash_times = flash_timing(dev, card, bytes_per_s, ops_per_s)
 
+    stamp("12")
     # ---- 12. ViT train: the main path ------------------------------------
     n_blocks = 12
     vit_log = os.path.join(WORK, "logs_vit")
@@ -5608,6 +6266,7 @@ def main() -> int:
           f"ms/step in the windows after step 50), {wall_s:.1f} s wall with "
           f"data generation; launches {vit_launches}, on {card}", flush=True)
 
+    stamp("13")
     # ---- 13. ViT resume + eval mode --------------------------------------
     from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
                                                     config_from_args)
@@ -5647,6 +6306,7 @@ def main() -> int:
           f"the AdamW moments restored; --mode eval {eval_acc[0]}% matches",
           flush=True)
 
+    stamp("14")
     # ---- 14. long context: 8,100 tokens, bf16, remat ---------------------
     long_base = long_args(WORK) + ["--batch_size", "2"]
     long_jsonl = os.path.join(WORK, "vit_long.jsonl")
@@ -5687,6 +6347,7 @@ def main() -> int:
           f"device memory {peak_bytes / 2**20:.1f} MiB; launches "
           f"{long_launches}, on {card}", flush=True)
 
+    stamp("15")
     # ---- 15. where a ViT step's time goes --------------------------------
     vit_profile = profile_vit(
         vit_base + ["--log_dir", os.path.join(WORK, "logs_vit_profile")],
@@ -5695,10 +6356,12 @@ def main() -> int:
         long_base + ["--log_dir", os.path.join(WORK, "logs_long_profile")],
         "long", card, steps=2)
 
+    stamp("16")
     # ---- 16. K5 parity, and K6/K7 as the backward ring calls them -------
     stats_worst = stats_parity(dev)
     ring_bwd_worst = ring_bwd_parity(dev)
 
+    stamp("17")
     # ---- 17. K5 timing ---------------------------------------------------
     stats_time = stats_timing(dev, card, bytes_per_s)
 
@@ -5728,6 +6391,7 @@ def main() -> int:
           f"{min(count, ULYSSES_SEQ)} card(s)", flush=True)
     uly = ulysses_phases(ul_backend, card, one_rank_jsonl=long_jsonl)
 
+    stamp("28")
     # ---- 28. telemetry: TFLOP/s and MFU of every path; profile windows ---
     telemetry = telemetry_check({
         "cnn eager": (train_jsonl, F32_PEAK_TFLOPS),
@@ -5744,25 +6408,34 @@ def main() -> int:
                             chunk["groups_ms_per_step"]["K1"],
                             eager_profile["device_busy_ms_per_step"])
 
+    stamp("29")
     # ---- 29. the optimizer surface --------------------------------------
     optim = optim_phase(base, card)
     with open(os.path.join(OUT, "slice10.json"), "w") as f:
         json.dump({"card": card, "ulysses": uly, "telemetry": telemetry,
                    "devtime": devtime, "optim": optim}, f, indent=1)
 
+    stamp("30")
     # ---- 30. the DP CNN chunked on 2 ranks over gloo on this card -------
     dp_chunk = chunk_gloo_phase(card)
     with open(os.path.join(OUT, "slice11.json"), "w") as f:
         json.dump({"card": card, "dp_chunk_gloo": dp_chunk}, f, indent=1)
 
+    stamp("32")
     # ---- 32. run safety: telemetry, the numerics guard, preemption ------
     safety = run_safety_phase(card)
 
+    stamp("33")
     # ---- 33. sharded state: zero1 and fsdp on 2 ranks over gloo ---------
     shard = shard_phase(card, dev, bytes_per_s, ops_per_s)
 
+    stamp("34")
     # ---- 34. tensor parallelism over --model_axis, gloo on this card ----
     tp = tp_phase(card, dev, bytes_per_s, ops_per_s)
+
+    stamp("35")
+    # ---- 35. the ResNet rungs: BatchNorm state, cross-replica BN --------
+    rn = resnet_phase(card, dev, bytes_per_s, ops_per_s)
 
     for path in (train_jsonl, resume_jsonl, mom_jsonl, vit_jsonl,
                  os.path.join(WORK, "vit_resume.jsonl"), long_jsonl):
@@ -5845,6 +6518,7 @@ def main() -> int:
             "sgd_update_plain"] for path in ("zero1", "fsdp")},
         ("zero1", "fsdp"))
     kernels += tp_kernel_entries(tp)
+    kernels += resnet_kernel_entries(rn)
     t = stats_time
     kernels.append({
         "name": "flash_fwd_stats", "kernel": "K5", "route": "cuda",

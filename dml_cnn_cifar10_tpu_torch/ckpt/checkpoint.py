@@ -120,17 +120,25 @@ def state_to_tree(state: TrainState) -> Dict[str, Any]:
     def full(key, values):
         return tp.whole(state, key, zero.whole(state, key, values))
 
+    def mstate(values):
+        # The ResNet's tree: None at every leaf that is not a BN layer's.
+        return convert.state_to_jax(values, state.params) \
+            if state.stateful else {}
+
     opt = {}
     for key in sorted(state.opt):
         value = state.opt[key]
         # np.array copies: on the CPU .numpy() would share the live
         # tensor's memory, which the next step updates in place.
-        opt[key] = convert.params_to_jax(
-            full(key, value), convert.OPT_LAYOUTS.get(key, "port")) \
-            if isinstance(value, Mapping) \
-            else np.array(value.detach().to("cpu").numpy())
+        if key == "ema_mstate":
+            opt[key] = mstate(value)
+        elif isinstance(value, Mapping):
+            opt[key] = convert.params_to_jax(
+                full(key, value), convert.OPT_LAYOUTS.get(key, "port"))
+        else:
+            opt[key] = np.array(value.detach().to("cpu").numpy())
     return {"params": convert.params_to_jax(full("params", state.params)),
-            "opt": opt, "model_state": {}}
+            "opt": opt, "model_state": mstate(state.model_state)}
 
 
 def _same_keys(want: Mapping, have: Mapping, where: str) -> None:
@@ -166,11 +174,15 @@ def load_tree_into(state: TrainState, tree: Mapping[str, Any]) -> TrainState:
     """Copy a checkpoint tree (whole leaves) into ``state``'s tensors, in
     place: into this rank's model slices and shards where the state keeps
     them. Every key, shape and dtype is checked before any tensor is
-    written."""
+    written. A ``model_state`` tree's ``None`` leaves (the ResNet's, as
+    msgpack keeps them) carry nothing; a ``.sharded`` tree has none."""
     _same_keys({"params": 0, "opt": 0, "model_state": 0}, tree, "state")
     _same_keys(state.opt, tree["opt"], "opt")
     copies = [("params", state.params,
-               _checked(state, state.params, tree["params"], "params"))]
+               _checked(state, state.params, tree["params"], "params")),
+              ("model_state", state.model_state,
+               _checked(state, state.model_state, tree["model_state"],
+                        "model_state"))]
     for key, value in state.opt.items():
         if isinstance(value, Mapping):
             copies.append((key, value,

@@ -94,8 +94,10 @@ def _sorted_leaves(tree: Mapping[str, Any], prefix: str
 def state_leaves(state) -> List[Tuple[str, str, Optional[str], Any]]:
     """``(path, entry, name, tensor)`` of every leaf of a port
     ``TrainState`` in JAX's flattening order: ``entry`` is ``"params"``
-    or the optimizer-state key, ``name`` the port's leaf name (None for
-    the step counter). The port's models keep no ``model_state``."""
+    or the optimizer-state key or ``"model_state"``, ``name`` the port's
+    leaf name (None for the step counter). A list index is a path
+    component (``.model_state/stage1/0/bn1/mean``, JAX's key path); the
+    ``None`` leaves of a ResNet's ``model_state`` are no leaves."""
     out = [(path, "params", name, state.params[name])
            for path, name in _sorted_leaves(_nest(state.params), ".params/")]
     for key in sorted(state.opt):
@@ -105,6 +107,9 @@ def state_leaves(state) -> List[Tuple[str, str, Optional[str], Any]]:
                     _sorted_leaves(_nest(value), f".opt/{key}/")]
         else:
             out.append((f".opt/{key}", key, None, value))
+    out += [(path, "model_state", name, state.model_state[name])
+            for path, name in _sorted_leaves(_nest(state.model_state),
+                                             ".model_state/")]
     return out
 
 

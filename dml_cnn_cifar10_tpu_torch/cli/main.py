@@ -17,7 +17,11 @@ for the ViT when ``--seq_axis`` > 1 (``--sp_mode ring`` or ``ulysses``;
 needs a card per rank; ``gloo`` (the default on cpu) also lets several
 ranks share one card, through host memory.
 
-Models: ``--model cnn`` (the reference, default) and ``--model vit_tiny``
+Models: ``--model cnn`` (the reference, default), ``--model resnet18`` and
+``resnet50`` (BatchNorm running stats through every step path,
+cross-replica over the data ranks; ``--resnet_norm nf``, ``--resnet_s2d``,
+``--remat``; not under ``--model_axis`` or ``--seq_axis`` > 1) and
+``--model vit_tiny``
 (ViT-Ti, attention through the hand-written flash kernels from 128 tokens
 up, e.g. ``--crop_size 64``), with the JAX CLI's ViT, optimizer and
 schedule flags, and the rest of its optimizer surface
@@ -32,7 +36,11 @@ window (``utils/devprof.py``). The run-safety flags are the JAX CLI's:
 ``--async_checkpoint``, ``--preempt_sync_every`` (SIGTERM/SIGINT finish the
 dispatch, checkpoint and exit 0), ``--telemetry`` with
 ``--trace_events_path``, ``--health_metrics`` and ``--tensorboard_dir``;
-``--random_brightness`` and ``--random_contrast`` augment. Sharded state
+``--random_brightness`` and ``--random_contrast`` augment. Datasets:
+``cifar10``, ``cifar100`` (their binaries on disk; nothing is fetched),
+``synthetic`` and ``imagenet_synth`` (generated; 256 px stored, 224 crop,
+1000 classes); ``--use_native_loader false`` is accepted (the JAX
+package's C++ loader is not ported). Sharded state
 over the data ranks: ``--optimizer_sharding zero1``, ``--fsdp``,
 ``--partition_rules``, ``--partition_rules_strict``, ``--partition_report``,
 and ``--ckpt_format sharded`` with ``--shard_io_threads`` (``orbax``
@@ -134,15 +142,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--model", type=str, default="cnn",
-                   help="cnn (the reference) or vit_tiny")
+                   choices=["cnn", "resnet18", "resnet50", "vit_tiny",
+                            "vit_moe"],
+                   help="cnn (the reference), resnet18, resnet50 or "
+                        "vit_tiny (vit_moe is not ported: it raises)")
     p.add_argument("--dataset", type=str, default="cifar10",
-                   choices=["cifar10", "synthetic"])
+                   choices=["cifar10", "cifar100", "synthetic",
+                            "imagenet_synth"],
+                   help="imagenet_synth: generated ImageNet-shaped shards "
+                        "(256 px stored, 224 px crop, 1000 classes, "
+                        "2-byte labels); cifar100 reads its binaries")
     p.add_argument("--image_size", type=int, default=None,
-                   help="stored square image side (default: 32)")
+                   help="stored square image side (default: 32; 256 for "
+                        "imagenet_synth)")
     p.add_argument("--crop_size", type=int, default=None,
-                   help="model input side after crop (default: 24)")
+                   help="model input side after crop (default: 24; 224 "
+                        "for imagenet_synth)")
     p.add_argument("--synthetic_train_records", type=int, default=None,
-                   help="generated train records for --dataset synthetic")
+                   help="generated train records for the synthetic and "
+                        "imagenet_synth datasets")
+    p.add_argument("--resnet_norm", type=str, default="bn",
+                   choices=["bn", "nf"],
+                   help="ResNet normalization: bn (cross-replica BatchNorm "
+                        "with running stats) or nf (normalizer-free: "
+                        "scaled weight standardization, no running stats)")
+    p.add_argument("--resnet_s2d", type="bool", default=False,
+                   help="space-to-depth ResNet stem (ImageNet stems only): "
+                        "a 4x4/1 conv on the 2x2-folded input instead of "
+                        "7x7/2")
+    p.add_argument("--use_native_loader", type="bool", default=False,
+                   help="the JAX package's C++ shuffle-pool loader is not "
+                        "ported: false (the numpy pipeline) is accepted, "
+                        "true raises")
     p.add_argument("--fidelity", type=str, default="faithful",
                    choices=["faithful", "fixed"],
                    help="faithful reproduces the reference quirks (ReLU'd "
@@ -403,6 +434,19 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
     cfg.data.data_dir = args.data_dir
     cfg.data.random_brightness = args.random_brightness
     cfg.data.random_contrast = args.random_contrast
+    if args.use_native_loader:
+        raise NotImplementedError(
+            "--use_native_loader true: the JAX package's C++ loader "
+            "(runtime/recordio.cc) is not ported; see ROADMAP.md Queue 1 "
+            "item 9. Pass --use_native_loader false (the numpy pipeline)")
+    if args.dataset == "cifar100":
+        cfg.data.num_classes = cfg.model.num_classes = 100
+    if args.dataset == "imagenet_synth":
+        # The ResNet-50 ImageNet-1k rung: 256 stored / 224 crop, 1000
+        # classes (JAX cli/main.py:758-765).
+        cfg.data.image_height = cfg.data.image_width = 256
+        cfg.data.crop_height = cfg.data.crop_width = 224
+        cfg.data.num_classes = cfg.model.num_classes = 1000
     if args.image_size is not None:
         cfg.data.image_height = cfg.data.image_width = args.image_size
     if args.crop_size is not None:
@@ -471,6 +515,8 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
         if getattr(args, f) is not None:
             setattr(cfg.model, f, getattr(args, f))
     cfg.model.remat = args.remat
+    cfg.model.resnet_norm = args.resnet_norm
+    cfg.model.resnet_s2d = args.resnet_s2d
     cfg.model.attn_causal = args.attn_causal
     cfg.model.attn_window = args.attn_window
     try:

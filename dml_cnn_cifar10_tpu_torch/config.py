@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 class DataConfig:
     """Input pipeline config. Reference: ``cifar10cnn.py:9-27,34-91``."""
 
-    dataset: str = "cifar10"              # cifar10 | synthetic
+    dataset: str = "cifar10"   # cifar10 | cifar100 | synthetic | imagenet_synth
     data_dir: str = "cifar10data"         # reference constant (cifar10cnn.py:26)
     image_height: int = 32                # cifar10cnn.py:15
     image_width: int = 32                 # cifar10cnn.py:16
@@ -89,7 +89,7 @@ class DataConfig:
 class ModelConfig:
     """Model selection + faithful-mode switches."""
 
-    name: str = "cnn"                     # cnn | vit_tiny
+    name: str = "cnn"                     # cnn | resnet18 | resnet50 | vit_tiny
     num_classes: int = 10
     # Reference applies ReLU to the final logits (cifar10cnn.py:145).
     # Faithful mode keeps it; fixed mode emits raw logits.
@@ -100,6 +100,18 @@ class ModelConfig:
     bias_init: float = 0.1
     dtype: str = "float32"                # param dtype
     compute_dtype: str = "float32"        # activations: float32 | bfloat16
+    # BatchNorm knobs (the ResNets): running stats m·old + (1−m)·batch.
+    bn_momentum: float = 0.9
+    bn_eps: float = 1e-5
+    # ResNet normalization: "bn" (cross-replica BatchNorm with running
+    # stats) or "nf" (normalizer-free: scaled weight standardization,
+    # per-conv biases and a SkipInit residual scalar; no running stats).
+    # Checkpoints do not interchange across this flag.
+    resnet_norm: str = "bn"
+    # Space-to-depth stem for the ImageNet-stem ResNets: the image folded
+    # 2x2 into channels and a 4x4/1 conv in place of the 7x7/2 one (a
+    # different stem param shape).
+    resnet_s2d: bool = False
     # ViT-specific knobs (ignored by the CNN).
     patch_size: int = 4
     vit_dim: int = 192

@@ -14,6 +14,17 @@ the key order of ``module.named_parameters()`` is irrelevant: callers
 look up by name) and ``params_to_jax(state) -> tree`` (numpy). Both are
 exact: a round trip reproduces every bit.
 
+The ResNet's trees hold lists (``params["stage1"][0]["conv1"]``): a list
+index becomes a name (``stage1.0.conv1``), and ``params_to_jax`` writes
+it back as a dict keyed ``"0"``, ``"1"``, ... (flax's state-dict form of a
+list, the form its msgpack holds) or, with ``lists=True``, as the list
+itself. Its conv kernels are bare leaves named ``conv``, ``conv<k>`` or
+``proj`` (OIHW in the port, HWIO in JAX); ``fc.kernel`` keeps the JAX
+layout. Its ``model_state`` (BatchNorm running stats) mirrors the params
+tree with ``None`` at every leaf that is not a BN layer's (JAX
+``resnet.init_state``): :func:`params_from_jax` drops the ``None``
+leaves, :func:`state_to_jax` rebuilds them from the parameter names.
+
 Under tensor parallelism a rank holds a slice of some leaves
 (``parallel/tp.py``): :func:`model_local` cuts whole tensors to a rank's
 slices (the gather back is ``ModelSplit.whole``, a collective).
@@ -21,7 +32,8 @@ slices (the gather back is ``ModelSplit.whole``, a collective).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import re
+from typing import Any, Dict, Iterable, Mapping
 
 import numpy as np
 import torch
@@ -37,6 +49,16 @@ LAYOUTS = {
     "full1.kernel": _DENSE, "full2.kernel": _DENSE, "full3.kernel": _DENSE,
 }
 
+# The ResNet's conv kernels (models/resnet.py): bare leaves.
+_RESNET_CONV = re.compile(r"(^|\.)(conv\d*|proj)$")
+
+
+def _layout(name: str):
+    if name in LAYOUTS:
+        return LAYOUTS[name]
+    return _CONV if _RESNET_CONV.search(name) else None
+
+
 #: How an optimizer-state tree is laid out, by its key in the state: the
 #: port's layout (the default, as the params), the JAX layout already
 #: (Adafactor's factored moments, computed on the JAX-layout view), or
@@ -46,10 +68,10 @@ OPT_LAYOUTS = {"vr": "jax", "vc": "jax", "v": "jax", "stale": "stacked"}
 
 def _perm(name: str, lead: int, direction: int):
     """The permutation of a leaf with ``lead`` leading axes, or None."""
-    if name not in LAYOUTS:
+    perms = _layout(name)
+    if perms is None:
         return None
-    return tuple(range(lead)) + tuple(lead + a
-                                      for a in LAYOUTS[name][direction])
+    return tuple(range(lead)) + tuple(lead + a for a in perms[direction])
 
 
 def jax_shape(name: str, shape) -> tuple:
@@ -77,14 +99,17 @@ def params_from_jax(tree: Mapping[str, Any], prefix: str = "",
                     layout: str = "port") -> Dict[str, torch.Tensor]:
     """Nested dict of arrays (JAX layout) → flat ``{dotted name: tensor}``
     in the port's layout (``layout="port"``), with a leading snapshot axis
-    (``"stacked"``), or kept in the JAX layout (``"jax"``)."""
+    (``"stacked"``), or kept in the JAX layout (``"jax"``). A list's
+    index is a name; ``None`` leaves (a ``model_state``'s) are dropped."""
     out: Dict[str, torch.Tensor] = {}
+    if isinstance(tree, (list, tuple)):
+        tree = {str(i): v for i, v in enumerate(tree)}
     for key, value in tree.items():
         name = f"{prefix}{key}"
-        if isinstance(value, Mapping):
+        if isinstance(value, (Mapping, list, tuple)):
             out.update(params_from_jax(value, prefix=name + ".",
                                        layout=layout))
-        else:
+        elif value is not None:
             a = np.asarray(value)
             perm = None if layout == "jax" else _perm(
                 name, int(layout == "stacked"), 0)
@@ -109,20 +134,66 @@ def to_jax_array(name: str, t: torch.Tensor, layout: str = "port"
     return np.array(a, order="C")
 
 
-def params_to_jax(state: Mapping[str, torch.Tensor],
-                  layout: str = "port") -> Dict[str, Any]:
-    """Flat ``{dotted name: tensor}`` (port layout; see
-    :func:`params_from_jax` for ``layout``) → nested dict of numpy arrays
-    in the JAX layout, keys sorted at every level (the order JAX's tree
-    flattening gives, so serialized bytes match)."""
+def _nest(names: Iterable[str], leaf_of) -> Dict[str, Any]:
+    """Nested dicts of ``leaf_of(name)`` by the dotted names, inserted in
+    sorted name order (keys sorted at every level)."""
     tree: Dict[str, Any] = {}
-    for name in sorted(state):
+    for name in sorted(names):
         node = tree
         *parents, leaf = name.split(".")
         for p in parents:
             node = node.setdefault(p, {})
-        node[leaf] = to_jax_array(name, state[name], layout)
+        node[leaf] = leaf_of(name)
     return tree
+
+
+def _listify(node: Any) -> Any:
+    """Dicts keyed ``"0"``..``"n-1"`` back into lists, at every level."""
+    if not isinstance(node, dict):
+        return node
+    if node and all(k.isdigit() for k in node):
+        return [_listify(node[str(i)]) for i in range(len(node))]
+    return {k: _listify(v) for k, v in node.items()}
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor],
+                  layout: str = "port", lists: bool = False
+                  ) -> Dict[str, Any]:
+    """Flat ``{dotted name: tensor}`` (port layout; see
+    :func:`params_from_jax` for ``layout``) → nested dict of numpy arrays
+    in the JAX layout, keys sorted at every level (the order JAX's tree
+    flattening gives, so serialized bytes match). A numeric name is a
+    list index: kept as a ``"0"`` key (flax's msgpack form), or with
+    ``lists`` made a list again (the JAX pytree)."""
+    tree = _nest(state, lambda name: to_jax_array(name, state[name],
+                                                  layout))
+    return _listify(tree) if lists else tree
+
+
+def state_to_jax(model_state: Mapping[str, torch.Tensor],
+                 param_names: Iterable[str], lists: bool = False
+                 ) -> Dict[str, Any]:
+    """The JAX ``model_state`` tree of a ResNet: the params tree's shape
+    (from ``param_names``) with ``{"mean", "var"}`` (numpy, from
+    ``model_state``, the port's ``<bn>.mean``/``<bn>.var`` buffers) in
+    place of every BN layer's ``{"scale", "offset"}`` and ``None`` at
+    every other leaf (JAX ``resnet.init_state``). ``lists`` as in
+    :func:`params_to_jax`."""
+    tree = _nest(param_names, lambda name: None)
+
+    def walk(node: Dict[str, Any], prefix: str) -> None:
+        for key, value in node.items():
+            if not isinstance(value, dict):
+                continue
+            if set(value) == {"scale", "offset"}:
+                node[key] = {s: to_jax_array(f"{prefix}{key}.{s}",
+                                             model_state[f"{prefix}{key}.{s}"])
+                             for s in ("mean", "var")}
+            else:
+                walk(value, f"{prefix}{key}.")
+
+    walk(tree, "")
+    return _listify(tree) if lists else tree
 
 
 def model_local(values: Mapping[str, Any], slices: Mapping[str, Any],

@@ -27,11 +27,18 @@ class Batch(NamedTuple):
 
 
 def _load_split(files: List[str], cfg: DataConfig):
-    """Decode all shards once, as uint8 HWC (cast happens per batch)."""
+    """Decode all shards once, as uint8 HWC (cast happens per batch); the
+    records lead with the dataset's label bytes (``download.label_bytes``:
+    CIFAR-100's fine label is the second, ``imagenet_synth``'s two are one
+    big-endian uint16)."""
+    nlb = download.label_bytes(cfg)
+    record_bytes = cfg.record_bytes + (nlb - 1)
     imgs, labs = [], []
     for path in files:
-        r = rec.read_record_file(path, cfg.record_bytes)
-        i, l = rec.decode_records(r, cfg, dtype=np.uint8)
+        r = rec.read_record_file(path, record_bytes)
+        i, l = rec.decode_records(r, cfg, label_offset=nlb - 1,
+                                  dtype=np.uint8,
+                                  wide_label=download.wide_label(cfg))
         imgs.append(i)
         labs.append(l)
     return np.concatenate(imgs, axis=0), np.concatenate(labs, axis=0)

@@ -1,7 +1,7 @@
 """Fixed-length CIFAR record decoding on the host (numpy).
 
 A copy of ``dml_cnn_cifar10_tpu/data/records.py`` for the port: read
-bytes → ``[N, record_bytes]`` view → label byte + CHW uint8 image → HWC
+bytes → ``[N, record_bytes]`` view → label byte(s) + CHW uint8 image → HWC
 (``cifar10cnn.py:54-70``). Crop/augmentation happen batched in the
 pipeline. Every function must give the same array as the JAX package's
 for the same inputs and the same ``np.random.Generator`` state
@@ -26,16 +26,23 @@ def read_record_file(path: str, record_bytes: int) -> np.ndarray:
 
 
 def decode_records(records: np.ndarray, cfg: DataConfig,
-                   label_offset: int = 0, dtype=np.float32
+                   label_offset: int = 0, dtype=np.float32,
+                   wide_label: bool = False
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """uint8 records → (images [N,H,W,C] ``dtype``, labels [N] int32).
 
     Mirrors ``read_cifar_files`` (``cifar10cnn.py:54-66``): byte
-    ``label_offset`` is the label, the remaining bytes are a CHW image
-    transposed to HWC.
+    ``label_offset`` is the label (CIFAR-100's fine label is at offset 1),
+    the remaining bytes are a CHW image transposed to HWC. ``wide_label``:
+    the first TWO bytes are one big-endian uint16 label (the
+    ``imagenet_synth`` framing, past 255 classes).
     """
     nlb = records.shape[1] - cfg.image_height * cfg.image_width * cfg.num_channels
-    labels = records[:, label_offset].astype(np.int32)
+    if wide_label:
+        labels = ((records[:, 0].astype(np.int32) << 8)
+                  | records[:, 1].astype(np.int32))
+    else:
+        labels = records[:, label_offset].astype(np.int32)
     chw = records[:, nlb:].reshape(
         -1, cfg.num_channels, cfg.image_height, cfg.image_width)
     # order="C": a strided (transposed) layout makes every later gather

@@ -62,6 +62,8 @@ class ServingForward(nn.Module):
     def forward(self, images_u8: torch.Tensor,
                 params: Optional[Dict[str, torch.Tensor]] = None
                 ) -> torch.Tensor:
+        if self.model.training:      # a trainer may have switched it
+            self.model.eval()
         images = device_preprocess(images_u8, self.data_cfg)
         if params is None:
             return self.model(images)
@@ -72,11 +74,14 @@ def make_serving_fn(model: nn.Module, data_cfg: DataConfig,
                     params: Optional[Dict[str, torch.Tensor]] = None
                     ) -> ServingForward:
     """The serving forward with the weights held by the module: ``params``
-    (when given) are copied into ``model`` first."""
+    (when given; the BatchNorm running stats by their buffer names with
+    them) are copied into ``model`` first."""
     if params is not None:
         with torch.no_grad():
             for name, p in model.named_parameters():
                 p.copy_(params[name])
+            for name, b in model.named_buffers():
+                b.copy_(params[name])
     return ServingForward(model, data_cfg)
 
 
@@ -93,8 +98,10 @@ def export_forward(model: nn.Module, data_cfg: DataConfig,
                    params: Optional[Dict[str, torch.Tensor]] = None
                    ) -> torch.export.ExportedProgram:
     """Trace the serving forward of ``model`` (with ``params`` when given)
-    on the CPU: weights embedded, symbolic batch, uint8 input."""
+    on the CPU: weights and running stats embedded, symbolic batch, uint8
+    input."""
     state = {name: p.detach() for name, p in model.named_parameters()}
+    state.update((name, b.detach()) for name, b in model.named_buffers())
     if params is not None:
         state.update(params)
     fn = make_serving_fn(type(model)(model.cfg, data_cfg), data_cfg,
@@ -150,7 +157,9 @@ def restore_serving_params(cfg: TrainConfig, device: torch.device
     """``(model, params, step)``: a model of ``cfg.model`` on ``device``
     and the weights that serve from the newest checkpoint under
     ``cfg.log_dir`` (the EMA when the optimizer keeps one), or the
-    seed's fresh weights at step 0 when there is none."""
+    seed's fresh weights at step 0 when there is none; with them, by
+    buffer name, the eval-mode running stats of a model that keeps them
+    (``ema_mstate`` beside the EMA, else ``model_state``)."""
     from dml_cnn_cifar10_tpu_torch import ckpt as ckpt_lib
     from dml_cnn_cifar10_tpu_torch.models.registry import get_model
     from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
@@ -159,5 +168,5 @@ def restore_serving_params(cfg: TrainConfig, device: torch.device
     state = step_lib.init_train_state(
         model, cfg.optim, device, torch.Generator().manual_seed(cfg.seed))
     state = ckpt_lib.restore_checkpoint(cfg.log_dir, state)
-    params = state.opt.get("ema", state.params)
-    return model, {n: t.detach() for n, t in params.items()}, int(state.step)
+    return model, {n: t.detach() for n, t in step_lib.eval_params(
+        state).items()}, int(state.step)

@@ -18,6 +18,19 @@ Parity notes (``cifar10cnn.py``):
   (``:113,123``): TF pads SAME windows with the odd pixel AFTER (0 before,
   1 after for 24→12 and 12→6), with -inf. ``nn.MaxPool2d`` pads
   symmetrically, so the pad is explicit here.
+- ``batch_norm`` is the JAX package's ``batch_norm`` (``ops/layers.py:
+  75-140`` there), written out in plain torch ops rather than
+  ``nn.BatchNorm2d``/``nn.SyncBatchNorm``, whose semantics differ: they
+  keep the *unbiased* batch variance in the running stats, take
+  ``momentum`` as the weight of the NEW value, and compute the variance in
+  two passes. Here the batch statistics are E[x] and E[x²] in float32
+  over N, H, W, the variance ``max(E[x²] − E[x]², 0)`` (biased), the
+  running stats ``m·old + (1 − m)·batch``, and the normalize runs in the
+  input dtype: ``(x − mean)·(rsqrt(var + eps)·scale) + offset``. Over
+  several data ranks (``mesh``) the two statistics are averaged over the
+  data group (JAX's ``lax.pmean``) by a differentiable all-reduce whose
+  backward averages the cotangents the same way (the transpose of
+  ``pmean``).
 """
 
 from __future__ import annotations
@@ -27,6 +40,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
 
 
 def truncated_normal_(t: torch.Tensor, stddev: float = 0.05,
@@ -47,6 +62,56 @@ def he_normal_(t: torch.Tensor, generator: torch.Generator | None = None
     fan_in = math.prod(t.shape[:-1])
     with torch.no_grad():
         return t.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+
+
+def bn_init(width: int, dtype=torch.float32):
+    """One BatchNorm layer's params, ``{"scale": 1, "offset": 0}`` (the
+    JAX package's ``bn_init``); its running stats start at mean 0, var 1
+    (``resnet.init_state`` there), always float32."""
+    return {"scale": torch.ones(width, dtype=dtype),
+            "offset": torch.zeros(width, dtype=dtype)}
+
+
+def batch_norm_nchw(x: torch.Tensor, scale: torch.Tensor,
+                    offset: torch.Tensor, mean: torch.Tensor,
+                    var: torch.Tensor, train: bool, momentum: float = 0.9,
+                    eps: float = 1e-5, mesh=None):
+    """BatchNorm over NCHW (statistics over N, H, W). Returns ``(y,
+    new_mean, new_var)``: in train the batch statistics normalize and the
+    new running stats are ``momentum·old + (1 − momentum)·batch`` (no
+    gradient); in eval the running stats normalize and come back as they
+    are. ``mesh`` with several data ranks makes the batch statistics
+    global (cross-replica BN). Nothing is written in place."""
+    if train:
+        xf = x.float()
+        stats = torch.stack([xf.mean((0, 2, 3)), xf.square().mean((0, 2, 3))])
+        if mesh is not None and mesh.data > 1:
+            stats = mesh_lib.all_reduce_sum(stats, mesh, "data") / mesh.data
+        m, m_sq = stats[0], stats[1]
+        # E[x²]−E[x]² can go slightly negative from f32 cancellation.
+        v = torch.clamp_min(m_sq - m.square(), 0.0)
+        with torch.no_grad():
+            new_mean = momentum * mean + (1.0 - momentum) * m.detach()
+            new_var = momentum * var + (1.0 - momentum) * v.detach()
+    else:
+        m, v, new_mean, new_var = mean, var, mean, var
+    inv = torch.rsqrt(v + eps) * scale.float()
+    cdt = x.dtype
+    y = (x - m.to(cdt)[:, None, None]) * inv.to(cdt)[:, None, None] \
+        + offset.to(cdt)[:, None, None]
+    return y, new_mean, new_var
+
+
+def batch_norm(x: torch.Tensor, params, state, train: bool,
+               momentum: float = 0.9, eps: float = 1e-5, mesh=None):
+    """The JAX package's signature over NHWC: ``(y, new_state)`` with
+    ``params`` ``{"scale", "offset"}`` and ``state`` ``{"mean", "var"}``
+    (``new_state`` is ``state`` in eval)."""
+    y, mean, var = batch_norm_nchw(
+        x.permute(0, 3, 1, 2), params["scale"], params["offset"],
+        state["mean"], state["var"], train, momentum, eps, mesh)
+    return (y.permute(0, 2, 3, 1),
+            {"mean": mean, "var": var} if train else state)
 
 
 def _same_pads(size: int, window: int, stride: int) -> Tuple[int, int]:

@@ -110,10 +110,16 @@ from dml_cnn_cifar10_tpu_torch.train import optim as optim_lib
 
 @dataclasses.dataclass
 class TrainState:
-    """Params + optimizer state + model state (empty for the CNN).
+    """Params + optimizer state + model state (empty but for the ResNet).
 
     ``params`` maps the model's parameter names to tensors on the device,
     in the port's layouts; ``opt`` is :func:`optim.sgd_init`'s dict.
+    ``model_state`` maps the model's buffer names to its own buffers (the
+    ResNet's BatchNorm running stats, ``<bn>.mean``/``<bn>.var``), which
+    a train step updates in place; ``stateful`` says the model keeps one
+    (the JAX ``ModelDef.has_state``: its checkpoints carry the
+    ``model_state`` tree, and an EMA run keeps ``opt["ema_mstate"]``, the
+    running stats' average, which eval reads with the parameter EMA).
     Under a sharded ``layout`` (``parallel/zero.py``) the entries of
     ``layout.keys`` hold this rank's shards for every leaf the layout
     splits, views of one flat buffer an entry; fsdp's parameter buffer is
@@ -128,6 +134,7 @@ class TrainState:
     #: The model's ``tp.ModelSplit`` under tensor parallelism: which
     #: leaves hold this model rank's slice.
     split: Optional[Any] = None
+    stateful: bool = False
 
     @property
     def step(self) -> torch.Tensor:
@@ -156,7 +163,9 @@ def init_train_state(model: nn.Module, optim_cfg: OptimConfig,
     a split leaf (its parameter is emptied: the step hands the forward
     the gathered tensors) and ``params`` holds the shards. A model built
     on model ranks holds its slices already (its ``split``), which the
-    state carries."""
+    state carries. A model with running stats (``has_state``) gets its
+    buffers as ``model_state`` and, with ``ema_decay``, their copy as
+    ``opt["ema_mstate"]``."""
     split = getattr(model, "split", None)
     if split is not None and optim_cfg.optimizer == "adafactor":
         raise NotImplementedError(
@@ -169,12 +178,22 @@ def init_train_state(model: nn.Module, optim_cfg: OptimConfig,
                 p.data = torch.empty(layout.leaves[name].shape,
                                      dtype=p.dtype)
     model.reset_parameters(generator)
+    stateful = getattr(model, "has_state", False)
+
+    def with_model_state(state: TrainState) -> TrainState:
+        state.model_state = dict(model.named_buffers())
+        state.stateful = stateful
+        if stateful and optim_cfg.ema_decay:
+            state.opt["ema_mstate"] = {n: t.detach().clone() for n, t in
+                                       state.model_state.items()}
+        return state
+
     if layout is None:
         model.to(device)
         params = dict(model.named_parameters())
-        return TrainState(params=params,
-                          opt=optim_lib.sgd_init(params, optim_cfg, device),
-                          split=split)
+        return with_model_state(TrainState(
+            params=params, opt=optim_lib.sgd_init(params, optim_cfg, device),
+            split=split))
     full = {n: p.detach() for n, p in model.named_parameters()}
     opt = optim_lib.sgd_init(full, optim_cfg, device, layout=layout)
     flat: Dict[str, torch.Tensor] = {}
@@ -188,8 +207,9 @@ def init_train_state(model: nn.Module, optim_cfg: OptimConfig,
     if layout.fsdp:
         params = {n: shards[n] if layout.is_split(n) else p
                   for n, p in params.items()}
-    return TrainState(params=params, opt=opt, layout=layout, flat=flat,
-                      split=split)
+    return with_model_state(TrainState(params=params, opt=opt,
+                                       layout=layout, flat=flat,
+                                       split=split))
 
 
 def _sum_grads(grads, mesh: Mesh):
@@ -251,6 +271,17 @@ def _gathered_params(state: TrainState) -> Dict[str, torch.Tensor]:
             for n, p in state.params.items()}
 
 
+def forward(model: nn.Module, variables: Mapping[str, torch.Tensor],
+            images: torch.Tensor, train: bool) -> torch.Tensor:
+    """The model's logits on ``variables`` (its parameters and buffers by
+    name) in train or eval mode: a model with BatchNorm normalizes by
+    the batch and updates the buffers given in place in train mode, and
+    reads them in eval mode."""
+    if model.training != train:
+        model.train(train)
+    return functional_call(model, variables, (images,))
+
+
 def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
                     mesh: Optional[Mesh] = None,
                     health_metrics: bool = False
@@ -279,14 +310,21 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
     parameters before the forward, reduce-scatters the gradients and
     updates the stored shards. Leaves the layout keeps whole are
     all-reduced and updated whole. The health norms sum the shards'
-    partial squares over the data ranks."""
+    partial squares over the data ranks.
+
+    A model with running stats (the ResNet) runs in train mode on the
+    state's ``model_state`` buffers and updates them in place, each
+    microbatch after the one before (JAX's accumulation scan); over
+    several data ranks its batch statistics are the global batch's
+    (cross-replica BN, ``ops/layers.py``). ``opt["ema_mstate"]`` follows
+    the new stats after the update."""
     f32_parity()
     replicas = 1 if mesh is None else mesh.replicas
     accum = max(1, optim_cfg.grad_accum)
     staleness = max(0, optim_cfg.async_staleness)
 
     def grads_and_metrics(params, names, images, labels):
-        logits = functional_call(model, params, (images,))
+        logits = forward(model, params, images, train=True)
         loss = loss_lib.softmax_cross_entropy(
             logits, labels, optim_cfg.label_smoothing)
         # The update kernels take contiguous leaves; a kernel that
@@ -309,6 +347,8 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
             fwd = _gathered_params(state)
         else:
             fwd = state.params
+        if state.model_state:
+            fwd = {**fwd, **state.model_state}
         with torch.profiler.record_function("fwd_bwd"), \
                 torch.enable_grad():
             if accum == 1:
@@ -364,6 +404,12 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
                 for n in names:
                     state.opt["stale"][n].index_copy_(
                         0, slot, state.params[n].detach()[None])
+            if "ema_mstate" in state.opt:
+                # Toward the new running stats at the decay of the update
+                # just counted (JAX parallel/step.py:397-401).
+                d = optim_lib.ema_decay_at(optim_cfg, state.opt["step"])
+                for name, e in state.opt["ema_mstate"].items():
+                    e.copy_(d * e + (1 - d) * state.model_state[name])
         metrics = {"loss": loss_m, "accuracy": acc}
         if health_metrics:
             with torch.no_grad():
@@ -383,10 +429,16 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
 def eval_params(state: TrainState) -> Dict[str, torch.Tensor]:
     """The weights eval scores with: the parameter EMA when the optimizer
     keeps one, else the parameters; whole, gathered over the data ranks
-    (a collective) where the state's layout keeps them as shards."""
+    (a collective) where the state's layout keeps them as shards. With
+    them, by buffer name, the running stats eval normalizes by: the
+    average ``ema_mstate`` when kept, else ``model_state`` (JAX
+    ``parallel/step.py:830-831``)."""
     if "ema" in state.opt:
-        return zero.whole(state, "ema", state.opt["ema"])
-    return zero.whole(state, "params", state.params)
+        params = zero.whole(state, "ema", state.opt["ema"])
+    else:
+        params = zero.whole(state, "params", state.params)
+    mstate = state.opt.get("ema_mstate", state.model_state)
+    return {**params, **mstate} if mstate else params
 
 
 def make_eval_step(model: nn.Module, mesh: Optional[Mesh] = None
@@ -405,7 +457,7 @@ def make_eval_step(model: nn.Module, mesh: Optional[Mesh] = None
              params: Optional[Dict[str, torch.Tensor]] = None):
         if params is None:
             params = eval_params(state)
-        logits = functional_call(model, params, (images,))
+        logits = forward(model, params, images, train=False)
         acc, = _data_mean([metrics_lib.batch_accuracy(logits, labels)],
                           mesh)
         correct = metrics_lib.correct_count(logits, labels)
@@ -488,14 +540,19 @@ def _chunk_body(model: nn.Module, optim_cfg: OptimConfig,
 
 
 def _state_tensors(state: TrainState) -> List[torch.Tensor]:
-    """Every tensor of the state, in a fixed order."""
-    out = list(state.params.values())
-    for tree in (state.opt, state.model_state):
-        for value in tree.values():
-            if isinstance(value, Mapping):
-                out.extend(value.values())
-            elif isinstance(value, torch.Tensor):
-                out.append(value)
+    """Every tensor of the state (params, the optimizer state and the
+    model state, at any depth of nesting), in a fixed order."""
+    out: List[torch.Tensor] = []
+
+    def walk(value) -> None:
+        if isinstance(value, torch.Tensor):
+            out.append(value)
+        elif isinstance(value, Mapping):
+            for v in value.values():
+                walk(v)
+
+    for tree in (state.params, state.opt, state.model_state):
+        walk(tree)
     return out
 
 

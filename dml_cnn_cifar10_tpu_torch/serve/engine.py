@@ -168,7 +168,8 @@ class ServingEngine:
                     logger=None, version: str = "0",
                     replica_id: int = 0) -> "ServingEngine":
         """Engine over live weights (``{name: tensor}``, the port's
-        layouts): a copy of ``params`` on ``device``, hot-swappable by
+        layouts, a model's running stats by their buffer names with them):
+        a copy of ``params`` on ``device``, hot-swappable by
         :meth:`try_swap`."""
         from dml_cnn_cifar10_tpu_torch.export import make_variable_serving_fn
 
@@ -197,8 +198,11 @@ class ServingEngine:
         record, ``(False, reason)``, and the old version keeps serving. On
         success the candidate is copied into the engine's weights and the
         version set under the run lock, after the batch in flight (if
-        any) has finished. ``model_state`` must be empty: the port's
-        models keep none."""
+        any) has finished. ``model_state`` (a model's eval-mode running
+        stats, ``{buffer name: tensor}``) is swapped with the params: the
+        candidate is their union, held to the engine's contract, which
+        names the buffers of a model that keeps them (the ResNet) and
+        none for one that does not."""
         t0 = time.perf_counter()
         version = str(version)
         if not self.swappable:
@@ -206,8 +210,7 @@ class ServingEngine:
                 version, "engine is artifact-backed (weights baked into "
                          "the program); not swappable")
         if model_state:
-            return False, self._reject(
-                version, "the served model keeps no model state")
+            params = {**params, **model_state}
         spec = _variable_spec(params)
         if spec != self._spec:
             return False, self._reject(version,

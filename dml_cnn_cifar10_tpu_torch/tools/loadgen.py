@@ -92,6 +92,7 @@ def build_engine(args):
     model = get_model(args.model)(model_cfg, data_cfg)
     model.reset_parameters(torch.Generator().manual_seed(args.seed))
     params = {n: p.detach() for n, p in model.named_parameters()}
+    params.update((n, b.detach()) for n, b in model.named_buffers())
     return ServingEngine.from_params(model, data_cfg, params, device)
 
 

@@ -34,6 +34,10 @@ and the ``train`` records carry it once as ``flops_stack``:
 - ``seq_mean_share_x{n}``: the same division for the ring with a causal
   mask or a window, whose ranks skip different numbers of blocks: the
   mean over the ranks, not each rank's own;
+- ``convs_gemms``: the ResNet's whole step as counted: its convolutions
+  and its head's matrix product, forward and backward, and the update;
+  its BatchNorm, ReLUs, pooling and residual adds (elementwise and
+  reduction work, as everywhere here) are not counted;
 - ``model_share_x{m}``: under tensor parallelism over ``m`` model ranks,
   this rank's own step, counted exactly on a model built with the local
   widths of model rank 0 (every rank's are equal): the Megatron layers'
@@ -183,6 +187,8 @@ def step_flops(cfg, data: int = 1, seq: int = 1, model: int = 1
                                       in net.named_parameters()})
     if model > 1:
         return float(flops + update), f"model_share_x{model}"
+    if getattr(net, "has_state", False):
+        return float(flops + update), "convs_gemms"
     if seq <= 1:
         return float(flops + update), "exact"
     m = cfg.model

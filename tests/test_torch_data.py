@@ -119,8 +119,8 @@ def test_to_device_on_cpu():
 
 
 def test_unported_datasets_raise(tmp_path):
-    cfg = DataConfig(dataset="cifar100", data_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg = DataConfig(dataset="imagenet", data_dir=str(tmp_path))
+    with pytest.raises(ValueError, match="unknown dataset"):
         download.train_files(cfg)
-    with pytest.raises(FileNotFoundError, match="synthetic"):
+    with pytest.raises(download.DownloadError, match="synthetic"):
         download.ensure_dataset(DataConfig(data_dir=str(tmp_path)))
