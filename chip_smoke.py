@@ -130,7 +130,7 @@ gloo. Each rank starts with every launch count at 0 and writes its counts
             weights). Then a resume to step 15 and ``--mode eval`` over the
             two ranks.
 20. dp cnn  the CNN data-parallel over 2 ranks x 64 images (global batch
-            128), 100 steps: K1 = 100 per rank (one a step), equal
+            128), 50 steps: K1 = 50 per rank (one a step), equal
             digests.
 21. sp profile  an SP step's time per rank (host clock, batch on the card)
             and its device timeline: the union of its compute kernels'
@@ -163,7 +163,8 @@ Then the serving path, on phase 6's CNN checkpoint (step 600) and phase
             answer's class the direct forward's (near-ties left out and
             counted), no error but 503, and the served ViT-Ti path
             launched 12 K3 a replay and no other kernel; an open loop past
-            capacity with a 2-deep queue and a 0.5 ms deadline sheds; the
+            capacity with a 2-deep queue and a 0.5 ms deadline sheds
+            (each closed loop 1 s); the
             CNN's step-500 weights served live with 32 clients while step
             600 is hot-swapped in: the tags flip, every answer within 1e-4
             of its version's forward, one ``swap`` record. Numbers in
@@ -210,7 +211,7 @@ Then the slice of Ulysses, telemetry and the optimizer surface:
 
 Then chunked dispatch over several ranks:
 30. dp chunk gloo  the DP CNN on 2 rank processes over gloo on this card,
-            2 x 64 images, ``--steps_per_dispatch 10``, 100 steps: each
+            2 x 64 images, ``--steps_per_dispatch 10``, 50 steps: each
             chunk runs its eager body (gloo stages each collective through
             host memory, which no CUDA graph can hold), as the ranks'
             ``[dist]`` lines say; K1 once a step per rank, equal parameter
@@ -258,7 +259,7 @@ momentum):
             then resumed to 300 bit-equal to an uninterrupted run.
             ``--async_checkpoint`` files byte-identical to sync ones (and
             the eager loop's ms/step across the saves, sync against
-            async, twice each); ``--checkpoint_every_secs 0.1`` saves on
+            async, once each); ``--checkpoint_every_secs 0.1`` saves on
             the clock at least as often as the run's time allows;
             ``ckpt_corrupt@110`` then a crash: the restore falls back to
             step 50. ``--tensorboard_dir`` writes event files, or, where
@@ -324,21 +325,25 @@ Then tensor parallelism (``parallel/tp.py``, ``--model_axis``):
 Then the ResNet rungs (``models/resnet.py``):
 35. resnet  ResNet-18 by the README recipe's flags (batch 1024, 24 px
             crop of 32, SGD momentum 0.9, weight decay 5e-4, cosine, lr
-            0.4) on 10,000 generated CIFAR-layout records: 20 steps eager
-            (K2 once a step), then 100 steps at ``--steps_per_dispatch
+            0.4) on 10,000 generated CIFAR-layout records: 10 steps eager
+            (K2 once a step), then 50 steps at ``--steps_per_dispatch
             10`` (one CUDA graph a chunk, the BN buffers updated in place
-            inside it; K2 100 in 10 replays; the loss falls); one graphed
+            inside it; K2 50 in 5 replays; the loss falls); one graphed
             chunk against the same chunk body run eagerly from the same
             state, cuDNN deterministic (phase 9b's gates on loss and
             params, the running stats too), and
             three replays timed and traced: ms/step, the device's busy
             share and its time by kernel group (convs, reductions,
-            elementwise, the update, idle). ResNet-50 on imagenet_synth
-            (256 stored, 224 crop, 1000 classes), batch 128, lr 0.02, f32
-            and bf16: 10 steps eager and 20 chunked at K = 5 (K2 3 a
+            elementwise, the update, idle); a graph of the same chunk
+            captured with cuDNN's default algorithms replayed in turns
+            with the deterministic one (the trainer's mode), ms/step of
+            each. ResNet-50 on imagenet_synth (256 stored, 224 crop, 1000
+            classes), batch 128, lr 0.02, f32 and bf16: 6 steps eager and
+            10 chunked at K = 5 (K2 3 a
             step: 161 leaves, 64 a launch; the chunked loss falls), an
             eval on the running stats, the chunked runs' replays traced
-            like ResNet-18's; ``--mode export`` and the
+            like ResNet-18's, the f32 one's beside a default-algorithm
+            graph as ResNet-18's; ``--mode export`` and the
             artifact against the live weights (running stats included) at
             b = 1 and 32 (1e-4 relative), a hot swap of params with their
             ``model_state`` (one without is refused), ``--mode serve``
@@ -357,6 +362,45 @@ Then the ResNet rungs (``models/resnet.py``):
             and an eager run beside. Numbers in ``OUT/slice15.json``
             (``slice15_nccl.json``).
 
+Then the MoE rung (``ops/moe.py``, ``--model vit_moe``):
+36. moe     (a) the main path: phase 12's ViT-Ti recipe (257 tokens, batch
+            128, f32, AdamW, cosine) as ``--model vit_moe --moe_experts 8
+            --moe_dispatch scatter``, 100 steps: K4 = K6 = K7 = 12 a step,
+            K3 12 a forward-only batch, K1 = K2 = 0; the ``train``
+            records' ``moe_aux_loss`` finite, ``moe_dropped_frac`` in [0,
+            1], 8 ``moe_expert_load`` values summing to 1 (1e-4); the last
+            window's loss below the first; ms/step, img/s, TFLOP/s, MFU
+            and peak memory printed. (e) ``--mode export`` of its step-100
+            checkpoint, the artifact 0 apart from the live weights at b =
+            1 and 32, ``--mode serve`` under 32 HTTP clients (qps, p50,
+            p99). (b) the README recipe, ``--model vit_moe --moe_experts
+            8`` at the defaults (37 tokens, einsum, SGD lr 0.1): 50 eager
+            and 50 chunked steps at K = 10, finite losses, K1 once a step;
+            one graphed chunk bit-equal to its eager body (loss, params,
+            router stats; cuDNN deterministic); K1 and K2 on its leaves
+            bit-equal to their plain version, timed beside fused SGD and
+            the bound. (c) one layer at [32, 257, 192], 8 experts, top-1
+            and top-2: einsum against scatter within 1e-5 of max|y|, the
+            router stats equal, each form's forward + backward timed. (d)
+            2 rank processes over gloo on this card (in a full run the
+            first two of phase 34's spawn), cuDNN deterministic:
+            the README EP recipe with momentum 0.9 at ``--model_axis 2``
+            (half-head attention, 4 experts a rank; K2 on a rank's expert
+            slices), 10 eager steps, and data 2 x 64 on the resident
+            device stream (the same global rows as one process; global
+            routing), 2 chunks of 10, each beside one process: step 1
+            within the CPU pins, every logged loss within 1e-3, the
+            dropped fractions printed beside each other. Under ``--dist
+            --phase 36`` the same over NCCL, a card a rank (each chunk one
+            CUDA graph), and data 2 x model 2 on 4 cards beside the 2 data
+            ranks. Numbers in ``OUT/slice16.json``
+            (``slice16_nccl.json``).
+
+The trainer runs cuDNN on its deterministic algorithms
+(``parallel/step.py:f32_parity``); phase 9b's and phase 35's graphs
+captured with the default algorithms are replayed beside the trainer's
+to measure what that costs.
+
 ``--dist`` runs the build, phase 31, phases 33, 34 and 35 over NCCL, phase
 32's two ranks over NCCL (chunks of 10 as CUDA graphs; the ranks' flag
 exchange runs between replays), then phases 18-21 over NCCL on two or more
@@ -364,15 +408,17 @@ cards, with 4 ranks beside 2 given four cards: SP data 2 x seq 2 against
 its 2 data ranks without the ring, and the DP CNN on 4 ranks; given three
 or more cards, phases 26-27 (and phase 31's Ulysses run) over NCCL on 3 of
 them.
-``--phase 32``, ``--phase 33``, ``--phase 34`` or ``--phase 35`` (alone
-or with ``--dist``) runs the build and that phase only, a debugging run.
+``--phase 32`` to ``--phase 36`` (alone or with ``--dist``) runs the
+build and that phase only; phase 36 runs under ``--dist`` only so.
 
 The lines before the last are ``{"kernels": [...]}`` (K1 six times:
 its main path row, phase 30's with ``"path": "dp_chunk"``, phase 32's
 with ``"path": "run_safety"``, phase 33's with ``"path": "zero1"`` and
 ``"fsdp"``, on shard buffers, phase 34's with ``"path": "tp"``, on a
 model rank's leaves, and phase 35's on ResNet-18's and ResNet-50's
-leaves, ``"path": "resnet18"`` and ``"resnet50"``, as K2 twice more;
+leaves, ``"path": "resnet18"`` and ``"resnet50"``, and phase 36's on
+``vit_moe``'s, ``"path": "vit_moe"``, as K2 three times more; K3, K4, K6
+and K7's training rows carry ``launches_vit_moe``;
 ``--dist`` prints K2's two shard rows; K3 four
 times: its training row, its serving row with ``"path": "serve"``, its
 Ulysses row and its ``"path": "tp"`` row; K4, K6 and K7 three times,
@@ -388,7 +434,8 @@ passing run); the run's metrics JSONL files, the profiles, ``chunk.json``
 ranks), ``slice10.json`` (phases 26-29), ``slice11.json`` (phase 30),
 ``slice12.json`` (phase 32, with its telemetry stream and Chrome trace),
 ``slice13.json`` (phase 33), ``slice14.json`` (phase 34),
-``slice15.json`` (phase 35) and the ranks' logs are written to the output
+``slice15.json`` (phase 35), ``slice16.json`` (phase 36) and the
+ranks' logs are written to the output
 directory ``OUT``.
 """
 
@@ -414,7 +461,7 @@ OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 
 STEPS, RESUME_STEPS, MOMENTUM_STEPS = 500, 600, 50
 VIT_STEPS, VIT_RESUME_STEPS, LONG_STEPS = 200, 300, 10
-DP_STEPS = 100
+DP_STEPS = 50
 CASES = [(0.0, 0.0), (0.0, 5e-4), (0.9, 0.0), (0.9, 5e-4)]
 # Published peaks (NVIDIA data sheets, SXM parts, full power limit):
 # device-memory bytes/s and f32 operations/s outside the tensor cores.
@@ -674,7 +721,6 @@ def _graph_vs_eager(cfg, state, ds_images, ds_labels, deterministic,
     and its state."""
     from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
     saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = deterministic
     try:
         copies = _state_copies(cfg, state, 3, mesh)
         fns = [step_lib.make_train_chunk_resident(
@@ -682,6 +728,9 @@ def _graph_vs_eager(cfg, state, ds_images, ds_labels, deterministic,
             index_stream=(cfg.data.seed, cfg.batch_size, k or CHUNK_K),
             mesh=mesh, health_metrics=health)
             for m, _ in copies]
+        # After the step builders, which set the trainer's deterministic
+        # mode (parallel/step.py:f32_parity): the mode asked for.
+        torch.backends.cudnn.deterministic = deterministic
         (_, s_g), (_, s_e), (_, s_e2) = copies
         (_, m_g), graph_launches = _launched(lambda: fns[0](s_g))
         (_, m_e), eager_launches = _launched(lambda: fns[1].eager(s_e))
@@ -689,10 +738,13 @@ def _graph_vs_eager(cfg, state, ds_images, ds_labels, deterministic,
                   float(fns[2].eager(s_e2)[1]["loss"])]
         healths = [{key: float(m[key]) for key in m
                     if key.startswith("health_")} for m in (m_g, m_e)]
+        moes = [{key: m[key].tolist() for key in m if key.startswith("moe_")}
+                for m in (m_g, m_e)]
         fns[0].check()
     finally:
         torch.backends.cudnn.deterministic = saved
     return ({"health_graph": healths[0], "health_eager": healths[1],
+             "moe_graph": moes[0], "moe_eager": moes[1],
              "loss_graph": losses[0], "loss_eager": losses[1],
              "loss_gap": abs(losses[0] - losses[1]),
              "param_gap": _gaps(s_g, s_e),
@@ -705,6 +757,26 @@ def _graph_vs_eager(cfg, state, ds_images, ds_labels, deterministic,
              "eager_eager_param_gap": _gaps(s_e, s_e2),
              "launches_graph": graph_launches,
              "launches_eager": eager_launches}, fns[0], s_g)
+
+
+def _mode_replays(graphs, k, card, label, reps=5) -> dict:
+    """ms/step of graphed chunks captured under cuDNN's default and its
+    deterministic algorithms (``graphs``: ``{"default": (fn, state),
+    "deterministic": (fn, state)}``), replayed in turns (default,
+    deterministic, deterministic, default) by CUDA events: the cost of the
+    trainer's deterministic mode (``parallel/step.py:f32_parity``)."""
+    got = {mode: [] for mode in graphs}
+    for mode in ("default", "deterministic", "deterministic", "default"):
+        fn, st = graphs[mode]
+        got[mode].append(cuda_ms(lambda: fn(st), reps=reps, warmup=1) / k)
+    out = {mode: sum(v) / len(v) for mode, v in got.items()}
+    out["turns"] = got
+    print(f"[cudnn modes] {label}: a graph replay {out['default']:.4f} "
+          f"ms/step with cuDNN's default algorithms, "
+          f"{out['deterministic']:.4f} deterministic "
+          f"({(out['deterministic'] / out['default'] - 1) * 100:+.2f}%; "
+          f"turns {got}) on {card}", flush=True)
+    return out
 
 
 def _vit_chunk_check(card) -> dict:
@@ -885,6 +957,9 @@ def chunk_phase(base, card, eager_profile) -> dict:
     vit = _vit_chunk_check(card)
 
     # Profile: replays of the graphed chunk (default cuDNN, as trained).
+    cudnn_modes = _mode_replays({"default": tuple(graphed[False]),
+                                 "deterministic": tuple(graphed[True])},
+                                k, card, "CNN main path, chunked K = 10")
     fn_g, s_g = graphed[False]
     reps = 20
     for _ in range(2):
@@ -934,7 +1009,7 @@ def chunk_phase(base, card, eager_profile) -> dict:
         "losses": losses, "test_accuracy": accs,
         "resident_eval_correct": resident_count,
         "host_eval_correct": host_count, "graph_vs_eager": compare,
-        "vit": vit,
+        "cudnn_modes": cudnn_modes, "vit": vit,
         "eager": {key: eager_profile[key] for key in (
             "loop_ms_per_step", "step_ms_on_device_batch", "host_batch_ms",
             "device_busy_ms_per_step", "device_busy_share")},
@@ -1780,6 +1855,50 @@ def rank_log(label: str, rank: int = 0):
         return f.read().splitlines()
 
 
+def _rank_parts(rank: int, job: dict) -> dict:
+    """Several rank jobs (``job["parts"]``, each with its ``label`` and
+    ``kind``) run in order in this one rank process, so a process's start
+    and its first trainer's set-up are paid once: each part's result, with
+    the launches it counted and its wall seconds, under its label; each
+    part's console goes to its own ``OUT/ranks/<label>.rank<r>.log`` as a
+    spawn of its own would write it."""
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+    out = {}
+    for part in job["parts"]:
+        fused.reset_launches()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        path = os.path.join(OUT, "ranks", f"{part['label']}.rank{rank}.log")
+        with open(path, "w") as log, \
+                contextlib.redirect_stdout(_Tee(sys.stdout, log)):
+            res = RANK_KINDS[part["kind"]](rank, part)
+        res.setdefault("launches", {**fa.LAUNCHES, **fused.LAUNCHES})
+        res["part_wall_s"] = time.perf_counter() - t0
+        out[part["label"]] = res
+    return {"parts": out}
+
+
+def spawn_parts(label: str, parts: list, world: int = 2,
+                timeout_s: float = 900.0) -> dict:
+    """``parts`` (rank jobs with a ``label`` each) on one spawn of
+    ``world`` rank processes (``_rank_parts``): ``{label: the ranks'
+    results}``, as ``spawn_ranks`` of each would return them."""
+    ranks = spawn_ranks(label, {"kind": "parts", "parts": parts}, world,
+                        timeout_s)
+    return {p["label"]: [r["parts"][p["label"]] for r in ranks]
+            for p in parts}
+
+
+def _dist_args_n(k: int, world: int, backend: str) -> list:
+    """``k`` argument lists of ``_dist_args`` on distinct free ports (one
+    pool, for parts that run in turn in one spawn)."""
+    ports = _free_ports(k * world)
+    return [["--worker_hosts", ",".join(
+        f"localhost:{p}" for p in ports[i * world:(i + 1) * world]),
+        "--dist_backend", backend] for i in range(k)]
+
+
 def _whole_params(state) -> dict:
     """``state``'s parameters whole: gathered over the data ranks where
     its layout keeps shards and over the model ranks where it holds model
@@ -2039,15 +2158,48 @@ def dist_phases(backend: str, card: str, worlds=(2,),
         return _dist_args(world, backend)
 
     res = {"card": card, "backend": backend, "cards": count}
+    long = long_args(WORK)
+    # Every 2-rank job of phases 18-21 on one spawn of 2 rank processes
+    # (a process's start and a trainer's first set-up paid once), in the
+    # order the checks below read them.
+    sp_log = os.path.join(WORK, "logs_sp2")
+    a = _dist_args_n(5, 2, backend)
+    parts = spawn_parts(f"dist2_{backend}", [
+        {"label": f"ring_op_{backend}", "kind": "ring", "backend": backend,
+         "address": f"localhost:{_free_ports(1)[0]}"},
+        {"label": f"sp2_{backend}", "kind": "cli", "argv": long + [
+            "--batch_size", "2", "--seq_axis", "2", "--total_steps",
+            str(LONG_STEPS), "--log_dir", sp_log, "--metrics_jsonl",
+            os.path.join(WORK, "vit_sp2.jsonl")] + a[0]},
+        {"label": f"sp_resume_{backend}", "kind": "cli", "argv": long + [
+            "--batch_size", "2", "--seq_axis", "2", "--log_dir", sp_log,
+            "--total_steps", str(LONG_STEPS + 5)] + a[1]},
+        {"label": f"sp_eval_{backend}", "kind": "cli", "argv": long + [
+            "--seq_axis", "2", "--log_dir", sp_log, "--batch_size", "8",
+            "--mode", "eval"] + a[2]},
+        {"label": f"dp2_{backend}", "kind": "cli", "argv": cnn_args(WORK) + [
+            "--log_dir", os.path.join(WORK, "logs_dp2"),
+            "--total_steps", str(DP_STEPS), "--eval_every", "1000",
+            "--output_every", "50", "--checkpoint_every", "1000",
+            "--metrics_jsonl", os.path.join(WORK, "cnn_dp2.jsonl")] + a[3]},
+        {"label": f"sp_profile_{backend}", "kind": "profile", "steps": 2,
+         "argv": long + ["--batch_size", "2", "--seq_axis", "2",
+                         "--log_dir", os.path.join(WORK, "logs_sp_profile")]
+         + a[4]}])
+
+    def spawned(label, job, world=2, timeout_s=600.0):
+        """The ranks' results of ``label``: from the spawn above when it
+        ran there, else from a spawn of its own."""
+        if label in parts:
+            return parts[label]
+        return spawn_ranks(label, job, world, timeout_s)
+
     # ---- 18. the 2-rank ring op ------------------------------------------
-    ring_res = spawn_ranks(f"ring_op_{backend}", {
-        "kind": "ring", "backend": backend,
-        "address": f"localhost:{_free_ports(1)[0]}"}, timeout_s=300)
+    ring_res = spawned(f"ring_op_{backend}", None)
     check_ring_op(ring_res, backend)
     res["ring_op"] = ring_res
 
     # ---- 19. SP long context: 4,050 tokens a rank ------------------------
-    long = long_args(WORK)
     for world in worlds:
         batch = world
         ref_jsonl = one_rank_jsonl if world == 2 else None
@@ -2066,12 +2218,12 @@ def dist_phases(backend: str, card: str, worlds=(2,),
         sp_log = os.path.join(WORK, f"logs_sp{world}")
         sp_jsonl = os.path.join(WORK, f"vit_sp{world}.jsonl")
         t0 = time.perf_counter()
-        sp = spawn_ranks(f"sp{world}_{backend}", {"kind": "cli", "argv": long
-                         + ["--batch_size", str(batch), "--seq_axis", "2",
-                            "--total_steps", str(LONG_STEPS), "--log_dir",
-                            sp_log, "--metrics_jsonl", sp_jsonl]
-                         + dist_args(world)}, world=world)
-        wall = time.perf_counter() - t0
+        sp = spawned(f"sp{world}_{backend}", {"kind": "cli", "argv": long
+                     + ["--batch_size", str(batch), "--seq_axis", "2",
+                        "--total_steps", str(LONG_STEPS), "--log_dir",
+                        sp_log, "--metrics_jsonl", sp_jsonl]
+                     + dist_args(world)}, world=world)
+        wall = sp[0].get("part_wall_s", time.perf_counter() - t0)
         # The fresh-batch train accuracy every 5 steps is a forward-only
         # batch.
         want = sp_launches(LONG_STEPS, LONG_STEPS // 5)
@@ -2105,9 +2257,7 @@ def dist_phases(backend: str, card: str, worlds=(2,),
             continue
         # resume to 15, then --mode eval, both over the 2 ranks
         label = f"sp_resume_{backend}"
-        resume = spawn_ranks(label, {"kind": "cli", "argv": long + [
-            "--batch_size", "2", "--seq_axis", "2", "--log_dir", sp_log,
-            "--total_steps", str(LONG_STEPS + 5)] + dist_args(2)})
+        resume = spawned(label, None)
         for r in resume:
             check(r["launches"]["flash_fwd_stats"] == 5 * 48 + 24
                   and r["launches"]["flash_bwd_dq"] == 5 * 24,
@@ -2118,9 +2268,7 @@ def dist_phases(backend: str, card: str, worlds=(2,),
         check(steps == [LONG_STEPS + 5], f"SP resume printed steps {steps}")
         # The full test split (512 records) at 8 images a batch.
         label = f"sp_eval_{backend}"
-        ev = spawn_ranks(label, {"kind": "cli", "argv": long + [
-            "--seq_axis", "2", "--log_dir", sp_log, "--batch_size", "8",
-            "--mode", "eval"] + dist_args(2)})
+        ev = spawned(label, None)
         eval_lines = []
         for r in range(2):
             lines = rank_log(label, r)
@@ -2140,8 +2288,8 @@ def dist_phases(backend: str, card: str, worlds=(2,),
     # ---- 20. data-parallel CNN: 128 images over the world ----------------
     for world in worlds:
         dp_jsonl = os.path.join(WORK, f"cnn_dp{world}.jsonl")
-        dp = spawn_ranks(f"dp{world}_{backend}", {"kind": "cli", "argv":
-                         cnn_args(WORK) + [
+        dp = spawned(f"dp{world}_{backend}", {"kind": "cli", "argv":
+                     cnn_args(WORK) + [
             "--log_dir", os.path.join(WORK, f"logs_dp{world}"),
             "--total_steps", str(DP_STEPS), "--eval_every", "1000",
             "--output_every", "50", "--checkpoint_every", "1000",
@@ -2169,10 +2317,7 @@ def dist_phases(backend: str, card: str, worlds=(2,),
               f"parameters, on {min(count, world)} x {card}", flush=True)
 
     # ---- 21. where an SP step's time goes --------------------------------
-    prof = spawn_ranks(f"sp_profile_{backend}", {
-        "kind": "profile", "steps": 2, "argv": long + [
-            "--batch_size", "2", "--seq_axis", "2", "--log_dir",
-            os.path.join(WORK, "logs_sp_profile")] + dist_args(2)})
+    prof = spawned(f"sp_profile_{backend}", None)
     res["sp_profile"] = prof
     for r, p in enumerate(prof):
         print(f"[sp profile] rank {r} ({backend}): {p['step_ms']:.2f} "
@@ -2193,7 +2338,7 @@ def dist_phases(backend: str, card: str, worlds=(2,),
 
 SERVE_BUCKETS = (1, 8, 32, 128)
 SERVE_CONCURRENCY = (1, 32, 128)
-SERVE_RUN_S = 2.0
+SERVE_RUN_S = 1.0
 # Closed-loop runs at each concurrency: one, to keep the script inside its
 # time limit.
 SERVE_REPS = 1
@@ -2825,11 +2970,37 @@ def ulysses_phases(backend: str, card: str, one_rank_jsonl=None) -> dict:
     n = ULYSSES_SEQ
     count = torch.cuda.device_count()
     res = {"card": card, "backend": backend, "cards": min(count, n)}
+    long = long_args(WORK) + ["--batch_size", "2"]
+    if one_rank_jsonl is None:
+        one_rank_jsonl = os.path.join(WORK, "ulysses_ref.jsonl")
+        run_cli(long + ["--total_steps", str(LONG_STEPS), "--log_dir",
+                        os.path.join(WORK, "logs_ulysses_ref"),
+                        "--metrics_jsonl", one_rank_jsonl])
+    sp = ["--seq_axis", str(n), "--sp_mode", "ulysses"]
+    log = os.path.join(WORK, f"logs_ulysses_{backend}")
+    jsonl = os.path.join(WORK, f"vit_ulysses_{backend}.jsonl")
+    # Phases 26-27's jobs on one spawn of n rank processes (a process's
+    # start and a trainer's first set-up paid once), in the order the
+    # checks below read them.
+    a = _dist_args_n(4, n, backend)
+    parts = spawn_parts(f"ulysses{n}_{backend}", [
+        {"label": f"ulysses_op_{backend}", "kind": "ulysses",
+         "backend": backend, "address": f"localhost:{_free_ports(1)[0]}"},
+        {"label": f"ulysses_{backend}", "kind": "cli", "argv": long + sp
+         + ["--total_steps", str(LONG_STEPS), "--log_dir", log,
+            "--metrics_jsonl", jsonl] + a[0]},
+        {"label": f"ulysses_resume_{backend}", "kind": "cli", "argv": long
+         + sp + ["--log_dir", log, "--total_steps", str(LONG_STEPS + 5)]
+         + a[1]},
+        {"label": f"ulysses_eval_{backend}", "kind": "cli", "argv":
+         long[:-2] + sp + ["--batch_size", "32", "--log_dir", log,
+                           "--mode", "eval"] + a[2]},
+        {"label": f"ulysses_profile_{backend}", "kind": "profile",
+         "steps": 2, "argv": long + sp + [
+             "--log_dir", os.path.join(WORK, "logs_ulysses_profile")]
+         + a[3]}], world=n)
     # ---- 26. the Ulysses op ---------------------------------------------
-    op = spawn_ranks(f"ulysses_op_{backend}", {
-        "kind": "ulysses", "backend": backend,
-        "address": f"localhost:{_free_ports(1)[0]}"}, world=n,
-        timeout_s=300)
+    op = parts[f"ulysses_op_{backend}"]
     for name, _, dtype, kw in ULYSSES_OP_CASES:
         for what in ("out", "dq", "dk", "dv"):
             diff = max(r[name][what][0] for r in op)
@@ -2850,21 +3021,8 @@ def ulysses_phases(backend: str, card: str, one_rank_jsonl=None) -> dict:
     res["op"] = op
 
     # ---- 27. Ulysses long context: 8,100 tokens, one head a rank --------
-    long = long_args(WORK) + ["--batch_size", "2"]
-    if one_rank_jsonl is None:
-        one_rank_jsonl = os.path.join(WORK, "ulysses_ref.jsonl")
-        run_cli(long + ["--total_steps", str(LONG_STEPS), "--log_dir",
-                        os.path.join(WORK, "logs_ulysses_ref"),
-                        "--metrics_jsonl", one_rank_jsonl])
-    sp = ["--seq_axis", str(n), "--sp_mode", "ulysses"]
-    log = os.path.join(WORK, f"logs_ulysses_{backend}")
-    jsonl = os.path.join(WORK, f"vit_ulysses_{backend}.jsonl")
-    t0 = time.perf_counter()
-    ranks = spawn_ranks(f"ulysses_{backend}", {"kind": "cli", "argv": long
-                        + sp + ["--total_steps", str(LONG_STEPS),
-                                "--log_dir", log, "--metrics_jsonl", jsonl]
-                        + _dist_args(n, backend)}, world=n)
-    wall = time.perf_counter() - t0
+    ranks = parts[f"ulysses_{backend}"]
+    wall = ranks[0]["part_wall_s"]
     want = ulysses_launches(LONG_STEPS, LONG_STEPS // 5)
     check(all(r["launches"] == want for r in ranks),
           f"Ulysses ranks launched {[r['launches'] for r in ranks]}, want "
@@ -2891,9 +3049,7 @@ def ulysses_phases(backend: str, card: str, one_rank_jsonl=None) -> dict:
           f"per rank {ranks[0]['launches']}, equal parameters, {wall:.1f} s "
           f"wall, on {min(count, n)} x {card}", flush=True)
     label = f"ulysses_resume_{backend}"
-    resume = spawn_ranks(label, {"kind": "cli", "argv": long + sp + [
-        "--log_dir", log, "--total_steps", str(LONG_STEPS + 5)]
-        + _dist_args(n, backend)}, world=n)
+    resume = parts[label]
     check(all(r["launches"] == ulysses_launches(5, 1) for r in resume),
           f"Ulysses resume ran {[r['launches'] for r in resume]}, want 5 "
           f"steps from step {LONG_STEPS}")
@@ -2901,9 +3057,7 @@ def ulysses_phases(backend: str, card: str, one_rank_jsonl=None) -> dict:
     check(steps == [LONG_STEPS + 5], f"Ulysses resume printed steps {steps}")
     # The full test split (512 records) at 32 images a batch.
     label = f"ulysses_eval_{backend}"
-    ev = spawn_ranks(label, {"kind": "cli", "argv": long[:-2] + sp + [
-        "--batch_size", "32", "--log_dir", log, "--mode", "eval"]
-        + _dist_args(n, backend)}, world=n)
+    ev = parts[label]
     accs = []
     for r in range(n):
         lines = rank_log(label, r)
@@ -2917,10 +3071,7 @@ def ulysses_phases(backend: str, card: str, one_rank_jsonl=None) -> dict:
     res["eval_accuracy"] = accs[0][0]
     print(f"[ulysses resume] continued {LONG_STEPS} -> {LONG_STEPS + 5}; "
           f"--mode eval over {n} ranks: {accs[0][0]}% on each", flush=True)
-    prof = spawn_ranks(f"ulysses_profile_{backend}", {
-        "kind": "profile", "steps": 2, "argv": long + sp + [
-            "--log_dir", os.path.join(WORK, "logs_ulysses_profile")]
-        + _dist_args(n, backend)}, world=n)
+    prof = parts[f"ulysses_profile_{backend}"]
     res["profile"] = prof
     p = prof[0]
     print(f"[ulysses profile] rank 0 ({backend}): {p['step_ms']:.2f} ms/step "
@@ -3304,7 +3455,7 @@ def _dist_log_says(label: str, world: int, text: str) -> None:
 
 def chunk_gloo_phase(card) -> dict:
     """Phase 30: the DP CNN chunked on 2 ranks over gloo on this card, 2 x
-    64 images, ``--steps_per_dispatch 10``, 100 steps: each chunk runs its
+    64 images, ``--steps_per_dispatch 10``, 50 steps: each chunk runs its
     eager body (gloo stages each collective through host memory, which no
     graph can hold; the ``[dist]`` line says so). K1 once a step per
     rank, equal parameter digests, and every logged loss (each chunk's)
@@ -3891,7 +4042,7 @@ def rs_checkpoints(card) -> dict:
     torch.backends.cudnn.deterministic = True
     files = {}
     try:
-        for name in ("sync", "async", "async2", "sync2"):
+        for name in ("sync", "async"):
             trainer, result, wall, _ = _rs_fit(_rs_args(
                 name, "--async_checkpoint",
                 "true" if name.startswith("async") else "false"))
@@ -3904,9 +4055,8 @@ def rs_checkpoints(card) -> dict:
                          "wall_s": wall}
     finally:
         torch.backends.cudnn.deterministic = saved
-    check(files["async"] == files["sync"] and files["async2"]
-          == files["sync2"] and any(n.endswith(".msgpack")
-                                    for n in files["sync"]),
+    check(files["async"] == files["sync"]
+          and any(n.endswith(".msgpack") for n in files["sync"]),
           f"run safety: async checkpoint files differ from sync: "
           f"{sorted(files['async'])} / {sorted(files['sync'])}")
     # The clock cadence, the step cadence past the run.
@@ -3949,9 +4099,8 @@ def rs_checkpoints(card) -> dict:
     print(f"[run safety] async checkpoints byte-identical to sync (steps "
           f"{sorted(k for k in files['sync'] if k.endswith('.msgpack'))}); "
           f"eager loop across saves every 50 steps: sync "
-          f"{res['sync']['ms_per_step']:.4f} / {res['sync2']['ms_per_step']:.4f}"
-          f", async {res['async']['ms_per_step']:.4f} / "
-          f"{res['async2']['ms_per_step']:.4f} ms/step; every "
+          f"{res['sync']['ms_per_step']:.4f}, async "
+          f"{res['async']['ms_per_step']:.4f} ms/step; every "
           f"{RS_EVERY_SECS} s: {clock_saves} clock saves in "
           f"{total:.2f} s (at least {expected}); ckpt_corrupt@110 then a "
           f"crash: the restore fell back to step 50; on {card}", flush=True)
@@ -4230,7 +4379,8 @@ def update_kernel_rows(dev, card, bytes_per_s, ops_per_s, cases, what,
         by_bytes = (per_bytes * n + 4) / bytes_per_s * 1e3
         by_ops = per_ops * n / ops_per_s * 1e3
         rows[name] = dict(
-            ms=cuda_ms(kernel_step), plain_ms=cuda_ms(plain_step),
+            ms=cuda_ms(kernel_step),
+            plain_ms=cuda_ms(plain_step, reps=50, warmup=5),
             library_ms=cuda_ms(lib.step), bound_ms=max(by_bytes, by_ops),
             device_ms=device_ms(kernel_step, "sgd_multi_kernel"),
             library_device_ms=sum(kernel_ms(lib.step).values()),
@@ -4854,7 +5004,7 @@ def _check_tp_job(label, ranks, world, model_axis, tp_runs) -> None:
               f"{model_axis}")
 
 
-def tp_phase(card, dev, bytes_per_s, ops_per_s) -> dict:
+def tp_phase(card, dev, bytes_per_s, ops_per_s, extra_runs=()) -> dict:
     """Phase 34 on this card: K1/K2 on a model rank's leaves
     (``tp_kernel_rows``) and on phase 33's shard buffers (their device
     times), K3/K4/K6/K7 at a model rank's [b, 257, 1, 64] f32 against
@@ -4914,11 +5064,17 @@ def tp_phase(card, dev, bytes_per_s, ops_per_s) -> dict:
     for vit in (False, True):
         download.ensure_dataset(config_from_args(build_parser().parse_args(
             _tp_args("data", 1, 1, 1, vit=vit))).data)
+    if extra_runs:
+        download.ensure_dataset(config_from_args(build_parser().parse_args(
+            _moe_recipe_args("data", 1))).data)
     t1 = time.perf_counter()
+    # ``extra_runs`` (phase 36's rank runs, checked there) ride the same
+    # spawn: a process's start and first set-up paid once.
     ranks = spawn_ranks("tp_gloo", {
         "kind": "tp", "deterministic": True, "warm": True,
-        "runs": [run for *_, runs in groups.values() for run in runs]},
-        world=4, timeout_s=600)
+        "runs": [run for *_, runs in groups.values() for run in runs]
+        + list(extra_runs)}, world=4, timeout_s=600)
+    res["extra_ranks"] = ranks
     res["ranks_s"] = time.perf_counter() - t1
     for label, (world, m, vit, runs) in groups.items():
         batch = 32 if vit else 128
@@ -5209,11 +5365,11 @@ def tp_kernel_entries(tp) -> list:
 
 R18_RECORDS = 10_000
 R18_BATCH = 1024
-R18_EAGER_STEPS = 20
-R18_CHUNK_STEPS, R18_K = 100, 10
+R18_EAGER_STEPS = 10
+R18_CHUNK_STEPS, R18_K = 50, 10
 R50_BATCH = 128
 R50_RECORDS = 640
-R50_STEPS, R50_K, R50_CHUNK_STEPS = 10, 5, 20
+R50_STEPS, R50_K, R50_CHUNK_STEPS = 6, 5, 10
 R50_VARIANT_STEPS = 3
 RN_DIST_STEPS, RN_DIST_K, RN_DIST_BATCH = 20, 2, 128
 RN_LOSS_RTOL = 1e-3
@@ -5522,6 +5678,14 @@ def resnet_phase(card, dev, bytes_per_s, ops_per_s) -> dict:
     cfg = trainer.cfg
     gate, fn, st = _chunk_gate(cfg, result.state, dev, R18_K, "ResNet-18")
     prof = _replay_profile(fn, st, R18_K, card, "ResNet-18 recipe step")
+    ds_images, ds_labels = _resident_split(cfg, dev)
+    _, fn0, st0 = _graph_vs_eager(cfg, result.state, ds_images, ds_labels,
+                                  False, k=R18_K)
+    modes18 = _mode_replays({"default": (fn0, st0),
+                             "deterministic": (fn, st)}, R18_K, card,
+                            "ResNet-18 recipe, chunked K = 10", reps=1)
+    fn0.graph.release()
+    del fn0, st0, ds_images, ds_labels
     fn.graph.release()
     trainer.close()
     del trainer, result, fn, st
@@ -5533,7 +5697,8 @@ def resnet_phase(card, dev, bytes_per_s, ops_per_s) -> dict:
                               "losses": losses, "launches": chunk_k,
                               "replays": replays,
                               "test_accuracy": _eval_acc(lines)},
-                  "graph_vs_eager": gate, "replay_profile": prof}
+                  "graph_vs_eager": gate, "replay_profile": prof,
+                  "cudnn_modes": modes18}
     r = res["r18"]
     print(f"[resnet] ResNet-18 recipe (batch {R18_BATCH}, 24 px): eager "
           f"{r['eager']['ms_per_step']:.3f} ms/step "
@@ -5583,6 +5748,17 @@ def resnet_phase(card, dev, bytes_per_s, ops_per_s) -> dict:
         entry["replay_profile"] = _replay_profile(
             trainer.train_fn, result.state, R50_K, card,
             f"ResNet-50 step ({tag})")
+        if dtype == "float32":
+            ds_images, ds_labels = _resident_split(trainer.cfg, dev)
+            _, fn0, st0 = _graph_vs_eager(trainer.cfg, result.state,
+                                          ds_images, ds_labels, False,
+                                          k=R50_K)
+            entry["cudnn_modes"] = _mode_replays(
+                {"default": (fn0, st0),
+                 "deterministic": (trainer.train_fn, result.state)}, R50_K,
+                card, "ResNet-50 f32, chunked K = 5", reps=1)
+            fn0.graph.release()
+            del fn0, st0, ds_images, ds_labels
         trainer.close()
         del trainer, result
         _free_card()
@@ -5763,6 +5939,521 @@ def resnet_kernel_entries(rn) -> list:
     return out
 
 
+# ---- the MoE rung (36) -----------------------------------------------
+
+MOE_STEPS = 100                       # (a) the 257-token main path
+MOE_RECIPE_STEPS, MOE_K = 50, 10      # (b) eager, then chunked
+MOE_RANK_STEPS = 10                   # (d) the EP runs, eager
+MOE_DP_STEPS = 20                     # (d) the data-rank runs: 2 chunks
+MOE_EXPERTS = 8
+MOE_LAYER = (32, 257, 192)            # (c) one layer: [B, S, D]
+MOE_LAYER_REL = 1e-5                  # einsum vs scatter, x max|y|
+# ViT-Ti's blocks: the flash kernels launch once a block a step.
+MOE_BLOCKS = 12
+
+
+def _moe_main_args(name, steps, *extra):
+    """(a): phase 12's ViT-Ti recipe (72 px stored, 64 px crop: 257
+    tokens, batch 128, f32, AdamW + cosine) as ``vit_moe`` with 8 experts
+    and the scatter dispatch."""
+    return ["--model", "vit_moe", "--moe_experts", str(MOE_EXPERTS),
+            "--moe_dispatch", "scatter", "--dataset", "synthetic",
+            "--data_dir", os.path.join(WORK, "data_vit"),
+            "--image_size", "72", "--crop_size", "64",
+            "--synthetic_train_records", "10000", "--fidelity", "fixed",
+            "--batch_size", "128", "--optimizer", "adamw",
+            "--learning_rate", "3e-4", "--schedule", "cosine",
+            "--warmup_steps", "20", "--eval_every", str(steps),
+            "--checkpoint_every", str(steps), "--output_every", "25",
+            "--peak_tflops", F32_PEAK_TFLOPS,
+            "--log_dir", os.path.join(WORK, f"logs_moe_{name}"),
+            "--metrics_jsonl", os.path.join(WORK, f"moe_{name}.jsonl"),
+            "--total_steps", str(steps), *extra]
+
+
+def _moe_recipe_args(name, steps, *extra, world=1, backend="gloo",
+                     model_axis=1, k=1, every=None):
+    """The README recipe, ``--model vit_moe --moe_experts 8`` at the
+    defaults (24 px crop of 32: 37 tokens, batch 128, the faithful plain
+    SGD at lr 0.1, einsum dispatch), on ``world`` ranks (phase 34's rank
+    job reads ``WORK/tp_<name>.jsonl``)."""
+    every = every or max(k, 1)
+    out = ["--model", "vit_moe", "--moe_experts", str(MOE_EXPERTS),
+           "--dataset", "synthetic", "--data_dir",
+           os.path.join(WORK, "data_moe"), "--synthetic_train_records",
+           "10000", "--model_axis", str(model_axis),
+           "--peak_tflops", F32_PEAK_TFLOPS,
+           "--log_dir", os.path.join(WORK, f"logs_tp_{name}"),
+           "--metrics_jsonl", os.path.join(WORK, f"tp_{name}.jsonl"),
+           "--total_steps", str(steps), "--output_every", str(every),
+           "--eval_every", "1000", "--checkpoint_every", "1000",
+           "--steps_per_dispatch", str(k), *extra]
+    return out + (_dist_args(world, backend) if world > 1 else [])
+
+
+def _moe_checks(label, recs, experts=MOE_EXPERTS) -> list:
+    """The ``train`` records' router stats: finite aux loss, dropped
+    fraction in [0, 1], ``experts`` loads summing to 1 (1e-4); returns
+    the losses."""
+    train = [r for r in recs if r["kind"] == "train"]
+    check(bool(train), f"{label}: no train record")
+    for r in train:
+        load = r.get("moe_expert_load")
+        check(r.get("moe_aux_loss") is not None
+              and math.isfinite(r["moe_aux_loss"])
+              and r.get("moe_dropped_frac") is not None
+              and 0.0 <= r["moe_dropped_frac"] <= 1.0
+              and isinstance(load, list) and len(load) == experts
+              and abs(sum(load) - 1.0) <= 1e-4,
+              f"{label} step {r['step']}: router stats "
+              f"{ {k: r.get(k) for k in r if k.startswith('moe_')} }")
+    return [r["loss"] for r in train]
+
+
+def moe_kernel_rows(dev, card, bytes_per_s, ops_per_s) -> dict:
+    """K1 and K2 on the README recipe's ``vit_moe`` leaves (ViT-Ti, 8
+    experts, 24 px: one launch an update), as ``update_kernel_rows`` holds
+    and times them."""
+    from dml_cnn_cifar10_tpu_torch.config import DataConfig, ModelConfig
+    from dml_cnn_cifar10_tpu_torch.models.registry import get_model
+    with torch.device("meta"):
+        net = get_model("vit_moe")(ModelConfig(
+            name="vit_moe", moe_experts=MOE_EXPERTS), DataConfig())
+    shapes = {n: tuple(p.shape) for n, p in net.named_parameters()}
+    total = sum(math.prod(v) for v in shapes.values())
+    gen = torch.Generator(device=dev).manual_seed(36)
+
+    def make():
+        return {n: torch.randn(v, device=dev, generator=gen)
+                for n, v in shapes.items()}
+
+    return update_kernel_rows(
+        dev, card, bytes_per_s, ops_per_s,
+        [("sgd_update_plain", 0.0, 0.0, "vit_moe", make),
+         ("sgd_update_momentum", 0.9, 5e-4, "vit_moe", make)],
+        lambda tag: f"vit_moe's {len(shapes)} leaves ({MOE_EXPERTS} "
+                    f"experts)", total=total)
+
+
+def moe_layer_check(dev, card) -> dict:
+    """(c): one MoE layer at ``MOE_LAYER``, 8 experts (ViT-Ti's widths,
+    hidden 768), top-1 and top-2: the einsum form against the scatter form
+    on the same tokens and leaves (y within ``MOE_LAYER_REL`` of its
+    scale, the router stats equal), and each form's forward + backward
+    timed by CUDA events and by its kernels' device time."""
+    from dml_cnn_cifar10_tpu_torch.ops import moe
+
+    b, s, d = MOE_LAYER
+    gen = torch.Generator(device=dev).manual_seed(36)
+    params = {n: torch.empty(v, device=dev) for n, v in
+              moe.param_shapes(d, 4 * d, MOE_EXPERTS).items()}
+    moe.init_moe_params_(params, gen)
+    # A router that spreads the tokens over the experts (the init's 0.02
+    # gate keeps most of them near a tie).
+    params["gate.kernel"].normal_(0.0, 1.0, generator=gen)
+    x = torch.randn((b, s, d), device=dev, generator=gen)
+    out = {}
+    for top_k in (1, 2):
+        ys, stats = {}, {}
+        for form in ("einsum", "scatter"):
+            with torch.no_grad():
+                ys[form], stats[form] = moe.moe_mlp(x, params, 1.25, top_k,
+                                                    form)
+        scale = ys["scatter"].abs().max().item()
+        rel = (ys["einsum"] - ys["scatter"]).abs().max().item() / scale
+        check(rel <= MOE_LAYER_REL, f"MoE layer top-{top_k}: einsum vs "
+              f"scatter {rel:.3g} of max|y|")
+        for key in ("dropped_frac", "expert_load", "aux_loss"):
+            check(torch.equal(stats["einsum"][key], stats["scatter"][key]),
+                  f"MoE layer top-{top_k}: {key} differs between the forms")
+        row = {"rel_gap": rel,
+               "dropped_frac": float(stats["scatter"]["dropped_frac"])}
+        leaves = {n: t.clone().requires_grad_() for n, t in params.items()}
+        xg = x.clone().requires_grad_()
+        for form in ("einsum", "scatter"):
+            def fwd_bwd(form=form):
+                y, st = moe.moe_mlp(xg, leaves, 1.25, top_k, form)
+                torch.autograd.grad(y.sum() + st["aux_loss"],
+                                    [xg, *leaves.values()])
+            row[f"{form}_ms"] = cuda_ms(fwd_bwd, reps=10, warmup=2)
+            row[f"{form}_device_ms"] = sum(kernel_ms(fwd_bwd, reps=5)
+                                           .values())
+        out[f"top{top_k}"] = row
+        print(f"[moe layer] [{b}, {s}, {d}] x {MOE_EXPERTS} experts, "
+              f"top-{top_k}, capacity factor 1.25: einsum vs scatter "
+              f"{rel:.3g} of max|y|, stats equal (dropped "
+              f"{row['dropped_frac']:.4f}); forward + backward einsum "
+              f"{row['einsum_ms']:.3f} ms (device "
+              f"{row['einsum_device_ms']:.3f}), scatter "
+              f"{row['scatter_ms']:.3f} ms (device "
+              f"{row['scatter_device_ms']:.3f}) on {card}", flush=True)
+    return out
+
+
+def _moe_rank_runs(backend, worlds) -> tuple:
+    """(d)'s runs, ``(one-process references, ranked runs)``: the README
+    EP recipe with momentum 0.9 (K2 on a model rank's expert slices) at
+    ``--model_axis 2`` on 2 ranks, eager; the recipe at data 2 x 64 on the
+    resident device stream (every data rank takes its columns of the same
+    global rows), two chunks of ``MOE_K`` steps (the second a pure replay
+    over NCCL, whose loop rate is the replays'); each beside one
+    process; given 4 ranks, data 2 x model 2 beside the 2 data ranks."""
+    refs = {"moe_ep_rep": _moe_recipe_args(
+                "moe_ep_rep", MOE_RANK_STEPS, "--momentum", "0.9", every=1),
+            "moe_dp_rep": _moe_recipe_args("moe_dp_rep", MOE_DP_STEPS,
+                                           k=MOE_K)}
+    runs = [
+        {"name": "moe_ep", "world": 2, "ref": "moe_ep_rep", "step1": 128,
+         "model_axis": 2, "steps": MOE_RANK_STEPS, "argv": _moe_recipe_args(
+             "moe_ep", MOE_RANK_STEPS, "--momentum", "0.9", world=2,
+             backend=backend, model_axis=2, every=1)},
+        {"name": "moe_dp", "world": 2, "ref": "moe_dp_rep", "step1": 128,
+         "model_axis": 1, "steps": MOE_DP_STEPS, "argv": _moe_recipe_args(
+             "moe_dp", MOE_DP_STEPS, world=2, backend=backend, k=MOE_K)}]
+    if 4 in worlds:
+        runs.append({"name": "moe_d2m2", "world": 4, "ref": "moe_dp",
+                     "compare": ["moe_dp"], "step1": 128, "model_axis": 2,
+                     "steps": MOE_DP_STEPS, "argv": _moe_recipe_args(
+                         "moe_d2m2", MOE_DP_STEPS, world=4,
+                         backend=backend, model_axis=2, k=MOE_K)})
+    return refs, runs
+
+
+def _moe_refs(refs) -> dict:
+    """The one-process reference runs, in this process: their launches."""
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+    out = {}
+    for name, argv in refs.items():
+        fused.reset_launches()
+        fa.reset_launches()
+        run_cli(argv)
+        out[name] = {kn: n for kn, n in {**fa.LAUNCHES,
+                                         **fused.LAUNCHES}.items() if n}
+    return out
+
+
+def _moe_check_ranks(label, ranks, runs, ref_launches, card) -> dict:
+    """(d)'s gates: step 1 of every ranked run within the CPU pins of one
+    process's, every logged loss of the run within
+    ``DP_CHUNK_LOSS_RTOL`` of its reference's and the dropped fraction
+    printed beside it, replicated leaves bit-equal over the ranks, K1 (K2
+    under momentum) once a step on every rank and in the reference. The
+    loop rates are the trainers' own (after the first dispatch)."""
+    out = {}
+    for run in runs:
+        world, ref, m = run["world"], run["ref"], run["model_axis"]
+        k2 = "--momentum" in run["argv"]
+        want = {"sgd_update_momentum" if k2 else "sgd_update_plain":
+                run["steps"]}
+        for r, x in enumerate(ranks[:world]):
+            la = x["runs"][run["name"]]["launches"]
+            got = {kn: n for kn, n in la.items() if n}
+            check(got == want, f"{label} rank {r} {run['name']}: launched "
+                  f"{la}, want {want}")
+        if ref in ref_launches:
+            check(ref_launches[ref] == want, f"{ref}: launched "
+                  f"{ref_launches[ref]}, want {want}")
+        _check_tp_job(label, ranks[:world], world, m, [run["name"]])
+        gaps = _tp_loss_gaps(run["name"], ref)
+        check(max(g for _, g in gaps) <= DP_CHUNK_LOSS_RTOL,
+              f"{label} {run['name']}: logged losses against {ref} {gaps}")
+        a = [r for r in records(os.path.join(WORK, f"tp_{run['name']}.jsonl"))
+             if r["kind"] == "train"]
+        b = [r for r in records(os.path.join(WORK, f"tp_{ref}.jsonl"))
+             if r["kind"] == "train"]
+        _moe_checks(f"{label} {run['name']}", a)
+        dropped = [(x["step"], x["moe_dropped_frac"], y["moe_dropped_frac"])
+                   for x, y in zip(a, b)]
+        x0 = ranks[0]["runs"][run["name"]]
+        s1 = [x["runs"][run["name"]]["step1"] for x in ranks[:world]]
+        out[run["name"]] = {
+            "world": world, "model_axis": m, "loss_gaps": gaps,
+            "dropped": dropped, "step1": s1,
+            "ms_per_step": 128 / x0["images_per_sec"] * 1e3
+            if x0["images_per_sec"] else None,
+            "ref_ms_per_step": 128 / b[-1]["images_per_sec"] * 1e3
+            if b[-1]["images_per_sec"] else None,
+            "launches": x0["launches"], "wall_s": x0["wall_s"],
+            "split_s": x0["split_s"]}
+        print(f"[moe ranks] {run['name']}: {world} ranks over {label}, "
+              f"model_axis {m}: step 1 within the CPU pins of one process "
+              f"on every rank; logged losses within "
+              f"{max(g for _, g in gaps):.3g} of {ref} (steps "
+              f"{[s for s, _ in gaps]}); moe_dropped_frac (step, ranks, "
+              f"reference) {dropped}; {out[run['name']]['ms_per_step']} "
+              f"ms/step ({ref}: {out[run['name']]['ref_ms_per_step']}); "
+              f"rank 0's set-up, step 1 and fit s {x0['split_s']} on "
+              f"{card}", flush=True)
+    return out
+
+
+def moe_phase(card, dev, bytes_per_s, ops_per_s, spawned=None) -> dict:
+    """Phase 36 (see the module docstring). ``spawned``: ``(refs, runs,
+    ranks)`` of (d) when its rank runs rode phase 34's spawn."""
+    import numpy as np
+
+    from dml_cnn_cifar10_tpu_torch import export as export_lib
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.data import download
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+    from dml_cnn_cifar10_tpu_torch.serve.engine import ServingEngine
+
+    t_phase = time.perf_counter()
+    res = {"card": card, "part_seconds": {}}
+
+    def mark(part):
+        res["part_seconds"][part] = time.perf_counter() - t_phase
+        print(f"[moe] {part} done at {res['part_seconds'][part]:.1f} s "
+              f"into phase 36", flush=True)
+
+    # -- (a) the main path: 257 tokens, scatter dispatch, AdamW ---------
+    download.ensure_dataset(config_from_args(build_parser().parse_args(
+        _moe_main_args("main", MOE_STEPS))).data)
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_launches()
+    fa.reset_launches()
+    lines = run_cli(_moe_main_args("main", MOE_STEPS))
+    launched = {**fa.LAUNCHES, **fused.LAUNCHES}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    recs = records(os.path.join(WORK, "moe_main.jsonl"))
+    losses = _moe_checks("vit_moe main path", recs)
+    check(losses[-1] < losses[0], f"vit_moe main path losses {losses}: the "
+          f"last window must be below the first")
+    # Forward-only batches (K3): one sweep of the 512-record test split at
+    # 128, and the fresh-batch accuracy at every output boundary.
+    fwd_only = 4 + MOE_STEPS // 25
+    want = {"flash_fwd": fwd_only * MOE_BLOCKS,
+            "flash_fwd_lse": MOE_STEPS * MOE_BLOCKS, "flash_fwd_stats": 0,
+            "flash_bwd_dq": MOE_STEPS * MOE_BLOCKS,
+            "flash_bwd_dkv": MOE_STEPS * MOE_BLOCKS,
+            "sgd_update_plain": 0, "sgd_update_momentum": 0}
+    check(launched == want, f"vit_moe main path launched {launched}, want "
+          f"{want}")
+    train = [r for r in recs if r["kind"] == "train"]
+    win = train[1:]
+    ips = sum(r["images_per_sec"] for r in win) / len(win)
+    res["main"] = {
+        "launches": launched, "losses": losses,
+        "ms_per_step": 128 / ips * 1e3, "images_per_sec": ips,
+        "tflops_per_sec": win[-1].get("tflops_per_sec_per_chip"),
+        "mfu": win[-1].get("mfu"), "peak_gib": peak_gib,
+        "flops_stack": train[0].get("flops_stack"),
+        "device_step_ms": win[-1].get("device_step_ms"),
+        "dropped_frac": [r["moe_dropped_frac"] for r in train],
+        "aux_loss": [r["moe_aux_loss"] for r in train],
+        "expert_load_last": train[-1]["moe_expert_load"],
+        "test_accuracy": _eval_acc(lines)}
+    r = res["main"]
+    print(f"[moe main] vit_moe (ViT-Ti, {MOE_EXPERTS} experts, scatter) at "
+          f"257 tokens, batch 128, f32, AdamW, {MOE_STEPS} steps: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, {r['ms_per_step']:.3f} "
+          f"ms/step ({ips:.1f} img/s, {r['tflops_per_sec']} TFLOP/s, MFU "
+          f"{r['mfu']} of {F32_PEAK_TFLOPS} f32), peak {peak_gib:.2f} GiB, "
+          f"dropped {r['dropped_frac']}, aux {r['aux_loss']}, last load "
+          f"{r['expert_load_last']}; launches {launched} on {card}",
+          flush=True)
+    prof = profile_vit(_moe_main_args("main", MOE_STEPS), "moe", card,
+                       steps=5)
+    res["main"]["profile"] = {k: v for k, v in prof.items()
+                              if k != "kernels"}
+    res["main"]["profile"]["top_kernels"] = prof["kernels"][:25]
+    mark("main")
+
+    # -- (e) export and serve the main path's checkpoint ----------------
+    base = _moe_main_args("main", MOE_STEPS)
+    run_cli(base + ["--mode", "export"])
+    artifact = os.path.join(WORK, "logs_moe_main", export_lib.ARTIFACT_NAME)
+    art = ServingEngine.from_artifact(artifact, dev)
+    cfg = config_from_args(build_parser().parse_args(base))
+    model, params, step = export_lib.restore_serving_params(cfg, dev)
+    check(step == MOE_STEPS, f"the served checkpoint is step {step}")
+    live = ServingEngine.from_params(model, cfg.data, params, dev,
+                                     version=str(step))
+    art.warmup([1, 32])
+    live.warmup([1, 32])
+    rng = np.random.default_rng(36)
+    images = rng.integers(0, 256, (32, 72, 72, 3), dtype=np.uint8)
+    serve = {"artifact_bytes": os.path.getsize(artifact)}
+    for b in (1, 32):
+        a, ms = art.forward_timed(images[:b])
+        want_l, live_ms = live.forward_timed(images[:b])
+        gap = float(np.abs(a - want_l).max())
+        check(gap == 0.0, f"vit_moe artifact vs live weights at b={b}: "
+              f"{gap}, want 0")
+        serve[f"b{b}"] = {"gap": gap, "ms": ms, "live_ms": live_ms}
+    # The server takes the artifact's engine, warmed up above.
+    t, stop, url, _, rc = _serve_thread(base + ["--serve_buckets", "1,32"],
+                                        engine=art)
+    fa.reset_launches()
+    lg = _loadgen(["--target", url, "--mode", "closed", "--concurrency",
+                   "32", "--duration_s", "1", "--image_size", "72"],
+                  "moe_c32")
+    _stop_serve(t, stop, rc, "vit_moe serve")
+    check(lg["errors"] == 0 and lg["completed"] > 0,
+          f"vit_moe serve at 32 clients: {lg['error_kinds']}")
+    serve["http_c32"] = {k: lg.get(k) for k in ("completed", "achieved_qps",
+                                                "latency_ms")}
+    serve["launches"] = dict(fa.LAUNCHES)
+    check(serve["launches"]["flash_fwd"] > 0
+          and serve["launches"]["flash_fwd"] % MOE_BLOCKS == 0,
+          f"vit_moe serve launched {serve['launches']}")
+    res["serve"] = serve
+    del art, live, model, params
+    print(f"[moe serve] --mode export ({serve['artifact_bytes']} bytes) and "
+          f"serve: artifact vs live weights 0 apart at b = 1 and 32 "
+          f"({serve['b1']['ms']:.3f} / {serve['b32']['ms']:.3f} ms a batch); "
+          f"HTTP 32 clients {lg['completed']} answers, {lg['achieved_qps']} "
+          f"qps, p50 {lg['latency_ms']['p50']} ms, p99 "
+          f"{lg['latency_ms']['p99']} ms; K3 {serve['launches']['flash_fwd']}"
+          f" on {card}", flush=True)
+    mark("serve")
+
+    # -- (b) the README recipe: eager, then chunked at K = 10 -----------
+    download.ensure_dataset(config_from_args(build_parser().parse_args(
+        _moe_recipe_args("data", 1))).data)
+    _free_card()
+    fused.reset_launches()
+    fa.reset_launches()
+    run_cli(_moe_recipe_args("moe_eager", MOE_RECIPE_STEPS, every=10))
+    eager_k = {kn: n for kn, n in {**fa.LAUNCHES, **fused.LAUNCHES}.items()
+               if n}
+    check(eager_k == {"sgd_update_plain": MOE_RECIPE_STEPS},
+          f"vit_moe recipe eager: launches {eager_k}, want K1 once a step")
+    fused.reset_launches()
+    fa.reset_launches()
+    clines, trainer, result = run_trainer(_moe_recipe_args(
+        "moe_chunk", MOE_RECIPE_STEPS, k=MOE_K))
+    chunk_k = {kn: n for kn, n in {**fa.LAUNCHES, **fused.LAUNCHES}.items()
+               if n}
+    replays = trainer.train_fn.graph.replays
+    check(chunk_k == {"sgd_update_plain": MOE_RECIPE_STEPS}
+          and replays == MOE_RECIPE_STEPS // MOE_K,
+          f"vit_moe recipe chunked: launches {chunk_k} in {replays} replays")
+    recipe = {}
+    for name in ("moe_eager", "moe_chunk"):
+        rl = _moe_checks(f"vit_moe recipe {name}", records(
+            os.path.join(WORK, f"tp_{name}.jsonl")))
+        check(all(math.isfinite(x) for x in rl),
+              f"vit_moe recipe {name}: losses {rl}")
+        recipe[name] = {"losses": rl}
+    cfg = trainer.cfg
+    ds_images, ds_labels = _resident_split(cfg, dev)
+    c, fn, st = _graph_vs_eager(cfg, result.state, ds_images, ds_labels,
+                                True, k=MOE_K)
+    check(c["loss_gap"] == 0.0 and c["param_gap"] == 0.0
+          and c["moe_graph"] == c["moe_eager"]
+          and c["launches_graph"] == c["launches_eager"],
+          f"vit_moe recipe: graphed chunk vs eager body (cuDNN "
+          f"deterministic): loss gap {c['loss_gap']}, params "
+          f"{c['param_gap']}, router stats {c['moe_graph']} vs "
+          f"{c['moe_eager']}, launches {c['launches_graph']} vs "
+          f"{c['launches_eager']}")
+    replay_ms = cuda_ms(lambda: fn(st), reps=3, warmup=1) / MOE_K
+    fn.graph.release()
+    trainer.close()
+    del trainer, result, fn, st
+    _free_card()
+    recipe.update(launches_eager=eager_k, launches_chunked=chunk_k,
+                  replays=replays, graph_vs_eager={
+                      k: c[k] for k in ("loss_gap", "param_gap", "moe_graph",
+                                        "moe_eager", "launches_graph")},
+                  replay_ms_per_step=replay_ms)
+    res["recipe"] = recipe
+    print(f"[moe recipe] --model vit_moe --moe_experts 8 at the defaults "
+          f"(37 tokens, einsum, SGD lr 0.1): {MOE_RECIPE_STEPS} eager and "
+          f"{MOE_RECIPE_STEPS} chunked steps (K = {MOE_K}) with finite "
+          f"losses {recipe['moe_chunk']['losses']}; K1 {chunk_k}; one graphed "
+          f"chunk bit-equal to its eager body (loss, params, router stats "
+          f"{c['moe_graph']}); a replay {replay_ms:.3f} ms/step on {card}",
+          flush=True)
+    res["kernels"] = moe_kernel_rows(dev, card, bytes_per_s, ops_per_s)
+    mark("recipe")
+
+    # -- (c) one MoE layer: einsum against scatter ----------------------
+    res["layer"] = moe_layer_check(dev, card)
+    mark("layer")
+
+    # -- (d) ranks: expert parallelism and global routing over gloo -----
+    if spawned is None:
+        refs, runs = _moe_rank_runs("gloo", (2,))
+        ranks = spawn_ranks("moe_gloo", {"kind": "tp", "deterministic": True,
+                                         "runs": runs}, world=2,
+                            timeout_s=600)
+    else:
+        refs, runs, ranks = spawned
+    ref_launches = _moe_refs(refs)
+    res["ranks"] = _moe_check_ranks("gloo on one card", ranks, runs,
+                                    ref_launches, card)
+    res["launches"] = {"k1_recipe": eager_k["sgd_update_plain"],
+                       "k2_ep_rank0": ranks[0]["runs"]["moe_ep"]["launches"][
+                           "sgd_update_momentum"],
+                       "main": launched}
+    mark("ranks")
+    res["seconds"] = time.perf_counter() - t_phase
+    with open(os.path.join(OUT, "slice16.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    print(f"[moe] phase 36: {res['seconds']:.1f} s on {card}", flush=True)
+    return res
+
+
+def moe_nccl_phase(card, count) -> dict:
+    """Phase 36 under ``--dist``, a card a rank over NCCL: (d)'s runs on 2
+    cards and, given 4, data 2 x model 2 beside the 2 data ranks; the
+    data-rank runs chunked at ``MOE_K`` (one CUDA graph a chunk,
+    its all-reduces captured), their ms/step printed."""
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.data import download
+
+    if os.path.isdir(WORK):
+        shutil.rmtree(WORK)
+    os.makedirs(OUT, exist_ok=True)
+    download.ensure_dataset(config_from_args(build_parser().parse_args(
+        _moe_recipe_args("data", 1))).data)
+    worlds = (2, 4) if count >= 4 else (2,)
+    refs, runs = _moe_rank_runs("nccl", worlds)
+    ref_launches = _moe_refs(refs)
+    ranks = spawn_ranks("moe_nccl", {"kind": "tp", "deterministic": True,
+                                     "runs": runs}, world=max(worlds),
+                        timeout_s=600)
+    res = {"card": card, "ranks": _moe_check_ranks(
+        "nccl, a card a rank", ranks, runs, ref_launches, card)}
+    with open(os.path.join(OUT, "slice16_nccl.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
+
+
+def moe_kernel_entries(moe_res) -> list:
+    """The kernels line's K1/K2 rows on ``vit_moe``'s leaves."""
+    out = []
+    for name, kid, line, launches, path in (
+            ("sgd_update_plain", "K1", 83, moe_res["launches"]["k1_recipe"],
+             "the README recipe's eager run"),
+            ("sgd_update_momentum", "K2", 70,
+             moe_res["launches"]["k2_ep_rank0"],
+             "rank 0 of the EP run at --model_axis 2 (its expert slices)")):
+        t = moe_res["kernels"][name]
+        out.append({
+            "name": name, "kernel": kid, "path": "vit_moe", "route": "cuda",
+            "source": "dml_cnn_cifar10_tpu_torch/csrc/sgd_update.cu",
+            "replaces": f"dml_cnn_cifar10_tpu/ops/optimizer.py:{line}",
+            "launches": launches, "max_abs_err": t["max_abs_err"],
+            **{k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms",
+                                 "library_device_ms")},
+            "library": "torch.optim.SGD(fused=True).step",
+            "work": f"one update of vit_moe's {t['leaves']} leaves "
+                    f"({t['elements']} f32 params), mu={t['mu']}, "
+                    f"wd={t['wd']}; launches: {path}, "
+                    f"{MOE_RANK_STEPS if kid == 'K2' else MOE_RECIPE_STEPS} "
+                    f"steps"})
+    return out
+
+
 def only_phase():
     """The phase named by ``--phase N`` (a debugging run of that phase
     alone after the build), or None."""
@@ -5836,6 +6527,9 @@ def dist_main() -> int:
     if only_phase() == "35":
         return phase_only_main(card, kind, count,
                                lambda: resnet_nccl_phase(card, count))
+    if only_phase() == "36":
+        return phase_only_main(card, kind, count,
+                               lambda: moe_nccl_phase(card, count))
     # Phase 31 first: a capture that fails ends the run early.
     chunked = chunk_nccl_phase(card, worlds)
     # Phase 33 over NCCL: zero1 and fsdp eager and graphed, and ViT-Ti.
@@ -5883,6 +6577,12 @@ def dist_main() -> int:
     return 0
 
 
+RANK_KINDS = {"cli": _rank_cli, "ring": _rank_ring, "ulysses": _rank_ulysses,
+              "profile": _rank_profile, "chunk": _rank_chunk,
+              "fit": _rank_fit, "shard": _rank_shard, "tp": _rank_tp,
+              "parts": _rank_parts}
+
+
 def rank_main(argv) -> int:
     """Entry of a rank process (``--rank R --job FILE``): runs the job
     and writes its result, with this process's kernel launch counts."""
@@ -5896,11 +6596,7 @@ def rank_main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = bool(job.get("deterministic"))
-    run = {"cli": _rank_cli, "ring": _rank_ring, "ulysses": _rank_ulysses,
-           "profile": _rank_profile, "chunk": _rank_chunk,
-           "fit": _rank_fit, "shard": _rank_shard,
-           "tp": _rank_tp}[job["kind"]]
-    res = run(rank, job)
+    res = RANK_KINDS[job["kind"]](rank, job)
     # A job that runs more than its main path keeps that path's counts.
     res.setdefault("launches", {**fa.LAUNCHES, **fused.LAUNCHES})
     with open(job["out"].format(rank=rank), "w") as f:
@@ -5955,6 +6651,9 @@ def main() -> int:
         print(f"[build] {name}.cu:\n{log.strip()}")
     print(f"[build] {len(logs)} source(s) in {build_s:.2f} s", flush=True)
     flash_build = ptxas_report(logs["flash_attention"])
+    if only_phase() == "36":
+        return phase_only_main(card, kind, count, lambda: moe_phase(
+            card, dev, bytes_per_s, ops_per_s))
     if only_phase() == "32":
         return phase_only_main(card, kind, count,
                                lambda: run_safety_phase(card))
@@ -6368,6 +7067,7 @@ def main() -> int:
     # ---- 18-21. two ranks: ring op, SP train/resume/eval, DP, profile ----
     # One card each over NCCL when there are two, else both on this card
     # over gloo (NCCL refuses two ranks on one device).
+    stamp("18")
     backend = "nccl" if count >= 2 else "gloo"
     print(f"[dist] 2 ranks over {backend} on {min(count, 2)} card(s)",
           flush=True)
@@ -6379,6 +7079,7 @@ def main() -> int:
     sp_launched = dist_res["sp2"]["launches"]
 
     # ---- 22-25. serving: export, K3's operator, graphs, HTTP ------------
+    stamp("22")
     serve = serve_phases(card, dev, base + ["--log_dir", log_dir],
                          vit_base + ["--log_dir", vit_log], bytes_per_s,
                          ops_per_s)
@@ -6386,6 +7087,7 @@ def main() -> int:
     # ---- 26-27. Ulysses: the op, then train/resume/eval/profile ----------
     # One card each over NCCL when there are three, else all on this card
     # over gloo.
+    stamp("26")
     ul_backend = "nccl" if count >= ULYSSES_SEQ else "gloo"
     print(f"[dist] {ULYSSES_SEQ} ranks over {ul_backend} on "
           f"{min(count, ULYSSES_SEQ)} card(s)", flush=True)
@@ -6431,11 +7133,18 @@ def main() -> int:
 
     stamp("34")
     # ---- 34. tensor parallelism over --model_axis, gloo on this card ----
-    tp = tp_phase(card, dev, bytes_per_s, ops_per_s)
+    # (with phase 36's rank runs on the same spawn)
+    moe_refs, moe_runs = _moe_rank_runs("gloo", (2,))
+    tp = tp_phase(card, dev, bytes_per_s, ops_per_s, extra_runs=moe_runs)
 
     stamp("35")
     # ---- 35. the ResNet rungs: BatchNorm state, cross-replica BN --------
     rn = resnet_phase(card, dev, bytes_per_s, ops_per_s)
+
+    stamp("36")
+    # ---- 36. the MoE rung: vit_moe, its recipe, EP and global routing ---
+    moe_res = moe_phase(card, dev, bytes_per_s, ops_per_s, spawned=(
+        moe_refs, moe_runs, tp.pop("extra_ranks")))
 
     for path in (train_jsonl, resume_jsonl, mom_jsonl, vit_jsonl,
                  os.path.join(WORK, "vit_resume.jsonl"), long_jsonl):
@@ -6519,6 +7228,7 @@ def main() -> int:
         ("zero1", "fsdp"))
     kernels += tp_kernel_entries(tp)
     kernels += resnet_kernel_entries(rn)
+    kernels += moe_kernel_entries(moe_res)
     t = stats_time
     kernels.append({
         "name": "flash_fwd_stats", "kernel": "K5", "route": "cuda",
@@ -6559,6 +7269,7 @@ def main() -> int:
             "replaces": f"dml_cnn_cifar10_tpu/ops/flash_attention.py:{line}",
             "launches": vit_launches[name],
             "launches_long_context": long_launches[name],
+            "launches_vit_moe": moe_res["launches"]["main"][name],
             "max_abs_err": flash_worst[(name, "float32")],
             "max_abs_diff": flash_worst[(name, "float32")],
             "max_abs_err_bf16": flash_worst[(name, "bfloat16")],

@@ -23,7 +23,10 @@ cross-replica over the data ranks; ``--resnet_norm nf``, ``--resnet_s2d``,
 ``--remat``; not under ``--model_axis`` or ``--seq_axis`` > 1) and
 ``--model vit_tiny``
 (ViT-Ti, attention through the hand-written flash kernels from 128 tokens
-up, e.g. ``--crop_size 64``), with the JAX CLI's ViT, optimizer and
+up, e.g. ``--crop_size 64``) and ``--model vit_moe`` (``--moe_experts``,
+8 by default, ``--moe_top_k``, ``--moe_dispatch``; the experts split over
+``--model_axis``, the routing global over the data ranks; not with
+``--seq_axis`` > 1), with the JAX CLI's ViT, optimizer and
 schedule flags, and the rest of its optimizer surface
 (``--optimizer lars|lamb|adafactor``, ``--grad_clip_norm``,
 ``--grad_accum``, ``--async_staleness``, ``--label_smoothing``).
@@ -144,8 +147,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", type=str, default="cnn",
                    choices=["cnn", "resnet18", "resnet50", "vit_tiny",
                             "vit_moe"],
-                   help="cnn (the reference), resnet18, resnet50 or "
-                        "vit_tiny (vit_moe is not ported: it raises)")
+                   help="cnn (the reference), resnet18, resnet50, "
+                        "vit_tiny or vit_moe (ViT-Ti with a routed expert "
+                        "bank in every block; --moe_experts defaults to 8)")
+    p.add_argument("--moe_experts", type=int, default=0,
+                   help="experts per MoE block (vit_moe); split over the "
+                        "model ranks (expert parallelism)")
+    p.add_argument("--moe_top_k", type=int, default=1,
+                   help="experts per token: 1 = Switch, 2 = GShard")
+    p.add_argument("--moe_dispatch", type=str, default="einsum",
+                   choices=["einsum", "scatter"],
+                   help="MoE dispatch/combine: einsum ([T,E,C] one-hot "
+                        "contractions) or scatter ((expert,slot) indexed "
+                        "add and gather, O(T*D) instead of O(T^2*f*D)). "
+                        "Same semantics either way")
     p.add_argument("--dataset", type=str, default="cifar10",
                    choices=["cifar10", "cifar100", "synthetic",
                             "imagenet_synth"],
@@ -514,6 +529,14 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
     for f in ("vit_heads", "vit_dim", "vit_depth"):
         if getattr(args, f) is not None:
             setattr(cfg.model, f, getattr(args, f))
+    if args.moe_experts and args.model != "vit_moe":
+        raise SystemExit(
+            f"--moe_experts requires --model vit_moe (got {args.model})")
+    cfg.model.moe_experts = args.moe_experts
+    if args.model == "vit_moe" and args.moe_experts == 0:
+        cfg.model.moe_experts = 8
+    cfg.model.moe_top_k = args.moe_top_k
+    cfg.model.moe_dispatch = args.moe_dispatch
     cfg.model.remat = args.remat
     cfg.model.resnet_norm = args.resnet_norm
     cfg.model.resnet_s2d = args.resnet_s2d

@@ -89,7 +89,7 @@ class DataConfig:
 class ModelConfig:
     """Model selection + faithful-mode switches."""
 
-    name: str = "cnn"                     # cnn | resnet18 | resnet50 | vit_tiny
+    name: str = "cnn"                     # cnn | resnet18 | resnet50 | vit_*
     num_classes: int = 10
     # Reference applies ReLU to the final logits (cifar10cnn.py:145).
     # Faithful mode keeps it; fixed mode emits raw logits.
@@ -137,6 +137,19 @@ class ModelConfig:
     # (a tokens<->heads all-to-all around full-sequence attention,
     # parallel/ulysses.py; needs vit_heads % seq_axis == 0).
     sp_mode: str = "ring"                 # ring | ulysses
+    # Mixture-of-Experts (model name "vit_moe"): every block's MLP becomes
+    # a routed expert bank (ops/moe.py) — moe_top_k=1 Switch routing,
+    # 2 GShard — with the experts split over the ``model`` ranks (expert
+    # parallelism) and the routing global over the data ranks.
+    moe_experts: int = 0                  # 0 = dense MLP
+    # MoE dispatch/combine formulation (ops/moe.py): "einsum" ([T,E,C]
+    # one-hot contractions) or "scatter" ((expert, slot)-indexed
+    # scatter/gather, O(T·D) instead of the einsum pair's O(T²·f·D)).
+    # Identical semantics; outputs close, not bit-identical.
+    moe_dispatch: str = "einsum"
+    moe_top_k: int = 1                    # 1 = Switch, 2 = GShard routing
+    moe_capacity_factor: float = 1.25
+    moe_aux_coef: float = 0.01            # load-balance loss weight
 
 
 @dataclasses.dataclass

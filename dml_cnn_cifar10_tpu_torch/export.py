@@ -17,7 +17,11 @@ The ViT's attention is the registered operator
 ``dml_torch::flash_attention_out`` (``ops/flash_attention.py``), one node
 of the graph: the loaded program launches the hand-written K3 kernel on
 the card and its plain version on the CPU. Loading an artifact therefore
-needs this package imported (it registers the operator).
+needs this package imported (it registers the operator). The ``vit_moe``
+artifact keeps its capacity symbolic in the batch (``ops/moe.py``), so
+it routes each call's batch, padding included, as one; the JAX package's
+``jax.export`` of ``vit_moe`` with a symbolic batch stops at its
+``math.ceil`` of the capacity (a tracer where a number is needed).
 
 :func:`restore_serving_params` restores the newest checkpoint of a run's
 ``log_dir`` (either format: a ``.sharded`` one is assembled whole from
@@ -66,8 +70,12 @@ class ServingForward(nn.Module):
             self.model.eval()
         images = device_preprocess(images_u8, self.data_cfg)
         if params is None:
-            return self.model(images)
-        return functional_call(self.model, params, (images,))
+            out = self.model(images)
+        else:
+            out = functional_call(self.model, params, (images,))
+        # A model with experts returns its router stats too: the logits
+        # alone serve (JAX export.py:45,75).
+        return out[0] if isinstance(out, tuple) else out
 
 
 def make_serving_fn(model: nn.Module, data_cfg: DataConfig,

@@ -6,9 +6,9 @@ over the mesh's seq ranks; both models hold this rank's slices of their
 Megatron pairs when the mesh has model ranks, ``parallel/tp.py``); its
 ``reset_parameters(generator)`` initializes them. The reference CNN,
 ResNet-18/50 (``models/resnet.py``, which keeps BatchNorm running
-stats: ``has_state``) and the dense ViT are ported. The JAX package's
-other models raise ``NotImplementedError`` naming the ROADMAP queue item
-that ports them.
+stats: ``has_state``), the dense ViT and the MoE ViT (``vit_moe``: the
+same class with ``moe_experts`` >= 2, whose forward returns ``(logits,
+aux)``) are ported. Every model of the JAX package's registry is.
 """
 
 from __future__ import annotations
@@ -21,22 +21,12 @@ from dml_cnn_cifar10_tpu_torch.models.cnn import CNN
 from dml_cnn_cifar10_tpu_torch.models.resnet import ResNet
 from dml_cnn_cifar10_tpu_torch.models.vit import ViT
 
-# The ResNets read their depth from ModelConfig.name.
+# The ResNets read their depth, the ViT its kind, from ModelConfig.name.
 MODELS = {"cnn": CNN, "resnet18": ResNet, "resnet50": ResNet,
-          "vit_tiny": ViT}
-
-# The JAX package's other models and where the port's queue takes them.
-_QUEUED = {
-    "vit_moe": "ROADMAP.md Queue 1, the rest of the config ladder "
-               "(ops/moe.py + models/vit.py)",
-}
+          "vit_tiny": ViT, "vit_moe": ViT}
 
 
 def get_model(name: str) -> Callable[..., nn.Module]:
     if name in MODELS:
         return MODELS[name]
-    if name in _QUEUED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet; see "
-            f"{_QUEUED[name]}. Available today: {', '.join(sorted(MODELS))}")
     raise ValueError(f"unknown model {name!r}; have {sorted(MODELS)}")

@@ -254,6 +254,16 @@ VIT_RULES = (
     PartitionRule(r".*", P()),
 )
 
+#: Expert parallelism: the expert-major MoE leaves (``w [.., E, D, H]``,
+#: ``b [.., E, H]``) shard their expert dim over ``model``
+#: (``ops/moe.py``); the router gate stays replicated; attention follows
+#: the dense ViT rules.
+VIT_MOE_RULES = (
+    PartitionRule(r"moe/(w1|w2)$", P("model", None, None)),
+    PartitionRule(r"moe/(b1|b2)$", P("model", None)),
+    PartitionRule(r"moe/gate", P()),
+) + VIT_RULES
+
 #: The pipelined stack's table: stacked block leaves shard their leading
 #: (depth) axis over ``pipe``.
 VIT_PIPE_RULES = (
@@ -263,7 +273,8 @@ VIT_PIPE_RULES = (
 
 REPLICATED_RULES = (PartitionRule(r".*", P()),)
 
-_RULES = {"cnn": CNN_RULES, "vit_tiny": VIT_RULES}
+_RULES = {"cnn": CNN_RULES, "vit_tiny": VIT_RULES,
+          "vit_moe": VIT_MOE_RULES}
 _PIPE_RULES = {"vit_tiny": VIT_PIPE_RULES}
 
 

@@ -40,6 +40,16 @@ parameters are all-gathered after the update (zero1) or before the forward
 (fsdp), explicitly, where the JAX package leaves GSPMD to insert the same
 collectives (its ``_zero1_update``, ``_fsdp_gather_wrap``).
 
+A model with experts (``vit_moe``) returns ``(logits, router stats)``
+(:func:`split_aux`): the loss adds ``moe_aux_coef · aux_loss`` and the
+stats join the metrics as ``moe_*`` (JAX ``parallel/step.py:182-193``),
+out of a chunk's replay like the loss. Its routing is global over the
+data ranks (``ops/moe.py``), so the step's microbatches are the JAX
+package's (:func:`moe_microbatches`).
+
+Every step builder sets the card's float32 and cuDNN mode
+(:func:`f32_parity`): TF32 off, cuDNN's deterministic algorithms.
+
 Within a step (JAX ``parallel/step.py:311-414``): ``grad_accum`` A > 1
 splits the batch into A microbatches, sums their gradients in order,
 divides by A and applies ONE update (the update kernel still launches
@@ -141,12 +151,22 @@ class TrainState:
         return self.opt["step"]
 
 
+#: The cuDNN mode every step builder sets, named on the trainer's
+#: start-up line.
+CUDNN_MODE = "cudnn deterministic, benchmark off, TF32 off"
+
+
 def f32_parity() -> None:
-    # Keep convolutions and matrix products in full float32 on the card:
-    # cuDNN convolutions default to TF32 (~3 decimal digits), which would
-    # break parity with the JAX package's float32 math.
+    """Keep convolutions and matrix products in full float32 on the card,
+    and cuDNN on its deterministic algorithms: cuDNN convolutions default
+    to TF32 (~3 decimal digits), which would break parity with the JAX
+    package's float32 math, and its default algorithms sum with atomics,
+    so two runs of one step part (the JAX package's repeat bit for bit;
+    its exact-resume contract relies on that). No flag turns this off."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
 
 
 def init_train_state(model: nn.Module, optim_cfg: OptimConfig,
@@ -272,14 +292,43 @@ def _gathered_params(state: TrainState) -> Dict[str, torch.Tensor]:
 
 
 def forward(model: nn.Module, variables: Mapping[str, torch.Tensor],
-            images: torch.Tensor, train: bool) -> torch.Tensor:
-    """The model's logits on ``variables`` (its parameters and buffers by
+            images: torch.Tensor, train: bool):
+    """The model's output on ``variables`` (its parameters and buffers by
     name) in train or eval mode: a model with BatchNorm normalizes by
     the batch and updates the buffers given in place in train mode, and
-    reads them in eval mode."""
+    reads them in eval mode. The logits, or for a model with experts
+    ``(logits, router stats)`` (:func:`split_aux`)."""
     if model.training != train:
         model.train(train)
     return functional_call(model, variables, (images,))
+
+
+def split_aux(out) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """``(logits, router stats or None)`` of a model's output."""
+    return (out[0], out[1]) if isinstance(out, tuple) else (out, None)
+
+
+def moe_microbatches(model: nn.Module, accum: int,
+                     mesh: Optional[Mesh]) -> Tuple[int, bool]:
+    """``(microbatches a rank runs, routing over the data ranks)`` for
+    ``grad_accum`` A. The JAX step splits the GLOBAL batch into A
+    microbatches of contiguous rows, each routed as one batch. Without
+    experts, or over one data rank, a rank splits its batch into A. With
+    experts over D data ranks, each data rank holds A/D of JAX's
+    microbatches whole (rank-major rows), which it routes alone, so it
+    runs A/D of them; a microbatch that spans data ranks (D not dividing
+    A) is not ported."""
+    data = 1 if mesh is None else mesh.data
+    if not getattr(model, "experts", 0) or data == 1 or accum == 1:
+        return accum, True
+    if accum % data:
+        raise NotImplementedError(
+            f"grad_accum={accum} over {data} data ranks with experts: the "
+            f"JAX package routes each of its {accum} microbatches of the "
+            f"global batch as one, and one that spans data ranks is not "
+            f"ported (make grad_accum a multiple of the data ranks); see "
+            f"ROADMAP.md Queue 1, the open sharding items")
+    return accum // data, False
 
 
 def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
@@ -320,21 +369,37 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
     the new stats after the update."""
     f32_parity()
     replicas = 1 if mesh is None else mesh.replicas
-    accum = max(1, optim_cfg.grad_accum)
+    accum, over_data = moe_microbatches(
+        model, max(1, optim_cfg.grad_accum), mesh)
     staleness = max(0, optim_cfg.async_staleness)
+    experts = getattr(model, "experts", 0)
+    aux_coef = model.cfg.moe_aux_coef if experts else 0.0
 
     def grads_and_metrics(params, names, images, labels):
-        logits = forward(model, params, images, train=True)
-        loss = loss_lib.softmax_cross_entropy(
-            logits, labels, optim_cfg.label_smoothing)
-        # The update kernels take contiguous leaves; a kernel that
-        # reaches its layer through a permute (the ViT's HWIO patch
-        # embed) gets its gradient back as a permuted view.
-        grads = [g.contiguous() for g in torch.autograd.grad(
-            loss / replicas if replicas > 1 else loss,
-            [params[n] for n in names])]
-        return grads, loss.detach(), metrics_lib.batch_accuracy(logits,
-                                                                labels)
+        if experts:
+            model.route_over_data = over_data
+        try:
+            logits, aux = split_aux(forward(model, params, images,
+                                            train=True))
+            loss = loss_lib.softmax_cross_entropy(
+                logits, labels, optim_cfg.label_smoothing)
+            if aux is not None:
+                # JAX parallel/step.py:182-193: the load-balance term
+                # joins the loss; the router stats join the metrics.
+                loss = loss + aux_coef * aux["aux_loss"]
+            # The update kernels take contiguous leaves; a kernel that
+            # reaches its layer through a permute (the ViT's HWIO patch
+            # embed) gets its gradient back as a permuted view.
+            grads = [g.contiguous() for g in torch.autograd.grad(
+                loss / replicas if replicas > 1 else loss,
+                [params[n] for n in names])]
+        finally:
+            if experts:
+                model.route_over_data = True
+        stats = {} if aux is None else {
+            "moe_" + k: v.detach() for k, v in aux.items()}
+        return grads, loss.detach(), metrics_lib.batch_accuracy(
+            logits, labels), stats
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         names = list(state.params)
@@ -352,24 +417,26 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
         with torch.profiler.record_function("fwd_bwd"), \
                 torch.enable_grad():
             if accum == 1:
-                grads, loss, acc = grads_and_metrics(fwd, names, images,
-                                                     labels)
+                grads, loss, acc, stats = grads_and_metrics(
+                    fwd, names, images, labels)
             else:
                 b = images.shape[0]
                 if b % accum:
                     raise ValueError(
                         f"batch {b} not divisible by grad_accum {accum}")
-                grads = loss = acc = None
+                grads = loss = acc = stats = None
                 for ims, lbs in zip(images.split(b // accum),
                                     labels.split(b // accum)):
-                    g, l, a = grads_and_metrics(fwd, names, ims, lbs)
+                    g, l, a, st = grads_and_metrics(fwd, names, ims, lbs)
                     if grads is None:
-                        grads, loss, acc = g, l, a
+                        grads, loss, acc, stats = g, l, a, st
                     else:
                         grads = [x + y for x, y in zip(grads, g)]
                         loss, acc = loss + l, acc + a
+                        stats = {k: v + st[k] for k, v in stats.items()}
                 grads = [g / accum for g in grads]
                 loss, acc = loss / accum, acc / accum
+                stats = {k: v / accum for k, v in stats.items()}
             with torch.no_grad():
                 if split is not None:
                     _same_replicated(grads, names, split)
@@ -386,6 +453,12 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
             if layout is not None and not layout.fsdp:
                 shards, update = layout.pack(state.params)
             loss_m, acc = _data_mean([loss, acc], mesh)
+            if stats and not over_data:
+                # Each data rank routed its own microbatches: the stats
+                # are the mean over every rank's (global routing gives
+                # every rank the global batch's already).
+                stats = {k: _data_mean([v], mesh)[0]
+                         for k, v in stats.items()}
             if health_metrics:
                 before = torch._foreach_mul(
                     [update[n].detach() for n in names], 1.0)
@@ -410,7 +483,7 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
                 d = optim_lib.ema_decay_at(optim_cfg, state.opt["step"])
                 for name, e in state.opt["ema_mstate"].items():
                     e.copy_(d * e + (1 - d) * state.model_state[name])
-        metrics = {"loss": loss_m, "accuracy": acc}
+        metrics = {"loss": loss_m, "accuracy": acc, **stats}
         if health_metrics:
             with torch.no_grad():
                 delta = torch._foreach_sub(
@@ -457,7 +530,7 @@ def make_eval_step(model: nn.Module, mesh: Optional[Mesh] = None
              params: Optional[Dict[str, torch.Tensor]] = None):
         if params is None:
             params = eval_params(state)
-        logits = forward(model, params, images, train=False)
+        logits, _ = split_aux(forward(model, params, images, train=False))
         acc, = _data_mean([metrics_lib.batch_accuracy(logits, labels)],
                           mesh)
         correct = metrics_lib.correct_count(logits, labels)

@@ -7,10 +7,12 @@ tables (CNN ``full1``/``full2``; ViT ``qkv``/``proj`` and ``mlp1``/
 ``mlp2``) run as a column-parallel layer, whose input passes
 :func:`mesh.copy_to_model`, then a row-parallel one, whose partial output
 passes :func:`mesh.reduce_from_model` before its replicated bias is added
-once. Each model rank holds a contiguous ``1/M`` of every split leaf as
-a tensor of its own (``shardings.model_slice``, JAX's
-``addressable_shards`` order), so the update kernels take it as they take
-a whole leaf.
+once (a ViT whose heads the ranks cut in two gathers the qkv activations
+first, ``models/vit.py``); ``vit_moe``'s expert leaves split on their
+expert dim (``ops/moe.py``). Each model rank holds a contiguous ``1/M``
+of every split leaf as a tensor of its own (``shardings.model_slice``,
+JAX's ``addressable_shards`` order), so the update kernels take it as
+they take a whole leaf.
 
 :func:`megatron_split` is called by a model built on a mesh with
 ``model`` > 1: it reads the model's whole parameter shapes, cuts the
@@ -191,14 +193,3 @@ def whole_shape(state, key: str, name: str, shape: Sequence[int]
     if getattr(state, "split", None) is None:
         return tuple(shape)
     return state.split.whole_shape(name, shape, lead_axes(key))
-
-
-def check_heads(heads: int, model: int) -> None:
-    """The ViT's heads must split whole over the model ranks: a
-    contiguous ``1/M`` of the heads-major qkv columns is whole heads."""
-    if model > 1 and heads % model:
-        raise ValueError(
-            f"vit_heads={heads} is not divisible by model_axis={model}: "
-            f"each model rank takes whole heads (GSPMD in the JAX package "
-            f"reshards half-heads; the port does not)")
-

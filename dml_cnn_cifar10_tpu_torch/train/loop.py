@@ -109,6 +109,13 @@ Run safety (JAX ``train/loop.py:582-1215``):
   too. ``health_metrics``: the step's three health scalars join the
   boundary's one device read. ``tensorboard_dir``: the logger's event
   files.
+- A model with experts (``vit_moe``): its router stats ride the same read
+  into the ``train`` records, ``moe_aux_loss``, ``moe_dropped_frac`` and
+  ``moe_expert_load`` (a list of E), rounded to 5 places (JAX
+  ``train/loop.py:961-1003``).
+- On the card the start-up line ``[trainer] <model> on cuda:N: ...``
+  names the cuDNN mode the step builders set
+  (``parallel/step.py:f32_parity``: deterministic algorithms).
 
 Sharded state (JAX ``train/loop.py:143-188``): ``--optimizer_sharding
 zero1`` or ``--fsdp`` builds one layout (``parallel/zero.py``) from the
@@ -212,6 +219,10 @@ class Trainer:
                 download.ensure_dataset(cfg.data)
             m.barrier()
         self.model = get_model(cfg.model.name)(cfg.model, cfg.data, mesh=m)
+        if self.device.type == "cuda":
+            # The step builders below set it (parallel/step.py:f32_parity).
+            print(f"[trainer] {cfg.model.name} on {self.device}: "
+                  f"{step_lib.CUDNN_MODE}", flush=True)
         # The state layout, built once (parallel/zero.py): None keeps every
         # leaf whole on every rank.
         self.layout = zero.build_layout(self.model, cfg.model.name,
@@ -592,23 +603,33 @@ class Trainer:
                         # The boundary's one device read (the health
                         # scalars ride it); the clock reads around it feed
                         # the device step-time estimate.
-                        health_keys = sorted(
+                        # The router stats of a model with experts ride
+                        # it too (JAX train/loop.py:961-1003), the
+                        # per-expert load as a list.
+                        fused_keys = sorted(
                             key for key in metrics
-                            if key.startswith("health_"))
+                            if key.startswith(("moe_", "health_")))
                         t_drain0 = time.perf_counter()
                         with tracer.span("boundary_drain"):
-                            fetched = torch.stack(
-                                [metrics["loss"], acc_t]
-                                + [metrics[key] for key in health_keys]
-                            ).tolist()
+                            fetched = torch.cat(
+                                [torch.stack([metrics["loss"].float(),
+                                              acc_t.float()])]
+                                + [metrics[key].float().reshape(-1)
+                                   for key in fused_keys]).tolist()
                         t_drain1 = time.perf_counter()
                         loss, acc = fetched[0], fetched[1]
                         boundary_check()
                         device_step_ms, drain_wait_ms = dev_est.boundary(
                             global_step, t_drain0, t_drain1)
                         rate = meter.rate(global_step)
-                        perf = {key: round(v, 5) for key, v in
-                                zip(health_keys, fetched[2:])}
+                        perf, off = {}, 2
+                        for key in fused_keys:
+                            n = metrics[key].numel()
+                            vals = [round(v, 5)
+                                    for v in fetched[off:off + n]]
+                            off += n
+                            perf[key] = vals if metrics[key].dim() \
+                                else vals[0]
                         if flops and rate > 0:
                             tf = flops * (rate / cfg.batch_size) / 1e12
                             perf["tflops_per_sec_per_chip"] = round(tf, 3)

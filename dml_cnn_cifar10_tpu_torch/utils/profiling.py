@@ -38,6 +38,12 @@ and the ``train`` records carry it once as ``flops_stack``:
   and its head's matrix product, forward and backward, and the update;
   its BatchNorm, ReLUs, pooling and residual adds (elementwise and
   reduction work, as everywhere here) are not counted;
+- for ``vit_moe`` the count runs at the rank's microbatch, not at one
+  image, since routing is not linear in the batch: the capacity grows
+  with the tokens routed together (over the data ranks, the global
+  batch's), and the einsum dispatch's ``[T, E, C]`` contractions with
+  its square (the scatter form's indexed add and select count nothing);
+  the label is ``exact`` or, over model ranks, the one below;
 - ``model_share_x{m}``: under tensor parallelism over ``m`` model ranks,
   this rank's own step, counted exactly on a model built with the local
   widths of model rank 0 (every rank's are equal): the Megatron layers'
@@ -139,36 +145,41 @@ def update_flops(optim_cfg, shapes: Mapping[str, Sequence[int]]) -> int:
     return (per + 2 + 2 * bool(o.weight_decay) + 2 * bool(o.momentum)) * n
 
 
-def _meta_model(cfg, model_ranks: int = 1):
+def _meta_model(cfg, model_ranks: int = 1, data_ranks: int = 1):
     from dml_cnn_cifar10_tpu_torch.models.registry import get_model
     from dml_cnn_cifar10_tpu_torch.parallel.mesh import Mesh
 
-    # Model rank 0 of a mesh that holds no process group: the model takes
-    # its local widths, and its collectives see only meta tensors.
-    mesh = Mesh(world=model_ranks, model=model_ranks) \
-        if model_ranks > 1 else None
+    # Rank 0 of a mesh that holds no process group: the model takes its
+    # local widths (and an MoE its global routing's capacity), and its
+    # collectives see only meta tensors.
+    mesh = Mesh(world=model_ranks * data_ranks, model=model_ranks,
+                data=data_ranks) if model_ranks * data_ranks > 1 else None
     with torch.device("meta"):
         return get_model(cfg.model.name)(cfg.model, cfg.data, mesh=mesh)
 
 
-def _image_flops(cfg, model) -> int:
-    """FLOPs of one training image's forward and backward for ``cfg``
-    (a ``TrainConfig``) through ``model`` on the ``meta`` device, over the
-    whole sequence (no mesh)."""
+def _image_flops(cfg, model, batch: int = 1) -> int:
+    """FLOPs of the forward and backward of ``batch`` training images
+    (one, unless the model routes experts) for ``cfg`` (a
+    ``TrainConfig``) through ``model`` on the ``meta`` device, over the
+    whole sequence (no seq mesh)."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    from dml_cnn_cifar10_tpu_torch.parallel.step import split_aux
     from dml_cnn_cifar10_tpu_torch.train import loss as loss_lib
 
     d = cfg.data
     params = {n: p.detach().requires_grad_()
               for n, p in model.named_parameters()}
-    images = torch.empty((1, d.crop_height, d.crop_width, d.num_channels),
-                         device="meta")
-    labels = torch.zeros((1,), dtype=torch.int64, device="meta")
+    images = torch.empty((batch, d.crop_height, d.crop_width,
+                          d.num_channels), device="meta")
+    labels = torch.zeros((batch,), dtype=torch.int64, device="meta")
     with FlopCounterMode(display=False) as counter, torch.enable_grad():
-        logits = functional_call(model, params, (images,))
+        logits, aux = split_aux(functional_call(model, params, (images,)))
         loss = loss_lib.softmax_cross_entropy(logits, labels,
                                               cfg.optim.label_smoothing)
+        if aux is not None:
+            loss = loss + cfg.model.moe_aux_coef * aux["aux_loss"]
         torch.autograd.grad(loss, list(params.values()))
     return int(counter.get_total_flops())
 
@@ -181,8 +192,19 @@ def step_flops(cfg, data: int = 1, seq: int = 1, model: int = 1
     ``grad_accum`` microbatches) at its local widths, its ``1/seq`` share
     under sequence parallelism, and the update of its leaves
     (:func:`update_flops`). The labels are the module docstring's."""
-    net = _meta_model(cfg, model)
-    flops = _image_flops(cfg, net) * (cfg.batch_size // data)
+    batch = cfg.batch_size // data
+    if cfg.model.moe_experts:
+        # Routing is not linear in the batch (the capacity, and the
+        # einsum dispatch's [T, E, C] contractions, grow with the tokens
+        # routed together): count one microbatch as the step runs it.
+        from dml_cnn_cifar10_tpu_torch.parallel.step import moe_microbatches
+        net = _meta_model(cfg, model, data)
+        micro, _ = moe_microbatches(
+            net, max(1, cfg.optim.grad_accum), net.moe_mesh)
+        flops = _image_flops(cfg, net, batch // micro) * micro
+    else:
+        net = _meta_model(cfg, model)
+        flops = _image_flops(cfg, net) * batch
     update = update_flops(cfg.optim, {n: tuple(p.shape) for n, p
                                       in net.named_parameters()})
     if model > 1:

@@ -802,3 +802,55 @@ def tp_runs(rank, world, model_axis, runs, ckpt=None):
         restored[label] = ckpt_lib.state_to_tree(fresh)
     out["ckpt"] = {"saved": saved, "restored": restored}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts: global routing over the data ranks, experts over the
+# model ranks.
+# ---------------------------------------------------------------------------
+
+
+def _metrics(m):
+    return {k: v.tolist() if v.dim() else float(v) for k, v in m.items()}
+
+
+def moe_runs(rank, world, runs, ckpt=None):
+    """Each run of ``runs`` (see :func:`tp_state`; ``model_axis`` its
+    mesh's model ranks, 1 by default; ``batches`` the GLOBAL ``(images,
+    labels)`` of each step, this rank takes its data rank's rows): per run
+    the per-step metrics (the router stats with them), the whole state
+    tree and this rank's local parameters' shapes. With ``ckpt`` (``run``
+    a name, ``jax`` and ``out`` dirs) a fresh state of that run restores
+    the JAX-written checkpoint under ``jax`` and saves it ``.sharded``
+    under ``out``."""
+    from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from dml_cnn_cifar10_tpu_torch.config import ParallelConfig
+    from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+
+    meshes, out = {}, {}
+    for name, run in runs.items():
+        m = run.get("model_axis", 1)
+        if m not in meshes:
+            meshes[m] = mesh_lib.build_mesh(ParallelConfig(model_axis=m))
+        mesh = meshes[m]
+        net, ocfg, state = tp_state(run, mesh)
+        b = run["batches"][0][0].shape[0] // mesh.data
+        rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+        train = step_lib.make_train_step(net, ocfg, mesh)
+        metrics = []
+        for images, labels in run["batches"]:
+            _, met = train(state, torch.from_numpy(images[rows]),
+                           torch.from_numpy(labels[rows].astype(np.int64)))
+            metrics.append(_metrics(met))
+        out[name] = {"metrics": metrics,
+                     "tree": ckpt_lib.state_to_tree(state),
+                     "local": {k: tuple(v.shape)
+                               for k, v in state.params.items()}}
+        if ckpt is not None and name == ckpt["run"]:
+            _, _, fresh = tp_state(run, mesh)
+            ckpt_lib.restore_checkpoint(ckpt["jax"], fresh)
+            ckpt_lib.save_checkpoint(ckpt["out"], fresh, int(fresh.step),
+                                     fmt="sharded", mesh=mesh,
+                                     shard_io_threads=1)
+    return out

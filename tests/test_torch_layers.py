@@ -185,7 +185,9 @@ def test_registry_has_cnn_and_queues_the_rest():
     assert isinstance(model, CNN)
     assert get_model("vit_tiny") is ViT
     assert get_model("resnet18") is get_model("resnet50") is ResNet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("vit_moe")
+    # Nothing is queued any more: vit_moe is the ViT with experts.
+    assert get_model("vit_moe") is ViT
+    with pytest.raises(ValueError, match="moe_experts >= 2"):
+        get_model("vit_moe")(ModelConfig(name="vit_moe"), DataConfig())
     with pytest.raises(ValueError, match="unknown model"):
         get_model("nope")

@@ -245,8 +245,19 @@ def test_model_ranks_keep_slices_of_the_whole_seeded_init(model_kw):
 
 
 def test_vit_heads_must_split_whole_over_model_ranks():
-    with pytest.raises(ValueError, match="not divisible by model_axis"):
-        _port_model(dict(VIT, vit_heads=3, vit_dim=48), 2, 0)
+    # Heads the model ranks cut in two (3 over 2): each rank holds half the
+    # heads-major qkv columns and proj rows, and attends with the heads
+    # its proj rows overlap (models/vit.py); widths the ranks do not
+    # divide raise.
+    for rank, span, offset in ((0, (0, 2), 0), (1, (1, 3), 8)):
+        net = _port_model(dict(VIT, vit_heads=3, vit_dim=48), 2, rank)
+        assert not net.whole_heads and net.head_span == span
+        assert net.local_heads == 2 and net.row_offset == offset
+        assert tuple(net.blocks.qkv.kernel.shape) == (2, 48, 72)
+        assert tuple(net.blocks.proj.kernel.shape) == (2, 24, 48)
+    with pytest.raises(ValueError, match="does not split over "
+                                         "model_axis=5"):
+        _port_model(dict(VIT, vit_heads=3, vit_dim=48), 5, 0)
     # ViT-Ti's 3 heads over 3 model ranks: one head (64 wide) a rank.
     net = _port_model(dict(name="vit_tiny"), 3, 2)
     assert net.local_heads == 1
