@@ -396,6 +396,33 @@ Then the MoE rung (``ops/moe.py``, ``--model vit_moe``):
             ranks. Numbers in ``OUT/slice16.json``
             (``slice16_nccl.json``).
 
+Then pipeline parallelism (``parallel/pipeline.py``, ``--pipe_axis``) and
+the CNN's spatial split (``parallel/spatial.py``, ``--seq_axis``):
+37. pipe    K3/K4/K6/K7 at a stage's microbatch [64, 257, 3, 64] f32
+            (views of a fused qkv) against their plain versions at the f32
+            pins, timed beside SDPA; K1 on stage 0's leaves of the README
+            recipe at pipe 2 bit-equal, timed beside fused SGD. Then, in
+            phase 34's spawn (4 rank processes over gloo on this card,
+            cuDNN deterministic): (a) ViT-Ti at 257 tokens (batch 128,
+            f32, AdamW) at ``--pipe_axis 2``, 1f1b, 5 eager steps: K4 = K6
+            = K7 = 12 a step on each stage, K3 12 a step more on stage 0
+            (its re-forwards); (b) the README recipe (37 tokens, SGD) at
+            pipe 2 under 1f1b, 1f1b_ring and gpipe and 1f1b at
+            ``--pipe_microbatches 4``, 5 steps each, K1 once a step; (c)
+            the CNN at data 1 x seq 2, 10 eager steps, and at data 2 x seq
+            2 (4 ranks) one chunk of K = 10 on the resident device
+            stream, K1 once a step. Each beside the port's one-process run
+            of the same batches: the last logged loss within 1e-4
+            relative (pipeline) and 1e-5 (CNN); replicated leaves
+            bit-equal over the ranks. Under ``--dist --phase 37``, a card
+            a rank over NCCL in one spawn of 4: ViT-Ti at pipe 2 on 2
+            cards, pipe 4 and data 2 x pipe 2 on 4, the CNN at data 2 x
+            seq 2 on 4: eager ms/step, then a chunk of 10 as one CUDA
+            graph replay with the stage hops (halo exchanges) captured,
+            bit-equal to its eager body on every rank, replays timed and
+            traced (ms/step, device busy share, NCCL ms). Numbers in
+            ``OUT/slice17.json`` (``slice17_nccl.json``).
+
 The trainer runs cuDNN on its deterministic algorithms
 (``parallel/step.py:f32_parity``); phase 9b's and phase 35's graphs
 captured with the default algorithms are replayed beside the trainer's
@@ -408,8 +435,8 @@ cards, with 4 ranks beside 2 given four cards: SP data 2 x seq 2 against
 its 2 data ranks without the ring, and the DP CNN on 4 ranks; given three
 or more cards, phases 26-27 (and phase 31's Ulysses run) over NCCL on 3 of
 them.
-``--phase 32`` to ``--phase 36`` (alone or with ``--dist``) runs the
-build and that phase only; phase 36 runs under ``--dist`` only so.
+``--phase 32`` to ``--phase 37`` (alone or with ``--dist``) runs the
+build and that phase only; phases 36 and 37 run under ``--dist`` only so.
 
 The lines before the last are ``{"kernels": [...]}`` (K1 six times:
 its main path row, phase 30's with ``"path": "dp_chunk"``, phase 32's
@@ -417,13 +444,15 @@ with ``"path": "run_safety"``, phase 33's with ``"path": "zero1"`` and
 ``"fsdp"``, on shard buffers, phase 34's with ``"path": "tp"``, on a
 model rank's leaves, and phase 35's on ResNet-18's and ResNet-50's
 leaves, ``"path": "resnet18"`` and ``"resnet50"``, and phase 36's on
-``vit_moe``'s, ``"path": "vit_moe"``, as K2 three times more; K3, K4, K6
+``vit_moe``'s, ``"path": "vit_moe"``, as K2 three times more, and phase
+37's on a pipeline stage's leaves, ``"path": "pipe"``; K3, K4, K6
 and K7's training rows carry ``launches_vit_moe``;
-``--dist`` prints K2's two shard rows; K3 four
+``--dist`` prints K2's two shard rows; K3 five
 times: its training row, its serving row with ``"path": "serve"``, its
-Ulysses row and its ``"path": "tp"`` row; K4, K6 and K7 three times,
-with ``"path": "ulysses"`` and ``"tp"`` rows) and the card's name and
-power limit; the last line is
+Ulysses row, its ``"path": "tp"`` row and its ``"path": "pipe"`` row
+at a stage's microbatch; K4, K6 and K7 four times, with
+``"path": "ulysses"``, ``"tp"`` and ``"pipe"`` rows) and the card's name
+and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Scratch data and checkpoints go to ``.chip_smoke_work/`` (removed after a
 passing run); the run's metrics JSONL files, the profiles, ``chunk.json``
@@ -434,8 +463,8 @@ passing run); the run's metrics JSONL files, the profiles, ``chunk.json``
 ranks), ``slice10.json`` (phases 26-29), ``slice11.json`` (phase 30),
 ``slice12.json`` (phase 32, with its telemetry stream and Chrome trace),
 ``slice13.json`` (phase 33), ``slice14.json`` (phase 34),
-``slice15.json`` (phase 35), ``slice16.json`` (phase 36) and the
-ranks' logs are written to the output
+``slice15.json`` (phase 35), ``slice16.json`` (phase 36),
+``slice17.json`` (phase 37) and the ranks' logs are written to the output
 directory ``OUT``.
 """
 
@@ -3383,6 +3412,8 @@ def _rank_chunk(rank: int, job: dict) -> dict:
     def stage(name):
         print(f"[chunk rank {rank}] {name} done", flush=True)
 
+    if rank >= job.get("world", 1 << 30):
+        return {"skipped": True}      # a run on the first ranks only
     cfg = config_from_args(build_parser().parse_args(
         job["argv"] + ["--task_index", str(rank)]))
     trainer = loop.Trainer(cfg, task_index=rank)
@@ -6454,6 +6485,384 @@ def moe_kernel_entries(moe_res) -> list:
     return out
 
 
+# ---- 37. pipeline parallelism and the CNN's spatial split -------------
+
+PP_VIT_STEPS = 5                      # (a) ViT-Ti at 257 tokens, gloo
+PP_RECIPE_STEPS = 5                   # (b) the README recipe, gloo
+PP_CNN_STEPS, PP_K = 10, 10           # (c) the CNN, eager and one chunk
+PP_NCCL_STEPS = 10                    # --dist: eager steps, then a chunk
+# The pins against one process of the same batches: the pipeline's last
+# logged loss (ViT-Ti's 12 blocks, microbatched GEMMs); the CNN's first
+# logged one, and its last (step 10), whose gap training grows from
+# rounding (the halo rows' convolutions and the split gradient sums): the
+# CPU reads 1.1e-7 at step 2 and 1.5e-4 at step 10 for data 2 x seq 2,
+# 1.1e-3 for seq 2 (ROADMAP.md Queue 3). Every run's first step is held
+# to the CPU pins besides (``_tp_step1``).
+PP_LOSS_RTOL, SPATIAL_LOSS_RTOL, SPATIAL_LAST_RTOL = 1e-4, 1e-5, 5e-3
+# K3/K4/K6/K7 at a stage's microbatch: batch 128 over M = 2 microbatches,
+# ViT-Ti's 3 heads, views of its fused qkv.
+PIPE_FLASH_CASES = [("pipe stage b64", (64, 257, 257, 3, 64), torch.float32,
+                     {"strided": True})]
+PIPE_FLASH_TIMING = [("pipe64", (64, 257, 3, 64), torch.float32)]
+PP_SCHEDULES = ("1f1b", "1f1b_ring", "gpipe")
+
+
+def _pp_args(name, steps, world, *extra, kind="vit", backend="gloo", k=1,
+             every=None):
+    """One run of phase 37: ``kind`` ``vit`` (phase 12's ViT-Ti recipe:
+    72 px stored, 64 px crop, 257 tokens, batch 128, f32, AdamW), ``readme``
+    (``--model vit_tiny`` at the defaults: 24 px crop of 32, 37 tokens,
+    batch 128, the faithful plain SGD at lr 0.1) or ``cnn`` (the CNN main
+    path's recipe on 10,000 records); its loss logged every ``every``
+    steps (the last step by default) on ``world`` ranks."""
+    if kind == "vit":
+        base = ["--model", "vit_tiny", "--dataset", "synthetic",
+                "--data_dir", os.path.join(WORK, "data_vit"),
+                "--image_size", "72", "--crop_size", "64",
+                "--synthetic_train_records", "10000", "--fidelity", "fixed",
+                "--batch_size", "128", "--optimizer", "adamw",
+                "--learning_rate", "3e-4"]
+    elif kind == "readme":
+        base = ["--model", "vit_tiny", "--dataset", "synthetic",
+                "--data_dir", os.path.join(WORK, "data_moe"),
+                "--synthetic_train_records", "10000"]
+    else:
+        base = ["--dataset", "synthetic", "--data_dir",
+                os.path.join(WORK, "data_moe"), "--synthetic_train_records",
+                "10000", "--fidelity", "fixed", "--learning_rate", "0.02",
+                "--batch_size", "128"]
+    out = base + [
+        "--peak_tflops", F32_PEAK_TFLOPS,
+        "--log_dir", os.path.join(WORK, f"logs_pp_{name}"),
+        "--metrics_jsonl", os.path.join(WORK, f"tp_{name}.jsonl"),
+        "--total_steps", str(steps),
+        "--output_every", str(every or max(k, steps)),
+        "--eval_every", "1000", "--checkpoint_every", "1000",
+        "--steps_per_dispatch", str(k), *extra]
+    return out + (_dist_args(world, backend) if world > 1 else [])
+
+
+def _pp_datasets() -> None:
+    """The synthetic datasets phase 37's runs read, made once here."""
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.data import download
+    for kind in ("vit", "readme"):
+        download.ensure_dataset(config_from_args(build_parser().parse_args(
+            _pp_args("data", 1, 1, kind=kind))).data)
+
+
+def _pp_rank_runs() -> tuple:
+    """(a)-(c)'s runs over gloo on this card: ``(one-process references,
+    ranked runs)``; the ranked runs ride phase 34's spawn (each on its
+    first ``world`` ranks)."""
+    _pp_datasets()
+    refs = {"pp_vit_one": _pp_args("pp_vit_one", PP_VIT_STEPS, 1),
+            "pp_readme_one": _pp_args("pp_readme_one", PP_RECIPE_STEPS, 1,
+                                      kind="readme"),
+            "sp_cnn_one": _pp_args("sp_cnn_one", PP_CNN_STEPS, 1,
+                                   kind="cnn", every=1),
+            # Sums two halves of each batch as the 2 data ranks do (phase
+            # 30's reference: one pass over all 128 takes another
+            # summation order, which ten SGD steps carry to ~1e-3).
+            "sp_cnn_one_chunk": _pp_args("sp_cnn_one_chunk", PP_CNN_STEPS,
+                                         1, "--grad_accum", "2",
+                                         kind="cnn", k=PP_K)}
+    runs = [{"name": "sp_cnn_d2s2", "world": 4, "ref": "sp_cnn_one_chunk",
+             "step1": 128, "argv": _pp_args(
+                 "sp_cnn_d2s2", PP_CNN_STEPS, 4, "--seq_axis", "2",
+                 kind="cnn", k=PP_K)},
+            {"name": "pp_vit", "world": 2, "ref": "pp_vit_one",
+             "step1": 128, "argv": _pp_args("pp_vit", PP_VIT_STEPS, 2,
+                                            "--pipe_axis", "2")},
+            {"name": "sp_cnn_s2", "world": 2, "ref": "sp_cnn_one",
+             "step1": 128, "argv": _pp_args(
+                 "sp_cnn_s2", PP_CNN_STEPS, 2, "--seq_axis", "2",
+                 kind="cnn", every=1)}]
+    for schedule, m in [(s, 0) for s in PP_SCHEDULES] + [("1f1b", 4)]:
+        name = f"pp_readme_{schedule}" + (f"_m{m}" if m else "")
+        runs.append({"name": name, "world": 2, "ref": "pp_readme_one",
+                     "step1": 128, "argv": _pp_args(
+                         name, PP_RECIPE_STEPS, 2, "--pipe_axis", "2",
+                         "--pipe_schedule", schedule, "--pipe_microbatches",
+                         str(m), kind="readme")})
+    return refs, runs
+
+
+def pp_kernel_rows(dev, card, bytes_per_s, ops_per_s) -> dict:
+    """K3/K4/K6/K7 at a stage's microbatch [64, 257, 3, 64] f32 (views of
+    a fused qkv) against their plain versions at the f32 pins, timed
+    beside SDPA; K1 on stage 0's leaves of the README recipe at pipe 2
+    (ViT-Ti's first 6 blocks and the replicated embed, LayerNorm and
+    head) bit-equal to its plain version, timed beside fused SGD."""
+    from dml_cnn_cifar10_tpu_torch.config import DataConfig, ModelConfig
+    from dml_cnn_cifar10_tpu_torch.models.registry import get_model
+    from dml_cnn_cifar10_tpu_torch.parallel.mesh import Mesh
+    res = {"flash_worst": {f"{k}/{d}": v for (k, d), v in flash_parity(
+        dev, PIPE_FLASH_CASES).items() if d == "float32"},
+        "flash_timing": {f"{k}/{l}": v for (k, l), v in flash_timing(
+            dev, card, bytes_per_s, ops_per_s, PIPE_FLASH_TIMING).items()}}
+    with torch.device("meta"):
+        net = get_model("vit_tiny")(ModelConfig(name="vit_tiny"),
+                                    DataConfig(), mesh=Mesh(world=2, pipe=2))
+    shapes = {n: tuple(p.shape) for n, p in net.named_parameters()}
+    check(shapes["blocks.qkv.kernel"] == (6, 192, 576),
+          f"stage 0's leaves {shapes}")
+    total = sum(math.prod(v) for v in shapes.values())
+    gen = torch.Generator(device=dev).manual_seed(37)
+
+    def make():
+        return {n: torch.randn(v, device=dev, generator=gen)
+                for n, v in shapes.items()}
+
+    res["update"] = update_kernel_rows(
+        dev, card, bytes_per_s, ops_per_s,
+        [("sgd_update_plain", 0.0, 0.0, "pipe", make)],
+        lambda tag: f"stage 0's {len(shapes)} leaves at pipe_axis 2",
+        total=total)
+    return res
+
+
+def _pp_launch_check(label, name, x, steps, rank, kind) -> None:
+    """A run's launches on one rank: the README recipe and the CNN K1
+    once a step and no flash kernel; ViT-Ti at 257 tokens (6 blocks a
+    stage, 2 microbatches) K4 = K6 = K7 = 12 a step (the replays), K3 12
+    a step more on stage 0 (its re-forwards) than on the last stage, whose
+    re-forward output goes nowhere, K1 = K2 = 0 (AdamW)."""
+    la = x["runs"][name]["launches"]
+    if kind == "vit":
+        ok = (all(la[kn] == 12 * steps for kn in (
+            "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"))
+            and la["flash_fwd"] >= 12 * steps * (2 - rank)
+            and la["flash_fwd_stats"] == 0 and la["sgd_update_plain"] == 0
+            and la["sgd_update_momentum"] == 0)
+    else:
+        ok = la["sgd_update_plain"] == steps and not any(
+            la[kn] for kn in la if kn != "sgd_update_plain")
+    check(ok, f"{label} rank {rank} {name}: launched {la}")
+
+
+def pp_phase(card, dev, bytes_per_s, ops_per_s, spawned=None) -> dict:
+    """Phase 37 (see the module docstring). ``spawned``: ``(refs, runs,
+    ranks)`` when the ranked runs rode phase 34's spawn."""
+    from dml_cnn_cifar10_tpu_torch.ops import flash_attention as fa
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+
+    t_phase = time.perf_counter()
+    res = {"card": card, "kernels": pp_kernel_rows(dev, card, bytes_per_s,
+                                                   ops_per_s)}
+    res["kernels_s"] = time.perf_counter() - t_phase
+    if spawned is None:
+        refs, runs = _pp_rank_runs()
+        ranks = spawn_ranks("pp_gloo", {"kind": "tp", "deterministic": True,
+                                        "runs": runs}, world=4,
+                            timeout_s=600)
+    else:
+        refs, runs, ranks = spawned
+    res["ranks_s"] = time.perf_counter() - t_phase - res["kernels_s"]
+    ref_launches = {}
+    for name, argv in refs.items():
+        fused.reset_launches()
+        fa.reset_launches()
+        run_cli(argv)
+        ref_launches[name] = {kn: n for kn, n in {
+            **fa.LAUNCHES, **fused.LAUNCHES}.items() if n}
+    res["refs_s"] = (time.perf_counter() - t_phase - res["kernels_s"]
+                     - res["ranks_s"])
+    out = {}
+    for run in runs:
+        name, world, ref = run["name"], run["world"], run["ref"]
+        kind = "vit" if name == "pp_vit" else (
+            "cnn" if name.startswith("sp_") else "readme")
+        steps = PP_VIT_STEPS if kind == "vit" else (
+            PP_CNN_STEPS if kind == "cnn" else PP_RECIPE_STEPS)
+        for r, x in enumerate(ranks[:world]):
+            _pp_launch_check("gloo on one card", name, x, steps, r, kind)
+        check(len({x["runs"][name]["replicated"] for x in ranks[:world]})
+              == 1, f"{name}: replicated leaves differ between ranks")
+        step1 = [x["runs"][name]["step1"] for x in ranks[:world]]
+        for r, s1 in enumerate(step1):
+            check(s1["loss_excess"] <= 0 and s1["fsdp_pin_excess"] <= 0,
+                  f"{name} rank {r}: step 1 against one process {s1}, "
+                  f"outside the CPU pins")
+        gaps = _tp_loss_gaps(name, ref)
+        pin = PP_LOSS_RTOL
+        if kind == "cnn":
+            # A run logged before its last step: the first within 1e-5.
+            step, gap = gaps[0]
+            check(step == PP_CNN_STEPS or gap <= SPATIAL_LOSS_RTOL,
+                  f"{name}: logged losses against {ref} {gaps}, want the "
+                  f"first within {SPATIAL_LOSS_RTOL}")
+            pin = SPATIAL_LAST_RTOL
+        check(gaps[-1][1] <= pin, f"{name}: logged losses against {ref} "
+              f"{gaps}, want the last within {pin}")
+        x0 = ranks[0]["runs"][name]
+        batch = 128
+        out[name] = {"world": world, "loss_gaps": gaps, "step1": step1,
+                     "launches": [x["runs"][name]["launches"]
+                                  for x in ranks[:world]],
+                     "ref_launches": ref_launches[ref],
+                     "ms_per_step": batch / x0["images_per_sec"] * 1e3
+                     if x0["images_per_sec"] else None,
+                     "wall_s": x0["wall_s"], "split_s": x0["split_s"]}
+        print(f"[pp gloo] {name}: {world} ranks over gloo on one card, "
+              f"{steps} steps; step 1 within the CPU pins of one process "
+              f"on every rank (state gap "
+              f"{max(s['gap'] for s in step1):.3g}); logged losses from "
+              f"{ref} {gaps} (the last's pin {pin}); launches rank 0 "
+              f"{ {k: v for k, v in x0['launches'].items() if v} }; "
+              f"{out[name]['ms_per_step']} ms/step; rank 0's set-up, "
+              f"fit s {x0['split_s']} on {card}", flush=True)
+    res["runs"] = out
+    res["seconds"] = time.perf_counter() - t_phase
+    with open(os.path.join(OUT, "slice17.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    print(f"[pp] phase 37: {res['seconds']:.1f} s (kernels "
+          f"{res['kernels_s']:.1f}, references {res['refs_s']:.1f}) on "
+          f"{card}", flush=True)
+    return res
+
+
+def pp_nccl_phase(card, count) -> dict:
+    """Phase 37 under ``--dist``, a card a rank over NCCL, in one spawn
+    of 4 rank processes: ViT-Ti at 257 tokens (batch 128, f32, AdamW) at
+    pipe 2 on 2 cards, pipe 4 on 4 (3 blocks a stage) and data 2 x pipe 2
+    on 4, and the CNN at data 2 x seq 2 on 4: ``PP_NCCL_STEPS`` eager
+    steps each (the trainer's ms/step), then each chunked at ``CHUNK_K``
+    (``_rank_chunk``: one CUDA graph a chunk with the stage hops or halo
+    exchanges captured, one graphed chunk bit-equal to its eager body on
+    every rank, replays timed and traced: ms/step, device busy share and
+    the NCCL kernels' device ms)."""
+    t0 = time.perf_counter()
+    _pp_datasets()
+    check(count >= 4, f"--dist --phase 37 needs 4 cards, have {count}")
+    cases = [("pp4", 4, "vit", ["--pipe_axis", "4"]),
+             ("d2p2", 4, "vit", ["--pipe_axis", "2"]),
+             ("cnn_d2s2", 4, "cnn", ["--seq_axis", "2"]),
+             ("pp2", 2, "vit", ["--pipe_axis", "2"])]
+    pool = _dist_args_n(2 * len(cases), 4, "nccl")
+
+    def dist_args(i, world):
+        hosts = pool[i][1].split(",")[:world]
+        return ["--worker_hosts", ",".join(hosts), "--dist_backend", "nccl"]
+
+    eager, parts = [], []
+    for i, (name, world, kind, extra) in enumerate(cases):
+        eager.append({"name": name, "world": world, "argv": _pp_args(
+            f"nccl_{name}", PP_NCCL_STEPS, 1, *extra, kind=kind)
+            + dist_args(2 * i, world)})
+        parts.append({"label": f"pp_nccl_{name}_chunk", "kind": "chunk",
+                      "world": world, "reps": 5, "argv": _pp_args(
+                          f"nccl_{name}_chunk", 2 * CHUNK_K, 1, *extra,
+                          kind=kind, k=CHUNK_K) + dist_args(2 * i + 1,
+                                                            world)})
+    got = spawn_parts("pp_nccl", [{"label": "pp_nccl_eager", "kind": "tp",
+                                   "deterministic": True, "runs": eager}]
+                      + parts, world=4, timeout_s=900)
+    res = {"card": card, "cases": {}}
+    for (name, world, kind, _), part in zip(cases, parts):
+        ranks = got["pp_nccl_eager"][:world]
+        steps = PP_NCCL_STEPS
+        for r, x in enumerate(ranks):
+            la = x["runs"][name]["launches"]
+            if kind == "cnn":
+                ok = la["sgd_update_plain"] == steps
+            else:
+                blocks = 12 // (4 if name == "pp4" else 2)
+                m = 4 if name == "pp4" else 2
+                ok = all(la[kn] == blocks * m * steps for kn in (
+                    "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"))
+            check(ok, f"pp nccl {name} rank {r}: launched {la}")
+        cr = got[part["label"]][:world]
+        for r, x in enumerate(cr):
+            c = x["graph_vs_eager"]
+            check(c["launches_graph"] == c["launches_eager"]
+                  and c["loss_gap"] == 0.0 and c["param_gap"] == 0.0,
+                  f"{part['label']} rank {r}: graph vs eager {c}, want "
+                  f"bit-equal")
+            check(x["misses"] == 0 and x["replays"] == 2,
+                  f"{part['label']} rank {r}: {x['replays']} replays, "
+                  f"{x['misses']} misses")
+        _dist_log_says(part["label"], world, "one CUDA graph replay each")
+        x0 = ranks[0]["runs"][name]
+        res["cases"][name] = {
+            "world": world,
+            "eager_ms_per_step": 128 / x0["images_per_sec"] * 1e3
+            if x0["images_per_sec"] else None,
+            "replay_ms_per_step": cr[0]["replay_ms_per_step"],
+            "busy_share": cr[0].get("busy_share"),
+            "nccl_ms_per_step": cr[0].get("comm_ms"),
+            "timeline": {k: cr[0].get(k) for k in cr[0]
+                         if k.endswith("_ms")},
+            "kernels": cr[0].get("kernels"),
+            "launches_rank0": x0["launches"],
+            "graph_vs_eager": [x["graph_vs_eager"] for x in cr]}
+        c = res["cases"][name]
+        print(f"[pp nccl] {name} on {world} NCCL ranks, batch 128: eager "
+              f"{c['eager_ms_per_step']} ms/step ({PP_NCCL_STEPS} steps); "
+              f"chunked (K = {CHUNK_K}, one CUDA graph a chunk) replay "
+              f"{c['replay_ms_per_step']:.4f} ms/step, device busy "
+              f"{c['busy_share']}, NCCL {c['nccl_ms_per_step']} ms/step, "
+              f"timeline {c['timeline']}; graphs bit-equal to eager on "
+              f"every rank; on {card}", flush=True)
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"[pp nccl] phase 37 (NCCL) took {res['wall_s']:.1f} s on {card}",
+          flush=True)
+    with open(os.path.join(OUT, "slice17_nccl.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
+
+
+def pp_kernel_entries(pp) -> list:
+    """The kernels line's rows of phase 37: K3/K4/K6/K7 at a stage's
+    microbatch [64, 257, 3, 64] f32 (launches: rank 0, stage 0, of the
+    ViT-Ti pipe-2 run) and K1 on stage 0's leaves (launches: rank 0 of the
+    README recipe's 1f1b run)."""
+    kr = pp["kernels"]
+    r = kr["update"]["sgd_update_plain"]
+    out = [{
+        "name": "sgd_update_plain", "kernel": "K1", "path": "pipe",
+        "route": "cuda",
+        "source": "dml_cnn_cifar10_tpu_torch/csrc/sgd_update.cu",
+        "cuda_kernel": "sgd_multi_kernel<false>",
+        "replaces": "dml_cnn_cifar10_tpu/ops/optimizer.py:83",
+        "launches": pp["runs"]["pp_readme_1f1b"]["launches"][0][
+            "sgd_update_plain"],
+        "max_abs_err": r["max_abs_err"],
+        **{k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms", "library_device_ms")},
+        "library": "torch.optim.SGD(fused=True).step",
+        "work": f"one update of stage 0's {r['leaves']} leaves at "
+                f"pipe_axis 2 ({r['elements']} f32 elements: 6 of ViT-Ti's "
+                f"12 blocks, the embed, LayerNorm and head); launches: "
+                f"rank 0 of phase 37's README-recipe 1f1b run, "
+                f"{PP_RECIPE_STEPS} steps"}]
+    for name, kid, line, needle in (
+            ("flash_fwd", "K3", 345, "flash_out_kernel"),
+            ("flash_fwd_lse", "K4", 360, "flash_lse_kernel"),
+            ("flash_bwd_dq", "K6", 688, "flash_dq_kernel"),
+            ("flash_bwd_dkv", "K7", 736, "flash_dkv_kernel")):
+        t = kr["flash_timing"][f"{name}/pipe64"]
+        out.append({
+            "name": name, "kernel": kid, "path": "pipe", "route": "cuda",
+            "source": "dml_cnn_cifar10_tpu_torch/csrc/flash_attention.cu",
+            "cuda_kernel": needle,
+            "replaces": f"dml_cnn_cifar10_tpu/ops/flash_attention.py:{line}",
+            "launches": pp["runs"]["pp_vit"]["launches"][0][name],
+            "launches_last_stage": pp["runs"]["pp_vit"]["launches"][1][name],
+            "max_abs_err": kr["flash_worst"][f"{name}/float32"],
+            **{k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "bound_tc_ms", "flops",
+                                 "library_ms", "library_device_ms",
+                                 "library")},
+            "work": f"one launch at a stage's microbatch {t['shape']} f32 "
+                    f"(ViT-Ti, batch 128 over 2 microbatches, views of its "
+                    f"fused qkv); launches: rank 0 (stage 0) of phase 37's "
+                    f"pipe-2 run, {PP_VIT_STEPS} steps (1f1b: K3 forward "
+                    f"and re-forward, K4 the replay, K6/K7 its backward)"})
+    return out
+
+
 def only_phase():
     """The phase named by ``--phase N`` (a debugging run of that phase
     alone after the build), or None."""
@@ -6530,6 +6939,9 @@ def dist_main() -> int:
     if only_phase() == "36":
         return phase_only_main(card, kind, count,
                                lambda: moe_nccl_phase(card, count))
+    if only_phase() == "37":
+        return phase_only_main(card, kind, count,
+                               lambda: pp_nccl_phase(card, count))
     # Phase 31 first: a capture that fails ends the run early.
     chunked = chunk_nccl_phase(card, worlds)
     # Phase 33 over NCCL: zero1 and fsdp eager and graphed, and ViT-Ti.
@@ -6653,6 +7065,9 @@ def main() -> int:
     flash_build = ptxas_report(logs["flash_attention"])
     if only_phase() == "36":
         return phase_only_main(card, kind, count, lambda: moe_phase(
+            card, dev, bytes_per_s, ops_per_s))
+    if only_phase() == "37":
+        return phase_only_main(card, kind, count, lambda: pp_phase(
             card, dev, bytes_per_s, ops_per_s))
     if only_phase() == "32":
         return phase_only_main(card, kind, count,
@@ -7135,7 +7550,9 @@ def main() -> int:
     # ---- 34. tensor parallelism over --model_axis, gloo on this card ----
     # (with phase 36's rank runs on the same spawn)
     moe_refs, moe_runs = _moe_rank_runs("gloo", (2,))
-    tp = tp_phase(card, dev, bytes_per_s, ops_per_s, extra_runs=moe_runs)
+    pp_refs, pp_runs = _pp_rank_runs()
+    tp = tp_phase(card, dev, bytes_per_s, ops_per_s,
+                  extra_runs=moe_runs + pp_runs)
 
     stamp("35")
     # ---- 35. the ResNet rungs: BatchNorm state, cross-replica BN --------
@@ -7143,8 +7560,13 @@ def main() -> int:
 
     stamp("36")
     # ---- 36. the MoE rung: vit_moe, its recipe, EP and global routing ---
+    extra_ranks = tp.pop("extra_ranks")
     moe_res = moe_phase(card, dev, bytes_per_s, ops_per_s, spawned=(
-        moe_refs, moe_runs, tp.pop("extra_ranks")))
+        moe_refs, moe_runs, extra_ranks))
+    stamp("37")
+    # ---- 37. pipeline parallelism and the CNN's spatial split ---------
+    pp_res = pp_phase(card, dev, bytes_per_s, ops_per_s, spawned=(
+        pp_refs, pp_runs, extra_ranks))
 
     for path in (train_jsonl, resume_jsonl, mom_jsonl, vit_jsonl,
                  os.path.join(WORK, "vit_resume.jsonl"), long_jsonl):
@@ -7229,6 +7651,7 @@ def main() -> int:
     kernels += tp_kernel_entries(tp)
     kernels += resnet_kernel_entries(rn)
     kernels += moe_kernel_entries(moe_res)
+    kernels += pp_kernel_entries(pp_res)
     t = stats_time
     kernels.append({
         "name": "flash_fwd_stats", "kernel": "K5", "route": "cuda",

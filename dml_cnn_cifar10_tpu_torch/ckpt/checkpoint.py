@@ -115,8 +115,8 @@ def from_bytes(data: bytes) -> Dict[str, Any]:
 def state_to_tree(state: TrainState) -> Dict[str, Any]:
     """The JAX package's ``TrainState`` pytree of ``state`` (numpy, JAX
     layouts), field order params/opt/model_state, dict keys sorted. Under
-    a sharded layout or tensor parallelism every rank must call it (it
-    gathers)."""
+    a sharded layout, tensor parallelism or pipeline stages every rank
+    must call it (it gathers)."""
     def full(key, values):
         return tp.whole(state, key, zero.whole(state, key, values))
 

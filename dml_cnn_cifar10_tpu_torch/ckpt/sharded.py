@@ -6,7 +6,8 @@ Port of ``dml_cnn_cifar10_tpu/ckpt/sharded.py``; its files, in
 - **Save**: every rank collects the leaves it owns
   (:func:`collect_local_shards`): its shards of what the state's layout
   (``parallel/zero.py``) splits and its model slices of what tensor
-  parallelism splits (``parallel/tp.py``), each with its index range in
+  parallelism splits, or its stage's rows of the blocks a pipeline splits
+  (``parallel/tp.py``), each with its index range in
   the whole leaf (both dims under tensor parallelism with fsdp). A piece
   that several ranks hold is written by one of them, the one whose rank
   is 0 on every axis the leaf is not split over (the JAX package's
@@ -125,7 +126,7 @@ def _split_leaf(state, entry: str, name: Optional[str]):
 
 def _model_slice(state, entry: str, name: Optional[str]):
     """``(slice, leading axes)`` when ``entry``'s leaf ``name`` holds this
-    model rank's slice, else None."""
+    model rank's slice (or this pipeline stage's rows), else None."""
     split = getattr(state, "split", None)
     if split is None or name is None or not split.is_split(name):
         return None
@@ -164,7 +165,8 @@ def collect_local_shards(state, rank: int) -> Dict[str, list]:
             writes = leaf is not None or rank == 0
         else:
             writes = ((leaf is not None or mesh.data_rank == 0)
-                      and (part is not None or mesh.model_rank == 0)
+                      and (part is not None or (mesh.model_rank == 0
+                                                and mesh.pipe_rank == 0))
                       and mesh.seq_rank == 0)
         if not writes:
             continue

@@ -7,12 +7,18 @@ live on the device; there is no parameter server), ``--ps_hosts`` is
 accepted and ignored, and ``--worker_hosts h:p0,h:p1 --task_index i``
 starts rank ``i`` of a ``torch.distributed`` world with one process per
 worker and its rendezvous at the first one (``parallel/multihost.py``).
-The world is ``data x --model_axis x --seq_axis`` ranks: data
-parallelism for every model, tensor parallelism of the Megatron-paired
-layers (the CNN's ``full1``/``full2``, the ViT's ``qkv``/``proj`` and
-``mlp1``/``mlp2``) when ``--model_axis`` > 1, and sequence parallelism
-for the ViT when ``--seq_axis`` > 1 (``--sp_mode ring`` or ``ulysses``;
-``--pool`` then defaults to ``mean``; not with ``--model_axis`` > 1).
+The world is ``data x --model_axis x --seq_axis x --pipe_axis`` ranks
+(``rank = ((data·M + model)·S + seq)·P + pipe``): data parallelism for
+every model, tensor parallelism of the Megatron-paired layers (the CNN's
+``full1``/``full2``, the ViT's ``qkv``/``proj`` and ``mlp1``/``mlp2``)
+when ``--model_axis`` > 1, sequence parallelism for the ViT when
+``--seq_axis`` > 1 (``--sp_mode ring`` or ``ulysses``; ``--pool`` then
+defaults to ``mean``; not with ``--model_axis`` > 1), the CNN's spatial
+split of its image rows over ``--seq_axis`` (halo rows exchanged with the
+neighbouring ranks), and pipeline parallelism of the ViT's blocks when
+``--pipe_axis`` > 1 (``--pipe_schedule 1f1b|1f1b_ring|gpipe``,
+``--pipe_microbatches``; not with ``--seq_axis``, ``--model_axis``, MoE,
+``--fsdp`` or ``--optimizer_sharding zero1``).
 ``--dist_backend`` names the backend: ``nccl`` (the default on cuda)
 needs a card per rank; ``gloo`` (the default on cpu) also lets several
 ranks share one card, through host memory.
@@ -260,8 +266,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_axis", type=int, default=1,
                    help="tensor-parallel mesh degree")
     p.add_argument("--seq_axis", type=int, default=1,
-                   help="sequence-parallel degree: the world is "
-                        "data x model_axis x seq_axis ranks")
+                   help="sequence-parallel degree (the ViT's tokens, the "
+                        "CNN's image rows): the world is data x model_axis "
+                        "x seq_axis x pipe_axis ranks")
+    p.add_argument("--pipe_axis", type=int, default=1,
+                   help="pipeline-parallel mesh degree (stages; schedule "
+                        "per --pipe_schedule)")
+    p.add_argument("--pipe_schedule", type=str, default="1f1b",
+                   choices=["1f1b", "1f1b_ring", "gpipe"],
+                   help="pipeline schedule: 1f1b (no bubble compute, "
+                        "recompute backward — minimal memory), 1f1b_ring "
+                        "(2F+1B residual-ring backward, opt-in) or gpipe "
+                        "(the baseline: the stage runs on every tick)")
+    p.add_argument("--pipe_microbatches", type=int, default=0,
+                   help="pipeline microbatches per step (0 = one per "
+                        "stage). More microbatches shrink 1f1b's live "
+                        "activation footprint AND gpipe's bubble fraction "
+                        "(M+P-1)/M at the cost of smaller per-microbatch "
+                        "compute")
     p.add_argument("--sp_mode", type=str, default="ring",
                    choices=["ring", "ulysses"],
                    help="sequence-parallel attention strategy: ring (K/V "
@@ -498,6 +520,25 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
     cfg.model.sp_mode = args.sp_mode
     cfg.parallel.model_axis = args.model_axis
     cfg.parallel.seq_axis = args.seq_axis
+    cfg.parallel.pipe_axis = args.pipe_axis
+    if args.pipe_microbatches and args.pipe_axis <= 1:
+        # Silently measuring "plain dp" while believing it's an M=4P
+        # schedule is exactly the trap the moe_experts guard below
+        # already closes for its flag pair.
+        raise SystemExit(
+            f"--pipe_microbatches={args.pipe_microbatches} requires "
+            f"--pipe_axis > 1 (got {args.pipe_axis}); without a pipe "
+            f"axis there is no schedule to microbatch")
+    if args.pipe_schedule != "1f1b" and args.pipe_axis <= 1:
+        # Mirror the --pipe_microbatches guard: without a pipe axis the
+        # sequential fast path runs and a requested gpipe schedule would
+        # be silently ignored — reject instead of mislabeling a bench.
+        raise SystemExit(
+            f"--pipe_schedule={args.pipe_schedule} requires --pipe_axis "
+            f"> 1 (got {args.pipe_axis}); without a pipe axis there is "
+            f"no schedule to select")
+    cfg.model.pipe_microbatches = args.pipe_microbatches
+    cfg.model.pipe_schedule = args.pipe_schedule
     cfg.parallel.dist_backend = args.dist_backend
     if args.ckpt_format == "orbax":
         raise SystemExit(

@@ -150,6 +150,18 @@ class ModelConfig:
     moe_top_k: int = 1                    # 1 = Switch, 2 = GShard routing
     moe_capacity_factor: float = 1.25
     moe_aux_coef: float = 0.01            # load-balance loss weight
+    # Microbatches per step under pipeline parallelism (0 = one per
+    # stage, M = P). The bubble fraction is (M+P-1)/M: at the M=P default
+    # every stage idles about half the ticks; M = 4P costs 1/4 the bubble
+    # for microbatches 1/4 the size. The global batch must be divisible by
+    # data ranks * M.
+    pipe_microbatches: int = 0
+    # Pipeline schedule (parallel/pipeline.py): "1f1b" (default: bubbles
+    # skipped, recompute backward: 3F+1B, activation memory O(P
+    # microbatches)), "1f1b_ring" (the re-forward keeps its autograd graph
+    # for the backward: 2F+1B, 2P live graphs) or "gpipe" (the stage runs
+    # on every tick, autograd through the tick loop; kept for comparison).
+    pipe_schedule: str = "1f1b"
 
 
 @dataclasses.dataclass
@@ -215,16 +227,19 @@ class ParallelConfig:
     (``cifar10cnn.py:184-196``), as the JAX package's ``ParallelConfig``
     does, trimmed to what the port's ``torch.distributed`` layer reads.
 
-    The world is ``data x model x seq`` ranks, one process each (one GPU
-    each on NCCL): the batch is split over ``data``, the Megatron-paired
-    layers' weights over ``model`` (tensor parallelism), the ViT's tokens
-    over ``seq`` (ring attention), and the gradients are summed over the
-    ranks that hold the same weights — the all-reduce that stands in for
-    the JAX package's ``psum``.
+    The world is ``data x model x seq x pipe`` ranks, one process each
+    (one GPU each on NCCL): the batch is split over ``data``, the
+    Megatron-paired layers' weights over ``model`` (tensor parallelism),
+    the ViT's tokens or the CNN's image rows over ``seq`` (ring or Ulysses
+    attention; the spatial split), the ViT's blocks over ``pipe``
+    (pipeline stages), and the gradients are summed over the ranks that
+    hold the same weights — the all-reduce that stands in for the JAX
+    package's ``psum``.
     """
 
     model_axis: int = 1                   # tensor-parallel degree
     seq_axis: int = 1                     # sequence/context-parallel degree
+    pipe_axis: int = 1                    # pipeline-parallel degree (stages)
     # Bootstrap (replaces ClusterSpec/Server, cifar10cnn.py:188-189): the
     # first --worker_hosts entry is the rendezvous address, as task 0 is
     # the TF chief.

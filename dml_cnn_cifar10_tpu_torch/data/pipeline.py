@@ -299,7 +299,8 @@ def input_pipeline(cfg: DataConfig, batch_size: int, train: bool = True,
 
     A multi-rank run shards by DATA rank (``shard`` = data rank,
     ``num_shards`` = data ranks), so the seq ranks of one data row read
-    the same batch and split its tokens. The JAX package shards by
+    the same batch and split its tokens (or, the CNN, its image rows),
+    and its pipeline stages read it too. The JAX package shards by
     process (``train/loop.py:376-397``) because its sequence parallelism
     runs inside one process's mesh."""
     download.ensure_dataset(cfg)

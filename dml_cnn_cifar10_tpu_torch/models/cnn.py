@@ -27,6 +27,20 @@ kernel whose partial product is summed by ``reduce_from_model``, then the
 replicated bias is added once); the convs and ``full3`` stay replicated.
 The whole model is initialised from the generator and each rank keeps its
 slices.
+
+Spatial partitioning (a mesh with ``seq`` > 1, ``parallel/spatial.py``;
+the JAX package's ``spatial`` CNN, its image H sharded over ``seq``):
+each seq rank of a data row keeps its ``1/S`` of the rows of the decoded
+images its data rank reads, both convolutions take their halo rows from
+the neighbouring seq ranks, both pools the rows their windows reach, and
+the pooled map is gathered whole before the flatten, so the FCs run whole
+on every seq rank. Gradient rule (as the ViT's sequence split): the
+convolutions' and the FCs' gradients both arrive ``S`` times over — the
+convolutions' as ``S`` times each rank's rows' share (the gather's
+backward sums the cotangent over the seq ranks), to be summed over the
+seq ranks; the FCs' whole on every seq rank — and the step's ``1 /
+replicas`` (data x seq ranks) share with its all-reduce over them gives
+each the mean over the global batch.
 """
 
 from __future__ import annotations
@@ -38,7 +52,7 @@ from torch import nn
 from dml_cnn_cifar10_tpu_torch.config import DataConfig, ModelConfig
 from dml_cnn_cifar10_tpu_torch.ops import layers as L
 from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
-from dml_cnn_cifar10_tpu_torch.parallel import tp
+from dml_cnn_cifar10_tpu_torch.parallel import shardings, spatial, tp
 
 
 class _Layer(nn.Module):
@@ -53,11 +67,18 @@ class _Layer(nn.Module):
 class CNN(nn.Module):
     def __init__(self, cfg: ModelConfig, data: DataConfig, mesh=None):
         super().__init__()
-        if mesh is not None and mesh.seq > 1:
-            raise NotImplementedError(
-                "the CNN's spatial partitioning over --seq_axis is not "
-                "ported (ROADMAP.md Queue 1); it trains data-parallel")
+        if mesh is not None and mesh.pipe > 1:
+            shardings.rule_for("cnn", pipe=True)   # raises: no pipe table
         self.cfg = cfg
+        # The spatial split's mesh and each layer's rows over its seq
+        # ranks (input, after the first pool, after the second), or None.
+        self.spatial_mesh = mesh if mesh is not None and mesh.seq > 1 \
+            else None
+        if self.spatial_mesh is not None:
+            rows = spatial.Split.even(data.crop_height, mesh.seq)
+            self.rows = (rows, rows.pooled(), rows.pooled().pooled())
+            for split in self.rows[:2]:
+                spatial.check_rows(split, kernel=5, window=3, stride=2)
         h, w = L.pooled_hw(data.crop_height, data.crop_width, n_pools=2)
         self.conv1 = _Layer((64, data.num_channels, 5, 5), 64)
         self.conv2 = _Layer((64, 64, 5, 5), 64)
@@ -87,11 +108,24 @@ class CNN(nn.Module):
         # NHWC -> contiguous NCHW: a permuted view is channels_last in
         # memory, and the convolutions would hand back channels_last
         # (non-contiguous) kernel gradients.
+        mesh = self.spatial_mesh
+        if mesh is not None:
+            # This seq rank's rows of the decoded images.
+            images = spatial.own_rows(images, mesh, self.rows[0])
         x = images.float().permute(0, 3, 1, 2).contiguous()
-        x = F.relu(L.conv2d_nchw(x, self.conv1.kernel, self.conv1.bias))
-        x = L.max_pool_nchw(x)
-        x = F.relu(L.conv2d_nchw(x, self.conv2.kernel, self.conv2.bias))
-        x = L.max_pool_nchw(x)
+        if mesh is None:
+            x = F.relu(L.conv2d_nchw(x, self.conv1.kernel, self.conv1.bias))
+            x = L.max_pool_nchw(x)
+            x = F.relu(L.conv2d_nchw(x, self.conv2.kernel, self.conv2.bias))
+            x = L.max_pool_nchw(x)
+        else:
+            r0, r1, r2 = self.rows
+            x = F.relu(spatial.conv2d(x, self.conv1.kernel, self.conv1.bias,
+                                      mesh, r0))
+            x = spatial.max_pool(x, mesh, r0)
+            x = F.relu(spatial.conv2d(x, self.conv2.kernel, self.conv2.bias,
+                                      mesh, r1))
+            x = spatial.gather(spatial.max_pool(x, mesh, r1), mesh, r2)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
         if self.tp_mesh is None:
             x = F.relu(F.linear(x, self.full1.kernel, self.full1.bias))

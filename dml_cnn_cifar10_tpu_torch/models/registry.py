@@ -2,8 +2,10 @@
 
 A model class takes ``(model_cfg, data_cfg, mesh=None)`` and builds an
 ``nn.Module`` with uninitialized parameters (the ViT splits its tokens
-over the mesh's seq ranks; both models hold this rank's slices of their
-Megatron pairs when the mesh has model ranks, ``parallel/tp.py``); its
+over the mesh's seq ranks and holds its stage's blocks over its pipe
+ranks, the CNN splits its image rows over the seq ranks; both hold this
+rank's slices of their Megatron pairs when the mesh has model ranks,
+``parallel/tp.py``); its
 ``reset_parameters(generator)`` initializes them. The reference CNN,
 ResNet-18/50 (``models/resnet.py``, which keeps BatchNorm running
 stats: ``has_state``), the dense ViT and the MoE ViT (``vit_moe``: the

@@ -58,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 from dml_cnn_cifar10_tpu_torch import convert
 from dml_cnn_cifar10_tpu_torch.config import DataConfig, ModelConfig
 from dml_cnn_cifar10_tpu_torch.ops import layers as L
+from dml_cnn_cifar10_tpu_torch.parallel import shardings
 
 # depth -> (blocks per stage, block kind)
 STAGES = {
@@ -149,6 +150,8 @@ class ResNet(nn.Module):
         if cfg.resnet_norm not in NORMS:
             raise ValueError(f"resnet_norm must be 'bn' or 'nf', got "
                              f"{cfg.resnet_norm!r}")
+        if mesh is not None and mesh.pipe > 1:
+            shardings.rule_for(cfg.name, pipe=True)   # raises: no pipe table
         if mesh is not None and mesh.model > 1:
             raise NotImplementedError(
                 f"the ResNet under tensor parallelism (model_axis="

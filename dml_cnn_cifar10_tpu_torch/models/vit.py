@@ -65,6 +65,17 @@ the blocks and ``dropped_frac``/``expert_load`` their mean
 and over its model ranks each rank holds ``E/M`` experts (expert
 parallelism; attention splits as above). MoE with sequence parallelism
 is not ported.
+
+Pipeline parallelism (a mesh with ``pipe`` > 1, ``vit.py:184-243``): each
+stage holds its ``depth / P`` rows of every stacked ``blocks.*`` leaf
+(``tp.pipe_split``; the whole model is initialised from the generator and
+each stage keeps its rows, so a stage starts from the one-process run's
+exact weights). The patch embed and positions run on every stage, the
+blocks as one stage of :func:`parallel.pipeline.pipeline_blocks` (each
+block under ``checkpoint`` with ``remat``), then ``ln_f`` and the head on
+the last stage's output, which every stage holds. Pipelining refuses
+sequence and tensor parallelism and MoE with the JAX package's
+``ValueError`` texts.
 """
 
 from __future__ import annotations
@@ -82,6 +93,7 @@ from dml_cnn_cifar10_tpu_torch.ops import attention as attn
 from dml_cnn_cifar10_tpu_torch.ops import layers as L
 from dml_cnn_cifar10_tpu_torch.ops import moe as moe_ops
 from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+from dml_cnn_cifar10_tpu_torch.parallel import pipeline
 from dml_cnn_cifar10_tpu_torch.parallel import ring_attention as ring
 from dml_cnn_cifar10_tpu_torch.parallel import tp
 from dml_cnn_cifar10_tpu_torch.parallel import ulysses
@@ -119,6 +131,31 @@ class ViT(nn.Module):
                  mesh: Optional[mesh_lib.Mesh] = None):
         super().__init__()
         self.cfg = cfg
+        # The pipeline's mesh (stages over pipe), or None. The refusals are
+        # the JAX package's (vit.py:184-199), in its order.
+        self.pipe_mesh = mesh if mesh is not None and mesh.pipe > 1 else None
+        if self.pipe_mesh is not None:
+            if mesh.seq > 1:
+                raise ValueError(
+                    "seq and pipe parallelism cannot both be active in one "
+                    "stack (ring attention's shard_map cannot nest inside "
+                    "the pipeline's)")
+            if mesh.model > 1:
+                raise ValueError(
+                    "pipe and model (tensor) parallelism cannot combine: "
+                    "the pipeline stage body is a shard_map, so "
+                    "tensor-parallel matmuls inside it would need "
+                    "hand-written collectives (parallel/pipeline.py). Use "
+                    "pipe x data, or model x data.")
+            if cfg.moe_experts:
+                raise ValueError(
+                    "pipe parallelism does not compose with MoE (expert "
+                    "dispatch inside a pipeline stage would need "
+                    "hand-written all-to-all)")
+            if cfg.pipe_schedule not in pipeline.SCHEDULES:
+                raise ValueError(f"unknown pipeline schedule "
+                                 f"{cfg.pipe_schedule!r}; have "
+                                 f"{pipeline.SCHEDULES}")
         # The ring runs when the mesh has seq ranks; a mesh without (data
         # parallelism alone) leaves the forward as it is.
         self.mesh = mesh if mesh is not None and mesh.seq > 1 else None
@@ -150,11 +187,6 @@ class ViT(nn.Module):
             raise ValueError(
                 "vit_tiny is the dense ViT; moe_experts > 0 needs model "
                 "name 'vit_moe' (its aux loss and expert sharding rules)")
-        if self.experts and getattr(mesh, "pipe", 1) > 1:
-            raise ValueError(
-                "pipe parallelism does not compose with MoE (expert "
-                "dispatch inside a pipeline stage would need hand-written "
-                "all-to-all)")
         if self.experts and self.mesh is not None:
             raise NotImplementedError(
                 f"MoE (moe_experts={self.experts}) with sequence "
@@ -223,6 +255,8 @@ class ViT(nn.Module):
             self.cls = nn.Parameter(torch.zeros((1, 1, dim), dtype=dt))
         self.split = None if self.tp_mesh is None else tp.megatron_split(
             self, "vit_moe" if self.experts else "vit_tiny", self.tp_mesh)
+        if self.pipe_mesh is not None:
+            self.split = tp.pipe_split(self, cfg.name, self.pipe_mesh)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None
@@ -230,8 +264,8 @@ class ViT(nn.Module):
         """He-normal patch/qkv/proj/mlp kernels (each block's slice on its
         own fan-in), ``0.02·N(0,1)`` pos, ``0.01·N(0,1)`` head kernel,
         LayerNorm scales 1, zeros for cls and every bias; under tensor
-        parallelism the whole leaves, of which this rank keeps its
-        slices."""
+        or pipeline parallelism the whole leaves, of which this rank keeps
+        its slices (its stage's rows)."""
         targets = tp.init_targets(self, self.split)
         L.he_normal_(self.patch.kernel, generator)
         self.pos.normal_(0.0, 0.02, generator=generator)
@@ -312,6 +346,33 @@ class ViT(nn.Module):
                         p["proj.bias"])
         return self._mlp(x, p)
 
+    def _blocks(self, x: torch.Tensor, leaves):
+        """``x`` through every row of the stacked ``leaves`` (this rank's
+        blocks): ``(x, router stats summed over the blocks or None)``."""
+        # One unbind per stacked leaf: its backward stacks the per-block
+        # gradients in one op.
+        stacked = {name: t.unbind(0) for name, t in leaves.items()}
+        aux = None
+        for i in range(next(iter(leaves.values())).shape[0]):
+            p = {name: t[i] for name, t in stacked.items()}
+            if self.cfg.remat:
+                # A block draws no random numbers, so there is no RNG
+                # state to stash: restoring the card's generator state is
+                # refused inside a CUDA graph capture, and a chunk captures
+                # the remat backward.
+                x, stats = checkpoint(self._block, x, p, use_reentrant=False,
+                                      preserve_rng_state=False)
+            else:
+                x, stats = self._block(x, p)
+            if stats is not None:
+                aux = stats if aux is None else {
+                    k: aux[k] + v for k, v in stats.items()}
+        return x, aux
+
+    def _stage(self, x: torch.Tensor, leaves) -> torch.Tensor:
+        """A pipeline stage: ``x`` through this stage's blocks."""
+        return self._blocks(x, leaves)[0]
+
     def _attn_tp(self, x: torch.Tensor, h: torch.Tensor, p) -> torch.Tensor:
         """``x`` + attention on this model rank's heads (``h`` is
         ``ln1(x)``): the column-parallel qkv sees ``copy_to_model`` of its
@@ -361,29 +422,20 @@ class ViT(nn.Module):
         x = x + self.pos.to(cdt)
         if self.mesh is not None:
             x = ring.seq_shard(x, self.mesh, "tokens")
-        # One unbind per stacked leaf: its backward stacks the per-block
-        # gradients in one op.
-        stacked = {}
+        leaves = {}
         for mod, leaf in self._block_leaves():
             t = self.blocks.get_submodule(mod)
             for part in leaf.split("."):
                 t = getattr(t, part)
-            stacked[f"{mod}.{leaf}"] = t.to(cdt).unbind(0)
-        aux = None
-        for i in range(cfg.vit_depth):
-            p = {name: t[i] for name, t in stacked.items()}
-            if cfg.remat:
-                # A block draws no random numbers, so there is no RNG
-                # state to stash: restoring the card's generator state is
-                # refused inside a CUDA graph capture, and a chunk captures
-                # the remat backward.
-                x, stats = checkpoint(self._block, x, p, use_reentrant=False,
-                                      preserve_rng_state=False)
-            else:
-                x, stats = self._block(x, p)
-            if stats is not None:
-                aux = stats if aux is None else {
-                    k: aux[k] + v for k, v in stats.items()}
+            leaves[f"{mod}.{leaf}"] = t.to(cdt)
+        if self.pipe_mesh is not None:
+            x = pipeline.pipeline_blocks(
+                x, leaves, self._stage, self.pipe_mesh,
+                num_microbatches=cfg.pipe_microbatches or None,
+                schedule=cfg.pipe_schedule)
+            aux = None
+        else:
+            x, aux = self._blocks(x, leaves)
         x = F.layer_norm(x, (dim,), self.ln_f.scale.to(cdt),
                          self.ln_f.bias.to(cdt), LN_EPS)
         if self.mesh is not None:

@@ -2,14 +2,18 @@
 
 Port of ``dml_cnn_cifar10_tpu/parallel/mesh.py`` onto ``torch.distributed``.
 The JAX mesh is ``(data, model, seq, pipe)`` devices in one SPMD program;
-the port's is ``data x model x seq`` processes, one per GPU, in the same
-rank order: ``reshape(data, model, seq, pipe)`` puts ``seq`` fastest, so
-``rank = (data_rank * model + model_rank) * seq + seq_rank``.
+the port's is ``data x model x seq x pipe`` processes, one per GPU, in the
+same rank order: ``reshape(data, model, seq, pipe)`` puts ``pipe``
+fastest, so ``rank = ((data_rank * model + model_rank) * seq + seq_rank)
+* pipe + pipe_rank``. At ``pipe`` 1 that is the ``data x model x seq``
+order the port had before the pipe axis, rank for rank and group for
+group.
 
 - ``data``: the batch is split over the data ranks, and the gradients are
   summed over the ``replica`` group (the all-reduce that stands in for
-  ``psum``): every rank that holds the same model slice, which is the
-  world when ``model`` is 1.
+  ``psum``): every rank that holds the same weights (the same model slice
+  and the same pipeline stage), which is the world when ``model`` and
+  ``pipe`` are 1.
 - ``model``: tensor parallelism. The Megatron-paired layers of a model
   hold a 1/M slice of their weights on each model rank of a data row;
   :func:`copy_to_model` and :func:`reduce_from_model` are the pair's two
@@ -17,16 +21,22 @@ rank order: ``reshape(data, model, seq, pipe)`` puts ``seq`` fastest, so
 - ``seq``: a ViT's tokens are split over the seq ranks of one data row,
   whose K/V shards walk the ring (``parallel/ring_attention.py``) or are
   re-partitioned from tokens to heads by an all-to-all
-  (``parallel/ulysses.py``).
+  (``parallel/ulysses.py``); the CNN's image rows are split over them
+  (``parallel/spatial.py``), with halo rows from the neighbours.
+- ``pipe``: pipeline parallelism. A ViT's blocks are cut into ``pipe``
+  stages of ``depth / pipe`` blocks (``parallel/pipeline.py``); the
+  activations move between neighbouring stages (:meth:`Mesh.start_hop`).
 
-Every rank holds one process group per ``(data, model)`` row (its ring,
-``"seq"``), per ``(model, seq)`` column (its metric average and its ZeRO
-shards, ``"data"``), and, when ``model`` > 1, per ``(data, seq)`` pair
-(``"model"``) and per model rank (``"replica"``) — ``new_group`` is called
-by every rank for every group, in one order. The collectives here take
-one of those names or ``"world"``. A collective on a ``meta`` tensor (a
-step traced for its FLOPs, ``utils/profiling.py``) returns it unchanged
-and calls nothing.
+Every rank holds one process group per ``(data, model, pipe)`` row (its
+ring, ``"seq"``), per ``(model, seq, pipe)`` column (its metric average
+and its ZeRO shards, ``"data"``), and, when ``model`` > 1, per ``(data,
+seq, pipe)`` pair (``"model"``), when ``pipe`` > 1 per ``(data, model,
+seq)`` cell (its stages, ``"pipe"``), and, when either is > 1, per
+``(model, pipe)`` pair (the ranks holding the same weights,
+``"replica"``) — ``new_group`` is called by every rank for every group,
+in one order. The collectives here take one of those names or
+``"world"``. A collective on a ``meta`` tensor (a step traced for its
+FLOPs, ``utils/profiling.py``) returns it unchanged and calls nothing.
 
 On the ``gloo`` backend a CUDA tensor goes through host memory explicitly
 (gloo's send/recv and all-to-all take no CUDA tensors); that is how
@@ -42,19 +52,19 @@ every torch version's gloo takes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from dml_cnn_cifar10_tpu_torch.config import ParallelConfig
 
-GROUPS = ("world", "data", "model", "seq", "replica")
+GROUPS = ("world", "data", "model", "seq", "pipe", "replica")
 
 
 @dataclasses.dataclass
 class Mesh:
-    """This process's place in the ``data x model x seq`` world."""
+    """This process's place in the ``data x model x seq x pipe`` world."""
 
     world: int = 1
     rank: int = 0
@@ -67,6 +77,8 @@ class Mesh:
     groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
     model: int = 1
     model_rank: int = 0
+    pipe: int = 1
+    pipe_rank: int = 0
 
     @property
     def chief(self) -> bool:
@@ -74,12 +86,20 @@ class Mesh:
 
     @property
     def replicas(self) -> int:
-        """Ranks holding the same model slice: the gradient sum's size."""
-        return self.world // self.model
+        """Ranks holding the same weights (the same model slice and the
+        same pipeline stage): the gradient sum's size."""
+        return self.world // (self.model * self.pipe)
 
     def size(self, over: str) -> int:
         return {"world": self.world, "data": self.data, "seq": self.seq,
-                "model": self.model, "replica": self.replicas}[over]
+                "model": self.model, "pipe": self.pipe,
+                "replica": self.replicas}[over]
+
+    def stride(self, over: str) -> int:
+        """How far apart in rank two neighbours on the axis ``over`` are
+        (the rank order puts ``pipe`` fastest)."""
+        return {"pipe": 1, "seq": self.pipe, "model": self.seq * self.pipe,
+                "data": self.model * self.seq * self.pipe}[over]
 
     def _group(self, over: str):
         if over not in GROUPS:
@@ -102,13 +122,14 @@ class Mesh:
             dist.all_reduce(t, group=group)
         return t
 
-    def broadcast_(self, t: torch.Tensor, over: str) -> torch.Tensor:
-        """Overwrite ``t`` in place with the ``over`` group's rank-0 copy;
-        returns ``t``."""
+    def broadcast_(self, t: torch.Tensor, over: str, src: int = 0
+                   ) -> torch.Tensor:
+        """Overwrite ``t`` in place with the copy of the ``over`` group's
+        rank ``src``; returns ``t``."""
         if self.size(over) == 1 or t.is_meta:
             return t
         group = self._group(over)
-        src = 0 if group is None else dist.get_global_rank(group, 0)
+        src = src if group is None else dist.get_global_rank(group, src)
         if self._staged(t):
             host = t.cpu()
             dist.broadcast(host, src, group=group)
@@ -119,7 +140,8 @@ class Mesh:
 
     def _group_rank(self, over: str) -> int:
         return {"world": self.rank, "data": self.data_rank,
-                "seq": self.seq_rank, "model": self.model_rank}[over]
+                "seq": self.seq_rank, "model": self.model_rank,
+                "pipe": self.pipe_rank}[over]
 
     def reduce_scatter_(self, out: torch.Tensor, t: torch.Tensor,
                         over: str) -> torch.Tensor:
@@ -219,15 +241,84 @@ class Mesh:
         same shapes in the same order."""
         return RingHop(self, tensors)
 
+    def start_hop(self, over: str,
+                  to_next: Optional[torch.Tensor] = None,
+                  to_prev: Optional[torch.Tensor] = None,
+                  from_prev: Optional[torch.Tensor] = None,
+                  from_next: Optional[torch.Tensor] = None) -> "Hop":
+        """Neighbour transfers on the axis ``over``, without a wrap: send
+        ``to_next`` to the next rank of the axis and ``to_prev`` to the
+        previous one, and receive into buffers shaped like ``from_prev``
+        and ``from_next`` (their values are not read), each where given.
+        The pipeline's stages and the spatial split's halo rows move so
+        (JAX's ``ppermute`` to the neighbour; its cyclic edge, which no
+        one reads, is not sent). Both ends of each transfer must ask for
+        it, with the same shape, in the same call."""
+        return Hop(self, over, to_next, to_prev, from_prev, from_next)
+
+
+class Hop:
+    """The transfers of one :meth:`Mesh.start_hop` in flight;
+    :meth:`wait` returns ``(from_prev, from_next)``, each a fresh tensor
+    on its template's device, or None where none was asked for. One
+    ``batch_isend_irecv`` with one tag per direction, so gloo matches
+    each send with its receive; on gloo a CUDA tensor goes through host
+    memory."""
+
+    _TAG_FORWARD, _TAG_BACKWARD = 0, 1
+
+    def __init__(self, mesh: Mesh, over: str, to_next, to_prev, from_prev,
+                 from_next):
+        stride, pos, n = mesh.stride(over), mesh._group_rank(over), \
+            mesh.size(over)
+        if (to_next is not None or from_next is not None) and pos == n - 1:
+            raise ValueError(f"the last rank of {over!r} has no next rank")
+        if (to_prev is not None or from_prev is not None) and pos == 0:
+            raise ValueError(f"the first rank of {over!r} has no previous "
+                             f"rank")
+        nxt, prev = mesh.rank + stride, mesh.rank - stride
+        self._devices, self._recvs, self._sends, ops = [], [], [], []
+        for t, peer, tag in ((to_next, nxt, self._TAG_FORWARD),
+                             (to_prev, prev, self._TAG_BACKWARD)):
+            if t is not None:
+                t = t.detach().cpu() if mesh._staged(t) else t.detach()
+                t = t.contiguous()
+                self._sends.append(t)     # referenced until the send ends
+                ops.append(dist.P2POp(dist.isend, t, peer, tag=tag))
+        # A receive from prev carries what prev sent to its next (the
+        # forward tag), one from next what next sent to its prev.
+        for like, peer, tag in ((from_prev, prev, self._TAG_FORWARD),
+                                (from_next, nxt, self._TAG_BACKWARD)):
+            if like is None:
+                self._recvs.append(None)
+                self._devices.append(None)
+                continue
+            buf = torch.empty(like.shape, dtype=like.dtype,
+                              device="cpu" if mesh._staged(like)
+                              else like.device)
+            self._recvs.append(buf)
+            self._devices.append(like.device)
+            ops.append(dist.P2POp(dist.irecv, buf, peer, tag=tag))
+        self._reqs = dist.batch_isend_irecv(ops) if ops else []
+
+    def wait(self) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        for req in self._reqs:
+            req.wait()
+        self._sends = None
+        out = [None if t is None else t.to(dev)
+               for t, dev in zip(self._recvs, self._devices)]
+        return out[0], out[1]
+
 
 class RingHop:
     """One ring step in flight; :meth:`wait` returns the received
     tensors (fresh buffers on the senders' device)."""
 
     def __init__(self, mesh: Mesh, tensors: Sequence[torch.Tensor]):
-        base = (mesh.data_rank * mesh.model + mesh.model_rank) * mesh.seq
-        nxt = base + (mesh.seq_rank + 1) % mesh.seq
-        prev = base + (mesh.seq_rank - 1) % mesh.seq
+        stride = mesh.stride("seq")
+        base = mesh.rank - mesh.seq_rank * stride
+        nxt = base + (mesh.seq_rank + 1) % mesh.seq * stride
+        prev = base + (mesh.seq_rank - 1) % mesh.seq * stride
         self._devices = [t.device for t in tensors]
         # Buffers on the wire must be contiguous (q/k/v are strided views
         # of the fused qkv) and, on gloo, on the host.
@@ -346,7 +437,8 @@ def all_to_all(t: torch.Tensor, mesh: Mesh, over: str, split_axis: int,
 def build_mesh(cfg: Optional[ParallelConfig] = None) -> Mesh:
     """This process's :class:`Mesh` in the initialized process group (a
     one-rank mesh when there is none). Raises when the world does not
-    factor as ``data x model_axis x seq_axis``."""
+    factor as ``data x model_axis x seq_axis x pipe_axis``, with the JAX
+    package's message."""
     cfg = cfg or ParallelConfig()
     if dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
@@ -355,43 +447,50 @@ def build_mesh(cfg: Optional[ParallelConfig] = None) -> Mesh:
         world, rank, backend = 1, 0, None
     seq = max(1, cfg.seq_axis)
     model = max(1, cfg.model_axis)
-    if world % (model * seq):
-        raise ValueError(f"a world of {world} rank(s) does not split into "
-                         f"seq_axis={seq} rows of model_axis={model} "
-                         f"(data x model x seq)")
-    data = world // (model * seq)
+    pipe = max(1, cfg.pipe_axis)
+    data = world // (model * seq * pipe)
+    if data * model * seq * pipe != world:
+        raise ValueError(
+            f"mesh {data}x{model}x{seq}x{pipe} != {world} devices "
+            f"(data_axis=-1, model_axis={model}, seq_axis={seq}, "
+            f"pipe_axis={pipe}): a world of {world} rank(s) does not split "
+            f"into seq_axis={seq} rows of model_axis={model} x "
+            f"pipe_axis={pipe} (data x model x seq x pipe)")
     mesh = Mesh(world=world, rank=rank, data=data, seq=seq,
-                data_rank=rank // (model * seq),
-                seq_rank=rank % seq, backend=backend, model=model,
-                model_rank=rank // seq % model)
+                data_rank=rank // (model * seq * pipe),
+                seq_rank=rank // pipe % seq, backend=backend, model=model,
+                model_rank=rank // (seq * pipe) % model, pipe=pipe,
+                pipe_rank=rank % pipe)
 
-    def at(d, m, s):
-        return (d * model + m) * seq + s
+    def at(d, m, s, p):
+        return ((d * model + m) * seq + s) * pipe + p
 
     if world > 1:
-        mine = (mesh.data_rank, mesh.model_rank, mesh.seq_rank)
-        for d in range(data):
-            for m in range(model):
-                g = dist.new_group([at(d, m, s) for s in range(seq)])
-                if (d, m) == mine[:2]:
-                    mesh.groups["seq"] = g
-        for m in range(model):
-            for s in range(seq):
-                g = dist.new_group([at(d, m, s) for d in range(data)])
-                if (m, s) == mine[1:]:
-                    mesh.groups["data"] = g
+        mine = (mesh.data_rank, mesh.model_rank, mesh.seq_rank,
+                mesh.pipe_rank)
+        cells = [(d, m, s, p) for d in range(data) for m in range(model)
+                 for s in range(seq) for p in range(pipe)]
+
+        def groups(name, key):
+            # One group for each value of ``key`` (the coordinates the
+            # group's ranks share), in the order of ``cells``.
+            seen = {}
+            for c in cells:
+                seen.setdefault(key(c), []).append(at(*c))
+            for k, ranks in seen.items():
+                g = dist.new_group(ranks)
+                if k == key(mine):
+                    mesh.groups[name] = g
+
+        groups("seq", lambda c: (c[0], c[1], c[3]))
+        groups("data", lambda c: (c[1], c[2], c[3]))
         if model > 1:
-            for d in range(data):
-                for s in range(seq):
-                    g = dist.new_group([at(d, m, s) for m in range(model)])
-                    if (d, s) == mine[::2]:
-                        mesh.groups["model"] = g
-            for m in range(model):
-                g = dist.new_group([at(d, m, s) for d in range(data)
-                                    for s in range(seq)])
-                if m == mesh.model_rank:
-                    mesh.groups["replica"] = g
+            groups("model", lambda c: (c[0], c[2], c[3]))
+        if model > 1 or pipe > 1:
+            groups("replica", lambda c: (c[1], c[3]))
         else:
             mesh.groups["replica"] = None
+        if pipe > 1:
+            groups("pipe", lambda c: (c[0], c[1], c[2]))
         mesh.barrier()
     return mesh

@@ -23,12 +23,16 @@ zero1`` (moments and the EMA only, :data:`ZERO1_KEYS`). ``model`` is the
 tensor-parallel axis (``--model_axis``): the port's models run the
 Megatron pairs of the default tables as column- and row-parallel layers,
 so above size 1 a table must place ``model`` exactly where the default
-one does (:func:`check_axes`); :func:`model_slice` gives the slice a model
-rank holds. The port has no ``pipe`` axis and shards no parameter over
-``seq``: a rule that names one of them is legal while that axis has size
-1 (it then shards nothing, as in the JAX package at ``model_axis=1``, but
-still claims its dim for :func:`_add_fsdp`); anything else raises
-``NotImplementedError``.
+one does (:func:`check_axes`); :func:`model_slice` gives the slice a
+model rank holds. ``pipe`` is the pipeline axis (``--pipe_axis``): above
+size 1 the ViT's pipeline table (:data:`VIT_PIPE_RULES`) puts it on the
+leading (depth) axis of every stacked ``blocks/`` leaf, and a table must
+place it exactly there; :func:`stage_slice` gives a stage's rows, and
+``ModelSplit.whole`` (``parallel/tp.py``) gathers them back over
+``pipe``. The port shards no parameter over ``seq``: a rule that names
+it, or ``pipe`` at size 1, is legal (it then shards nothing, as in the
+JAX package at ``model_axis=1``, but still claims its dim for
+:func:`_add_fsdp`); anything else raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -383,8 +387,7 @@ def specs_name_axis(tree: Any, axis: str) -> bool:
     return any(specs_name_axis(v, axis) for v in values)
 
 
-#: The port's mesh axes: ``data``, ``model`` and ``seq`` ranks; ``pipe``
-#: always has size 1 here.
+#: The port's mesh axes: ``data``, ``model``, ``seq`` and ``pipe`` ranks.
 MESH_AXES = ("data", "model", "seq", "pipe")
 
 #: Where the tensor-parallel combinations still to port are listed.
@@ -402,17 +405,27 @@ def model_dims(spec: PartitionSpec) -> Tuple[int, ...]:
     return tuple(i for i, e in enumerate(spec) if "model" in _axes(e))
 
 
+def pipe_dims(spec: PartitionSpec) -> Tuple[int, ...]:
+    """The dims of a spec that name ``pipe``."""
+    return tuple(i for i, e in enumerate(spec) if "pipe" in _axes(e))
+
+
 def check_axes(specs: Any, sizes: Mapping[str, int],
-               megatron: Any = None) -> None:
+               megatron: Any = None, pipeline: Any = None) -> None:
     """Raise ``NotImplementedError`` unless every axis the base specs (the
     rule table's, before the ZeRO layout adds ``data``) name is one the
-    port can honour: ``seq`` or ``pipe`` at size 1, which shard nothing,
-    and ``model``: at size 1 anywhere, above it exactly on the leaves and
-    dims where ``megatron`` (the model's default table's specs for the
-    same leaves) places it, alone on its dim. Sharding a parameter over a
-    rule's ``data``, or over another axis larger than 1, is not ported."""
+    port can honour: ``seq`` at size 1, which shards nothing; ``model`` at
+    size 1 anywhere, above it exactly on the leaves and dims where
+    ``megatron`` (the model's default table's specs for the same leaves)
+    places it, alone on its dim; ``pipe`` at size 1 anywhere, above it
+    exactly where ``pipeline`` (the model's pipeline table's specs,
+    :data:`VIT_PIPE_RULES`: the leading axis of ``blocks/``) places it,
+    alone on its dim. Sharding a parameter over a rule's ``data``, or over
+    another axis larger than 1, is not ported."""
     model = sizes.get("model", 1)
+    pipe = sizes.get("pipe", 1)
     want = dict(_flat_specs(megatron)) if megatron is not None else {}
+    stages = dict(_flat_specs(pipeline)) if pipeline is not None else {}
     for path, spec in _flat_specs(specs):
         for entry in spec:
             for axis in _axes(entry):
@@ -420,6 +433,14 @@ def check_axes(specs: Any, sizes: Mapping[str, int],
                     raise NotImplementedError(
                         f"partition rule spec for {path!r} names axis "
                         f"{axis!r}; the mesh has {MESH_AXES}")
+                if axis == "pipe" and pipe > 1:
+                    if entry != "pipe":
+                        raise NotImplementedError(
+                            f"partition rule spec {spec} for {path!r} "
+                            f"splits one dim over {entry}: the pipeline "
+                            f"shards a dim over 'pipe' alone; see ROADMAP.md "
+                            f"Queue 1, the open sharding items")
+                    continue
                 if axis == "model" and model > 1:
                     if entry != "model":
                         raise NotImplementedError(
@@ -443,6 +464,14 @@ def check_axes(specs: Any, sizes: Mapping[str, int],
                 f"{want.get(path, P())}: the port's layers run the "
                 f"default column/row-parallel pairs only; other 'model' "
                 f"placements are {TP_ROADMAP}")
+        if pipe > 1 and pipe_dims(spec) != pipe_dims(
+                stages.get(path, P())):
+            raise NotImplementedError(
+                f"partition rule spec {spec} for {path!r} places 'pipe' "
+                f"where the model's pipeline table places "
+                f"{stages.get(path, P())}: a stage holds the leading "
+                f"(depth) rows of the stacked blocks only; see ROADMAP.md "
+                f"Queue 1, the open sharding items")
 
 
 class ModelSlice(NamedTuple):
@@ -475,3 +504,24 @@ def model_slice(name: str, spec: PartitionSpec, jax_shape: Sequence[int],
                          f"split over model_axis={model}")
     n = size // model
     return ModelSlice(convert.port_dim(name, jd), jd, model_rank * n, n)
+
+
+def stage_slice(name: str, spec: PartitionSpec, jax_shape: Sequence[int],
+                pipe: int, pipe_rank: int) -> Optional[ModelSlice]:
+    """The rows of the leaf ``name`` (JAX-layout shape ``jax_shape``) that
+    pipeline stage ``pipe_rank`` of ``pipe`` holds under ``spec`` (the
+    pipeline table's, left-aligned): a contiguous ``1/pipe`` of the dim
+    that names ``pipe`` (the depth axis), in stage order, or None when the
+    leaf is not split. The depth must split evenly (the JAX package's
+    ``ValueError`` text)."""
+    from dml_cnn_cifar10_tpu_torch import convert
+
+    dims = pipe_dims(spec)
+    if pipe <= 1 or not dims:
+        return None
+    jd = dims[0]
+    depth = jax_shape[jd]
+    if depth % pipe:
+        raise ValueError(f"depth {depth} not divisible by pipe axis {pipe}")
+    n = depth // pipe
+    return ModelSlice(convert.port_dim(name, jd), jd, pipe_rank * n, n)

@@ -30,7 +30,18 @@ the activations' gradients over the model ranks), so the sum over the
 ranks that hold the same slices is the data-parallel sum; the replicated
 leaves' gradients are model rank 0's on every model rank first (one
 broadcast), which keeps their copies bit-equal under nondeterministic
-kernels; norms sum a split leaf's squares over ``model``. The loss and
+kernels; norms sum a split leaf's squares over ``model``. Under pipeline
+parallelism (``parallel/pipeline.py``; the ViT's stages, the state's
+``split`` over ``pipe``) every stage of a data row computes the same loss
+from the last stage's output; a stage holds the whole gradient of its own
+blocks and of the replicated leaves (the embed's through the input
+gradient that stage 0 sends back to every stage, the head's from the
+shared output), so the sum over the ``replica`` group (the data ranks of
+the same stage) is the data-parallel sum; the replicated leaves'
+gradients are stage 0's on every stage first (one broadcast), and norms
+sum a stage's block squares over ``pipe``. The CNN's spatial split
+(``parallel/spatial.py``) follows the sequence split's rule: every leaf
+arrives ``seq`` times over. The loss and
 accuracy metrics are averaged over the data group; the eval step sums
 ``correct`` over it. A state sharded over the data ranks
 (``--optimizer_sharding zero1``, ``--fsdp``: ``parallel/zero.py``; the
@@ -87,13 +98,15 @@ index stream gives every rank the same global ``[K, B]`` rows (a pure
 function of the step and the seed), and each data rank gathers and
 decodes its own ``b = B / data`` columns, ``[:, data_rank·b :
 (data_rank+1)·b]``, drawing each image's augmentation at its column of
-the global batch; the seq ranks of a data row take the same columns.
-Host indices arrive as global rows (:func:`global_rows`). Over NCCL the
-collectives of the K steps (the gradient all-reduce, the metric means,
-the ring hops, the all-to-alls) are captured in the graph with the
-kernels. Over gloo a collective on the card stages through host memory,
-which no graph can hold, so there the chunk runs its K steps eagerly, the
-body the CPU runs (:func:`chunk_is_graphed`). The evals sweep each data
+the global batch; the seq ranks and the pipeline stages of a data row
+take the same columns. Host indices arrive as global rows
+(:func:`global_rows`). Over NCCL the collectives of the K steps (the
+gradient all-reduce, the metric means, the ring hops, the all-to-alls,
+the pipeline's stage hops and broadcasts, the spatial split's halo
+exchanges and gather) are captured in the graph with the kernels. Over
+gloo a collective on the card stages through host memory, which no graph
+can hold, so there the chunk runs its K steps eagerly, the body the CPU
+runs (:func:`chunk_is_graphed`). The evals sweep each data
 rank's strided shard and sum the counts over the data ranks.
 """
 
@@ -188,8 +201,9 @@ def init_train_state(model: nn.Module, optim_cfg: OptimConfig,
     ``opt["ema_mstate"]``."""
     split = getattr(model, "split", None)
     if split is not None and optim_cfg.optimizer == "adafactor":
+        what = "tensor" if split.over == "model" else "pipeline"
         raise NotImplementedError(
-            f"adafactor under tensor parallelism is not ported: its "
+            f"adafactor under {what} parallelism is not ported: its "
             f"factored statistics are computed over the whole leaf; see "
             f"{tp.ROADMAP}")
     if layout is not None and layout.fsdp:
@@ -243,15 +257,16 @@ def _sum_grads(grads, mesh: Mesh):
 
 
 def _same_replicated(grads, names, split) -> None:
-    """Give every model rank model rank 0's gradients of the replicated
-    leaves, in one broadcast of their concatenation. With deterministic
-    kernels they are equal already; cuDNN's nondeterministic backward
-    (atomics) would otherwise let the model ranks' copies of those
-    leaves drift apart step by step, and the Megatron layers take their
-    input as the same on every model rank."""
+    """Give every rank of the split's axis (the model ranks, or the
+    pipeline's stages) its rank 0's gradients of the replicated leaves,
+    in one broadcast of their concatenation. With deterministic kernels
+    they are equal already; cuDNN's nondeterministic backward (atomics)
+    would otherwise let the ranks' copies of those leaves drift apart
+    step by step, and the Megatron layers take their input as the same
+    on every model rank, as the stages take the embedding."""
     idx = [i for i, n in enumerate(names) if not split.is_split(n)]
     flat = torch.cat([grads[i].reshape(-1) for i in idx])
-    split.mesh.broadcast_(flat, "model")
+    split.mesh.broadcast_(flat, split.over)
     for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
         grads[i].copy_(part.view_as(grads[i]))
 
@@ -368,6 +383,14 @@ def make_train_step(model: nn.Module, optim_cfg: OptimConfig,
     (cross-replica BN, ``ops/layers.py``). ``opt["ema_mstate"]`` follows
     the new stats after the update."""
     f32_parity()
+    if (optim_cfg.async_staleness >= 2 and mesh is not None
+            and mesh.pipe > 1):
+        # JAX parallel/step.py:496-503: the pipe rule would shard the
+        # snapshot ring's leading axis.
+        raise ValueError(
+            "async_staleness does not compose with pipeline parallelism "
+            "(the pipe sharding rule would claim the snapshot ring's "
+            "leading axis)")
     replicas = 1 if mesh is None else mesh.replicas
     accum, over_data = moe_microbatches(
         model, max(1, optim_cfg.grad_accum), mesh)

@@ -28,6 +28,13 @@ split leaf's squares over ``model`` and counts a replicated leaf once
 (:func:`sq_sums`, which also sums the ZeRO layout's shards over
 ``data``); a msgpack save all-gathers each split leaf whole
 (:func:`whole`, a collective) and a restore slices it back.
+
+The pipeline's stages (``--pipe_axis``, ``parallel/pipeline.py``) use the
+same machinery over ``pipe``: :func:`pipe_split` cuts every stacked
+``blocks`` leaf to a stage's ``depth / P`` rows (the pipeline table's
+leading-axis rule), and the :class:`ModelSplit` it returns gathers,
+restores and sums norms over ``pipe`` as the Megatron one does over
+``model``.
 """
 
 from __future__ import annotations
@@ -45,16 +52,21 @@ ROADMAP = shardings.TP_ROADMAP
 
 
 class ModelSplit:
-    """The leaves split over ``mesh``'s model ranks: ``slices`` maps each
-    split leaf's name to this rank's :class:`shardings.ModelSlice`,
-    ``shapes`` to its whole shape (port layout)."""
+    """The leaves split over ``mesh``'s ranks on the axis ``over``
+    (``"model"``: tensor parallelism's slices; ``"pipe"``: a pipeline
+    stage's rows of the stacked blocks, :func:`pipe_split`): ``slices``
+    maps each split leaf's name to this rank's
+    :class:`shardings.ModelSlice`, ``shapes`` to its whole shape (port
+    layout)."""
 
     def __init__(self, mesh: Mesh, slices: Mapping[str,
                                                    shardings.ModelSlice],
-                 shapes: Mapping[str, Tuple[int, ...]]):
+                 shapes: Mapping[str, Tuple[int, ...]],
+                 over: str = "model"):
         self.mesh = mesh
         self.slices = dict(slices)
         self.shapes = dict(shapes)
+        self.over = over
 
     def is_split(self, name: str) -> bool:
         return name in self.slices
@@ -76,11 +88,11 @@ class ModelSplit:
     def whole(self, values: Mapping[str, torch.Tensor], lead: int = 0
               ) -> Dict[str, torch.Tensor]:
         """``values`` with every split leaf all-gathered whole over the
-        model ranks: a collective, every rank calls it."""
+        split's ranks: a collective, every rank calls it."""
         out = dict(values)
         for name, sl in self.slices.items():
             if name in values:
-                out[name] = self.mesh.all_gather(values[name], "model",
+                out[name] = self.mesh.all_gather(values[name], self.over,
                                                  sl.dim + lead)
         return out
 
@@ -107,6 +119,33 @@ def megatron_split(module: nn.Module, model_name: str, mesh: Mesh
         local[sl.dim] = sl.length
         p.data = p.data.new_empty(local)
     return ModelSplit(mesh, slices, whole)
+
+
+def pipe_split(module: nn.Module, model_name: str, mesh: Mesh
+               ) -> ModelSplit:
+    """Cut ``module``'s (whole-shaped) parameters that the model's
+    pipeline table places on ``pipe`` (the leading, depth, axis of the
+    stacked ``blocks`` leaves) to this stage's ``depth / pipe`` rows (new,
+    uninitialised storage) and return the :class:`ModelSplit` over
+    ``"pipe"``. Raises ``ValueError`` (the JAX package's text) when the
+    stages do not divide the depth."""
+    named = dict(module.named_parameters())
+    shapes = {n.replace(".", "/"): convert.jax_shape(n, p.shape)
+              for n, p in named.items()}
+    specs = dict(shardings._flat_specs(shardings.param_pspecs(
+        model_name, shapes, pipe=True)))
+    slices, whole = {}, {}
+    for name, p in named.items():
+        sl = shardings.stage_slice(name, specs[name.replace(".", "/")],
+                                   shapes[name.replace(".", "/")],
+                                   mesh.pipe, mesh.pipe_rank)
+        if sl is None:
+            continue
+        slices[name], whole[name] = sl, tuple(p.shape)
+        local = list(p.shape)
+        local[sl.dim] = sl.length
+        p.data = p.data.new_empty(local)
+    return ModelSplit(mesh, slices, whole, over="pipe")
 
 
 def init_targets(module: nn.Module, split: Optional[ModelSplit]
@@ -140,10 +179,12 @@ def sq_sums(names: Sequence[str], tensors: Sequence[torch.Tensor],
             ) -> torch.Tensor:
     """Each tensor's sum of squares (f32) over its whole leaf: partial
     sums of a leaf the ZeRO ``layout`` splits are summed over ``data``,
-    of a leaf ``split`` splits over ``model``, each in one all-reduce for
-    all such leaves (no host copy: capturable); other leaves count once."""
+    of a leaf ``split`` splits over its axis (``model``, or ``pipe`` for a
+    stage's rows), each in one all-reduce for all such leaves (no host
+    copy: capturable); other leaves count once."""
     sq = [torch.sum(torch.square(t.float())) for t in tensors]
-    for over, parts in (("data", layout), ("model", split)):
+    for over, parts in (("data", layout),
+                        (getattr(split, "over", "model"), split)):
         if parts is None:
             continue
         idx = [i for i, n in enumerate(names) if parts.is_split(n)]

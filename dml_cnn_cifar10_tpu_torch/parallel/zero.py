@@ -269,11 +269,26 @@ def build_layout(model: torch.nn.Module, model_name: str,
     named = list(model.named_parameters())
     shapes = {name.replace(".", "/"): convert.jax_shape(name, p.shape)
               for name, p in named}
-    base = shardings.param_pspecs(model_name, shapes, rules=rules,
+    pipe = mesh.pipe > 1
+    base = shardings.param_pspecs(model_name, shapes, pipe=pipe,
+                                  rules=rules,
                                   strict=par_cfg.partition_rules_strict)
     shardings.check_axes(
-        base, {"data": mesh.data, "seq": mesh.seq, "model": mesh.model},
-        megatron=shardings.param_pspecs(model_name, shapes))
+        base, {"data": mesh.data, "seq": mesh.seq, "model": mesh.model,
+               "pipe": mesh.pipe},
+        megatron=shardings.param_pspecs(model_name, shapes),
+        pipeline=shardings.param_pspecs(model_name, shapes, pipe=True)
+        if pipe else None)
+    if pipe and mode is not None:
+        raise NotImplementedError(
+            f"{mode} under pipeline parallelism (pipe_axis={mesh.pipe}) "
+            f"is not ported: a stage's leaves would be sharded over its "
+            f"data ranks too; see {_ROADMAP}")
+    if pipe and optim_cfg.optimizer == "adafactor":
+        raise NotImplementedError(
+            f"adafactor under pipeline parallelism is not ported: its "
+            f"factored statistics are computed over the whole leaf; see "
+            f"{_ROADMAP}")
     if mesh.model > 1 and optim_cfg.optimizer == "adafactor":
         raise NotImplementedError(
             f"adafactor under tensor parallelism is not ported: its "
@@ -323,8 +338,9 @@ def partition_report(model: torch.nn.Module, model_name: str,
     parameters (JAX paths and whole shapes, also where this rank holds a
     model slice)."""
     rules = shardings.parse_partition_rules(par_cfg.partition_rules)
-    table = rules if rules is not None else shardings.rule_for(model_name)
     split = getattr(model, "split", None)
+    table = rules if rules is not None else shardings.rule_for(
+        model_name, pipe=getattr(split, "over", None) == "pipe")
     shapes = {name.replace(".", "/"): convert.jax_shape(
         name, p.shape if split is None else split.whole_shape(name, p.shape))
         for name, p in model.named_parameters()}

@@ -19,15 +19,18 @@ The host reads the device only at those boundaries: the loss and the
 fresh-batch accuracy (one copy), the eval count, and the checkpoint.
 
 Several processes (``ParallelConfig.num_processes`` > 1) form one
-``data x model x seq`` mesh (``parallel/mesh.py``), one card each, a
-rank's card being its index among the ranks of its own host in
+``data x model x seq x pipe`` mesh (``parallel/mesh.py``), one card each,
+a rank's card being its index among the ranks of its own host in
 ``--worker_hosts`` (``utils/platform.py:rank_device``): each data rank
 trains on its ``batch_size // data`` slice of the global batch, read from
-its own ``[data_rank::data]`` shard of the records; the model ranks and
-the seq ranks of one data row read the same slice, the model ranks to
-split the Megatron layers' weights (``--model_axis``, ``parallel/
-tp.py``), the seq ranks to split its tokens. The chief generates the
-synthetic data and writes the checkpoints; every rank prints its own
+its own ``[data_rank::data]`` shard of the records; the model, seq and
+pipe ranks of one data row read the same slice, the model ranks to split
+the Megatron layers' weights (``--model_axis``, ``parallel/tp.py``), the
+seq ranks to split the ViT's tokens or, after the decode, the CNN's image
+rows (``parallel/spatial.py``), the pipe ranks to run the ViT's blocks as
+pipeline stages (``--pipe_axis``, ``parallel/pipeline.py``). The chief
+(rank 0: data rank 0, stage 0) generates the synthetic data and writes
+the checkpoints; every rank prints its own
 console lines, and only the chief writes the metrics JSONL. ``images/s``
 counts the global batch.
 
@@ -209,9 +212,10 @@ class Trainer:
                            "through host memory, which a CUDA graph "
                            "cannot hold")
                 chunks = f"; chunks of {k} steps: {how}"
+            stage = f", pipe {m.pipe_rank}/{m.pipe}" if m.pipe > 1 else ""
             print(f"[dist] rank {m.rank}/{m.world} (data {m.data_rank}/"
                   f"{m.data}, model {m.model_rank}/{m.model}, seq "
-                  f"{m.seq_rank}/{m.seq}) on {self.device}, "
+                  f"{m.seq_rank}/{m.seq}{stage}) on {self.device}, "
                   f"backend {m.backend}, {self.local_batch} images a step"
                   f"{chunks}", flush=True)
             # One writer for the shared synthetic files; the others wait.
@@ -231,7 +235,15 @@ class Trainer:
             print("[shardings] partition report (params):")
             print(zero.partition_report(self.model, cfg.model.name, par))
         split = getattr(self.model, "split", None)
-        if split is not None:
+        if split is not None and split.over == "pipe":
+            rows = next(iter(split.slices.values())).length
+            print(f"[shardings] pipe_axis={m.pipe}: stage {m.pipe_rank} "
+                  f"holds {rows} of {cfg.model.vit_depth} blocks "
+                  f"({len(split.slices)} stacked leaves), schedule "
+                  f"{cfg.model.pipe_schedule}, "
+                  f"{cfg.model.pipe_microbatches or m.pipe} microbatches",
+                  flush=True)
+        elif split is not None:
             print(f"[shardings] model_axis={m.model}: model rank "
                   f"{m.model_rank} holds {len(split.slices)} leaves' "
                   f"slices ({', '.join(split.slices)})", flush=True)
@@ -525,7 +537,7 @@ class Trainer:
         try:
             flops, flops_label = profiling.step_flops(
                 cfg, data=self.mesh.data, seq=self.mesh.seq,
-                model=self.mesh.model)
+                model=self.mesh.model, pipe=self.mesh.pipe)
         except Exception as e:      # telemetry must not stop a run
             print(f"[profiling] step FLOP count failed: {e!r}; no "
                   "TFLOP/s or MFU in this run", file=sys.stderr)

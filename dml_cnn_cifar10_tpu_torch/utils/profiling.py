@@ -49,12 +49,26 @@ and the ``train`` records carry it once as ``flops_stack``:
   widths of model rank 0 (every rank's are equal): the Megatron layers'
   ``1/m`` slices, the convolutions and the other replicated layers in
   full, as XLA's per-device count does in the JAX package. The mesh's
-  collectives pass ``meta`` tensors through and call nothing.
+  collectives pass ``meta`` tensors through and call nothing;
+- ``pipe_stage_x{p}``: under pipeline parallelism over ``p`` stages,
+  this rank's own work counted once: the forward and backward of its
+  stage's ``depth / p`` blocks on its data rank's batch, plus the embed,
+  the final LayerNorm and the head, which every stage runs whole, and the
+  update of its own leaves; counted exactly on a one-process model of
+  ``depth / p`` blocks. The 1F1B schedule's re-forward (and the replay's
+  forward) of each microbatch, and GPipe's bubble ticks, are not counted;
+  ``--remat``'s recompute is, as everywhere;
+- ``spatial_share_x{s}``: the CNN's spatial split over ``s`` seq ranks:
+  its convolutions' forward and backward over the whole image divided by
+  ``s`` (the halo rows a rank convolves besides its own are not
+  counted), the FCs whole (every seq rank runs them on the gathered map),
+  and the whole update.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import os
 import time
@@ -184,15 +198,24 @@ def _image_flops(cfg, model, batch: int = 1) -> int:
     return int(counter.get_total_flops())
 
 
-def step_flops(cfg, data: int = 1, seq: int = 1, model: int = 1
-               ) -> Tuple[float, str]:
+def step_flops(cfg, data: int = 1, seq: int = 1, model: int = 1,
+               pipe: int = 1) -> Tuple[float, str]:
     """``(FLOPs of one training step on one rank, label)`` for ``cfg`` (a
-    ``TrainConfig``) on a ``data x model x seq`` mesh: the forward and
-    backward of this rank's ``batch_size / data`` images (all
+    ``TrainConfig``) on a ``data x model x seq x pipe`` mesh: the forward
+    and backward of this rank's ``batch_size / data`` images (all
     ``grad_accum`` microbatches) at its local widths, its ``1/seq`` share
-    under sequence parallelism, and the update of its leaves
-    (:func:`update_flops`). The labels are the module docstring's."""
+    under sequence parallelism, its stage's blocks under pipeline
+    parallelism, and the update of its leaves (:func:`update_flops`). The
+    labels are the module docstring's."""
     batch = cfg.batch_size // data
+    if pipe > 1:
+        stage = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, vit_depth=cfg.model.vit_depth // pipe))
+        net = _meta_model(stage)
+        update = update_flops(cfg.optim, {n: tuple(p.shape) for n, p
+                                          in net.named_parameters()})
+        return (float(_image_flops(stage, net) * batch + update),
+                f"pipe_stage_x{pipe}")
     if cfg.model.moe_experts:
         # Routing is not linear in the batch (the capacity, and the
         # einsum dispatch's [T, E, C] contractions, grow with the tokens
@@ -214,6 +237,14 @@ def step_flops(cfg, data: int = 1, seq: int = 1, model: int = 1
     if seq <= 1:
         return float(flops + update), "exact"
     m = cfg.model
+    if m.name == "cnn":
+        # The FCs' forward and backward (three products an image each:
+        # the output, the input's and the kernel's gradients) run whole.
+        fcs = sum(6 * p.shape[0] * p.shape[1] for n, p in
+                  net.named_parameters() if n.startswith("full")
+                  and n.endswith("kernel")) * batch
+        return ((flops - fcs) / seq + fcs + update,
+                f"spatial_share_x{seq}")
     even = m.sp_mode == "ulysses" or (not m.attn_causal
                                       and m.attn_window is None)
     label = f"seq_share_x{seq}" if even else f"seq_mean_share_x{seq}"

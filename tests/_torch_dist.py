@@ -854,3 +854,190 @@ def moe_runs(rank, world, runs, ckpt=None):
                                      fmt="sharded", mesh=mesh,
                                      shard_io_threads=1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism over the pipe ranks; the CNN's spatial split over the
+# seq ranks.
+# ---------------------------------------------------------------------------
+
+
+def _toy_block(h, p):
+    return torch.tanh(h @ p["w"] + p["b"])
+
+
+def pipeline_cases(rank, world, cases):
+    """Each case: ``(name, pipe, schedule, microbatches, x, stacked, vit)``
+    with ``x`` the GLOBAL ``[B, S, D]`` input and ``stacked`` the whole
+    ``[depth, ...]`` leaves (numpy); ``vit`` None runs the toy block
+    ``tanh(h @ w + b)``, else a dict of ``ModelConfig`` kwargs whose ViT
+    blocks run (``ViT._stage``). On a ``data x pipe`` mesh of ``pipe``
+    stages this rank runs ``pipeline_blocks`` on its data rank's rows
+    and its stage's rows, then the backward of ``sum(sin(out))``;
+    returns ``{name: (out, dx, {leaf: stage gradient summed over the data
+    ranks})}`` with the mesh's coordinates."""
+    from dml_cnn_cifar10_tpu_torch.config import (DataConfig, ModelConfig,
+                                                  ParallelConfig)
+    from dml_cnn_cifar10_tpu_torch.models.vit import ViT
+    from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import pipeline
+
+    meshes, res = {}, {}
+    for name, pipe, schedule, m, x, stacked, vit in cases:
+        if pipe not in meshes:
+            meshes[pipe] = mesh_lib.build_mesh(ParallelConfig(pipe_axis=pipe))
+        mesh = meshes[pipe]
+        def fn(h, rows):
+            return pipeline.sequential_blocks(h, rows, _toy_block)
+
+        if vit is not None:
+            fn = ViT(ModelConfig(**vit), DataConfig(crop_height=32,
+                                                    crop_width=32))._stage
+        b = x.shape[0] // mesh.data
+        xl = torch.tensor(x[mesh.data_rank * b:(mesh.data_rank + 1) * b],
+                          requires_grad=True)
+        n = next(iter(stacked.values())).shape[0] // pipe
+        stage = {k: torch.tensor(v[mesh.pipe_rank * n:(mesh.pipe_rank + 1)
+                                   * n], requires_grad=True)
+                 for k, v in stacked.items()}
+        out = pipeline.pipeline_blocks(xl, stage, fn, mesh,
+                                       num_microbatches=m, schedule=schedule)
+        torch.sin(out).sum().backward()
+        grads = {k: mesh.all_reduce_(v.grad, "data").numpy()
+                 for k, v in stage.items()}
+        res[name] = (out.detach().numpy(), xl.grad.numpy(), grads)
+    res["coords"] = {p: (mm.data_rank, mm.pipe_rank)
+                     for p, mm in meshes.items()}
+    return res
+
+
+def axis_runs(rank, world, runs, ckpt=None, ops=None):
+    """Each run of ``runs`` (see :func:`tp_state` and :func:`_tp_train`;
+    ``pipe`` and ``seq`` its mesh's pipeline stages and seq ranks, 1 by
+    default, the data ranks the rest): per run the per-step metrics, the
+    whole state tree (gathered over the stages) and this rank's local
+    parameter shapes. A run with ``resident`` (``(images, labels, idx)``:
+    a uint8 split and ``[K, B]`` global rows) trains one chunk of its rows
+    on the device-resident path and one on the host-fed raw path, each
+    from the run's params, and returns both. With ``ckpt`` (``work`` dir,
+    ``run`` a pipe-2 run, ``next`` its following batches, ``jax`` a JAX
+    package ``.sharded`` save): the run trained and saved in both codecs,
+    restored into a pipe-4 state that trains ``next``, and the JAX save
+    restored into a pipe-2 state. With ``ops``, :func:`spatial_ops` of
+    them first, under ``"ops"``."""
+    import os
+
+    from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from dml_cnn_cifar10_tpu_torch.config import DataConfig, ParallelConfig
+    from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+
+    out = {} if ops is None else {"ops": spatial_ops(rank, world, ops)}
+    meshes = {}
+
+    def mesh_of(run):
+        key = (run.get("pipe", 1), run.get("seq", 1))
+        if key not in meshes:
+            meshes[key] = mesh_lib.build_mesh(
+                ParallelConfig(pipe_axis=key[0], seq_axis=key[1]))
+        return meshes[key]
+
+    for name, run in runs.items():
+        mesh = mesh_of(run)
+        net, ocfg, state = tp_state(run, mesh)
+        if "resident" in run:
+            images, labels, idx = run["resident"]
+            dcfg = DataConfig(normalize="scale")
+            b = idx.shape[1] // mesh.data
+            cols = idx[:, mesh.data_rank * b:(mesh.data_rank + 1) * b]
+            resident = step_lib.make_train_chunk_resident(
+                net, ocfg, torch.from_numpy(images),
+                torch.from_numpy(labels.astype(np.int64)), data_cfg=dcfg,
+                mesh=mesh)
+            _, m_r = resident(state, torch.from_numpy(cols.astype(np.int64)))
+            tree_r = ckpt_lib.state_to_tree(state)
+            _, _, state = tp_state(run, mesh)
+            hostfed = step_lib.make_train_chunk(net, ocfg, data_cfg=dcfg,
+                                                mesh=mesh)
+            _, m_h = hostfed(state, torch.from_numpy(images[cols]),
+                             torch.from_numpy(labels[cols].astype(np.int64)))
+            out[name] = {"resident": (float(m_r["loss"]), tree_r),
+                         "hostfed": (float(m_h["loss"]),
+                                     ckpt_lib.state_to_tree(state))}
+            continue
+        out[name] = {"metrics": _tp_train(run, mesh, net, ocfg, state),
+                     "tree": ckpt_lib.state_to_tree(state),
+                     "local": {k: tuple(v.shape)
+                               for k, v in state.params.items()}}
+    out["coords"] = {f"{k[0]}x{k[1]}": (m.data_rank, m.seq_rank, m.pipe_rank)
+                     for k, m in meshes.items()}
+    if ckpt is None:
+        return out
+    work, run = ckpt["work"], ckpt["run"]
+    mesh = mesh_of(run)
+    net, ocfg, state = tp_state(run, mesh)
+    _tp_train(run, mesh, net, ocfg, state)
+    steps = len(run["batches"])
+    for fmt in ("msgpack", "sharded"):
+        ckpt_lib.CheckpointManager(os.path.join(work, fmt), 1, mesh=mesh,
+                                   fmt=fmt).maybe_save(state, steps)
+    resumed = {}
+    for fmt in ("msgpack", "sharded"):
+        four = dict(run, pipe=4, batches=ckpt["next"])
+        mesh4 = mesh_of(four)
+        net4, ocfg4, fresh = tp_state(four, mesh4)
+        ckpt_lib.restore_checkpoint(os.path.join(work, fmt), fresh)
+        restored = ckpt_lib.state_to_tree(fresh)
+        metrics = _tp_train(four, mesh4, net4, ocfg4, fresh)
+        resumed[fmt] = {"restored": restored, "metrics": metrics,
+                        "tree": ckpt_lib.state_to_tree(fresh),
+                        "local": {k: tuple(v.shape)
+                                  for k, v in fresh.params.items()}}
+    _, _, fresh = tp_state(run, mesh)
+    ckpt_lib.restore_checkpoint(ckpt["jax"], fresh)
+    out["ckpt"] = {"saved": ckpt_lib.state_to_tree(state),
+                   "resumed": resumed,
+                   "jax_restored": ckpt_lib.state_to_tree(fresh)}
+    return out
+
+
+def spatial_ops(rank, world, cases):
+    """Each case: ``(name, seq, kind, x, w, b)`` with ``x`` a whole NCHW
+    map (the same on every data row), ``kind`` ``"conv"`` (``w``, ``b``
+    its OIHW kernel and bias), ``"pool"`` or ``"trunk"`` (the CNN's
+    conv-pool-conv-pool and the gather, ``w``/``b`` pairs of both
+    convs). On a ``data x seq`` mesh this rank runs the split layer on
+    its rows and the backward of ``sum(sin(y))`` of its output (the
+    trunk's gathered map, whole on every rank); returns ``{name: (its
+    rows of y or the whole map, its rows' input gradient, the kernels'
+    gradients summed over the seq ranks)}`` and its coordinates."""
+    from dml_cnn_cifar10_tpu_torch.config import ParallelConfig
+    from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import spatial
+
+    meshes, res = {}, {}
+    for name, seq, kind, x, w, b in cases:
+        if seq not in meshes:
+            meshes[seq] = mesh_lib.build_mesh(ParallelConfig(seq_axis=seq))
+        mesh = meshes[seq]
+        split = spatial.Split.even(x.shape[2], seq)
+        xl = torch.tensor(x[:, :, split.rows(mesh.seq_rank)],
+                          requires_grad=True)
+        ws = [torch.tensor(a, requires_grad=True) for a in (w or ())]
+        bs = [torch.tensor(a, requires_grad=True) for a in (b or ())]
+        if kind == "conv":
+            y = spatial.conv2d(xl, ws[0], bs[0], mesh, split)
+        elif kind == "pool":
+            y = spatial.max_pool(xl, mesh, split)
+        else:
+            y, s = xl, split
+            for i in range(2):
+                y = torch.relu(spatial.conv2d(y, ws[i], bs[i], mesh, s))
+                y, s = spatial.max_pool(y, mesh, s), s.pooled()
+            y = spatial.gather(y, mesh, s)
+        torch.sin(y).sum().backward()
+        grads = [mesh.all_reduce_(t.grad.clone(), "seq").numpy()
+                 for t in ws + bs]
+        res[name] = (y.detach().numpy(), xl.grad.numpy(), grads)
+    res["coords"] = {s: (m.data_rank, m.seq_rank) for s, m in meshes.items()}
+    return res
