@@ -423,6 +423,40 @@ the CNN's spatial split (``parallel/spatial.py``, ``--seq_axis``):
             traced (ms/step, device busy share, NCCL ms). Numbers in
             ``OUT/slice17.json`` (``slice17_nccl.json``).
 
+Then the run supervisor (``train/supervisor.py``) and the cluster layer
+(``parallel/cluster.py``), on the CNN main path at full width (batch 128,
+24 px, ``--fidelity fixed``, plain SGD at lr 0.1):
+38. supervise  K1 and K2 on the CNN's leaves bit-equal to their plain
+            version, timed beside fused SGD and the bound. (a) One
+            process, ``fit_supervised`` on the CLI's config of ``--supervise
+            true --check_numerics true --on_nonfinite rollback
+            --rollback_lr_scale 0.5 --recovery_backoff_s 0.05
+            --fault_spec nan@25,ckpt_corrupt@26,data_stall@45``, checkpoints
+            every 10 steps, to step 60: eager, then chunked at
+            ``--steps_per_dispatch 10`` (each attempt captures its own
+            graph), then ``--momentum 0.9`` (lr 0.02, ``nan@25``; K2). Each
+            run's fault/rollback/recovery/ckpt_fallback records are the JAX
+            package's sequence and lint strict; K1 (K2) launched once for
+            every step dispatched across the attempts; the final parameters
+            (and K2's momentum buffers) bit-equal to a fault-free run
+            restored from the directory the last attempt restored from, at
+            the cut LR; ``memory_allocated`` after each attempt (no growth
+            over the failed ones); each restart's wall time from the
+            failure to the end of the first dispatch after it, with the
+            trainer's rebuild, the restore and the first dispatch (the
+            graph's recapture) apart. (b) Two processes on this card in one
+            spawn, each a world of its own under ``--cluster_lockstep``:
+            ``host_lost@15`` (the survivor shrinks to world 1 from
+            ``ckpt_10``, bit-identical to the one-process run restored from
+            it) and ``host_lost@15`` + ``host_return@18`` under
+            ``--elastic_expand`` (process 1 respawned once the shrink is
+            committed; 2 -> 1 -> 2, both seats bit-identical to the
+            uninterrupted run); the ``elastic_restart`` and
+            ``elastic_expand`` records, K1 once a step dispatched, each
+            restart's time. (c) The seam's cost: eager and chunked ms/step
+            with ``--cluster_dir`` set (lockstep off) against without it,
+            in turns. Numbers in ``OUT/slice19.json``.
+
 The trainer runs cuDNN on its deterministic algorithms
 (``parallel/step.py:f32_parity``); phase 9b's and phase 35's graphs
 captured with the default algorithms are replayed beside the trainer's
@@ -435,8 +469,9 @@ cards, with 4 ranks beside 2 given four cards: SP data 2 x seq 2 against
 its 2 data ranks without the ring, and the DP CNN on 4 ranks; given three
 or more cards, phases 26-27 (and phase 31's Ulysses run) over NCCL on 3 of
 them.
-``--phase 32`` to ``--phase 37`` (alone or with ``--dist``) runs the
-build and that phase only; phases 36 and 37 run under ``--dist`` only so.
+``--phase 32`` to ``--phase 38`` (alone or with ``--dist``, except 38)
+runs the build and that phase only; phases 36 and 37 run under ``--dist``
+only so.
 
 The lines before the last are ``{"kernels": [...]}`` (K1 six times:
 its main path row, phase 30's with ``"path": "dp_chunk"``, phase 32's
@@ -444,8 +479,10 @@ with ``"path": "run_safety"``, phase 33's with ``"path": "zero1"`` and
 ``"fsdp"``, on shard buffers, phase 34's with ``"path": "tp"``, on a
 model rank's leaves, and phase 35's on ResNet-18's and ResNet-50's
 leaves, ``"path": "resnet18"`` and ``"resnet50"``, and phase 36's on
-``vit_moe``'s, ``"path": "vit_moe"``, as K2 three times more, and phase
-37's on a pipeline stage's leaves, ``"path": "pipe"``; K3, K4, K6
+``vit_moe``'s, ``"path": "vit_moe"``, as K2 three times more, phase
+37's on a pipeline stage's leaves, ``"path": "pipe"``, and phase 38's on
+the supervised main path, ``"path": "supervised"``, as K2 once more; K3,
+K4, K6
 and K7's training rows carry ``launches_vit_moe``;
 ``--dist`` prints K2's two shard rows; K3 five
 times: its training row, its serving row with ``"path": "serve"``, its
@@ -464,8 +501,8 @@ ranks), ``slice10.json`` (phases 26-29), ``slice11.json`` (phase 30),
 ``slice12.json`` (phase 32, with its telemetry stream and Chrome trace),
 ``slice13.json`` (phase 33), ``slice14.json`` (phase 34),
 ``slice15.json`` (phase 35), ``slice16.json`` (phase 36),
-``slice17.json`` (phase 37) and the ranks' logs are written to the output
-directory ``OUT``.
+``slice17.json`` (phase 37), ``slice19.json`` (phase 38) and the ranks'
+logs are written to the output directory ``OUT``.
 """
 
 from __future__ import annotations
@@ -6863,6 +6900,707 @@ def pp_kernel_entries(pp) -> list:
     return out
 
 
+# ---- phase 38: the run supervisor and the cluster layer ----------------
+# The supervised main path: stop step, checkpoint cadence, the chunk size,
+# and the faults of the K1 runs (eager and chunked) and of the K2 run.
+SUP_STEPS, SUP_EVERY, SUP_K = 60, 10, 10
+SUP_FAULTS, SUP_MOM_FAULTS = "nan@25,ckpt_corrupt@26,data_stall@45", "nan@25"
+SUP_LR, SUP_MOM_LR, SUP_SCALE, SUP_BACKOFF = 0.1, 0.02, 0.5, 0.05
+# The fault, rollback, recovery and fallback records each run must log:
+# (kind, step, fault, injected, action, attempt), the JAX package's
+# sequence for these specs (tests/test_torch_supervisor.py holds the
+# port's records to JAX's field for field).
+SUP_SEQ = {
+    "eager": [("fault", 25, "nan", True, None, None),
+              ("fault", 26, "ckpt_corrupt", True, None, None),
+              ("fault", 30, "nonfinite", False, None, None),
+              ("fault", 20, "nonfinite", False, None, None),
+              ("rollback", 20, None, None, None, 1),
+              ("recovery", 20, "nonfinite", None, "restart", 1),
+              ("ckpt_fallback", 20, None, None, None, None),
+              ("fault", 45, "data_stall", True, None, None),
+              ("fault", 40, "data", False, None, None),
+              ("recovery", 40, "data", None, "restart", 2),
+              ("recovery", 60, "none", None, "recovered", 2)],
+    # Chunks of 10: the faults fire at the seam of step 30, the NaN shows
+    # at the boundary of 40, and the stall at the seam of 50.
+    "chunked": [("fault", 30, "nan", True, None, None),
+                ("fault", 30, "ckpt_corrupt", True, None, None),
+                ("fault", 40, "nonfinite", False, None, None),
+                ("fault", 30, "nonfinite", False, None, None),
+                ("rollback", 30, None, None, None, 1),
+                ("recovery", 30, "nonfinite", None, "restart", 1),
+                ("ckpt_fallback", 30, None, None, None, None),
+                ("fault", 50, "data_stall", True, None, None),
+                ("fault", 50, "data", False, None, None),
+                ("recovery", 50, "data", None, "restart", 2),
+                ("recovery", 60, "none", None, "recovered", 2)],
+    "momentum": [("fault", 25, "nan", True, None, None),
+                 ("fault", 30, "nonfinite", False, None, None),
+                 ("fault", 20, "nonfinite", False, None, None),
+                 ("rollback", 20, None, None, None, 1),
+                 ("recovery", 20, "nonfinite", None, "restart", 1),
+                 ("recovery", 60, "none", None, "recovered", 1)],
+}
+# The lockstep simulations: stop step, the lost host's and the returning
+# host's steps, and the beat thresholds (a rank process takes about 20 s
+# to start; the dead-peer threshold leaves room for two starting apart).
+SIM_STEPS, SIM_LOST, SIM_RETURN, SIM_RESTORE = 40, 15, 18, 10
+SIM_FLAGS = ["--heartbeat_interval_s", "0.1", "--straggler_after_s", "0.4",
+             "--peer_dead_after_s", "5", "--collective_timeout_s", "300"]
+SEAM_STEPS, SEAM_EVERY = 200, 50
+
+
+class _RestartClock:
+    """Phase 38's watch on the supervised loop of this process (it patches
+    the classes it watches until :meth:`close`): when the supervisor
+    classifies each failure (or a fenced host asks to rejoin), how long
+    each trainer's construction, its restore, the set-up between the
+    restore and the first dispatch, and that dispatch (waited for; on the
+    chunked path the graph's warm-up and capture) take, the steps each
+    attempt dispatches, and the device memory allocated after each
+    attempt."""
+
+    def __init__(self):
+        from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+        from dml_cnn_cifar10_tpu_torch.train import loop, supervisor
+        self.events, self.memory, self.steps = [], [], 0
+        self.inside = False
+        self._undo = []
+        clock = self
+
+        def patch(obj, name, wrap):
+            orig = getattr(obj, name)
+            self._undo.append((obj, name, orig))
+            setattr(obj, name, wrap(orig))
+
+        def timed(label):
+            def wrap(orig):
+                def fn(*args, **kwargs):
+                    t0 = time.perf_counter()
+                    try:
+                        return orig(*args, **kwargs)
+                    finally:
+                        clock.events.append((label, t0,
+                                             time.perf_counter()))
+                return fn
+            return wrap
+
+        def at_fault(orig):
+            def fn(*args, **kwargs):
+                t = time.perf_counter()
+                clock.events.append(("fault", t, t))
+                return orig(*args, **kwargs)
+            return fn
+
+        def counted(orig):
+            def fn(*args, **kwargs):
+                stream = kwargs.get("index_stream")
+                return _CountedStep(orig(*args, **kwargs), clock,
+                                    stream[2] if stream else 1)
+            return fn
+
+        patch(supervisor, "classify_failure", at_fault)
+        # A fenced host's rejoin request starts its restart.
+        patch(supervisor, "_request_rejoin", at_fault)
+        patch(loop.Trainer, "__init__", timed("rebuild"))
+        patch(loop.Trainer, "init_or_restore", timed("restore"))
+        patch(step_lib, "make_train_step", counted)
+        patch(step_lib, "make_train_chunk_resident", counted)
+
+    def on_attempt(self, then=None):
+        """After each attempt: the device memory, then ``then()`` (the
+        caller's snapshot); their time is the harness's, not the
+        restart's."""
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        self.memory.append(torch.cuda.memory_allocated())
+        if then is not None:
+            then()
+        self.events.append(("harness", t0, time.perf_counter()))
+
+    def restarts(self, backoffs) -> list:
+        """Each restart's wall time, from the failure's classification to
+        the end of the first dispatch after the restore, with its parts
+        (``backoffs``: the supervisor's sleeps, from its records); the
+        harness's own work between the two is left out."""
+        out = []
+        faults = [t for name, t, _ in self.events if name == "fault"]
+        for i, t_fault in enumerate(faults):
+            later = {}
+            for name, t0, t1 in self.events:
+                if t0 >= t_fault and name != "fault" and name not in later:
+                    later[name] = t1 - t0, t0, t1
+            if "first_step" not in later or "restore" not in later:
+                continue
+            harness = later.get("harness", (0.0,))[0]
+            entry = {"wall_s": later["first_step"][2] - t_fault - harness,
+                     "backoff_s": backoffs[i] if i < len(backoffs) else None,
+                     "rebuild_s": later.get("rebuild", (None,))[0],
+                     "restore_s": later["restore"][0],
+                     # The input pipelines, the resident split's upload
+                     # and the step functions, between the two.
+                     "setup_s": later["first_step"][1] - later["restore"][2],
+                     "first_dispatch_s": later["first_step"][0]}
+            entry["other_s"] = entry["wall_s"] - sum(
+                v for k, v in entry.items()
+                if k.endswith("_s") and k != "wall_s" and v)
+            out.append(entry)
+        return out
+
+    def close(self):
+        for obj, name, orig in reversed(self._undo):
+            setattr(obj, name, orig)
+
+
+class _CountedStep:
+    """A step or chunk function whose calls count the steps they dispatch
+    and whose first call's end is waited for and timed; every attribute of
+    the function it wraps (a chunk's graph, its index check) reads
+    through. A step called inside another (a chunk's body) is not
+    counted again."""
+
+    def __init__(self, fn, clock, k):
+        self._fn, self._clock, self._k, self._first = fn, clock, k, True
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __call__(self, state, *inputs):
+        clock = self._clock
+        if clock.inside:
+            return self._fn(state, *inputs)
+        clock.inside = True
+        t0 = time.perf_counter()
+        try:
+            out = self._fn(state, *inputs)
+        finally:
+            clock.inside = False
+        clock.steps += self._k
+        if self._first:
+            self._first = False
+            torch.cuda.synchronize()
+            clock.events.append(("first_step", t0, time.perf_counter()))
+        return out
+
+
+def _sup_args(name, *extra, lr=SUP_LR):
+    """The main path's recipe (batch 128, 24 px crop, 50,000 records,
+    plain SGD) at ``lr`` under phase 38's supervisor flags."""
+    log_dir = os.path.join(WORK, "sup", name)
+    return cnn_args(WORK) + [
+        "--learning_rate", str(lr), "--log_dir", log_dir,
+        "--total_steps", str(SUP_STEPS), "--output_every", str(SUP_EVERY),
+        "--eval_every", "1000", "--checkpoint_every", str(SUP_EVERY),
+        "--metrics_jsonl", os.path.join(WORK, "sup", f"{name}.jsonl"),
+        "--supervise", "true", "--check_numerics", "true",
+        "--on_nonfinite", "rollback", "--rollback_lr_scale", str(SUP_SCALE),
+        "--recovery_backoff_s", str(SUP_BACKOFF), *extra]
+
+
+def _sup_sequence(path) -> list:
+    return [(r["kind"], r["step"], r.get("fault"), r.get("injected"),
+             r.get("action"), r.get("attempt")) for r in records(path)
+            if r["kind"] in ("fault", "rollback", "recovery",
+                             "ckpt_fallback")]
+
+
+def _schema_lint(path, label) -> None:
+    lint = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "check_jsonl_schema.py"),
+         "--strict", path], capture_output=True, text=True, timeout=120)
+    check(lint.returncode == 0, f"{label}: schema lint {lint.stdout} "
+          f"{lint.stderr}")
+
+
+def _supervised_run(name, card, extra=(), lr=SUP_LR) -> dict:
+    """One supervised run of the main path (``fit_supervised`` on the
+    CLI's config, as ``--supervise true`` runs it), snapshotting its log
+    dir after every attempt; then the fault-free run restored from the
+    snapshot its last attempt restored from, at the LR it ended with, and
+    the two final states compared bit for bit (parameters and, with
+    momentum, K2's buffers). K1/K2 launches against the steps dispatched
+    across every attempt; the record sequence, the schema lint, each
+    restart's time and the device memory after each attempt."""
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+    from dml_cnn_cifar10_tpu_torch.train.loop import Trainer
+    from dml_cnn_cifar10_tpu_torch.train.supervisor import fit_supervised
+
+    args = _sup_args(name, *extra, lr=lr)
+    cfg = config_from_args(build_parser().parse_args(args))
+    cfg.keep_checkpoints = 20
+    snaps = []
+
+    def snapshot():
+        dst = os.path.join(WORK, "sup", f"{name}_snap{len(snaps)}")
+        shutil.copytree(cfg.log_dir, dst)
+        snaps.append(dst)
+
+    clock = _RestartClock()
+
+    def on_attempt():
+        clock.on_attempt(then=snapshot)
+
+    print("$ python -m dml_cnn_cifar10_tpu_torch " + " ".join(args),
+          flush=True)
+    fused.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        result = fit_supervised(cfg, on_attempt=on_attempt)
+    finally:
+        clock.close()
+    wall_s = time.perf_counter() - t0
+    launches = dict(fused.LAUNCHES)
+    check(result is not None and result.final_step == SUP_STEPS,
+          f"supervised {name}: ended at "
+          f"{None if result is None else result.final_step}")
+    kernel = "sgd_update_momentum" if cfg.optim.momentum else \
+        "sgd_update_plain"
+    check(launches[kernel] == clock.steps and clock.steps > SUP_STEPS
+          and sum(launches.values()) == clock.steps,
+          f"supervised {name}: launches {launches} for {clock.steps} steps "
+          f"dispatched across every attempt")
+    path = cfg.metrics_jsonl
+    seq = _sup_sequence(path)
+    check(seq == SUP_SEQ[name], f"supervised {name}: records {seq}, want "
+          f"{SUP_SEQ[name]}")
+    _schema_lint(path, f"supervised {name}")
+    recs = records(path)
+    rollbacks = [r for r in recs if r["kind"] == "rollback"]
+    check(all(r["lr"] == lr * SUP_SCALE for r in rollbacks)
+          and cfg.optim.learning_rate == lr * SUP_SCALE,
+          f"supervised {name}: rollback LR {rollbacks}, config "
+          f"{cfg.optim.learning_rate}")
+    attempts = len(snaps)
+    check(len(clock.memory) == attempts and attempts >= 2,
+          f"supervised {name}: {attempts} attempts, memory {clock.memory}")
+    # A failed attempt's trainer, graph and resident data are freed
+    # before the next one is built.
+    grown = max(clock.memory[:-1]) - clock.memory[0]
+    check(grown <= 1 << 20, f"supervised {name}: device memory after the "
+          f"failed attempts {clock.memory} grows")
+    backoffs = [r["backoff_s"] for r in recs if r["kind"] == "recovery"
+                and r["action"] == "restart"]
+    restarts = clock.restarts(backoffs)
+    check(len(restarts) == attempts - 1,
+          f"supervised {name}: restarts {restarts}")
+    # The fault-free run restored from what the last attempt restored.
+    ref_dir = os.path.join(WORK, "sup", f"{name}_ref")
+    shutil.copytree(snaps[-2], ref_dir)
+    ref_cfg = config_from_args(build_parser().parse_args(args))
+    ref_cfg.supervise, ref_cfg.fault_spec = False, None
+    ref_cfg.log_dir, ref_cfg.metrics_jsonl = ref_dir, None
+    ref_cfg.keep_checkpoints = 20
+    ref_cfg.optim.learning_rate = cfg.optim.learning_rate
+    trainer = Trainer(ref_cfg)
+    try:
+        ref = trainer.fit()
+    finally:
+        trainer.close()
+    keys = ["params"] + (["momentum"] if cfg.optim.momentum else [])
+    for key in keys:
+        got = result.state.params if key == "params" else \
+            result.state.opt[key]
+        want = ref.state.params if key == "params" else ref.state.opt[key]
+        diff = {n: (got[n] - want[n]).abs().max().item() for n in got
+                if not torch.equal(got[n], want[n])}
+        check(not diff, f"supervised {name}: {key} differ from the "
+              f"fault-free run restored from the same checkpoint: {diff}")
+    restored = max(int(n[5:].split(".")[0]) for n in os.listdir(snaps[-2])
+                   if n.startswith("ckpt_") and n.endswith(".msgpack"))
+    out = {"launches": launches, "steps_dispatched": clock.steps,
+           "attempts": attempts, "memory_allocated": clock.memory,
+           "restarts": restarts, "wall_s": wall_s, "records": seq,
+           "lr_after": cfg.optim.learning_rate,
+           "reference_restored_from_dir_newest": restored,
+           "bit_equal": keys}
+    print(f"[supervise] {name}: {attempts} attempts, {clock.steps} steps "
+          f"dispatched, {kernel} launched {launches[kernel]}; final "
+          f"{' and '.join(keys)} bit-equal to the fault-free run restored "
+          f"from the same directory at lr {cfg.optim.learning_rate}; "
+          f"memory_allocated after each attempt {clock.memory} bytes; "
+          f"restarts {_rounded(restarts)}; {wall_s:.2f} s, on {card}",
+          flush=True)
+    return out
+
+
+def _rounded(restarts) -> list:
+    return [{k: round(v, 4) if v else v for k, v in r.items()}
+            for r in restarts]
+
+
+def _rank_supervise(rank: int, job: dict) -> dict:
+    """A lockstep simulation's process: ``fit_supervised`` on the CLI's
+    config of ``job["args"]`` (its own log dir and faults), timed by
+    :class:`_RestartClock`; its parameter digest, or that it was fenced."""
+    from dml_cnn_cifar10_tpu_torch.cli.main import (build_parser,
+                                                    config_from_args)
+    from dml_cnn_cifar10_tpu_torch.train.supervisor import fit_supervised
+    args = job["args"] + ["--log_dir", job["log_dirs"][rank],
+                          "--task_index", str(rank)]
+    if job["faults"][rank]:
+        args += ["--fault_spec", job["faults"][rank]]
+    cfg = config_from_args(build_parser().parse_args(args))
+    cfg.keep_checkpoints = 20
+    cfg.metrics_jsonl = os.path.join(job["log_dirs"][rank], "m.jsonl")
+    clock = _RestartClock()
+    try:
+        res = fit_supervised(cfg, task_index=rank,
+                             on_attempt=clock.on_attempt)
+    finally:
+        clock.close()
+    backoffs = [r["backoff_s"] for r in records(cfg.metrics_jsonl)
+                if r["kind"] == "recovery" and r["action"] == "restart"]
+    out = {"fenced": res is None, "steps_dispatched": clock.steps,
+           "memory_allocated": clock.memory,
+           "restarts": clock.restarts(backoffs)}
+    if res is not None:
+        out.update(final_step=res.final_step,
+                   digest=_params_digest(res.state.params))
+    return out
+
+
+def _sim_args(cluster_dir, expand) -> list:
+    return cnn_args(WORK) + [
+        "--learning_rate", str(SUP_LR), "--total_steps", str(SIM_STEPS),
+        "--output_every", str(SUP_EVERY), "--eval_every", "1000",
+        "--checkpoint_every", str(SUP_EVERY), "--supervise", "true",
+        "--recovery_backoff_s", str(SUP_BACKOFF), "--cluster_dir",
+        cluster_dir, "--cluster_lockstep", "true", "--elastic_expand",
+        "true" if expand else "false", "--worker_hosts",
+        "localhost:1,localhost:2", *SIM_FLAGS]
+
+
+def _sim_proc(label, task, job, life=""):
+    rank_dir = os.path.join(OUT, "ranks")
+    os.makedirs(rank_dir, exist_ok=True)
+    job = dict(job, out=os.path.join(rank_dir, f"{label}.rank{{rank}}.json"))
+    job_path = os.path.join(rank_dir, f"{label}{life}.job.json")
+    with open(job_path, "w") as f:
+        json.dump(job, f)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    log_path = os.path.join(rank_dir, f"{label}.rank{task}{life}.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(task),
+             "--job", job_path], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT)
+    proc.log_path = log_path
+    return proc
+
+
+def _sim_result(label, task):
+    with open(os.path.join(OUT, "ranks", f"{label}.rank{task}.json")) as f:
+        return json.load(f)
+
+
+def _sim_fail(what, procs, msg):
+    """Stop ``procs`` (:func:`_sim_proc`'s), print their logs' tails,
+    fail."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        with open(p.log_path) as f:
+            print(f"[{what}] {os.path.basename(p.log_path)} exit "
+                  f"{p.returncode}; log tail:\n{f.read()[-3000:]}",
+                  file=sys.stderr)
+    fail(f"{what}: {msg}")
+
+
+def sim_phase(card) -> dict:
+    """Phase 38 (b): two processes on this card as lockstep worlds of
+    their own, both scenarios in one spawn: ``host_lost`` (the survivor
+    shrinks to world 1 from ``ckpt_10`` and ends bit-identical to the
+    one-process run restored from it) and ``host_lost`` + ``host_return``
+    under ``--elastic_expand`` (process 1 respawned once the shrink is
+    committed; the world goes 2 -> 1 -> 2 and both seats end bit-identical
+    to the uninterrupted run)."""
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+    from dml_cnn_cifar10_tpu_torch.parallel import cluster as cluster_lib
+    from dml_cnn_cifar10_tpu_torch.utils import faults as faults_lib
+
+    jobs = {}
+    for label, expand, faults in (
+            ("sim_shrink", False, ["", f"host_lost@{SIM_LOST}"]),
+            ("sim_expand", True, [f"host_return@{SIM_RETURN}",
+                                  f"host_lost@{SIM_LOST}"])):
+        cluster_dir = os.path.join(WORK, label, "cluster")
+        jobs[label] = {"kind": "supervise", "deterministic": True,
+                       "args": _sim_args(cluster_dir, expand),
+                       "log_dirs": [os.path.join(WORK, label, f"logs_{t}")
+                                    for t in (0, 1)],
+                       "faults": faults, "cluster_dir": cluster_dir}
+    t0 = time.perf_counter()
+    procs = {label: [(t, "", _sim_proc(label, t, job)) for t in (0, 1)]
+             for label, job in jobs.items()}
+    respawned_at = None
+    deadline = time.monotonic() + 400
+    try:
+        while True:
+            exp = procs["sim_expand"]
+            if len(exp) == 2 and exp[1][2].poll() is not None:
+                # Process 1 is gone: respawn it once the survivor has
+                # committed the shrink.
+                d = cluster_lib.RestartCoordinator(
+                    jobs["sim_expand"]["cluster_dir"]).read()
+                if d is not None and d.epoch >= 1:
+                    exp.append((1, "_respawned", _sim_proc(
+                        "sim_expand", 1, dict(jobs["sim_expand"],
+                                              faults=["", ""]),
+                        life="_respawned")))
+                    respawned_at = time.perf_counter() - t0
+                    continue
+                if exp[0][2].poll() is not None:
+                    _sim_fail("sim_expand", [p for _, _, p in exp],
+                              "the survivor ended without committing a "
+                              "shrink")
+            if all(p.poll() is not None
+                   for ps in procs.values() for _, _, p in ps):
+                break
+            if time.monotonic() > deadline:
+                _sim_fail("the sims", [p for ps in procs.values()
+                                       for _, _, p in ps],
+                          "did not finish in 400 s")
+            time.sleep(0.1)
+    finally:
+        for ps in procs.values():
+            for _, _, p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    wall_s = time.perf_counter() - t0
+    want = {("sim_shrink", 1, ""): faults_lib.EXIT_HOST_LOST,
+            ("sim_expand", 1, ""): faults_lib.EXIT_HOST_LOST}
+    for label, ps in procs.items():
+        for task, life, p in ps:
+            rc = want.get((label, task, life), 0)
+            if p.returncode != rc:
+                _sim_fail(label, [q for _, _, q in ps],
+                          f"process {task}{life} exited "
+                          f"{p.returncode}, want {rc}")
+    shrink = _sim_result("sim_shrink", 0)
+    seats = [_sim_result("sim_expand", t) for t in (0, 1)]
+    for what, r in [("shrink survivor", shrink),
+                    ("expand seat 0", seats[0]), ("expand seat 1", seats[1])]:
+        check(not r["fenced"] and r["final_step"] == SIM_STEPS,
+              f"{what}: {r}")
+        check(r["launches"]["sgd_update_plain"] == r["steps_dispatched"]
+              and r["launches"]["sgd_update_momentum"] == 0,
+              f"{what}: launches {r['launches']} for "
+              f"{r['steps_dispatched']} steps dispatched")
+    # The records: JAX's fields (tests/test_torch_cluster_sim.py holds
+    # them to the JAX sim's).
+    def recs(label, task, kind):
+        return [{k: r[k] for k in ("step", "restore_step", "world_size",
+                                   "epoch", "attempt", "source", "lost",
+                                   "joined") if k in r}
+                for r in records(os.path.join(jobs[label]["log_dirs"][task],
+                                              "m.jsonl"))
+                if r["kind"] == kind]
+
+    shrink_rec = dict(step=SIM_RESTORE, restore_step=SIM_RESTORE,
+                      world_size=1, epoch=1, attempt=1, source="disk",
+                      lost=[1])
+    check(recs("sim_shrink", 0, "elastic_restart") == [shrink_rec],
+          f"shrink: {recs('sim_shrink', 0, 'elastic_restart')}")
+    check(recs("sim_expand", 0, "elastic_restart") == [shrink_rec]
+          and recs("sim_expand", 0, "elastic_expand") == [dict(
+              step=SIM_RESTORE, restore_step=SIM_RESTORE, world_size=2,
+              epoch=2, attempt=2, source="disk", joined=[1])]
+          and recs("sim_expand", 1, "elastic_expand") == [dict(
+              step=SIM_RESTORE, restore_step=SIM_RESTORE, world_size=2,
+              epoch=2, attempt=1, source="disk", joined=[1])],
+          f"expand: {recs('sim_expand', 0, 'elastic_expand')} "
+          f"{recs('sim_expand', 1, 'elastic_expand')}")
+    for label in jobs:
+        for task in (0, 1):
+            _schema_lint(os.path.join(jobs[label]["log_dirs"][task],
+                                      "m.jsonl"), f"{label} {task}")
+    # The references, in this process: the one-process run restored from
+    # the survivor's ckpt_10, and the uninterrupted run.
+    base = cnn_args(WORK) + [
+        "--learning_rate", str(SUP_LR), "--total_steps", str(SIM_STEPS),
+        "--output_every", str(SUP_EVERY), "--eval_every", "1000",
+        "--checkpoint_every", str(SUP_EVERY)]
+    ref_dir = os.path.join(WORK, "sim_ref_restored")
+    os.makedirs(ref_dir)
+    src = jobs["sim_shrink"]["log_dirs"][0]
+    for n in (f"ckpt_{SIM_RESTORE}.msgpack",
+              f"ckpt_{SIM_RESTORE}.msgpack.sha256",
+              f"data_state_{SIM_RESTORE}.json"):
+        shutil.copy(os.path.join(src, n), ref_dir)
+    fused.reset_launches()
+    _, restored_tr, restored = run_trainer(base + ["--log_dir", ref_dir])
+    _, uninterrupted_tr, uninterrupted = run_trainer(base + [
+        "--log_dir", os.path.join(WORK, "sim_ref_uninterrupted")])
+    digests = {"restored": _params_digest(restored.state.params),
+               "uninterrupted": _params_digest(uninterrupted.state.params)}
+    for tr in (restored_tr, uninterrupted_tr):
+        tr.close()
+    check(shrink["digest"] == digests["restored"],
+          "the shrink survivor's parameters differ from the one-process "
+          f"run restored from its ckpt_{SIM_RESTORE}")
+    check(all(s["digest"] == digests["uninterrupted"] for s in seats),
+          "the 2 -> 1 -> 2 run's parameters differ from the uninterrupted "
+          "run's")
+    out = {"wall_s": wall_s, "respawned_at_s": respawned_at,
+           "shrink": shrink, "expand": seats, "digests": digests}
+    print(f"[supervise] lockstep sims on this card, one spawn of 4 rank "
+          f"processes + 1 respawn ({wall_s:.1f} s; respawned at "
+          f"{respawned_at:.1f} s): host_lost@{SIM_LOST} -> the survivor "
+          f"shrank to world 1 from ckpt_{SIM_RESTORE}, bit-identical to the "
+          f"one-process run restored from it; host_return@{SIM_RETURN} -> "
+          f"2 -> 1 -> 2, both seats bit-identical to the uninterrupted run; "
+          f"restarts: shrink {_rounded(shrink['restarts'])}, expand seat 0 "
+          f"{_rounded(seats[0]['restarts'])}, seat 1 "
+          f"{_rounded(seats[1]['restarts'])}; on {card}", flush=True)
+    return out
+
+
+def _window_step_ms(path) -> float:
+    """Mean ms/step of a run's `train` windows after the first (the first
+    holds the first dispatch's set-up)."""
+    ips = [r["images_per_sec"] for r in records(path)
+           if r["kind"] == "train"][1:]
+    return sum(128.0 / v * 1e3 for v in ips) / len(ips)
+
+
+def seam_phase(card) -> dict:
+    """Phase 38 (c): the main path's ms/step with ``--cluster_dir`` set
+    (lockstep off: a beat file written and the decision file read every
+    dispatch, the publisher and watchdog threads beside the loop) against
+    without it, eager and chunked at K = 10, in turns A/B/B/A."""
+    from dml_cnn_cifar10_tpu_torch.parallel import cluster as cluster_lib
+    # The seam's own calls, alone: a beat publish (tmp file, rename) and
+    # the decision file's read, then a whole begin_step + end_step.
+    mon = cluster_lib.ClusterMonitor(os.path.join(WORK, "seam_calls"), 0, 1)
+    try:
+        calls = {}
+        for name, fn in (
+                ("publish", lambda i: mon.store.publish(i, "train")),
+                ("decision_read", lambda i: mon.coordinator.read()),
+                ("begin_end_step", lambda i: (mon.begin_step(i),
+                                              mon.end_step(i + 1)))):
+            t0 = time.perf_counter()
+            for i in range(500):
+                fn(i)
+            calls[name] = (time.perf_counter() - t0) / 500 * 1e3
+    finally:
+        mon.close()
+    out = {"calls_ms": calls}
+    print(f"[supervise] the seam's calls alone (ms each, 500 calls): "
+          f"{ {k: round(v, 4) for k, v in calls.items()} }, on {card}",
+          flush=True)
+    for mode, k in (("eager", 1), ("chunked", SUP_K)):
+        ms = {"off": [], "on": []}
+        for i, on in enumerate((False, True, True, False)):
+            name = f"seam_{mode}_{i}"
+            args = cnn_args(WORK) + [
+                "--log_dir", os.path.join(WORK, name), "--total_steps",
+                str(SEAM_STEPS), "--output_every", str(SEAM_EVERY),
+                "--eval_every", "1000", "--checkpoint_every", "1000",
+                "--steps_per_dispatch", str(k), "--metrics_jsonl",
+                os.path.join(WORK, f"{name}.jsonl")]
+            if on:
+                args += ["--cluster_dir", os.path.join(WORK, name, "c")]
+            _, tr, _ = run_trainer(args)
+            tr.close()
+            ms["on" if on else "off"].append(
+                _window_step_ms(os.path.join(WORK, f"{name}.jsonl")))
+        on, off = (sum(v) / len(v) for v in (ms["on"], ms["off"]))
+        out[mode] = {"on_ms_per_step": ms["on"], "off_ms_per_step":
+                     ms["off"], "seam_ms_per_step": on - off}
+        print(f"[supervise] the cluster seam's cost, {mode}"
+              f"{' K = 10' if k > 1 else ''}: {on:.4f} ms/step with "
+              f"--cluster_dir against {off:.4f} without "
+              f"({on - off:+.4f}; runs {ms}), on {card}", flush=True)
+    return out
+
+
+def supervise_phase(card, dev, bytes_per_s, ops_per_s) -> dict:
+    """Phase 38 (see the module docstring); its numbers go to
+    ``OUT/slice19.json``."""
+    from dml_cnn_cifar10_tpu_torch.config import DataConfig, ModelConfig
+    from dml_cnn_cifar10_tpu_torch.data import ensure_dataset
+    from dml_cnn_cifar10_tpu_torch.models.cnn import CNN
+
+    t_phase = time.perf_counter()
+    ensure_dataset(DataConfig(dataset="synthetic",
+                              data_dir=os.path.join(WORK, "data"),
+                              synthetic_train_records=50000))
+    shapes = [tuple(p.shape) for p in
+              CNN(ModelConfig(logit_relu=False), DataConfig()).parameters()]
+    gen = torch.Generator(device=dev).manual_seed(38)
+
+    def make():
+        return {f"l{i}": torch.randn(s, device=dev, generator=gen)
+                for i, s in enumerate(shapes)}
+
+    res = {"card": card, "kernels": update_kernel_rows(
+        dev, card, bytes_per_s, ops_per_s,
+        [("sgd_update_plain", 0.0, 0.0, "supervised", make),
+         ("sgd_update_momentum", 0.9, 0.0, "supervised", make)],
+        lambda tag: "the CNN's 10 leaves (the supervised path's update)")}
+    res["kernels_s"] = time.perf_counter() - t_phase
+    # (a) one process: eager and chunked K1, then K2 under momentum.
+    res["eager"] = _supervised_run("eager", card, ("--fault_spec",
+                                                   SUP_FAULTS))
+    res["chunked"] = _supervised_run("chunked", card, (
+        "--fault_spec", SUP_FAULTS, "--steps_per_dispatch", str(SUP_K)))
+    res["momentum"] = _supervised_run("momentum", card, (
+        "--fault_spec", SUP_MOM_FAULTS, "--momentum", "0.9"), lr=SUP_MOM_LR)
+    res["one_process_s"] = time.perf_counter() - t_phase
+    # (b) two processes on this card, lockstep.
+    res["sims"] = sim_phase(card)
+    res["sims_s"] = time.perf_counter() - t_phase
+    # (c) the seam's cost.
+    res["seam"] = seam_phase(card)
+    res["phase_s"] = time.perf_counter() - t_phase
+    with open(os.path.join(OUT, "slice19.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    print(f"[supervise] phase 38 took {res['phase_s']:.1f} s (kernels "
+          f"{res['kernels_s']:.1f}, one process "
+          f"{res['one_process_s'] - res['kernels_s']:.1f}, sims "
+          f"{res['sims_s'] - res['one_process_s']:.1f}, seam "
+          f"{res['phase_s'] - res['sims_s']:.1f}) on {card}", flush=True)
+    return res
+
+
+def supervise_kernel_entries(sup) -> list:
+    """The kernels line's rows of phase 38: K1 and K2 on the CNN's leaves,
+    launched by the supervised main path across every attempt."""
+    out = []
+    for name, kid, line, runs in (
+            ("sgd_update_plain", "K1", 83, ("eager", "chunked")),
+            ("sgd_update_momentum", "K2", 70, ("momentum",))):
+        r = sup["kernels"][name]
+        out.append({
+            "name": name, "kernel": kid, "path": "supervised",
+            "route": "cuda",
+            "source": "dml_cnn_cifar10_tpu_torch/csrc/sgd_update.cu",
+            "cuda_kernel": "sgd_multi_kernel<true>" if kid == "K2"
+            else "sgd_multi_kernel<false>",
+            "replaces": f"dml_cnn_cifar10_tpu/ops/optimizer.py:{line}",
+            "launches": sup[runs[0]]["launches"][name],
+            **({"launches_chunked": sup["chunked"]["launches"][name]}
+               if kid == "K1" else {}),
+            "max_abs_err": r["max_abs_err"],
+            **{k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms",
+                                 "library_device_ms")},
+            "library": "torch.optim.SGD(fused=True).step",
+            "work": f"one update of the CNN's {r['leaves']} leaves "
+                    f"({r['elements']} f32 elements, mu={r['mu']}); "
+                    f"launches: phase 38's supervised {runs[0]} run across "
+                    f"its attempts ({sup[runs[0]]['attempts']}), one a step "
+                    f"dispatched ({sup[runs[0]]['steps_dispatched']})"})
+    return out
+
+
 def only_phase():
     """The phase named by ``--phase N`` (a debugging run of that phase
     alone after the build), or None."""
@@ -6992,7 +7730,7 @@ def dist_main() -> int:
 RANK_KINDS = {"cli": _rank_cli, "ring": _rank_ring, "ulysses": _rank_ulysses,
               "profile": _rank_profile, "chunk": _rank_chunk,
               "fit": _rank_fit, "shard": _rank_shard, "tp": _rank_tp,
-              "parts": _rank_parts}
+              "parts": _rank_parts, "supervise": _rank_supervise}
 
 
 def rank_main(argv) -> int:
@@ -7068,6 +7806,9 @@ def main() -> int:
             card, dev, bytes_per_s, ops_per_s))
     if only_phase() == "37":
         return phase_only_main(card, kind, count, lambda: pp_phase(
+            card, dev, bytes_per_s, ops_per_s))
+    if only_phase() == "38":
+        return phase_only_main(card, kind, count, lambda: supervise_phase(
             card, dev, bytes_per_s, ops_per_s))
     if only_phase() == "32":
         return phase_only_main(card, kind, count,
@@ -7567,6 +8308,9 @@ def main() -> int:
     # ---- 37. pipeline parallelism and the CNN's spatial split ---------
     pp_res = pp_phase(card, dev, bytes_per_s, ops_per_s, spawned=(
         pp_refs, pp_runs, extra_ranks))
+    stamp("38")
+    # ---- 38. the run supervisor and the cluster layer -----------------
+    sup = supervise_phase(card, dev, bytes_per_s, ops_per_s)
 
     for path in (train_jsonl, resume_jsonl, mom_jsonl, vit_jsonl,
                  os.path.join(WORK, "vit_resume.jsonl"), long_jsonl):
@@ -7652,6 +8396,7 @@ def main() -> int:
     kernels += resnet_kernel_entries(rn)
     kernels += moe_kernel_entries(moe_res)
     kernels += pp_kernel_entries(pp_res)
+    kernels += supervise_kernel_entries(sup)
     t = stats_time
     kernels.append({
         "name": "flash_fwd_stats", "kernel": "K5", "route": "cuda",

@@ -305,6 +305,11 @@ def _checkpoints(ckpt_dir: str) -> List[Tuple[int, str]]:
     return sorted(out)
 
 
+def all_checkpoint_steps(ckpt_dir: str) -> List[int]:
+    """Steps of every committed checkpoint, oldest first."""
+    return [step for step, _ in _checkpoints(ckpt_dir)]
+
+
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     cks = _checkpoints(ckpt_dir)
     return _ckpt_path(ckpt_dir, *cks[-1]) if cks else None
@@ -410,16 +415,19 @@ def _restore_one(path: str, target: TrainState,
 
 def restore_checkpoint(ckpt_dir: str, target: TrainState,
                        shard_io_threads: Optional[int] = None,
-                       on_event=None) -> TrainState:
+                       on_event=None, on_fallback=None) -> TrainState:
     """Restore the newest VERIFIABLE checkpoint, of either format, into
     ``target`` (in place, onto its layout), or return ``target`` unchanged
     when there is none. A candidate that fails its sidecar or its decode
-    is skipped with a warning and the next older one is tried; when
-    nothing restores, the newest candidate's error is raised.
+    is skipped with a warning, and ``on_fallback(step, path, reason,
+    walk_ms)`` when given (the trainer's ``ckpt_fallback`` record, with
+    the milliseconds spent in the walk so far), and the next older one is
+    tried; when nothing restores, the newest candidate's error is raised.
     ``shard_io_threads`` and ``on_event`` (its ``shard_io`` records) are
     the sharded codec's."""
     candidates = _checkpoints(ckpt_dir)[::-1]
     first_error: Optional[ValueError] = None
+    walk_t0 = time.perf_counter()
     for step, fmt in candidates:
         path = _ckpt_path(ckpt_dir, step, fmt)
         ok, reason = verify_checkpoint(path)
@@ -433,6 +441,9 @@ def restore_checkpoint(ckpt_dir: str, target: TrainState,
                     f"failed to restore checkpoint {path}: {reason}")
         print(f"[ckpt] skipping checkpoint {path}: {reason}; falling back "
               "to an older checkpoint", file=sys.stderr)
+        if on_fallback is not None:
+            on_fallback(step, path, reason,
+                        (time.perf_counter() - walk_t0) * 1000.0)
     if first_error is not None:
         raise first_error
     if candidates:

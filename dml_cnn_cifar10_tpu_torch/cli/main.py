@@ -41,11 +41,23 @@ schedule flags, and the rest of its optimizer surface
 window (``utils/devprof.py``). The run-safety flags are the JAX CLI's:
 ``--check_numerics`` with ``--on_nonfinite halt|skip|rollback`` and
 ``--recovery_retries``, ``--fault_spec`` (the step-seam kinds ``nan``,
-``sigterm``, ``ckpt_corrupt``, ``data_stall``), ``--checkpoint_every_secs``,
+``sigterm``, ``ckpt_corrupt``, ``data_stall``, the cluster kinds and the
+``@restore|adopt|decide`` triggers), ``--checkpoint_every_secs``,
 ``--async_checkpoint``, ``--preempt_sync_every`` (SIGTERM/SIGINT finish the
 dispatch, checkpoint and exit 0), ``--telemetry`` with
 ``--trace_events_path``, ``--health_metrics`` and ``--tensorboard_dir``;
-``--random_brightness`` and ``--random_contrast`` augment. Datasets:
+``--random_brightness`` and ``--random_contrast`` augment.
+``--supervise true`` runs ``--mode train`` under the run supervisor
+(``train/supervisor.py``: ``--recovery_backoff_s``,
+``--retry_budget_window``, ``--rollback_lr_scale``), and ``--cluster_dir``
+arms the cluster layer (``parallel/cluster.py``: ``--heartbeat_interval_s``,
+``--straggler_after_s``, ``--peer_dead_after_s``,
+``--collective_timeout_s``, ``--min_hosts``, ``--elastic_expand``, and
+``--cluster_lockstep``, under which each ``--worker_hosts`` process is a
+world of its own, as in the JAX package's simulation); a process that a
+restart decision fenced prints a notice and exits 0.
+``--coordinator_timeout_s`` and ``--coordinator_retries`` bound the
+rendezvous. Datasets:
 ``cifar10``, ``cifar100`` (their binaries on disk; nothing is fetched),
 ``synthetic`` and ``imagenet_synth`` (generated; 256 px stored, 224 crop,
 1000 classes); ``--use_native_loader false`` is accepted (the JAX
@@ -384,19 +396,107 @@ def build_parser() -> argparse.ArgumentParser:
                    help="what a --check_numerics detection does: halt "
                         "raises without saving; skip discards the "
                         "updates since the last finite boundary and "
-                        "keeps training; rollback logs the fault and "
-                        "raises for a supervisor (not ported). skip "
-                        "degrades to halt when the --recovery_retries "
-                        "budget is exhausted")
+                        "keeps training; rollback raises a classified "
+                        "failure the --supervise loop answers by "
+                        "restoring the last good checkpoint (optionally "
+                        "scaling LR by --rollback_lr_scale). skip/"
+                        "rollback degrade to halt when the "
+                        "--recovery_retries budget is exhausted")
+    p.add_argument("--supervise", type="bool", default=False,
+                   help="wrap training in the recovery supervisor: "
+                        "classified recoverable failures (non-finite "
+                        "loss under rollback, data-pipeline errors, "
+                        "checkpoint-restore errors) restore the last "
+                        "verifiable checkpoint, rewind the exact-resume "
+                        "data state, back off, and resume")
     p.add_argument("--recovery_retries", type=int, default=3,
-                   help="recovery budget: max on_nonfinite=skip events "
-                        "per run; exhausted degrades to halt")
+                   help="shared recovery budget: max on_nonfinite=skip "
+                        "events per run AND max supervisor restarts; "
+                        "exhausted degrades to halt")
+    p.add_argument("--retry_budget_window", type=int, default=0,
+                   help="progress-based retry-budget reset: when > 0, "
+                        "the supervisor's attempt counter resets after "
+                        "the newest checkpoint advances this many "
+                        "steps past the last retry — long runs "
+                        "absorbing well-spaced faults keep recovering "
+                        "while a fault burst still degrades to halt. "
+                        "0 = lifetime budget (historical behavior)")
+    p.add_argument("--recovery_backoff_s", type=float, default=0.5,
+                   help="supervisor restart backoff base (doubles per "
+                        "attempt, capped at 30s)")
+    p.add_argument("--rollback_lr_scale", type=float, default=1.0,
+                   help="LR multiplier applied at each supervisor "
+                        "rollback of a non-finite failure (1.0 = keep "
+                        "LR; a deterministically diverging run replayed "
+                        "at the same LR diverges again)")
     p.add_argument("--fault_spec", type=str, default=None,
                    help="deterministic fault injection for recovery "
-                        "drills: comma-separated kind@step with kinds "
-                        "nan, ckpt_corrupt, sigterm, data_stall; each "
-                        "fires once at the first dispatch at/after its "
-                        "step (several faults may share a step)")
+                        "drills: comma-separated kind@trigger with kinds "
+                        "nan, ckpt_corrupt, sigterm, data_stall — plus "
+                        "the cluster kinds heartbeat_stall, host_lost, "
+                        "collective_hang, host_return, decision_corrupt "
+                        "(need --cluster_dir). A trigger is a global "
+                        "step (fires once at the first dispatch at/after "
+                        "it; several faults may share a step) or a "
+                        "recovery phase restore|adopt|decide that fires "
+                        "inside the supervisor's recovery paths "
+                        "(utils/faults.py). The replica and network "
+                        "kinds are not ported (ROADMAP.md Queue 1 item "
+                        "5)")
+    p.add_argument("--cluster_dir", type=str, default=None,
+                   help="shared directory arming the cluster-resilience "
+                        "layer (parallel/cluster.py): per-process "
+                        "heartbeats, a collective watchdog classifying "
+                        "straggler vs. hang/host-loss at each dispatch "
+                        "seam, and chief-recorded coordinated elastic "
+                        "restarts. NFS/GCS-fuse in production, a tmpdir "
+                        "in the CPU simulation")
+    p.add_argument("--heartbeat_interval_s", type=float, default=0.5,
+                   help="background heartbeat cadence; beats publish "
+                        "from a daemon thread so a compiling/blocked "
+                        "host still looks alive")
+    p.add_argument("--straggler_after_s", type=float, default=2.0,
+                   help="dispatch-seam overrun after which the watchdog "
+                        "classifies peers (straggler telemetry for "
+                        "beating-but-behind peers)")
+    p.add_argument("--peer_dead_after_s", type=float, default=10.0,
+                   help="a peer whose newest heartbeat is older than "
+                        "this is declared lost: the run aborts "
+                        "deterministically (and elastically restarts "
+                        "under --supervise) instead of blocking in a "
+                        "collective forever")
+    p.add_argument("--collective_timeout_s", type=float, default=120.0,
+                   help="armed-seam duration after which the watchdog "
+                        "presumes the main thread wedged inside a "
+                        "collective and aborts this process after "
+                        "logging (a loud corpse beats a silent hang)")
+    p.add_argument("--min_hosts", type=int, default=1,
+                   help="floor for coordinated elastic restarts: the "
+                        "chief halts instead of shrinking the world "
+                        "below this many surviving hosts")
+    p.add_argument("--elastic_expand", type="bool", default=False,
+                   help="elastic scale-UP: a returning (or brand-new) "
+                        "host announces itself with a rejoin-phase "
+                        "heartbeat instead of staying fenced; the chief "
+                        "records a monotone-epoch expand decision "
+                        "growing the world to the live hosts and every "
+                        "process re-enters restore at the larger size. "
+                        "false = shrink-only: "
+                        "evicted hosts stay fenced")
+    p.add_argument("--cluster_lockstep", type="bool", default=False,
+                   help="simulation only: make the dispatch seam a "
+                        "software barrier over the heartbeat store so "
+                        "multi-process CPU runs without real "
+                        "collectives still block on (and recover from) "
+                        "a lost peer; real pods leave this off")
+    p.add_argument("--coordinator_timeout_s", type=float, default=60.0,
+                   help="per-attempt torch.distributed rendezvous wait "
+                        "for the coordinator; a slow-to-start "
+                        "coordinator is retried with bounded backoff "
+                        "(--coordinator_retries), not crashed on")
+    p.add_argument("--coordinator_retries", type=int, default=3,
+                   help="bounded retry budget around the coordinator "
+                        "bootstrap")
     p.add_argument("--preempt_sync_every", type=int, default=10,
                    help="steps between the ranks' preemption/clock-save "
                         "agreement exchanges (one process reacts "
@@ -454,6 +554,10 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
         check_numerics=args.check_numerics,
         on_nonfinite=args.on_nonfinite,
         recovery_retries=args.recovery_retries,
+        retry_budget_window=args.retry_budget_window,
+        recovery_backoff_s=args.recovery_backoff_s,
+        rollback_lr_scale=args.rollback_lr_scale,
+        supervise=args.supervise,
         fault_spec=args.fault_spec,
         tensorboard_dir=args.tensorboard_dir,
         seed=args.seed,
@@ -540,6 +644,16 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
     cfg.model.pipe_microbatches = args.pipe_microbatches
     cfg.model.pipe_schedule = args.pipe_schedule
     cfg.parallel.dist_backend = args.dist_backend
+    cfg.parallel.cluster_dir = args.cluster_dir
+    cfg.parallel.heartbeat_interval_s = args.heartbeat_interval_s
+    cfg.parallel.straggler_after_s = args.straggler_after_s
+    cfg.parallel.peer_dead_after_s = args.peer_dead_after_s
+    cfg.parallel.collective_timeout_s = args.collective_timeout_s
+    cfg.parallel.min_hosts = args.min_hosts
+    cfg.parallel.elastic_expand = args.elastic_expand
+    cfg.parallel.cluster_lockstep = args.cluster_lockstep
+    cfg.parallel.coordinator_timeout_s = args.coordinator_timeout_s
+    cfg.parallel.coordinator_retries = args.coordinator_retries
     if args.ckpt_format == "orbax":
         raise SystemExit(
             "--ckpt_format orbax is not portable to the PyTorch port: it "
@@ -634,6 +748,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     from dml_cnn_cifar10_tpu_torch.train.loop import Trainer
 
     try:
+        if args.mode == "train" and cfg.supervise:
+            from dml_cnn_cifar10_tpu_torch.train.supervisor import \
+                fit_supervised
+            result = fit_supervised(cfg, task_index=args.task_index)
+            if result is None:
+                # Fenced by a cluster restart decision (peers declared
+                # this process dead): a clean, saveless exit.
+                print("[cli] fenced by the cluster restart decision; "
+                      "exiting cleanly")
+                return 0
+            print(f"[cli] done at step {result.final_step}; "
+                  f"{result.images_per_sec:.1f} images/sec")
+            return 0
         trainer = Trainer(cfg, task_index=args.task_index)
         try:
             if args.mode == "eval":

@@ -254,6 +254,35 @@ class ParallelConfig:
     # exponential backoff) before a slow-to-start rank 0 is a failure.
     coordinator_timeout_s: float = 60.0
     coordinator_retries: int = 3
+    # The cluster layer (parallel/cluster.py), the JAX package's fields
+    # and defaults. cluster_dir arms it: a shared directory holding every
+    # process's heartbeat file and the chief's restart decisions. None =
+    # off.
+    cluster_dir: Optional[str] = None
+    # Background beat cadence: beats publish from a daemon thread, so a
+    # process that is compiling, capturing or blocked still looks alive.
+    heartbeat_interval_s: float = 0.5
+    # Dispatch-seam overrun after which the watchdog classifies peers
+    # (straggler telemetry for a peer beating but behind).
+    straggler_after_s: float = 2.0
+    # A peer whose newest beat is older than this is declared lost: the
+    # seam raises PeerLostError instead of blocking in a collective.
+    peer_dead_after_s: float = 10.0
+    # Armed-seam duration after which the watchdog presumes the main
+    # thread wedged inside a collective and ends THIS process (os._exit)
+    # after logging.
+    collective_timeout_s: float = 120.0
+    # Floor of a coordinated elastic shrink: below it the chief halts.
+    min_hosts: int = 1
+    # Elastic scale-up: a host a restart decision excluded announces
+    # itself with a `rejoin`-phase beat instead of fencing, and the chief
+    # records an expand decision growing the world to the live hosts.
+    elastic_expand: bool = False
+    # Simulation only: the dispatch seam waits for every live peer's beat
+    # to reach its step (a software barrier over the beat store), and no
+    # process group is opened: each process is a world of its own, as in
+    # the JAX package's CPU simulation. Real runs leave it off.
+    cluster_lockstep: bool = False
     # torch.distributed backend, chosen by the caller and never switched
     # after a failure: "nccl" when each rank has its own card, "gloo" on
     # the CPU or for several ranks sharing one card (NCCL refuses two
@@ -351,15 +380,36 @@ class TrainConfig:
     # "halt" raises without checkpointing the poisoned state; "skip"
     # restores the copy of the state kept at the last finite boundary
     # (every update since is discarded, the step counter moves on) and
-    # keeps training; "rollback" logs the fault and raises for a
-    # supervisor (not ported: ROADMAP.md Queue 1 item 5). skip degrades to
-    # halt once recovery_retries skips are spent.
+    # keeps training; "rollback" logs the fault and raises for the run
+    # supervisor (train/supervisor.py), which restores the newest
+    # verifiable checkpoint, rewinds the data state and retries with
+    # backoff. skip and rollback share the recovery_retries budget and
+    # degrade to halt when it is spent.
     on_nonfinite: str = "halt"            # halt | skip | rollback
+    # Shared recovery budget: skip events inside one fit() AND supervisor
+    # restart attempts across a run.
     recovery_retries: int = 3
-    # Deterministic fault injection (utils/faults.py): "kind@step,..."
-    # with kinds nan | ckpt_corrupt | sigterm | data_stall, each fired
-    # once at the first dispatch seam at/after its step. None disables.
+    # Supervisor restart backoff: base * 2^(attempt-1), capped.
+    recovery_backoff_s: float = 0.5
+    recovery_backoff_max_s: float = 30.0
+    # Progress-based budget reset: when > 0 and the newest checkpoint has
+    # advanced this many steps since the budget was last charged, the
+    # supervisor's attempt counter resets before the next failure is
+    # judged. 0 keeps the lifetime budget.
+    retry_budget_window: int = 0
+    # LR multiplier applied at each supervisor rollback of a non-finite
+    # failure (1.0 keeps the LR).
+    rollback_lr_scale: float = 1.0
+    # Deterministic fault injection (utils/faults.py): "kind@trigger,..."
+    # with the step-seam kinds nan | ckpt_corrupt | sigterm | data_stall,
+    # the cluster kinds (need cluster_dir), and the recovery-phase
+    # triggers @restore | @adopt | @decide (need supervise). Each fires
+    # once. None disables.
     fault_spec: Optional[str] = None
+    # Wrap fit() in the run supervisor (train/supervisor.py): classified
+    # recoverable failures restore the last verifiable checkpoint and
+    # resume instead of ending the run.
+    supervise: bool = False
     metrics_jsonl: Optional[str] = None   # structured metrics sink
     # Run-health telemetry (utils/telemetry.py): host-loop spans, goodput
     # fractions and device-memory snapshots in the metrics JSONL at the

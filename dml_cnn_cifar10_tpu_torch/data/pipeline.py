@@ -21,6 +21,15 @@ from dml_cnn_cifar10_tpu_torch.config import DataConfig
 from dml_cnn_cifar10_tpu_torch.data import download, records as rec
 
 
+class DataPipelineError(RuntimeError):
+    """A failure raised while drawing the next batch or chunk. The
+    training loop wraps its data seam's exceptions in it, so the run
+    supervisor (``train/supervisor.py``) classifies them as recoverable
+    (restore the last checkpoint, rebuild the pipeline, resume) instead
+    of treating an input hiccup like a model bug (the JAX package's
+    class)."""
+
+
 class Batch(NamedTuple):
     images: np.ndarray  # [B, crop_h, crop_w, C] float32
     labels: np.ndarray  # [B] int32

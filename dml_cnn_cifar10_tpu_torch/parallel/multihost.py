@@ -12,8 +12,8 @@ cards, gloo on the CPU), not parameter RPCs.
 Hardened as the JAX package's bootstrap is: the host list is validated up
 front (a bad ``--task_index`` or a duplicated ``host:port`` would otherwise
 surface as a late hang), and a rendezvous that is refused or times out is
-retried with bounded exponential backoff under ``coordinator_timeout_s``
-per attempt. That timeout also bounds every later collective's wait, so a
+retried with the shared bounded exponential backoff (``utils/backoff.py``)
+under ``coordinator_timeout_s`` per attempt. That timeout also bounds every later collective's wait, so a
 rank whose peer died fails instead of hanging.
 """
 
@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from dml_cnn_cifar10_tpu_torch.config import ParallelConfig
+from dml_cnn_cifar10_tpu_torch.utils import backoff
 
 
 def validate_hosts(worker_hosts: List[str], task_index: int) -> None:
@@ -72,14 +73,6 @@ def parallel_from_hosts(worker_hosts: List[str], task_index: int,
     return cfg
 
 
-def _delay_s(base_s: float, cap_s: float, attempt: int) -> float:
-    """Backoff before retry ``attempt`` (1-based): ``base * 2^(a-1)``
-    capped at ``cap_s`` — the JAX package's ``utils/backoff.delay_s``."""
-    if attempt < 1:
-        raise ValueError(f"attempt must be >= 1, got {attempt}")
-    return min(base_s * (2 ** (attempt - 1)), cap_s)
-
-
 def initialize(cfg: ParallelConfig, backend: str,
                device: torch.device) -> None:
     """Idempotent ``init_process_group`` from ``cfg`` on ``backend``, with
@@ -115,7 +108,7 @@ def initialize(cfg: ParallelConfig, backend: str,
                     f"coordinator {cfg.coordinator_address} unreachable "
                     f"after {attempt} attempt(s) x "
                     f"{cfg.coordinator_timeout_s:.0f}s: {e}") from e
-            delay = _delay_s(1.0, 30.0, attempt)
+            delay = backoff.delay_s(1.0, 30.0, attempt)
             print(f"[multihost] coordinator {cfg.coordinator_address} "
                   f"not ready (attempt {attempt}/"
                   f"{cfg.coordinator_retries}): {e}; retrying in "

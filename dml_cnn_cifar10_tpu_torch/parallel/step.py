@@ -750,7 +750,7 @@ class _GraphedChunk:
             self._graph, self._metrics = None, None
 
     def _warm_up(self, state: TrainState) -> None:
-        side = torch.cuda.Stream()
+        side = _warmup_stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             self._body(state, *self._inputs)
@@ -811,6 +811,20 @@ class _GraphedChunk:
         self._captured = _delta(before)
         _set_counts(before)
         self._graph, self._metrics = graph, metrics
+
+
+#: One warm-up stream a card for every capture in the process. cuBLAS
+#: keeps a workspace for each stream it has run on (32 MiB and more), so a
+#: new stream a capture would leave one behind with every graph a
+#: supervised run's next attempt captures.
+_WARMUP_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def _warmup_stream() -> torch.cuda.Stream:
+    dev = torch.cuda.current_device()
+    if dev not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[dev] = torch.cuda.Stream()
+    return _WARMUP_STREAMS[dev]
 
 
 def _dispatch(eager: Callable, graphed: Optional[_GraphedChunk],

@@ -81,7 +81,8 @@ Run safety (JAX ``train/loop.py:582-1215``):
 - ``check_numerics`` reads the loss the boundary already read; a
   non-finite one triggers ``on_nonfinite``: ``halt`` logs
   ``numerics_halt`` and raises ``FloatingPointError``; ``rollback`` logs a
-  ``fault`` and raises it for a supervisor (not ported); ``skip`` logs
+  ``fault`` and raises it for the run supervisor (``train/
+  supervisor.py``); ``skip`` logs
   ``fault`` and ``recovery``, copies the state kept at the last finite
   boundary back INTO the state's tensors (a chunk's CUDA graph is bound to
   their addresses, and K1/K2 update them in place: holding a reference is
@@ -131,7 +132,25 @@ the chief. ``--ckpt_format sharded`` writes ``ckpt_<step>.sharded/``
 ``shard_io`` records join the metrics stream; restore reads either
 format into any layout.
 
-Left out: the supervisor, peers, the cluster faults and the autopilot.
+A run supervisor drives the trainer as the JAX package's does (JAX
+``train/loop.py:66-69``): it passes ONE ``fault_injector``, ONE
+``cluster`` monitor and ONE ``logger`` to every attempt's trainer, and the
+trainer closes only what it built itself. With a cluster monitor
+(``--cluster_dir``, ``parallel/cluster.py``) each dispatch seam publishes a
+beat, checks for eviction and arms the watchdog (``begin_step``), fires the
+step faults (which may stall the beats, end the process or wedge the
+seam), waits at the lockstep barrier (``sync``, simulation only) and
+disarms (``end_step``); the checkpoint and eval phases name themselves in
+the beats (``set_phase``). ``init_or_restore`` fires the faults' ``@restore``
+seam, and every checkpoint the restore walk skips is a ``ckpt_fallback``
+record. A data-seam failure is a ``DataPipelineError``. With
+``cluster_lockstep`` the trainer opens no process group, whatever
+``num_processes`` says: each process is a world of its own (the JAX
+package's CPU simulation), and a preempted non-chief (``process_id`` > 0)
+exits without saving, since the chief owns the checkpoints (JAX
+``train/loop.py:1148-1170``).
+
+Left out: the peer replicas and the autopilot.
 """
 
 from __future__ import annotations
@@ -150,6 +169,7 @@ from dml_cnn_cifar10_tpu_torch.config import TrainConfig
 from dml_cnn_cifar10_tpu_torch.data import device_stream, download
 from dml_cnn_cifar10_tpu_torch.data import pipeline as pipe
 from dml_cnn_cifar10_tpu_torch.models.registry import get_model
+from dml_cnn_cifar10_tpu_torch.parallel import cluster as cluster_lib
 from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
 from dml_cnn_cifar10_tpu_torch.parallel import multihost
 from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
@@ -173,7 +193,8 @@ class TrainResult:
 
 
 class Trainer:
-    def __init__(self, cfg: TrainConfig, task_index: int = 0):
+    def __init__(self, cfg: TrainConfig, task_index: int = 0,
+                 fault_injector=None, cluster=None, logger=None):
         self.cfg = cfg
         self.task_index = task_index
         if cfg.on_nonfinite not in ("halt", "skip", "rollback"):
@@ -184,13 +205,15 @@ class Trainer:
             raise ValueError("trace_events_path needs telemetry=True (the "
                              "spans it writes are the tracer's)")
         # Deterministic fault injection (utils/faults.py); a bad spec
-        # fails here, before any set-up.
-        self.faults = faults_lib.FaultInjector.from_spec(cfg.fault_spec)
+        # fails here, before any set-up. The supervisor passes ONE
+        # injector across its attempts so fired events stay fired.
+        self.faults = fault_injector if fault_injector is not None \
+            else faults_lib.FaultInjector.from_spec(cfg.fault_spec)
         par = cfg.parallel
         k = self.steps_per_dispatch = max(1, cfg.steps_per_dispatch)
         self.device = rank_device(cfg.device, par.process_id,
                                   par.worker_hosts)
-        if par.num_processes > 1:
+        if par.num_processes > 1 and not par.cluster_lockstep:
             backend = par.dist_backend or default_backend(self.device)
             multihost.initialize(par, backend, self.device)
         self.mesh = mesh_lib.build_mesh(par)
@@ -253,9 +276,19 @@ class Trainer:
                   f"{len(lay.split)} of {len(lay.leaves)} leaves split, "
                   f"{lay.size} elements a rank in each sharded entry "
                   f"({', '.join(k for k in lay.keys)})", flush=True)
-        self.logger = MetricsLogger(
+        # An injected logger (the supervisor's: one stream for every
+        # attempt) is its owner's to close.
+        self._owns_logger = logger is None
+        self.logger = logger if logger is not None else MetricsLogger(
             cfg.metrics_jsonl if m.chief else None, task_index=task_index,
             tensorboard_dir=cfg.tensorboard_dir if m.chief else None)
+        # The cluster monitor (parallel/cluster.py): the supervisor passes
+        # ONE across its attempts (epoch and world must survive them); a
+        # bare trainer builds its own and closes it with the fit.
+        self._owns_cluster = cluster is None and par.cluster_dir is not None
+        self.cluster = cluster if cluster is not None \
+            else cluster_lib.ClusterMonitor.from_config(par,
+                                                        logger=self.logger)
         self.train_step = step_lib.make_train_step(
             self.model, cfg.optim, m, health_metrics=cfg.health_metrics)
         self.eval_step = step_lib.make_eval_step(self.model, m)
@@ -286,9 +319,21 @@ class Trainer:
         gen = torch.Generator().manual_seed(self.cfg.seed)
         state = step_lib.init_train_state(self.model, self.cfg.optim,
                                           self.device, gen, self.layout)
+        if self.faults is not None:
+            # The recovery-phase seam (utils/faults.py): a `kind@restore`
+            # fault strikes here, before the walk reads anything. Only
+            # recovery restores count (the supervisor arms it).
+            self.faults.phase_hook("restore", self.cfg.log_dir,
+                                   logger=self.logger, cluster=self.cluster)
+
+        def note_fallback(step, path, reason, walk_ms):
+            # A candidate the newest-verifiable walk skipped.
+            self.logger.log("ckpt_fallback", step=step, path=path,
+                            error=str(reason), walk_ms=walk_ms)
+
         return ckpt_lib.restore_checkpoint(
             self.cfg.log_dir, state, self.cfg.shard_io_threads,
-            self._shard_io)
+            self._shard_io, on_fallback=note_fallback)
 
     def _shard_io(self, kind: str, **fields) -> None:
         """The sharded codec's per-shard records, into the metrics
@@ -519,6 +564,8 @@ class Trainer:
                     nonfinite(loss, step)
                     last_metrics = None
                     return False
+            if self.cluster is not None:
+                self.cluster.set_phase("checkpoint")
             with tracer.span("checkpoint", cat="checkpoint"):
                 return ckpt_mgr.maybe_save(state, step, force=force,
                                            data_state=data_state(step))
@@ -575,17 +622,35 @@ class Trainer:
                 while global_step < total_steps and not stop:
                     if devwin is not None and (k == 1 or run_t0 is not None):
                         devwin.maybe_start(global_step)
+                    if self.cluster is not None:
+                        # Publish a beat, check for eviction, arm the
+                        # watchdog; raises PeerLostError when a peer's
+                        # beats went stale.
+                        self.cluster.begin_step(global_step)
                     if self.faults is not None:
-                        if any(e.kind == "ckpt_corrupt"
+                        if any(e.kind == "ckpt_corrupt" and e.phase is None
                                and e.step <= global_step
                                for e in self.faults.pending()):
                             ckpt_mgr.flush()   # corrupt a written file
                         state = self.faults.step_hook(
                             global_step, state, cfg.log_dir, self.logger,
-                            chief=self.mesh.chief)
+                            chief=self.mesh.chief, cluster=self.cluster)
+                    if self.cluster is not None:
+                        # The lockstep barrier (simulation only).
+                        self.cluster.sync(global_step)
                     first = run_t0 is None
                     with tracer.span("data_wait", cat="data"):
-                        inputs = next(prefetch)
+                        try:
+                            inputs = next(prefetch)
+                        except pipe.DataPipelineError:
+                            raise
+                        except Exception as e:
+                            # A failure drawing input is a pipeline
+                            # failure the supervisor may restart from the
+                            # last checkpoint, not a model bug.
+                            raise pipe.DataPipelineError(
+                                f"input pipeline failed at step "
+                                f"{global_step}: {e!r}") from e
                     # The first dispatch sets up (CUDA context, cuDNN
                     # plans, a chunk's graph capture): goodput's compile.
                     with tracer.span(
@@ -595,6 +660,11 @@ class Trainer:
                         state, metrics = step_fn(state, *inputs)
                     last_metrics = metrics
                     global_step += k
+                    if self.cluster is not None:
+                        # The dispatch came back: disarm the watchdog.
+                        # Boundary work runs unarmed while the publisher
+                        # keeps this process looking alive.
+                        self.cluster.end_step(global_step)
                     if first:
                         # First dispatch done enqueueing: one-time set-up
                         # is behind us.
@@ -676,6 +746,8 @@ class Trainer:
                         drained = True
                     if (i + k) % cfg.eval_every == 0:
                         boundary_check()
+                        if self.cluster is not None:
+                            self.cluster.set_phase("eval")
                         with tracer.span("eval", cat="eval"):
                             ta = self.evaluate(state, test_it)
                         if not cfg.eval_full_test_set:
@@ -725,10 +797,26 @@ class Trainer:
                     float(metrics["loss"])  # waits for the last step
                     avg_rate = ((global_step - start_step) * cfg.batch_size
                                 / max(time.perf_counter() - run_t0, 1e-9))
-                guarded_save(global_step, force=True)
-                if stop:
+                # A preempted non-chief of a world of its own (the
+                # lockstep simulation) does not save: the chief owns the
+                # checkpoints. In a real process group every rank enters
+                # the save together.
+                nonchief_preempt = (stop and self.mesh.world == 1
+                                    and not multihost.is_chief(cfg.parallel))
+                if nonchief_preempt:
+                    self.logger.log("peer_lost", step=global_step,
+                                    process_id=cfg.parallel.process_id,
+                                    reason="preempt_nonchief_exit")
+                    print(f"[preempt] signal {preempt.signum} on non-chief "
+                          f"process {cfg.parallel.process_id}: exiting "
+                          f"cleanly without saving (chief owns the "
+                          f"checkpoint)")
+                else:
+                    guarded_save(global_step, force=True)
+                if stop and not nonchief_preempt:
                     print(f"[preempt] signal {preempt.signum}: checkpointed "
                           f"at step {global_step}, exiting cleanly")
+                if stop:
                     self.logger.log("preempt", step=global_step,
                                     signum=preempt.signum)
                 self.logger.log("done", step=global_step,
@@ -745,6 +833,10 @@ class Trainer:
                 if devwin is not None:
                     devwin.close(global_step)
                 prefetch.close()
+                # A supervisor's monitor keeps its threads across
+                # attempts; one this trainer built dies with the fit.
+                if self._owns_cluster and self.cluster is not None:
+                    self.cluster.close()
                 # A failed or preempted run leaves its host-loop timeline
                 # too.
                 if tracer.enabled and cfg.trace_events_path:
@@ -756,14 +848,21 @@ class Trainer:
         return TrainResult(global_step, avg_rate, state, preempted=stop)
 
     def close(self) -> None:
-        """Close the metrics stream and free the chunk graphs (over NCCL
-        before the process group goes: a graph holds resources of the
-        communicators it captured)."""
-        self.logger.close()
+        """Close the metrics stream and the cluster monitor when this
+        trainer built them, and free the chunk graphs (over NCCL before
+        the process group goes: a graph holds resources of the
+        communicators it captured) and the last fit's device-resident
+        data, so a supervisor's next attempt captures on free memory."""
+        if self._owns_logger:
+            self.logger.close()
+        if self._owns_cluster and self.cluster is not None:
+            self.cluster.close()
         for fn in (self.train_fn, getattr(self, "train_chunk", None)):
             graph = getattr(fn, "graph", None)
             if graph is not None:
                 graph.release()
+        self.train_fn = self.train_chunk = None
+        self._resident_full_eval = self._resident_test_eval = None
 
 
 class _NoInputs:

@@ -17,8 +17,9 @@ with ``--fault_spec nan@N``:
 - On the chunked path the skip restores INTO the state's tensors: every
   tensor keeps its ``data_ptr`` (a chunk's CUDA graph is bound to them).
 - The spec grammar: the JAX parser's order and errors for the ported
-  kinds, ``NotImplementedError`` for the kinds and phase triggers that
-  belong to the supervisor.
+  kinds (the cluster kinds and the phase triggers among them),
+  ``NotImplementedError`` for the kinds that need the peer replicas or the
+  net transport.
 """
 
 import json
@@ -203,9 +204,16 @@ def test_fault_spec_grammar_matches_jax():
             jax_faults.parse_fault_spec(bad)
         with pytest.raises(ValueError):
             faults.parse_fault_spec(bad)
-    for queued in ("host_lost@5", "ckpt_corrupt@restore", "net_drop@3"):
+    for ported in ("host_lost@5", "ckpt_corrupt@restore"):
+        got = faults.parse_fault_spec(ported)
+        want = jax_faults.parse_fault_spec(ported)
+        assert [(e.kind, e.step, e.phase) for e in got] == [
+            (e.kind, e.step, e.phase) for e in want]
+    for queued in ("net_drop@3", "replica_corrupt@5"):
         jax_faults.parse_fault_spec(queued)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(NotImplementedError,
+                           match="Queue 1 item 5.*peer replicas.*net "
+                                 "transport"):
             faults.parse_fault_spec(queued)
     inj = faults.FaultInjector.from_spec("nan@3,data_stall@4")
     model = CNN(ModelConfig(), DataConfig())
