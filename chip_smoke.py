@@ -456,6 +456,36 @@ Then the run supervisor (``train/supervisor.py``) and the cluster layer
             restart's time. (c) The seam's cost: eager and chunked ms/step
             with ``--cluster_dir`` set (lockstep off) against without it,
             in turns. Numbers in ``OUT/slice19.json``.
+39. peer     The rest of resilience on the same recipe. K1 and K2 on the
+            CNN's leaves bit-equal to their plain version and timed. (a)
+            In phase 38's spawn, four lockstep pairs under
+            ``--peer_redundancy true --replica_keep 2 --ckpt_format
+            sharded`` with ``host_lost`` on process 1 (which commits its
+            pending replica push first): K1, K2 (momentum 0.9, lr 0.02)
+            and K1 with ``replica_corrupt@12`` on the survivor, eager with
+            ``host_lost@15``, and K1 in chunks of 10 (CUDA graphs) with
+            ``host_lost@10``. The chief decides ``source="peer"`` at step
+            10; the survivor rebuilds its state from process 1's replica
+            (the lost host's entries are placed first), every restore-side
+            ``shard_io`` record saying ``peer`` (the corrupted pair: a
+            classified miss, one ``peer_replica`` ``fallback`` record, then
+            the disk walk); each survivor bit-identical to the one-process
+            run (eager or chunked) restored from its ``ckpt_10``, K1 (K2)
+            once a step dispatched; the restore's time beside phase 38's
+            disk restore. (b) In the same spawn, phase 38's 2 -> 1 -> 2
+            drill over ``--cluster_transport net`` with
+            ``net_partition@15`` on process 1 (the partition heals after
+            6 s): process 1 is cut off and fences, process 0 shrinks, the
+            world expands again from ``ckpt_10`` or, when the chief's scan
+            sees the rejoin one scan late, ``ckpt_20``; both seats
+            bit-identical to the uninterrupted run. (c) The net transport's cost: the seam's
+            calls alone over ``file`` and ``net``, and the eager main
+            path's ms/step with ``--cluster_dir`` over ``net`` against
+            ``file``, in turns. (d) The port's chaos oracle
+            (``dml_cnn_cifar10_tpu_torch/tools/chaos.py``) with its workers
+            on this card: a ``train`` schedule and a ``peer_recovery``
+            schedule side by side, every invariant held. Numbers in
+            ``OUT/slice20.json``.
 
 The trainer runs cuDNN on its deterministic algorithms
 (``parallel/step.py:f32_parity``); phase 9b's and phase 35's graphs
@@ -469,9 +499,9 @@ cards, with 4 ranks beside 2 given four cards: SP data 2 x seq 2 against
 its 2 data ranks without the ring, and the DP CNN on 4 ranks; given three
 or more cards, phases 26-27 (and phase 31's Ulysses run) over NCCL on 3 of
 them.
-``--phase 32`` to ``--phase 38`` (alone or with ``--dist``, except 38)
-runs the build and that phase only; phases 36 and 37 run under ``--dist``
-only so.
+``--phase 32`` to ``--phase 39`` (alone or with ``--dist``, except 38
+and 39) runs the build and that phase only (39 with phase 38's sims,
+which its pairs ride); phases 36 and 37 run under ``--dist`` only so.
 
 The lines before the last are ``{"kernels": [...]}`` (K1 six times:
 its main path row, phase 30's with ``"path": "dp_chunk"``, phase 32's
@@ -481,7 +511,8 @@ model rank's leaves, and phase 35's on ResNet-18's and ResNet-50's
 leaves, ``"path": "resnet18"`` and ``"resnet50"``, and phase 36's on
 ``vit_moe``'s, ``"path": "vit_moe"``, as K2 three times more, phase
 37's on a pipeline stage's leaves, ``"path": "pipe"``, and phase 38's on
-the supervised main path, ``"path": "supervised"``, as K2 once more; K3,
+the supervised main path, ``"path": "supervised"``, and phase 39's on
+the peer-restored path, ``"path": "peer"``, as K2 twice more; K3,
 K4, K6
 and K7's training rows carry ``launches_vit_moe``;
 ``--dist`` prints K2's two shard rows; K3 five
@@ -501,8 +532,9 @@ ranks), ``slice10.json`` (phases 26-29), ``slice11.json`` (phase 30),
 ``slice12.json`` (phase 32, with its telemetry stream and Chrome trace),
 ``slice13.json`` (phase 33), ``slice14.json`` (phase 34),
 ``slice15.json`` (phase 35), ``slice16.json`` (phase 36),
-``slice17.json`` (phase 37), ``slice19.json`` (phase 38) and the ranks'
-logs are written to the output directory ``OUT``.
+``slice17.json`` (phase 37), ``slice19.json`` (phase 38),
+``slice20.json`` (phase 39, with its chaos streams) and the ranks' logs
+are written to the output directory ``OUT``.
 """
 
 from __future__ import annotations
@@ -7262,15 +7294,15 @@ def _rank_supervise(rank: int, job: dict) -> dict:
     return out
 
 
-def _sim_args(cluster_dir, expand) -> list:
+def _sim_args(cluster_dir, expand, lr=SUP_LR, *extra) -> list:
     return cnn_args(WORK) + [
-        "--learning_rate", str(SUP_LR), "--total_steps", str(SIM_STEPS),
+        "--learning_rate", str(lr), "--total_steps", str(SIM_STEPS),
         "--output_every", str(SUP_EVERY), "--eval_every", "1000",
         "--checkpoint_every", str(SUP_EVERY), "--supervise", "true",
         "--recovery_backoff_s", str(SUP_BACKOFF), "--cluster_dir",
         cluster_dir, "--cluster_lockstep", "true", "--elastic_expand",
         "true" if expand else "false", "--worker_hosts",
-        "localhost:1,localhost:2", *SIM_FLAGS]
+        "localhost:1,localhost:2", *SIM_FLAGS, *extra]
 
 
 def _sim_proc(label, task, job, life=""):
@@ -7311,14 +7343,16 @@ def _sim_fail(what, procs, msg):
     fail(f"{what}: {msg}")
 
 
-def sim_phase(card) -> dict:
+def sim_phase(card, extra_jobs=None) -> dict:
     """Phase 38 (b): two processes on this card as lockstep worlds of
     their own, both scenarios in one spawn: ``host_lost`` (the survivor
     shrinks to world 1 from ``ckpt_10`` and ends bit-identical to the
     one-process run restored from it) and ``host_lost`` + ``host_return``
     under ``--elastic_expand`` (process 1 respawned once the shrink is
     committed; the world goes 2 -> 1 -> 2 and both seats end bit-identical
-    to the uninterrupted run)."""
+    to the uninterrupted run). ``extra_jobs`` (phase 39's pairs, each with
+    its processes' ``want_rc``) ride the same spawn; their results come
+    back under ``"extra"`` for their own phase to check."""
     from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
     from dml_cnn_cifar10_tpu_torch.parallel import cluster as cluster_lib
     from dml_cnn_cifar10_tpu_torch.utils import faults as faults_lib
@@ -7334,6 +7368,7 @@ def sim_phase(card) -> dict:
                        "log_dirs": [os.path.join(WORK, label, f"logs_{t}")
                                     for t in (0, 1)],
                        "faults": faults, "cluster_dir": cluster_dir}
+    jobs.update(extra_jobs or {})
     t0 = time.perf_counter()
     procs = {label: [(t, "", _sim_proc(label, t, job)) for t in (0, 1)]
              for label, job in jobs.items()}
@@ -7375,6 +7410,9 @@ def sim_phase(card) -> dict:
     wall_s = time.perf_counter() - t0
     want = {("sim_shrink", 1, ""): faults_lib.EXIT_HOST_LOST,
             ("sim_expand", 1, ""): faults_lib.EXIT_HOST_LOST}
+    for label, job in (extra_jobs or {}).items():
+        for task, rc in enumerate(job["want_rc"]):
+            want[(label, task, "")] = rc
     for label, ps in procs.items():
         for task, life, p in ps:
             rc = want.get((label, task, life), 0)
@@ -7416,7 +7454,7 @@ def sim_phase(card) -> dict:
               epoch=2, attempt=1, source="disk", joined=[1])],
           f"expand: {recs('sim_expand', 0, 'elastic_expand')} "
           f"{recs('sim_expand', 1, 'elastic_expand')}")
-    for label in jobs:
+    for label in ("sim_shrink", "sim_expand"):
         for task in (0, 1):
             _schema_lint(os.path.join(jobs[label]["log_dirs"][task],
                                       "m.jsonl"), f"{label} {task}")
@@ -7448,9 +7486,13 @@ def sim_phase(card) -> dict:
           "the 2 -> 1 -> 2 run's parameters differ from the uninterrupted "
           "run's")
     out = {"wall_s": wall_s, "respawned_at_s": respawned_at,
-           "shrink": shrink, "expand": seats, "digests": digests}
-    print(f"[supervise] lockstep sims on this card, one spawn of 4 rank "
-          f"processes + 1 respawn ({wall_s:.1f} s; respawned at "
+           "shrink": shrink, "expand": seats, "digests": digests,
+           "extra": {label: [_sim_result(label, t) if rc == 0 else None
+                             for t, rc in enumerate(job["want_rc"])]
+                     for label, job in (extra_jobs or {}).items()}}
+    print(f"[supervise] lockstep sims on this card, one spawn of "
+          f"{2 * len(jobs)} rank processes + 1 respawn ({wall_s:.1f} s; "
+          f"respawned at "
           f"{respawned_at:.1f} s): host_lost@{SIM_LOST} -> the survivor "
           f"shrank to world 1 from ckpt_{SIM_RESTORE}, bit-identical to the "
           f"one-process run restored from it; host_return@{SIM_RETURN} -> "
@@ -7521,9 +7563,11 @@ def seam_phase(card) -> dict:
     return out
 
 
-def supervise_phase(card, dev, bytes_per_s, ops_per_s) -> dict:
+def supervise_phase(card, dev, bytes_per_s, ops_per_s,
+                    extra_jobs=None) -> dict:
     """Phase 38 (see the module docstring); its numbers go to
-    ``OUT/slice19.json``."""
+    ``OUT/slice19.json``. ``extra_jobs`` ride its sims' spawn
+    (:func:`sim_phase`)."""
     from dml_cnn_cifar10_tpu_torch.config import DataConfig, ModelConfig
     from dml_cnn_cifar10_tpu_torch.data import ensure_dataset
     from dml_cnn_cifar10_tpu_torch.models.cnn import CNN
@@ -7555,7 +7599,7 @@ def supervise_phase(card, dev, bytes_per_s, ops_per_s) -> dict:
         "--fault_spec", SUP_MOM_FAULTS, "--momentum", "0.9"), lr=SUP_MOM_LR)
     res["one_process_s"] = time.perf_counter() - t_phase
     # (b) two processes on this card, lockstep.
-    res["sims"] = sim_phase(card)
+    res["sims"] = sim_phase(card, extra_jobs)
     res["sims_s"] = time.perf_counter() - t_phase
     # (c) the seam's cost.
     res["seam"] = seam_phase(card)
@@ -7598,6 +7642,387 @@ def supervise_kernel_entries(sup) -> list:
                     f"launches: phase 38's supervised {runs[0]} run across "
                     f"its attempts ({sup[runs[0]]['attempts']}), one a step "
                     f"dispatched ({sup[runs[0]]['steps_dispatched']})"})
+    return out
+
+
+# ---- phase 39: peer replicas, the net transport, the chaos oracle -------
+# The replica fault's step on the survivor (after the step-10 push, before
+# the host loss), the net drill's dead-peer threshold (the partition heals
+# after utils/netfaults.py's 6 s: the majority must have shrunk by then,
+# and 3.5 s leaves 2.5 s for that while tolerating a slower start than the
+# JAX oracle's 2.5 s), and the seam runs' length.
+PEER_CORRUPT, NET_DEAD_S, NET_SEAM_STEPS = 12, "3.5", 200
+# The net drill's expand restores from the newest checkpoint when the
+# chief's rejoin scan sees process 1: ckpt_10 after the host_return@18
+# hold, or ckpt_20 when a loaded host's 0.5 s loopback scan times out and
+# the next scan, past the step-20 save, sees it. Either way both seats end
+# bit-identical to the uninterrupted run (tests/test_torch_peer_sim.py
+# accepts the same pair).
+NET_EXPAND_RESTORES = (SIM_RESTORE, 2 * SIM_RESTORE)
+PEER_FLAGS = ["--ckpt_format", "sharded", "--peer_redundancy", "true",
+              "--replica_keep", "2"]
+NET_FLAGS = ["--cluster_transport", "net", "--net_timeout_s", "0.5",
+             "--net_retries", "2"]
+PEER_RECORD = dict(step=SIM_RESTORE, restore_step=SIM_RESTORE, world_size=1,
+                   epoch=1, attempt=1, source="peer", lost=[1])
+
+
+def peer_jobs() -> dict:
+    """Phase 39 (a) and (b)'s lockstep pairs, for phase 38's spawn: the
+    CNN recipe under ``--peer_redundancy`` with ``host_lost@15`` on
+    process 1, plain SGD (K1), momentum 0.9 at lr 0.02 (K2), and K1 with
+    ``replica_corrupt@12`` on the survivor; K1 in chunks of ``SUP_K``
+    with ``host_lost@10`` (the seam of step 10, after its push); and the
+    2 -> 1 -> 2 drill over ``--cluster_transport net`` with
+    ``net_partition@15`` on process 1."""
+    from dml_cnn_cifar10_tpu_torch.utils import faults as faults_lib
+    lost, dead = f"host_lost@{SIM_LOST}", faults_lib.EXIT_HOST_LOST
+    jobs = {}
+    for label, lr, extra, faults, want in (
+            ("peer_k1", SUP_LR, PEER_FLAGS, ["", lost], [0, dead]),
+            ("peer_chunked", SUP_LR, PEER_FLAGS + [
+                "--steps_per_dispatch", str(SUP_K)],
+             ["", f"host_lost@{SIM_RESTORE}"], [0, dead]),
+            ("peer_k2", SUP_MOM_LR, PEER_FLAGS + ["--momentum", "0.9"],
+             ["", lost], [0, dead]),
+            ("peer_corrupt", SUP_LR, PEER_FLAGS,
+             [f"replica_corrupt@{PEER_CORRUPT}", lost], [0, dead]),
+            ("net_expand", SUP_LR, NET_FLAGS + ["--peer_dead_after_s",
+                                                NET_DEAD_S],
+             [f"host_return@{SIM_RETURN}", f"net_partition@{SIM_LOST}"],
+             [0, 0])):
+        cluster_dir = os.path.join(WORK, label, "cluster")
+        jobs[label] = {"kind": "supervise", "deterministic": True,
+                       "args": _sim_args(cluster_dir, label == "net_expand",
+                                         lr, *extra),
+                       "log_dirs": [os.path.join(WORK, label, f"logs_{t}")
+                                    for t in (0, 1)],
+                       "faults": faults, "cluster_dir": cluster_dir,
+                       "want_rc": want}
+    return jobs
+
+
+def _elastic(path, kind) -> list:
+    return [{k: r[k] for k in ("step", "restore_step", "world_size", "epoch",
+                               "attempt", "source", "lost", "joined")
+             if k in r} for r in records(path) if r["kind"] == kind]
+
+
+def _peer_pair_check(label, result, kernel, ref_digest, card) -> dict:
+    """(a)'s gates on one pair's survivor: K1/K2 once a step dispatched,
+    bit-identical to the one-process run restored from ``ckpt_10``, a
+    ``source="peer"`` decision at step 10, and the restore's reads: from
+    the peers only (the state placed from process 1's replica), or
+    (``peer_corrupt``) a classified miss, one ``peer_replica``
+    ``fallback`` record and the disk walk after it."""
+    path = os.path.join(WORK, label, "logs_0", "m.jsonl")
+    other = "sgd_update_plain" if kernel == "sgd_update_momentum" \
+        else "sgd_update_momentum"
+    check(not result["fenced"] and result["final_step"] == SIM_STEPS,
+          f"{label}: {result}")
+    check(result["launches"][kernel] == result["steps_dispatched"]
+          and result["launches"][other] == 0,
+          f"{label}: launches {result['launches']} for "
+          f"{result['steps_dispatched']} steps dispatched")
+    check(result["digest"] == ref_digest, f"{label}: the survivor's "
+          f"parameters differ from the one-process run restored from "
+          f"ckpt_{SIM_RESTORE}")
+    check(_elastic(path, "elastic_restart") == [PEER_RECORD],
+          f"{label}: {_elastic(path, 'elastic_restart')}")
+    recs = records(path)
+    peer = [(r["op"], r["step"], r["owner"], r["ok"]) for r in recs
+            if r["kind"] == "peer_replica" and r["op"] != "push"]
+    reads = [(r["op"], r["source"]) for r in recs if r["kind"] == "shard_io"
+             and r["op"] != "save"]
+    if label == "peer_corrupt":
+        fallbacks = [r for r in recs if r["kind"] == "peer_replica"
+                     and r["op"] == "fallback"]
+        check(len(fallbacks) == 1 and "verification" in fallbacks[0]["error"]
+              and [r["fault"] for r in recs if r["kind"] == "fault"
+                   and r["injected"]] == ["replica_corrupt"]
+              and peer[0] == ("decide", SIM_RESTORE, None, True),
+              f"{label}: peer records {peer}")
+        after = recs[recs.index(fallbacks[0]):]
+        check(any(r["kind"] == "shard_io" and r["op"] == "restore"
+                  and r["source"] == "disk" for r in after),
+              f"{label}: no disk read after the fallback: {reads}")
+    else:
+        check(peer == [("decide", SIM_RESTORE, None, True),
+                       ("verify", SIM_RESTORE, 1, True),
+                       ("reconstruct", SIM_RESTORE, 1, True)],
+              f"{label}: peer records {peer}")
+        check(reads and all(src == "peer" for _, src in reads)
+              and not [r for r in recs if r["kind"] == "ckpt_fallback"],
+              f"{label}: restore-side shard_io {reads}")
+    _schema_lint(path, label)
+    pushes = [r for r in recs if r["kind"] == "peer_replica"
+              and r["op"] == "push"]
+    out = {"restarts": result["restarts"], "reads": reads, "peer": peer,
+           "push_secs": [r["secs"] for r in pushes],
+           "push_bytes": [r["bytes"] for r in pushes],
+           "launches": result["launches"],
+           "steps_dispatched": result["steps_dispatched"]}
+    print(f"[peer] {label}: decided source=peer at step {SIM_RESTORE}; "
+          f"restore reads {reads}; {kernel} launched "
+          f"{result['launches'][kernel]} for {result['steps_dispatched']} "
+          f"steps dispatched; bit-identical to the one-process run restored "
+          f"from ckpt_{SIM_RESTORE}; restarts {_rounded(result['restarts'])};"
+          f" pushes {out['push_secs']} s of {out['push_bytes']} bytes, on "
+          f"{card}", flush=True)
+    return out
+
+
+def net_seam_phase(card) -> dict:
+    """Phase 39 (c): the net transport's cost on the eager CNN. The seam's
+    calls alone over each transport (a beat publish, the decision read, a
+    whole begin_step + end_step; process 0 of a world of 1, which over
+    ``net`` hosts the service and talks to it over loopback), then the
+    main path's ms/step with ``--cluster_dir`` over ``net`` against
+    ``file``, in turns net/file/file/net."""
+    from dml_cnn_cifar10_tpu_torch.parallel import cluster as cluster_lib
+    calls = {}
+    for transport in ("file", "net"):
+        mon = cluster_lib.ClusterMonitor(
+            os.path.join(WORK, f"net_seam_calls_{transport}"), 0, 1,
+            transport=transport)
+        try:
+            got = calls[transport] = {}
+            for name, fn in (
+                    ("publish", lambda i: mon.store.publish(i, "train")),
+                    ("decision_read", lambda i: mon.coordinator.read()),
+                    ("begin_end_step", lambda i: (mon.begin_step(i),
+                                                  mon.end_step(i + 1)))):
+                t0 = time.perf_counter()
+                for i in range(300):
+                    fn(i)
+                got[name] = (time.perf_counter() - t0) / 300 * 1e3
+        finally:
+            mon.close()
+    print(f"[net] the seam's calls alone (ms each, 300 calls): "
+          f"{ {t: {k: round(v, 4) for k, v in c.items()} for t, c in calls.items()} }"
+          f", on {card}", flush=True)
+    ms = {"net": [], "file": []}
+    for i, transport in enumerate(("net", "file", "file", "net")):
+        name = f"net_seam_{i}"
+        _, tr, _ = run_trainer(cnn_args(WORK) + [
+            "--log_dir", os.path.join(WORK, name), "--total_steps",
+            str(NET_SEAM_STEPS), "--output_every", str(SEAM_EVERY),
+            "--eval_every", "1000", "--checkpoint_every", "1000",
+            "--metrics_jsonl", os.path.join(WORK, f"{name}.jsonl"),
+            "--cluster_dir", os.path.join(WORK, name, "c"),
+            "--cluster_transport", transport])
+        tr.close()
+        ms[transport].append(
+            _window_step_ms(os.path.join(WORK, f"{name}.jsonl")))
+    net, file = (sum(v) / len(v) for v in (ms["net"], ms["file"]))
+    print(f"[net] the net seam's cost, eager: {net:.4f} ms/step over net "
+          f"against {file:.4f} over file ({net - file:+.4f}; runs {ms}), on "
+          f"{card}", flush=True)
+    return {"calls_ms": calls, "net_ms_per_step": ms["net"],
+            "file_ms_per_step": ms["file"], "net_minus_file_ms": net - file}
+
+
+def chaos_phase(card) -> dict:
+    """Phase 39 (d): the port's chaos oracle with its workers on this
+    card: after the fault-free reference, one sampled ``train`` schedule
+    (seed 0) and one ``peer_recovery`` schedule (``replica_corrupt@14``
+    before the backbone ``host_lost@15``) side by side, every invariant
+    held."""
+    import concurrent.futures
+
+    from dml_cnn_cifar10_tpu_torch.tools import chaos as chaos_lib
+    work = os.path.join(WORK, "chaos")
+    t0 = time.perf_counter()
+    harness = chaos_lib.ChaosHarness(os.path.join(work, "refs"),
+                                     device="cuda")
+    harness.reference_digest()
+    ref_s = time.perf_counter() - t0
+    jobs = {"train": dict(seeds=[0], scenario="train"),
+            "peer_recovery": dict(seeds=[0], scenario="peer_recovery",
+                                  explicit_spec="replica_corrupt@14")}
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {name: pool.submit(
+            chaos_lib.run_campaign, workdir=os.path.join(work, name),
+            metrics_jsonl=os.path.join(OUT, f"chaos_{name}.jsonl"),
+            refs=harness._refs, device="cuda", **job)
+            for name, job in jobs.items()}
+        out = {name: f.result() for name, f in futures.items()}
+    for name, summary in out.items():
+        check(summary["schedules"] == 1 and summary["failed"] == 0,
+              f"chaos {name}: {summary['results']}")
+        _schema_lint(os.path.join(OUT, f"chaos_{name}.jsonl"),
+                     f"chaos {name}")
+    check(out["peer_recovery"]["faults_by_kind"] == {
+        "replica_corrupt": 1, "host_lost": 1},
+        f"chaos peer_recovery: {out['peer_recovery']['faults_by_kind']}")
+    res = {"reference_s": ref_s, "wall_s": time.perf_counter() - t0,
+           **{name: {k: v for k, v in summary.items()
+                     if k != "reference_digests"}
+              for name, summary in out.items()}}
+    print(f"[chaos] on this card: reference {ref_s:.1f} s, then "
+          + "; ".join(f"{name} \"{s['results'][0]['spec']}\" held every "
+                      f"invariant in {s['results'][0]['secs']} s (injected "
+                      f"{s['faults_by_kind']})" for name, s in out.items())
+          + f"; {res['wall_s']:.1f} s in all, on {card}", flush=True)
+    return res
+
+
+def peer_phase(card, dev, bytes_per_s, ops_per_s, sims) -> dict:
+    """Phase 39 (see the module docstring): ``sims`` is phase 38's
+    :func:`sim_phase` result, which carried :func:`peer_jobs`; the numbers
+    go to ``OUT/slice20.json``."""
+    from dml_cnn_cifar10_tpu_torch.config import DataConfig, ModelConfig
+    from dml_cnn_cifar10_tpu_torch.models.cnn import CNN
+    from dml_cnn_cifar10_tpu_torch.ops import optimizer as fused
+
+    t_phase = time.perf_counter()
+    shapes = [tuple(p.shape) for p in
+              CNN(ModelConfig(logit_relu=False), DataConfig()).parameters()]
+    gen = torch.Generator(device=dev).manual_seed(39)
+
+    def make():
+        return {f"l{i}": torch.randn(s, device=dev, generator=gen)
+                for i, s in enumerate(shapes)}
+
+    res = {"card": card, "kernels": update_kernel_rows(
+        dev, card, bytes_per_s, ops_per_s,
+        [("sgd_update_plain", 0.0, 0.0, "peer", make),
+         ("sgd_update_momentum", 0.9, 0.0, "peer", make)],
+        lambda tag: "the CNN's 10 leaves (the peer-restored path's update)")}
+    extra, digests = sims["extra"], dict(sims["digests"])
+    # (a) K2's reference: one process restored from the K2 survivor's
+    # ckpt_10 (K1's is phase 38's: the same recipe, the same checkpoint).
+    src = os.path.join(WORK, "peer_k2", "logs_0")
+    ref_dir = os.path.join(WORK, "peer_ref_k2")
+    ckpt = f"ckpt_{SIM_RESTORE}.sharded"
+    shutil.copytree(os.path.join(src, ckpt), os.path.join(ref_dir, ckpt))
+    for n in (f"{ckpt}.sha256", f"data_state_{SIM_RESTORE}.json"):
+        shutil.copy(os.path.join(src, n), ref_dir)
+    fused.reset_launches()
+    _, tr, ref = run_trainer(cnn_args(WORK) + [
+        "--learning_rate", str(SUP_MOM_LR), "--momentum", "0.9",
+        "--total_steps", str(SIM_STEPS), "--output_every", str(SUP_EVERY),
+        "--eval_every", "1000", "--checkpoint_every", str(SUP_EVERY),
+        "--ckpt_format", "sharded", "--log_dir", ref_dir])
+    digests["restored_k2"] = _params_digest(ref.state.params)
+    tr.close()
+    # The chunked pair's: one process restored from its survivor's
+    # ckpt_10, in chunks of SUP_K.
+    src = os.path.join(WORK, "peer_chunked", "logs_0")
+    ref_dir = os.path.join(WORK, "peer_ref_chunked")
+    shutil.copytree(os.path.join(src, ckpt), os.path.join(ref_dir, ckpt))
+    for n in (f"{ckpt}.sha256", f"data_state_{SIM_RESTORE}.json"):
+        shutil.copy(os.path.join(src, n), ref_dir)
+    _, tr, ref = run_trainer(cnn_args(WORK) + [
+        "--learning_rate", str(SUP_LR), "--total_steps", str(SIM_STEPS),
+        "--output_every", str(SUP_EVERY), "--eval_every", "1000",
+        "--checkpoint_every", str(SUP_EVERY), "--steps_per_dispatch",
+        str(SUP_K), "--ckpt_format", "sharded", "--log_dir", ref_dir])
+    digests["restored_chunked"] = _params_digest(ref.state.params)
+    tr.close()
+    res["pairs"] = {
+        label: _peer_pair_check(label, extra[label][0], kernel,
+                                digests[ref_key], card)
+        for label, kernel, ref_key in (
+            ("peer_k1", "sgd_update_plain", "restored"),
+            ("peer_k2", "sgd_update_momentum", "restored_k2"),
+            ("peer_corrupt", "sgd_update_plain", "restored"),
+            ("peer_chunked", "sgd_update_plain", "restored_chunked"))}
+    disk = sims["shrink"]["restarts"][0]["restore_s"]
+    peer = res["pairs"]["peer_k1"]["restarts"][0]["restore_s"]
+    res["restore_s"] = {"disk_phase38": disk, "peer": peer, "peer_k2":
+                        res["pairs"]["peer_k2"]["restarts"][0]["restore_s"],
+                        "peer_chunked": res["pairs"]["peer_chunked"][
+                            "restarts"][0]["restore_s"],
+                        "peer_miss_then_disk": res["pairs"]["peer_corrupt"][
+                            "restarts"][0]["restore_s"]}
+    print(f"[peer] restore after the host loss: {res['restore_s']} s "
+          f"(phase 38's shrink restores from disk), on {card}", flush=True)
+    res["a_s"] = time.perf_counter() - t_phase
+    # (b) the 2 -> 1 -> 2 drill over the net transport.
+    seats = extra["net_expand"]
+    for seat, r in enumerate(seats):
+        path = os.path.join(WORK, "net_expand", f"logs_{seat}", "m.jsonl")
+        check(not r["fenced"] and r["final_step"] == SIM_STEPS
+              and r["digest"] == digests["uninterrupted"],
+              f"net_expand seat {seat}: {r}, the parameters must equal the "
+              f"uninterrupted run's")
+        check(r["launches"]["sgd_update_plain"] == r["steps_dispatched"],
+              f"net_expand seat {seat}: launches {r['launches']} for "
+              f"{r['steps_dispatched']} steps")
+        expand = [(e["restore_step"], e["world_size"], e["epoch"],
+                   e["source"], e["joined"])
+                  for e in _elastic(path, "elastic_expand")]
+        check(len(expand) == 1 and expand[0][0] in NET_EXPAND_RESTORES
+              and expand[0][1:] == (2, 2, "disk", [1]),
+              f"net_expand seat {seat}: elastic_expand {expand}")
+        _schema_lint(path, f"net_expand {seat}")
+    recs = records(os.path.join(WORK, "net_expand", "logs_1", "m.jsonl"))
+    errors = sorted({r["error"] for r in recs
+                     if r["kind"] == "net" and not r["ok"]})
+    check([r["fault"] for r in recs if r["kind"] == "fault"
+           and r["injected"]] == ["net_partition"] and errors
+          and set(errors) <= {"timeout", "unreachable"},
+          f"net_expand seat 1: net errors {errors}")
+    shrink = _elastic(os.path.join(WORK, "net_expand", "logs_0", "m.jsonl"),
+                      "elastic_restart")
+    check([(e["world_size"], e["source"], e["lost"]) for e in shrink]
+          == [(1, "disk", [1])], f"net_expand seat 0: {shrink}")
+    res["net_expand"] = {"seats": seats, "net_errors": errors}
+    print(f"[net] net_partition@{SIM_LOST} over --cluster_transport net: "
+          f"process 1 cut off ({errors}), process 0 shrank, the partition "
+          f"healed, 2 -> 1 -> 2, both seats bit-identical to the "
+          f"uninterrupted run; restarts seat 0 "
+          f"{_rounded(seats[0]['restarts'])}, seat 1 "
+          f"{_rounded(seats[1]['restarts'])}, on {card}", flush=True)
+    res["b_s"] = time.perf_counter() - t_phase
+    res["seam"] = net_seam_phase(card)
+    res["c_s"] = time.perf_counter() - t_phase
+    res["chaos"] = chaos_phase(card)
+    res["phase_s"] = time.perf_counter() - t_phase
+    with open(os.path.join(OUT, "slice20.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    print(f"[peer] phase 39 took {res['phase_s']:.1f} s after its spawn "
+          f"(kernels and (a) {res['a_s']:.1f}, (b) "
+          f"{res['b_s'] - res['a_s']:.1f}, seam "
+          f"{res['c_s'] - res['b_s']:.1f}, chaos "
+          f"{res['phase_s'] - res['c_s']:.1f}) on {card}", flush=True)
+    return res
+
+
+def peer_kernel_entries(peer) -> list:
+    """The kernels line's rows of phase 39: K1 and K2 on the CNN's leaves,
+    launched by the survivors of the peer-restored pairs across their
+    attempts (their states rebuilt from the replicas)."""
+    out = []
+    for name, kid, line, label in (
+            ("sgd_update_plain", "K1", 83, "peer_k1"),
+            ("sgd_update_momentum", "K2", 70, "peer_k2")):
+        r, pair = peer["kernels"][name], peer["pairs"][label]
+        out.append({
+            "name": name, "kernel": kid, "path": "peer", "route": "cuda",
+            "source": "dml_cnn_cifar10_tpu_torch/csrc/sgd_update.cu",
+            "cuda_kernel": "sgd_multi_kernel<true>" if kid == "K2"
+            else "sgd_multi_kernel<false>",
+            "replaces": f"dml_cnn_cifar10_tpu/ops/optimizer.py:{line}",
+            "launches": pair["launches"][name],
+            "steps_dispatched": pair["steps_dispatched"],
+            **({"launches_chunked": peer["pairs"]["peer_chunked"][
+                "launches"][name], "steps_dispatched_chunked": peer[
+                    "pairs"]["peer_chunked"]["steps_dispatched"]}
+               if kid == "K1" else {}),
+            "max_abs_err": r["max_abs_err"],
+            **{k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms",
+                                 "library_device_ms")},
+            "library": "torch.optim.SGD(fused=True).step",
+            "work": f"one update of the CNN's {r['leaves']} leaves "
+                    f"({r['elements']} f32 elements, mu={r['mu']}); "
+                    f"launches: phase 39's {label} survivor across its "
+                    f"attempts, its state rebuilt from the peer replicas "
+                    f"at step {SIM_RESTORE}, one a step dispatched"
+                    + (f" (launches_chunked: the peer_chunked survivor's, "
+                       f"chunks of {SUP_K})" if kid == "K1" else "")})
     return out
 
 
@@ -7810,6 +8235,16 @@ def main() -> int:
     if only_phase() == "38":
         return phase_only_main(card, kind, count, lambda: supervise_phase(
             card, dev, bytes_per_s, ops_per_s))
+    if only_phase() == "39":
+        def run39():
+            from dml_cnn_cifar10_tpu_torch.config import DataConfig
+            from dml_cnn_cifar10_tpu_torch.data import ensure_dataset
+            ensure_dataset(DataConfig(dataset="synthetic",
+                                      data_dir=os.path.join(WORK, "data"),
+                                      synthetic_train_records=50000))
+            return peer_phase(card, dev, bytes_per_s, ops_per_s,
+                              sim_phase(card, peer_jobs()))
+        return phase_only_main(card, kind, count, run39)
     if only_phase() == "32":
         return phase_only_main(card, kind, count,
                                lambda: run_safety_phase(card))
@@ -8310,7 +8745,12 @@ def main() -> int:
         pp_refs, pp_runs, extra_ranks))
     stamp("38")
     # ---- 38. the run supervisor and the cluster layer -----------------
-    sup = supervise_phase(card, dev, bytes_per_s, ops_per_s)
+    # (with phase 39's lockstep pairs on its sims' spawn)
+    sup = supervise_phase(card, dev, bytes_per_s, ops_per_s,
+                          extra_jobs=peer_jobs())
+    stamp("39")
+    # ---- 39. peer replicas, the net transport, the chaos oracle -------
+    peer = peer_phase(card, dev, bytes_per_s, ops_per_s, sup["sims"])
 
     for path in (train_jsonl, resume_jsonl, mom_jsonl, vit_jsonl,
                  os.path.join(WORK, "vit_resume.jsonl"), long_jsonl):
@@ -8397,6 +8837,7 @@ def main() -> int:
     kernels += moe_kernel_entries(moe_res)
     kernels += pp_kernel_entries(pp_res)
     kernels += supervise_kernel_entries(sup)
+    kernels += peer_kernel_entries(peer)
     t = stats_time
     kernels.append({
         "name": "flash_fwd_stats", "kernel": "K5", "route": "cuda",

@@ -415,7 +415,8 @@ def _restore_one(path: str, target: TrainState,
 
 def restore_checkpoint(ckpt_dir: str, target: TrainState,
                        shard_io_threads: Optional[int] = None,
-                       on_event=None, on_fallback=None) -> TrainState:
+                       on_event=None, on_fallback=None,
+                       deadline_s: float = 0.0) -> TrainState:
     """Restore the newest VERIFIABLE checkpoint, of either format, into
     ``target`` (in place, onto its layout), or return ``target`` unchanged
     when there is none. A candidate that fails its sidecar or its decode
@@ -423,12 +424,23 @@ def restore_checkpoint(ckpt_dir: str, target: TrainState,
     walk_ms)`` when given (the trainer's ``ckpt_fallback`` record, with
     the milliseconds spent in the walk so far), and the next older one is
     tried; when nothing restores, the newest candidate's error is raised.
+    ``deadline_s`` (``--restore_deadline_s``; 0: no limit) budgets the
+    walk: past it, no older candidate is tried and a ``ValueError`` (the
+    supervisor's ``ckpt_restore`` class) names what was skipped.
     ``shard_io_threads`` and ``on_event`` (its ``shard_io`` records) are
     the sharded codec's."""
     candidates = _checkpoints(ckpt_dir)[::-1]
     first_error: Optional[ValueError] = None
+    skipped = []
     walk_t0 = time.perf_counter()
     for step, fmt in candidates:
+        if deadline_s and time.perf_counter() - walk_t0 > deadline_s:
+            walk_ms = (time.perf_counter() - walk_t0) * 1000.0
+            raise ValueError(
+                f"checkpoint restore walk in {ckpt_dir} exceeded its "
+                f"{deadline_s:.1f}s deadline after {walk_ms:.0f}ms "
+                f"({len(skipped)} candidates skipped: "
+                f"{'; '.join(skipped)}); nothing restorable in budget")
         path = _ckpt_path(ckpt_dir, step, fmt)
         ok, reason = verify_checkpoint(path)
         if ok:
@@ -441,6 +453,7 @@ def restore_checkpoint(ckpt_dir: str, target: TrainState,
                     f"failed to restore checkpoint {path}: {reason}")
         print(f"[ckpt] skipping checkpoint {path}: {reason}; falling back "
               "to an older checkpoint", file=sys.stderr)
+        skipped.append(f"{os.path.basename(path)}: {reason}")
         if on_fallback is not None:
             on_fallback(step, path, reason,
                         (time.perf_counter() - walk_t0) * 1000.0)

@@ -218,9 +218,12 @@ def shard_checksum_path(fname: str) -> str:
 
 
 def _write_one_shard(ckpt_path: str, fname: str, part: Dict[str, list],
-                     on_event: Optional[OnEvent]) -> None:
+                     on_event: Optional[OnEvent],
+                     source: str = "disk") -> int:
     """Serialize and atomically write one data file, then its sha256
-    sidecar (committed after the data)."""
+    sidecar (committed after the data); returns the data file's bytes.
+    ``source`` tags its ``shard_io`` record (``"peer"`` for a peer
+    replica's part, ``ckpt/peerstore.py``)."""
     from dml_cnn_cifar10_tpu_torch.ckpt.checkpoint import to_bytes
 
     t0 = time.perf_counter()
@@ -240,7 +243,8 @@ def _write_one_shard(ckpt_path: str, fname: str, part: Dict[str, list],
     os.replace(tmp, sc)
     _emit(on_event, op="save", shard=fname, bytes=len(data),
           secs=round(time.perf_counter() - t0, 6), verify=None,
-          source="disk")
+          source=source)
+    return len(data)
 
 
 def write_shard_files(ckpt_path: str, payload: Dict[str, list], rank: int,
@@ -318,10 +322,12 @@ def save_sharded(ckpt_path: str, state, mesh=None,
 
 
 def _read_one_shard(ckpt_path: str, fname: str,
-                    on_event: Optional[OnEvent]) -> Dict[str, Any]:
+                    on_event: Optional[OnEvent],
+                    source: str = "disk") -> Dict[str, Any]:
     """Read, verify against its sidecar (a present one must match digest
     and length; a missing one passes) and unpack one shard file; a
-    failure raises ``ValueError``."""
+    failure raises ``ValueError``. ``source`` tags its ``shard_io``
+    records."""
     from dml_cnn_cifar10_tpu_torch.ckpt.checkpoint import from_bytes
 
     t0 = time.perf_counter()
@@ -340,7 +346,7 @@ def _read_one_shard(ckpt_path: str, fname: str,
         if not verify:
             _emit(on_event, op="restore", shard=fname, bytes=len(data),
                   secs=round(time.perf_counter() - t0, 6), verify=False,
-                  source="disk")
+                  source=source)
             raise ValueError(
                 f"shard file {fname} in {ckpt_path} failed sha256 "
                 f"integrity verification (corrupt/truncated shard or "
@@ -348,7 +354,7 @@ def _read_one_shard(ckpt_path: str, fname: str,
     part = from_bytes(data)
     _emit(on_event, op="restore", shard=fname, bytes=len(data),
           secs=round(time.perf_counter() - t0, 6), verify=verify,
-          source="disk")
+          source=source)
     return part
 
 
@@ -405,7 +411,7 @@ def restore_sharded(ckpt_path: str, paths: List[str],
             f"config does not: {extra[:5]}{'...' if len(extra) > 5 else ''}"
             f" — it was written with a different --model/--optimizer/"
             f"--ema_decay/--async_staleness configuration")
-    tree: Dict[str, Any] = {field: {} for field in _FIELDS}
+    arrays = {}
     for path in paths:
         info = meta["leaves"].get(path)
         if info is None or path not in shards:
@@ -428,6 +434,15 @@ def restore_sharded(ckpt_path: str, paths: List[str],
             raise ValueError(
                 f"leaf {path!r} only {int(seen.sum())}/{full.size} "
                 f"elements covered by shard files in {ckpt_path}")
+        arrays[path] = full
+    return tree_of(arrays)
+
+
+def tree_of(arrays: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """The state tree ``{"params", "opt", "model_state"}`` of whole
+    leaves keyed by their :func:`state_leaves` paths."""
+    tree: Dict[str, Any] = {field: {} for field in _FIELDS}
+    for path, full in arrays.items():
         field, *keys = path[1:].split("/")
         node = tree[field]
         for key in keys[:-1]:

@@ -52,10 +52,15 @@ dispatch, checkpoint and exit 0), ``--telemetry`` with
 ``--retry_budget_window``, ``--rollback_lr_scale``), and ``--cluster_dir``
 arms the cluster layer (``parallel/cluster.py``: ``--heartbeat_interval_s``,
 ``--straggler_after_s``, ``--peer_dead_after_s``,
-``--collective_timeout_s``, ``--min_hosts``, ``--elastic_expand``, and
+``--collective_timeout_s``, ``--min_hosts``, ``--elastic_expand``,
+``--peer_redundancy`` with ``--replica_keep`` (``ckpt/peerstore.py``: a
+lost host's state rebuilt from its peer's replica), ``--cluster_transport
+net`` with ``--net_timeout_s`` and ``--net_retries`` (``parallel/net.py``:
+process 0 serves the coordination directory over HTTP), and
 ``--cluster_lockstep``, under which each ``--worker_hosts`` process is a
 world of its own, as in the JAX package's simulation); a process that a
 restart decision fenced prints a notice and exits 0.
+``--restore_deadline_s`` budgets the restore walk.
 ``--coordinator_timeout_s`` and ``--coordinator_retries`` bound the
 rendezvous. Datasets:
 ``cifar10``, ``cifar100`` (their binaries on disk; nothing is fetched),
@@ -440,9 +445,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "it; several faults may share a step) or a "
                         "recovery phase restore|adopt|decide that fires "
                         "inside the supervisor's recovery paths "
-                        "(utils/faults.py). The replica and network "
-                        "kinds are not ported (ROADMAP.md Queue 1 item "
-                        "5)")
+                        "(utils/faults.py); the replica kinds "
+                        "replica_corrupt, replica_stale (need "
+                        "--peer_redundancy) and the network kinds "
+                        "net_partition, net_delay, net_drop, net_dup "
+                        "(need --cluster_transport net)")
     p.add_argument("--cluster_dir", type=str, default=None,
                    help="shared directory arming the cluster-resilience "
                         "layer (parallel/cluster.py): per-process "
@@ -483,6 +490,47 @@ def build_parser() -> argparse.ArgumentParser:
                         "process re-enters restore at the larger size. "
                         "false = shrink-only: "
                         "evicted hosts stay fenced")
+    p.add_argument("--peer_redundancy", type="bool", default=False,
+                   help="diskless recovery (ckpt/peerstore.py): at every "
+                        "checkpoint boundary each host also pushes its "
+                        "local shard payload to its ring-successor's "
+                        "replica store under --cluster_dir (async, "
+                        "off the step path, sha256 sidecars); on "
+                        "host_lost the chief may decide source=peer and "
+                        "survivors restore with ZERO checkpoint reads, "
+                        "reconstructing the lost host's shards from its "
+                        "replica; any missing/stale/corrupt replica "
+                        "falls back to the disk restore walk. n=1: "
+                        "no-op (flag legal)")
+    p.add_argument("--replica_keep", type=int, default=2,
+                   help="peer-replica retention: committed replica "
+                        "payloads kept per owner (newest K checkpoint "
+                        "boundaries)")
+    p.add_argument("--restore_deadline_s", type=float, default=0.0,
+                   help="wall-clock budget for the newest→oldest "
+                        "checkpoint fallback walk at restore; exceeding "
+                        "it raises a classified ckpt_restore error "
+                        "instead of scanning a huge retention dir "
+                        "forever (0 = unbounded)")
+    p.add_argument("--cluster_transport", type=str, default="file",
+                   choices=["file", "net"],
+                   help="coordination transport (heartbeats, restart "
+                        "decisions, peer-replica pushes): 'file' = the "
+                        "shared-directory store (n=1 and test fallback); "
+                        "'net' = a socket service (parallel/net.py) "
+                        "hosted by process 0 over the same directory — "
+                        "bounded timeouts, classified transport errors, "
+                        "and the seam the net_* chaos faults partition")
+    p.add_argument("--net_timeout_s", type=float, default=5.0,
+                   help="per-request socket timeout on the net "
+                        "coordination transport; every operation is "
+                        "bounded so a dead/partitioned coordinator "
+                        "degrades to the classified peer_lost/eviction "
+                        "paths, never a hang (lockstep sims run 0.5)")
+    p.add_argument("--net_retries", type=int, default=2,
+                   help="bounded retry budget per net-transport "
+                        "operation (exponential backoff between "
+                        "attempts; retried on timeout/unreachable/5xx)")
     p.add_argument("--cluster_lockstep", type="bool", default=False,
                    help="simulation only: make the dispatch seam a "
                         "software barrier over the heartbeat store so "
@@ -651,6 +699,12 @@ def config_from_args(args: argparse.Namespace) -> config_lib.TrainConfig:
     cfg.parallel.collective_timeout_s = args.collective_timeout_s
     cfg.parallel.min_hosts = args.min_hosts
     cfg.parallel.elastic_expand = args.elastic_expand
+    cfg.parallel.peer_redundancy = args.peer_redundancy
+    cfg.parallel.replica_keep = args.replica_keep
+    cfg.restore_deadline_s = args.restore_deadline_s
+    cfg.parallel.cluster_transport = args.cluster_transport
+    cfg.parallel.net_timeout_s = args.net_timeout_s
+    cfg.parallel.net_retries = args.net_retries
     cfg.parallel.cluster_lockstep = args.cluster_lockstep
     cfg.parallel.coordinator_timeout_s = args.coordinator_timeout_s
     cfg.parallel.coordinator_retries = args.coordinator_retries

@@ -278,6 +278,28 @@ class ParallelConfig:
     # itself with a `rejoin`-phase beat instead of fencing, and the chief
     # records an expand decision growing the world to the live hosts.
     elastic_expand: bool = False
+    # Peer-redundant shard replicas (ckpt/peerstore.py): at every
+    # committed checkpoint each host also pushes its shard payload to its
+    # ring successor's replica store under <cluster_dir>/replicas, so an
+    # elastic restart can rebuild a lost host's state from a peer with no
+    # checkpoint read. Needs cluster_dir; a 1-process world is a legal
+    # no-op. Off: every restore reads disk.
+    peer_redundancy: bool = False
+    # Committed replica steps kept per owner before the oldest is pruned.
+    replica_keep: int = 2
+    # Coordination transport (parallel/net.py): "file" is the shared
+    # directory above; "net" carries the same store and coordinator over
+    # a stdlib-HTTP service that process 0 hosts over cluster_dir, every
+    # request bounded, retried and its failures classified, so a dead or
+    # partitioned coordinator becomes the ordinary peer_lost / eviction
+    # paths instead of a hang.
+    cluster_transport: str = "file"
+    # Per-request socket timeout of the net transport (the lockstep
+    # simulations run 0.5 s).
+    net_timeout_s: float = 5.0
+    # Extra attempts of a net-transport operation (bounded backoff
+    # between them) before its failure surfaces.
+    net_retries: int = 2
     # Simulation only: the dispatch seam waits for every live peer's beat
     # to reach its step (a software barrier over the beat store), and no
     # process group is opened: each process is a world of its own, as in
@@ -367,6 +389,10 @@ class TrainConfig:
     ckpt_format: str = "msgpack"
     # Thread pool of the sharded codec's per-shard file IO.
     shard_io_threads: int = 4
+    # Wall-clock budget of the restore walk's newest-to-oldest fallback
+    # (ckpt/checkpoint.py): past it the walk raises a classified
+    # ckpt_restore error instead of scanning on. 0 = no limit.
+    restore_deadline_s: float = 0.0
     # Several ranks agree on the preemption flag (and a due wall-clock
     # save) every this many steps, in one exchange over the process
     # group: no rank may leave the step loop alone, or its peers hang in

@@ -1,11 +1,15 @@
 """Cluster resilience: heartbeats, collective watchdog, coordinated restart.
 
-A framework-free copy of ``dml_cnn_cifar10_tpu/parallel/cluster.py``,
-without its peer-replica store and its network transport (ROADMAP.md
-Queue 1 item 5): every beat and decision goes through files in a shared
-directory, and a restart always restores from disk. The on-disk formats
-are the JAX module's, byte for byte, so a beat or a decision written by
-either reads back field for field in the other.
+A framework-free copy of ``dml_cnn_cifar10_tpu/parallel/cluster.py``. The
+on-disk formats are the JAX module's, byte for byte, so a beat or a
+decision written by either package reads back field for field in the
+other. Beats and decisions go through files in a shared directory, or,
+with ``transport="net"`` (``--cluster_transport net``), over the HTTP
+coordination service of ``parallel/net.py``, which process 0 hosts over
+the same directory. With ``peer_redundancy`` the monitor carries the
+peer-replica store (``ckpt/peerstore.py``): a chief may decide a restart
+``source="peer"``, and the survivors rebuild the state from the replicas
+instead of the disk walk.
 
 Synchronous data parallelism turns one hung or dead host into a stall
 of every collective, with no error and no log line. This module is the
@@ -103,9 +107,9 @@ class Beat:
     step: int
     wallclock: float
     phase: str
-    # Free-form payload beyond the train-loop fields. The JAX package's
-    # serving fleet and peer store publish here; the port's train phases
-    # leave it None. Beat files without the key still decode (default).
+    # Free-form payload beyond the train-loop fields: the peer store's
+    # {"replica_step": N} (the JAX package's serving fleet publishes here
+    # too). None without one; beat files without the key still decode.
     extra: Optional[Dict] = None
 
     def age_s(self, now: Optional[float] = None) -> float:
@@ -122,10 +126,11 @@ class RestartDecision:
     # arrived; the scale-UP half). Default keeps pre-expand decision
     # files decodable.
     kind: str = "shrink"
-    # Where survivors restore from. The JAX package also writes "peer"
-    # (its peer-replica store); the port's decisions always say "disk",
-    # the newest-verifiable checkpoint walk. The field stays so the file
-    # is the JAX module's, byte for byte.
+    # Where survivors restore from: "disk" (the newest-verifiable
+    # checkpoint walk) or "peer" (the peer-replica store,
+    # ckpt/peerstore.py: lost hosts' shards from their replicas, placed
+    # first, own shards from memory, zero checkpoint reads). The default
+    # keeps decision files without the key decodable, restoring from disk.
     source: str = "disk"
 
 
@@ -462,7 +467,10 @@ class ClusterMonitor:
                  peer_dead_after_s: float = 10.0,
                  collective_timeout_s: float = 120.0,
                  min_hosts: int = 1, lockstep: bool = False,
-                 elastic_expand: bool = False, logger=None, abort_fn=None):
+                 elastic_expand: bool = False,
+                 peer_redundancy: bool = False, replica_keep: int = 2,
+                 transport: str = "file", net_timeout_s: float = 5.0,
+                 net_retries: int = 2, logger=None, abort_fn=None):
         self.cluster_dir = cluster_dir
         self.process_id = process_id
         self.min_hosts = min_hosts
@@ -479,9 +487,42 @@ class ClusterMonitor:
         self._stalled = False
         self._last_beat_log = 0.0
         self._last_rejoin_scan = 0.0
-        self.store = HeartbeatStore(cluster_dir, process_id,
-                                    log_fn=self.log)
-        self.coordinator = RestartCoordinator(cluster_dir, log_fn=self.log)
+        # The transport: "file" is the shared directory; "net" carries the
+        # same store and coordinator contracts over parallel/net.py, the
+        # service hosted by process 0 over cluster_dir, and every process
+        # (process 0 too, over loopback: one code path) a client of it.
+        self.net_server = None
+        self.net_client = None
+        if transport == "net":
+            from dml_cnn_cifar10_tpu_torch.parallel import net as net_lib
+            if process_id == 0:
+                self.net_server = net_lib.CoordServer(cluster_dir)
+            self.net_client = net_lib.CoordClient(
+                cluster_dir, process_id, timeout_s=net_timeout_s,
+                retries=net_retries, log_fn=self.log)
+            self.store = net_lib.NetHeartbeatStore(
+                cluster_dir, process_id, self.net_client, log_fn=self.log)
+            self.coordinator = net_lib.NetRestartCoordinator(
+                cluster_dir, self.net_client, log_fn=self.log)
+        elif transport == "file":
+            self.store = HeartbeatStore(cluster_dir, process_id,
+                                        log_fn=self.log)
+            self.coordinator = RestartCoordinator(cluster_dir,
+                                                  log_fn=self.log)
+        else:
+            raise ValueError(f"unknown cluster transport {transport!r} "
+                             f"(want 'file' or 'net')")
+        # The peer-replica store rides the monitor, so its payload cache,
+        # push thread and committed steps span the supervisor's attempts,
+        # like the epoch and the world. None: diskless recovery off.
+        self.peer_store = None
+        self._pending_peer_restore = None
+        if peer_redundancy:
+            from dml_cnn_cifar10_tpu_torch.ckpt.peerstore import \
+                PeerReplicaStore
+            self.peer_store = PeerReplicaStore(
+                cluster_dir, process_id, list(range(num_processes)),
+                keep=replica_keep, log_fn=self.log, client=self.net_client)
         self.watchdog = CollectiveWatchdog(
             self.store, self, straggler_after_s, peer_dead_after_s,
             collective_timeout_s, abort_fn=abort_fn)
@@ -489,7 +530,7 @@ class ClusterMonitor:
         self._publisher = threading.Thread(
             target=self._publish_loop, daemon=True,
             name="heartbeat-publisher")
-        self.store.publish(0, "init")
+        self.store.publish(0, "init", extra=self._beat_extra())
         self._publisher.start()
         self.watchdog.start()
 
@@ -509,6 +550,11 @@ class ClusterMonitor:
             min_hosts=parallel_cfg.min_hosts,
             lockstep=parallel_cfg.cluster_lockstep,
             elastic_expand=parallel_cfg.elastic_expand,
+            peer_redundancy=parallel_cfg.peer_redundancy,
+            replica_keep=parallel_cfg.replica_keep,
+            transport=parallel_cfg.cluster_transport,
+            net_timeout_s=parallel_cfg.net_timeout_s,
+            net_retries=parallel_cfg.net_retries,
             logger=logger, abort_fn=abort_fn)
 
     # -- identity / world ------------------------------------------------
@@ -542,13 +588,35 @@ class ClusterMonitor:
 
     # -- heartbeat publishing -------------------------------------------
 
+    def _beat_extra(self) -> Optional[Dict]:
+        """The replica's staleness rides the beat: the chief's decide seam
+        learns every host's newest pushed replica step (a LOST host's from
+        its last beat) without reading the replica store."""
+        if self.peer_store is None:
+            return None
+        return {"replica_step": self.peer_store.replica_step}
+
     def _publish_loop(self) -> None:
         while not self._stop.wait(self.heartbeat_interval_s):
             if not self._stalled:
-                self.store.publish(self._step, self._phase)
+                self.store.publish(self._step, self._phase,
+                                   extra=self._beat_extra())
 
     def set_phase(self, phase: str) -> None:
         self._phase = phase
+
+    def flush_replicas(self) -> None:
+        """Wait (bounded) for this process's pending replica pushes, then
+        publish a beat advertising the newest committed replica step. The
+        ``host_lost`` drill calls it before the exit: a host lost after a
+        boundary's replica committed, so the chief's peer decision does
+        not hang on how far the push thread got."""
+        if self.peer_store is None:
+            return
+        self.peer_store.flush()
+        if not self._stalled:
+            self.store.publish(self._step, self._phase,
+                               extra=self._beat_extra())
 
     def stall_heartbeats(self) -> None:
         """Fault hook (``heartbeat_stall@N``): stop publishing while the
@@ -566,7 +634,7 @@ class ClusterMonitor:
         self._step = step
         self._phase = phase
         if not self._stalled:
-            self.store.publish(step, phase)
+            self.store.publish(step, phase, extra=self._beat_extra())
             now = time.time()
             if now - self._last_beat_log >= self.heartbeat_interval_s:
                 self._last_beat_log = now
@@ -673,19 +741,54 @@ class ClusterMonitor:
     def decide_restart(self, lost: Sequence[int],
                        restore_step: int) -> RestartDecision:
         """Chief half of the protocol: shrink the world by the lost
-        hosts and commit the decision survivors will poll, restoring
-        from disk at ``restore_step`` (the newest checkpoint). Raises
-        ``PeerLostError`` (unrecoverable by world-shrink) when the
-        survivor set would fall under ``min_hosts``."""
+        hosts, pick the restore source (the peer replicas when every
+        old-world host, the lost one included, advertised a pushed
+        replica; the disk walk otherwise) and commit the decision
+        survivors will poll. ``restore_step`` is the disk candidate (the
+        newest checkpoint); a peer-sourced decision restores at the
+        replica step instead. Raises ``PeerLostError`` (unrecoverable by
+        world-shrink) when the survivor set would fall under
+        ``min_hosts``."""
         survivors = [p for p in self._survivors if p not in set(lost)]
         if len(survivors) < self.min_hosts:
             raise PeerLostError(
                 sorted(lost),
                 f"only {len(survivors)} survivor(s) left, below "
                 f"min_hosts={self.min_hosts}; halting")
+        source, step = self._choose_restore_source(restore_step)
         return self.coordinator.record(RestartDecision(
             epoch=self.epoch + 1, world_size=len(survivors),
-            restore_step=restore_step, survivors=survivors))
+            restore_step=step, survivors=survivors, source=source))
+
+    def _choose_restore_source(self, disk_step: int):
+        """Peer or disk, from the beats: the restore step is the MINIMUM
+        replica step the old world's hosts advertised (a lost host's last
+        beat persists), the newest every replica set can serve; viable
+        when every host pushed once. Logged as a ``peer_replica``
+        ``decide`` record with its staleness (beat steps ahead of the
+        replica step)."""
+        if self.peer_store is None or not self.peer_store.enabled:
+            return "disk", disk_step
+        beats = self.store.read_all()
+        steps = []
+        for pid in self._survivors:
+            if pid == self.process_id:
+                steps.append(self.peer_store.replica_step)
+                continue
+            beat = beats.get(pid)
+            extra = beat.extra if beat is not None else None
+            steps.append(int((extra or {}).get("replica_step", -1)))
+        peer_step = min(steps) if steps else -1
+        beat_step = max([b.step for p, b in beats.items()
+                         if p in self._survivors] + [self._step])
+        ok = peer_step >= 0
+        self.log("peer_replica", op="decide",
+                 step=peer_step if ok else disk_step, owner=None,
+                 bytes=None, secs=None, ok=ok, error=None,
+                 staleness=max(beat_step - peer_step, 0) if ok else None)
+        if not ok:
+            return "disk", disk_step
+        return "peer", peer_step
 
     def await_restart(self, timeout_s: float) -> RestartDecision:
         """Non-chief half: poll for the chief's decision; fence if it
@@ -703,11 +806,31 @@ class ClusterMonitor:
         """Enter the new world: the decision's survivor set (smaller on
         a shrink, larger on an expand), next epoch, dead bookkeeping
         cleared (the dead are no longer expected — and a rejoined host
-        must stop counting as a corpse)."""
+        must stop counting as a corpse). A peer-sourced decision is
+        staged for the next attempt's restore seam
+        (:meth:`take_peer_restore`); the replica ring re-forms over the
+        new world."""
+        old_world = list(self._survivors)
         self.epoch = decision.epoch
         self._survivors = list(decision.survivors)
         self.watchdog.dead_peers.clear()
         self._phase = "restart"
+        if self.peer_store is not None:
+            if decision.source == "peer":
+                new = set(decision.survivors)
+                lost = [p for p in old_world if p not in new]
+                self._pending_peer_restore = (
+                    decision, sorted(set(old_world) | new), lost)
+            self.peer_store.set_world(list(decision.survivors))
+
+    def take_peer_restore(self):
+        """One-shot handoff to the restore seam: ``(decision, old world,
+        lost)`` of an adopted peer-sourced decision, or None. Taking it
+        clears it: a disk fallback must not replay the peer attempt on
+        the attempt after."""
+        pending = self._pending_peer_restore
+        self._pending_peer_restore = None
+        return pending
 
     # -- coordinated elastic scale-UP (expand) ---------------------------
 
@@ -779,7 +902,7 @@ class ClusterMonitor:
         self.watchdog.disarm()
         self._stalled = False
         self._phase = "rejoin"
-        self.store.publish(self._step, "rejoin")
+        self.store.publish(self._step, "rejoin", extra=self._beat_extra())
 
     def await_inclusion(self, timeout_s: float,
                         poll_s: float = 0.05) -> RestartDecision:
@@ -810,5 +933,9 @@ class ClusterMonitor:
     def close(self) -> None:
         self._stop.set()
         self.watchdog.stop()
+        if self.peer_store is not None:
+            self.peer_store.close()
         self._publisher.join(timeout=2.0)
         self.watchdog.join(timeout=2.0)
+        if self.net_server is not None:
+            self.net_server.stop()

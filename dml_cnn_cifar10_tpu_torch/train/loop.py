@@ -143,14 +143,18 @@ seam), waits at the lockstep barrier (``sync``, simulation only) and
 disarms (``end_step``); the checkpoint and eval phases name themselves in
 the beats (``set_phase``). ``init_or_restore`` fires the faults' ``@restore``
 seam, and every checkpoint the restore walk skips is a ``ckpt_fallback``
-record. A data-seam failure is a ``DataPipelineError``. With
+record (``--restore_deadline_s`` budgets the walk). With
+``--peer_redundancy`` every committed save also pushes this rank's shard
+payload to the peer store (``ckpt/peerstore.py``), and a restart decided
+``source="peer"`` restores from the replicas before any disk walk. A
+data-seam failure is a ``DataPipelineError``. With
 ``cluster_lockstep`` the trainer opens no process group, whatever
 ``num_processes`` says: each process is a world of its own (the JAX
 package's CPU simulation), and a preempted non-chief (``process_id`` > 0)
 exits without saving, since the chief owns the checkpoints (JAX
 ``train/loop.py:1148-1170``).
 
-Left out: the peer replicas and the autopilot.
+Left out: the autopilot.
 """
 
 from __future__ import annotations
@@ -165,6 +169,7 @@ import numpy as np
 import torch
 
 from dml_cnn_cifar10_tpu_torch import ckpt as ckpt_lib
+from dml_cnn_cifar10_tpu_torch.ckpt import peerstore as peerstore_lib
 from dml_cnn_cifar10_tpu_torch.config import TrainConfig
 from dml_cnn_cifar10_tpu_torch.data import device_stream, download
 from dml_cnn_cifar10_tpu_torch.data import pipeline as pipe
@@ -331,9 +336,45 @@ class Trainer:
             self.logger.log("ckpt_fallback", step=step, path=path,
                             error=str(reason), walk_ms=walk_ms)
 
+        if self._restore_from_peers(state):
+            return state
         return ckpt_lib.restore_checkpoint(
             self.cfg.log_dir, state, self.cfg.shard_io_threads,
-            self._shard_io, on_fallback=note_fallback)
+            self._shard_io, on_fallback=note_fallback,
+            deadline_s=self.cfg.restore_deadline_s)
+
+    def _restore_from_peers(self, state: step_lib.TrainState) -> bool:
+        """Diskless restore (``ckpt/peerstore.py``; JAX ``train/loop.py:
+        281-316``): when the adopted restart decision says
+        ``source="peer"``, rebuild ``state`` in place (its tensors on the
+        device, in the port's layouts) from this process's payload in
+        memory and the lost hosts' replicas, with zero checkpoint reads.
+        A classified miss (a replica missing, stale or corrupt) logs a
+        ``peer_replica`` ``fallback`` record and returns False, and the
+        caller runs the unchanged disk walk; so does no pending peer
+        decision."""
+        cluster = self.cluster
+        if cluster is None or cluster.peer_store is None:
+            return False
+        pending = cluster.take_peer_restore()
+        if pending is None:
+            return False
+        decision, world, lost = pending
+        try:
+            cluster.peer_store.restore(state, decision.restore_step, world,
+                                       lost=lost, on_event=self._shard_io)
+        except peerstore_lib.ReplicaMiss as e:
+            cluster.log("peer_replica", op="fallback",
+                        step=decision.restore_step, owner=None, bytes=None,
+                        secs=None, ok=False, error=str(e)[:300],
+                        staleness=None)
+            print(f"[ckpt] peer restore at step {decision.restore_step} "
+                  f"not servable ({e}); falling back to the disk restore "
+                  f"walk", file=sys.stderr)
+            return False
+        print(f"[ckpt] restored step {decision.restore_step} from peer "
+              f"replicas (zero checkpoint reads)")
+        return True
 
     def _shard_io(self, kind: str, **fields) -> None:
         """The sharded codec's per-shard records, into the metrics
@@ -567,8 +608,17 @@ class Trainer:
             if self.cluster is not None:
                 self.cluster.set_phase("checkpoint")
             with tracer.span("checkpoint", cat="checkpoint"):
-                return ckpt_mgr.maybe_save(state, step, force=force,
-                                           data_state=data_state(step))
+                saved = ckpt_mgr.maybe_save(state, step, force=force,
+                                            data_state=data_state(step))
+            store = self.cluster.peer_store \
+                if self.cluster is not None else None
+            if saved and store is not None and store.enabled:
+                # Peer redundancy: this boundary's payload to the ring
+                # successor, copied to host memory here on the step
+                # thread (the next step's K1/K2 update the tensors in
+                # place); only the file push runs in the store's thread.
+                store.push_state_async(step, state, self.mesh.rank)
+            return saved
 
         metrics = None
         # Throughput windows run between drained boundaries and skip the

@@ -34,8 +34,13 @@ record a shrink decision (survivors, world size, restore step), the
 others adopt it, and a process the decision excludes fences itself
 (:class:`~parallel.cluster.EvictedError`: a clean, saveless exit) or,
 under ``--elastic_expand``, announces a rejoin and waits for the chief's
-expand decision. The recovery-phase fault seams (``@decide``,
-``@adopt``; ``@restore`` in ``Trainer.init_or_restore``) fire here.
+expand decision. With ``--peer_redundancy`` the chief's decision may say
+``source="peer"`` (every host advertised a pushed replica): adopting it
+stages the peer restore, and the next attempt's trainer rebuilds the
+state from the replicas, or, on a classified miss, walks the disk as
+before; ``elastic_restart`` and ``elastic_expand`` records carry the
+source. The recovery-phase fault seams (``@decide``, ``@adopt``;
+``@restore`` in ``Trainer.init_or_restore``) fire here.
 
 ONE injector, ONE cluster monitor and ONE logger span every attempt: a
 fired ``nan@15`` stays fired on the replay, the epoch and world survive
@@ -141,8 +146,9 @@ def _coordinate_restart(cfg: TrainConfig, monitor, exc, logger,
     decision at a newer epoch that already includes us is adopted as it
     is (never race the chief's decision file). Otherwise the chief
     shrinks the survivor set by the lost peers (halting below
-    ``min_hosts``), picks the newest checkpoint on disk and commits the
-    decision; a non-chief polls for it, fencing if excluded, and when the
+    ``min_hosts``), picks the restore source and step (the peer replicas'
+    step when every host pushed one, else the newest checkpoint on disk)
+    and commits the decision; a non-chief polls for it, fencing if excluded, and when the
     poll times out (the chief died between classifying and committing)
     the presumed-dead chief joins the lost set and, if that makes this
     process the lowest live survivor, it re-decides at a higher epoch.

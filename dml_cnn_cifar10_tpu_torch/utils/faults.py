@@ -1,14 +1,12 @@
 """Deterministic fault injection for exercising the recovery paths.
 
-A copy of ``dml_cnn_cifar10_tpu/utils/faults.py`` without its chaos
-sampler (``FaultSchedule``, which belongs to the chaos oracle) and the
-kinds that need the peer replicas or the network transport. The spec
-grammar is the JAX module's: ``--fault_spec "nan@120,ckpt_corrupt@200,
-sigterm@300"`` fires each fault ONCE at the first dispatch seam of
-``Trainer.fit`` where the global step reaches its trigger. The run
-supervisor (``train/supervisor.py``) builds one injector and threads it
-through every attempt, so a recovered run replaying the same steps does
-not re-injure itself.
+A copy of ``dml_cnn_cifar10_tpu/utils/faults.py``: the same kinds, spec
+grammar, chaos vocabularies and seeded sampler. ``--fault_spec
+"nan@120,ckpt_corrupt@200,sigterm@300"`` fires each fault ONCE at the
+first dispatch seam of ``Trainer.fit`` where the global step reaches its
+trigger. The run supervisor (``train/supervisor.py``) builds one injector
+and threads it through every attempt, so a recovered run replaying the
+same steps does not re-injure itself.
 
 Step-seam kinds:
 
@@ -33,7 +31,12 @@ Cluster kinds (need a :class:`~parallel.cluster.ClusterMonitor`, i.e.
   on: from outside, a dead host. Peers restart without this process; its
   eviction check fences it.
 - ``host_lost`` — ``os._exit`` with no cleanup, no checkpoint and no
-  flushed buffers (exit code :data:`EXIT_HOST_LOST`).
+  flushed buffers (exit code :data:`EXIT_HOST_LOST`). Under
+  ``--peer_redundancy`` the host is lost after its pending replica
+  pushes committed and a beat advertised them
+  (``ClusterMonitor.flush_replicas``), so the peer-recovery drill
+  decides ``source="peer"`` whatever the push thread's timing; a loss
+  with no usable replica is what ``replica_stale`` drills.
 - ``collective_hang`` — block the main thread at the seam while the
   publisher keeps beating: a wedged collective. This process's watchdog
   ends it past ``collective_timeout_s``.
@@ -43,6 +46,28 @@ Cluster kinds (need a :class:`~parallel.cluster.ClusterMonitor`, i.e.
 - ``decision_corrupt`` — overwrite the restart-decision file with a
   decodable but bogus decision and a mismatched sidecar; the hardened
   reader must classify it, never adopt it.
+- ``replica_corrupt`` — truncate one part file of every owner's newest
+  committed peer replica (``ckpt/peerstore.py``): the restore's sidecar
+  check classifies the damage and falls back to the disk walk.
+- ``replica_stale`` — delete every owner's newest committed replica while
+  the beats still advertise it: a decided peer restore misses and falls
+  back to disk. Both replica kinds wait until a replica is committed;
+  they act once the pushes of this process's newest boundary, its own
+  and those of the peers past it, have committed
+  (:func:`_newest_replica_dirs`).
+
+Network kinds (need ``--cluster_transport net``, ``parallel/net.py``;
+they raise :class:`InjectedFault` on the file transport): the injecting
+process POSTs the fault to the coordination service (``/fault``,
+``utils/netfaults.py``), isolating itself. ``net_partition`` holds its
+requests unanswered for ``netfaults.PARTITION_HEAL_S``: beats stop
+landing, reads come back empty, a decision cannot be committed, and the
+bounded client turns that into the ordinary ``peer_lost`` / eviction
+paths (under ``--elastic_expand`` the process rejoins when it heals).
+``net_delay`` answers late for a window, ``net_drop`` answers every
+second request 503 for a window (the client's retries absorb it),
+``net_dup`` applies writes twice for a window (atomic replaces make it
+invisible).
 
 Recovery-phase triggers (``kind@phase``) fire inside the supervisor's
 recovery paths instead of at a step, through :meth:`FaultInjector.
@@ -52,11 +77,11 @@ count), ``@decide`` on the chief right after it commits a restart or
 expand decision, ``@adopt`` on any seat right after it adopts one. The
 kinds allowed there are :data:`PHASE_FAULT_KINDS`.
 
-Every injection logs a ``fault`` record (``injected: true``). The JAX
-module's ``replica_corrupt``, ``replica_stale`` and ``net_*`` kinds need
-its peer replicas and its network transport, which are not ported: they
-raise ``NotImplementedError`` naming ROADMAP.md Queue 1 item 5. Unknown
-kinds and malformed entries raise ``ValueError``, as in the JAX module.
+:class:`FaultSchedule` is the seeded sampler over the ``CHAOS_*``
+vocabularies that the chaos oracle (``tools/chaos.py``) draws from: the
+same seed yields the JAX sampler's schedule. Every injection logs a
+``fault`` record (``injected: true``). Unknown kinds and malformed
+entries raise ``ValueError``, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -64,24 +89,25 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import random
+import shutil
 import signal
 import time
 from typing import List, Optional, Sequence
 
 import torch
 
-#: The kinds this module fires: the step seam's, then the cluster's.
+#: The kinds this module fires: the step seam's, the cluster's, the peer
+#: replicas' and the network's (the JAX module's tuple).
 FAULT_KINDS = ("nan", "ckpt_corrupt", "sigterm", "data_stall",
                "heartbeat_stall", "host_lost", "collective_hang",
-               "host_return", "decision_corrupt")
+               "host_return", "decision_corrupt", "replica_corrupt",
+               "replica_stale", "net_partition", "net_delay",
+               "net_drop", "net_dup")
 
-#: The JAX module's kinds that need its peer replicas or its network
-#: transport.
-_QUEUED_KINDS = ("replica_corrupt", "replica_stale", "net_partition",
-                 "net_delay", "net_drop", "net_dup")
-_QUEUE_ITEM = ("ROADMAP.md Queue 1 item 5 (the rest of resilience: the "
-               "peer replicas, the net transport, their fault kinds and "
-               "the chaos oracle)")
+#: The network subset, armed on the coordination service
+#: (``utils/netfaults.py``).
+NET_FAULT_KINDS = ("net_partition", "net_delay", "net_drop", "net_dup")
 
 #: Recovery-path seams a fault may be phase-qualified to (``kind@phase``),
 #: owned by the supervisor and ``Trainer.init_or_restore``.
@@ -94,6 +120,9 @@ PHASE_FAULT_KINDS = ("ckpt_corrupt", "sigterm", "data_stall",
 
 #: Bounded wait for a ``host_return`` drill's returning host.
 HOST_RETURN_TIMEOUT_S = 300.0
+
+#: Bounded wait of a replica fault for the pushes it acts on.
+REPLICA_SETTLE_S = 10.0
 
 #: Exit code of a ``host_lost`` injection (distinct from the watchdog's
 #: own abort code, ``parallel/cluster.py:EXIT_WATCHDOG_ABORT``).
@@ -125,10 +154,9 @@ def parse_fault_spec(spec: str) -> List[FaultEvent]:
     """``"kind@trigger,kind@trigger,..."`` → ordered fault events: the
     step events by (step, kind), then the phase events by (phase, kind),
     the JAX parser's order. A trigger is a global step or a phase of
-    :data:`FAULT_PHASES`. Unknown kinds, malformed entries and phase
-    triggers on kinds outside :data:`PHASE_FAULT_KINDS` raise
-    ``ValueError``; the kinds that need the peer replicas or the net
-    transport raise ``NotImplementedError``."""
+    :data:`FAULT_PHASES`; several faults may share one (they fire in
+    spec order). Unknown kinds, malformed entries and phase triggers on
+    kinds outside :data:`PHASE_FAULT_KINDS` raise ``ValueError``."""
     events = []
     for entry in spec.split(","):
         entry = entry.strip()
@@ -136,11 +164,6 @@ def parse_fault_spec(spec: str) -> List[FaultEvent]:
             continue
         kind, sep, trigger = entry.partition("@")
         kind, trigger = kind.strip(), trigger.strip()
-        if sep and kind in _QUEUED_KINDS:
-            raise NotImplementedError(
-                f"fault spec entry {entry!r} needs the peer replicas or the "
-                f"net transport, which are not ported to PyTorch; see "
-                f"{_QUEUE_ITEM}")
         if not sep or kind not in FAULT_KINDS:
             raise ValueError(
                 f"bad fault spec entry {entry!r}: want kind@trigger with "
@@ -203,6 +226,67 @@ def corrupt_latest_checkpoint(log_dir: str) -> Optional[str]:
     return path
 
 
+def _newest_replica_dirs(cluster) -> List[str]:
+    """Each owner's newest committed replica directory in the cluster's
+    peer store (the owners of the store's world): the set the next
+    diskless restore would read. This process's pending pushes are
+    flushed first; a peer whose beat is past this process's newest
+    committed boundary has queued its push of it, and is waited for
+    (bounded by :data:`REPLICA_SETTLE_S`) until that commits, so the fault
+    lands on the same set whatever the push threads' timing. Empty when
+    nothing is committed yet (or the monitor has no peer store)."""
+    store = getattr(cluster, "peer_store", None)
+    if store is None:
+        return []
+    store.flush()
+    want = store.replica_step
+    if want >= 0:
+        beats = cluster.store.read_all()
+        waiting = [p for p in store.world if p != store.process_id
+                   and p in beats and beats[p].step >= want]
+        deadline = time.time() + REPLICA_SETTLE_S
+        while waiting and time.time() < deadline:
+            waiting = [p for p in waiting
+                       if (store.committed_steps(p) or [-1])[-1] < want]
+            if waiting:
+                time.sleep(0.05)
+    out = []
+    for owner in store.world:
+        steps = store.committed_steps(owner)
+        if steps:
+            out.append(store._step_dir(owner, steps[-1]))
+    return out
+
+
+def corrupt_peer_replicas(cluster) -> List[str]:
+    """Truncate one part file inside every owner's NEWEST committed peer
+    replica, the set the next diskless restore would read; the sidecar
+    check classifies the damage (``ReplicaMiss``) and the restore falls
+    back to disk. Returns the truncated files (empty: stay pending)."""
+    victims = []
+    for sdir in _newest_replica_dirs(cluster):
+        parts = sorted(n for n in os.listdir(sdir) if n.endswith(".msgpack"))
+        if not parts:
+            continue
+        victim = os.path.join(sdir, parts[0])
+        with open(victim, "r+b") as f:
+            f.truncate(os.path.getsize(victim) // 2)
+        victims.append(victim)
+    return victims
+
+
+def stale_peer_replicas(cluster) -> List[str]:
+    """Delete every owner's NEWEST committed replica directory, keeping
+    older ones. The stores' counters (and so the beats) still advertise
+    the deleted step, so a chief that decides ``source="peer"`` finds a
+    miss and the restore falls back to disk. Returns the deleted
+    directories (empty: stay pending)."""
+    removed = _newest_replica_dirs(cluster)
+    for sdir in removed:
+        shutil.rmtree(sdir, ignore_errors=True)
+    return removed
+
+
 def corrupt_decision_file(cluster) -> str:
     """Corrupt the cluster's restart-decision file the nasty way: a
     decodable but bogus decision (absurd epoch, no survivors: adopting it
@@ -216,6 +300,105 @@ def corrupt_decision_file(cluster) -> str:
     with open(coord.sidecar_path, "w") as f:
         json.dump({"algo": "sha256", "digest": "0" * 64}, f)
     return coord.path
+
+
+#: Default sampler vocabulary: every (kind, trigger) the chaos campaign
+#: may draw for a SUPERVISED one-process run, each recoverable to the end
+#: (sigterm and host_lost on the only process end the run by design:
+#: they are the cluster scenarios' backbone faults, not sampled ones).
+CHAOS_VOCABULARY = (
+    "nan@step", "ckpt_corrupt@step", "data_stall@step",
+    "decision_corrupt@step", "ckpt_corrupt@restore",
+    "data_stall@restore", "decision_corrupt@restore",
+)
+
+#: The 2-process cluster scenario's SURVIVOR seat (the dead peer carries
+#: the backbone ``host_lost``): recovery-phase compound faults too.
+CHAOS_CLUSTER_VOCABULARY = CHAOS_VOCABULARY + (
+    "decision_corrupt@decide", "heartbeat_stall@adopt",
+)
+
+#: The 2→1→2 expand scenario's surviving chief. Left out:
+#: ``heartbeat_stall@adopt`` (a chief going dark right before re-admitting
+#: a joiner starts an evict/rejoin ping-pong of unbounded wall-clock) and
+#: ``decision_corrupt`` (the respawned seat learns of its eviction FROM
+#: the decision file; corrupting it leaves that seat beating forever and
+#: the ``host_return`` hold times out by construction).
+CHAOS_EXPAND_VOCABULARY = (
+    "nan@step", "ckpt_corrupt@step", "data_stall@step",
+    "ckpt_corrupt@restore", "data_stall@restore",
+)
+
+#: The 2-process ``peer_recovery`` scenario (peer redundancy on): the
+#: cluster vocabulary plus the replica faults, which live ONLY here: they
+#: wait for a committed replica, so a scenario without redundancy would
+#: schedule faults that never fire.
+CHAOS_PEER_VOCABULARY = CHAOS_CLUSTER_VOCABULARY + (
+    "replica_corrupt@step", "replica_stale@step",
+)
+
+#: The JAX package's one-process unified-runtime scenario (``--mode
+#: run``). The port has no runtime yet (ROADMAP.md Queue 1 item 6); the
+#: vocabulary is data and is kept whole.
+CHAOS_RUNTIME_VOCABULARY = (
+    "nan@step", "ckpt_corrupt@step", "data_stall@step",
+    "ckpt_corrupt@restore", "data_stall@restore",
+)
+
+#: The 2-process ``net_partition`` scenario's SERVER seat (the
+#: partitioned seat carries the ``net_partition`` backbone): the expand
+#: vocabulary (the partitioned peer rejoins through the same expand arc)
+#: plus the recoverable link faults on the service's own loopback link.
+#: ``net_partition`` itself is not sampled: partitioning the seat that
+#: HOSTS the service holds its own loopback requests.
+CHAOS_NET_VOCABULARY = CHAOS_EXPAND_VOCABULARY + (
+    "net_delay@step", "net_drop@step", "net_dup@step",
+)
+
+
+@dataclasses.dataclass
+class FaultSchedule:
+    """A seeded, reproducible compound-fault schedule: ``generate(seed,
+    budget)`` draws ``budget`` faults from a vocabulary of ``kind@step`` /
+    ``kind@phase`` templates with a :class:`random.Random` of ``seed``, the
+    JAX sampler's draws in the JAX sampler's order, so a seed names the
+    same schedule in both packages."""
+
+    seed: int
+    events: List[FaultEvent]
+
+    @property
+    def spec(self) -> str:
+        return format_fault_spec(self.events)
+
+    @classmethod
+    def generate(cls, seed: int, budget: int,
+                 vocabulary: Sequence[str] = CHAOS_VOCABULARY,
+                 min_step: int = 1, max_step: int = 35,
+                 ckpt_every: int = 10) -> "FaultSchedule":
+        """Sample ``budget`` faults. A step template gets a uniform step in
+        ``[min_step, max_step]`` (several faults may share a step); a
+        phase template is kept once (a phase event is one-shot).
+        ``ckpt_corrupt`` steps start after the SECOND checkpoint can exist
+        (``2 * ckpt_every + 1``): corrupting the only checkpoint right
+        before a recovery needs it has no recovery to fuzz."""
+        if budget < 1:
+            raise ValueError(f"budget must be >= 1, got {budget}")
+        rng = random.Random(seed)
+        events: List[FaultEvent] = []
+        seen_phase = set()
+        for _ in range(budget):
+            kind, _, trigger = rng.choice(list(vocabulary)).partition("@")
+            if trigger == "step":
+                lo = max(min_step, 2 * ckpt_every + 1) \
+                    if kind == "ckpt_corrupt" else min_step
+                events.append(
+                    FaultEvent(kind, rng.randint(lo, max(lo, max_step))))
+            elif (kind, trigger) not in seen_phase:
+                seen_phase.add((kind, trigger))
+                events.append(FaultEvent(kind, phase=trigger))
+        # Through the parser: every entry validated, the canonical order.
+        return cls(seed, parse_fault_spec(format_fault_spec(events)))
 
 
 def _needs_cluster(cluster, what: str) -> None:
@@ -294,6 +477,8 @@ class FaultInjector:
             elif ev.kind == "host_lost":
                 ev.fired = True
                 self._log(logger, step, ev.kind)
+                if cluster is not None:
+                    cluster.flush_replicas()
                 # Abrupt death: no checkpoint, no drain, no atexit. The
                 # JSONL line above is line-buffered (already written).
                 os._exit(EXIT_HOST_LOST)
@@ -310,6 +495,29 @@ class FaultInjector:
                 ev.fired = True
                 path = corrupt_decision_file(cluster)
                 self._log(logger, step, ev.kind, path=path)
+            elif ev.kind in ("replica_corrupt", "replica_stale"):
+                _needs_cluster(cluster, ev.kind)
+                paths = (corrupt_peer_replicas if ev.kind ==
+                         "replica_corrupt" else stale_peer_replicas)(cluster)
+                if not paths:
+                    continue  # no committed replica yet: stay pending
+                ev.fired = True
+                self._log(logger, step, ev.kind, path=paths[0])
+            elif ev.kind in NET_FAULT_KINDS:
+                client = getattr(cluster, "net_client", None)
+                if client is None:
+                    raise InjectedFault(
+                        f"{ev.kind} injection needs --cluster_transport "
+                        f"net (no network between the file store and its "
+                        f"directory to break)")
+                ev.fired = True
+                # Armed ON the coordination service, isolating THIS
+                # process: the arm request must land before the fault
+                # takes effect, so the injecting seat is the isolated one.
+                rec = client.post_fault(ev.kind,
+                                        isolate=[cluster.process_id])
+                self._log(logger, step, ev.kind, isolate=rec.get("isolate"),
+                          duration_s=rec.get("duration_s"))
             elif ev.kind == "host_return":
                 _needs_cluster(cluster, ev.kind)
                 ev.fired = True
@@ -374,6 +582,8 @@ class FaultInjector:
                 self._log(logger, step, ev.kind, phase=phase)
                 if logger is not None:
                     logger.flush()
+                if cluster is not None:
+                    cluster.flush_replicas()
                 os._exit(EXIT_HOST_LOST)
             elif ev.kind == "heartbeat_stall":
                 _needs_cluster(cluster, f"{ev.kind}@{phase}")

@@ -678,6 +678,44 @@ def sharded_ckpt(rank, world, run, work, jax_dirs):
     return saved
 
 
+def peer_payloads(rank, world, runs, cluster_dir):
+    """Peer replicas of sharded states: each run of ``runs`` (see
+    :func:`sharded_state`; a mode zero1 or fsdp) trains its ``batches``,
+    then every rank pushes its shard payload (``collect_local_shards``:
+    its own shards with their index ranges) at step 1 into a
+    ``PeerReplicaStore`` under ``cluster_dir/<run>`` and waits for the
+    commit. Returns per run the whole state tree (``state_to_tree``:
+    gathered) to hold the assembled replicas to."""
+    import os
+
+    from dml_cnn_cifar10_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from dml_cnn_cifar10_tpu_torch.ckpt import peerstore
+    from dml_cnn_cifar10_tpu_torch.config import ParallelConfig
+    from dml_cnn_cifar10_tpu_torch.parallel import mesh as mesh_lib
+    from dml_cnn_cifar10_tpu_torch.parallel import step as step_lib
+
+    mesh = mesh_lib.build_mesh(ParallelConfig())
+    out = {}
+    for name, run in runs.items():
+        net, ocfg, state = sharded_state(rank, world, run, mesh)
+        b = run["batches"][0][0].shape[0] // mesh.data
+        rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+        train = step_lib.make_train_step(net, ocfg, mesh)
+        for images, labels in run["batches"]:
+            train(state, torch.from_numpy(images[rows]),
+                  torch.from_numpy(labels[rows].astype(np.int64)))
+        store = peerstore.PeerReplicaStore(
+            os.path.join(cluster_dir, name), rank, list(range(world)))
+        try:
+            assert store.push_state_async(1, state, mesh.rank)
+            store.flush()
+            assert store.committed_steps(rank) == [1]
+        finally:
+            store.close()
+        out[name] = ckpt_lib.state_to_tree(state)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Tensor parallelism (Megatron column/row layers over the model ranks).
 # ---------------------------------------------------------------------------

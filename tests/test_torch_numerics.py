@@ -16,10 +16,9 @@ with ``--fault_spec nan@N``:
 - An exhausted skip budget halts.
 - On the chunked path the skip restores INTO the state's tensors: every
   tensor keeps its ``data_ptr`` (a chunk's CUDA graph is bound to them).
-- The spec grammar: the JAX parser's order and errors for the ported
-  kinds (the cluster kinds and the phase triggers among them),
-  ``NotImplementedError`` for the kinds that need the peer replicas or the
-  net transport.
+- The spec grammar: the JAX parser's order and errors for every kind of
+  the JAX package's ``FAULT_KINDS`` (the cluster, replica and network
+  kinds and the phase triggers among them).
 """
 
 import json
@@ -204,17 +203,16 @@ def test_fault_spec_grammar_matches_jax():
             jax_faults.parse_fault_spec(bad)
         with pytest.raises(ValueError):
             faults.parse_fault_spec(bad)
-    for ported in ("host_lost@5", "ckpt_corrupt@restore"):
+    assert faults.FAULT_KINDS == jax_faults.FAULT_KINDS
+    for ported in ("host_lost@5", "ckpt_corrupt@restore", "net_drop@3",
+                   "replica_corrupt@5") + tuple(
+                       f"{kind}@7" for kind in jax_faults.FAULT_KINDS):
         got = faults.parse_fault_spec(ported)
         want = jax_faults.parse_fault_spec(ported)
         assert [(e.kind, e.step, e.phase) for e in got] == [
             (e.kind, e.step, e.phase) for e in want]
-    for queued in ("net_drop@3", "replica_corrupt@5"):
-        jax_faults.parse_fault_spec(queued)
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1 item 5.*peer replicas.*net "
-                                 "transport"):
-            faults.parse_fault_spec(queued)
+        assert faults.format_fault_spec(got) == \
+            jax_faults.format_fault_spec(want)
     inj = faults.FaultInjector.from_spec("nan@3,data_stall@4")
     model = CNN(ModelConfig(), DataConfig())
     state = step_lib.init_train_state(model, OptimConfig(),

@@ -390,13 +390,20 @@ def test_cli_supervised_rollback_and_sigterm_in_the_retry(tmp_path,
     assert kinds.count("preempt") == 1 and "rollback" in kinds
 
 
-@pytest.mark.parametrize("spec", ["net_drop@3", "replica_corrupt@5",
-                                  "net_partition@restore"])
-def test_unported_fault_kinds_raise_at_the_cli(tmp_path, spec):
+@pytest.mark.parametrize("spec, error, match", [
+    ("net_drop@3", "InjectedFault", "needs --cluster_transport net"),
+    ("replica_corrupt@5", "InjectedFault", "needs --cluster_dir"),
+    ("net_partition@restore", "ValueError", "cannot be phase-qualified")])
+def test_unported_fault_kinds_raise_at_the_cli(tmp_path, spec, error,
+                                               match):
+    """The replica and network kinds are ported: without the layer they
+    break, each refuses at the CLI as the JAX package's does (a network
+    fault without the net transport, a replica fault without the cluster
+    layer, a network kind at a recovery phase)."""
     from dml_cnn_cifar10_tpu_torch.cli.main import main
+    from dml_cnn_cifar10_tpu_torch.utils import faults
     log_dir = str(tmp_path / "logs")
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1 item 5.*peer replicas.*net transport"):
+    with pytest.raises(getattr(faults, error, ValueError), match=match):
         main(_cli_args(str(tmp_path / "data"), log_dir, "--supervise",
                        "true", "--fault_spec", spec))
 
